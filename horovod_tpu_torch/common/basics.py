@@ -1,0 +1,280 @@
+"""Core runtime state: initialization, ranks, the device, the global
+process set.
+
+Counterpart of `horovod_tpu/common/basics.py`.  The JAX package builds
+a device mesh and lets XLA compile the collectives into the program;
+here one process drives one rank on one device, and the collectives run
+through a `torch.distributed` process group:
+
+- NCCL when every local rank has a card of its own;
+- gloo when local ranks share a card (NCCL refuses two ranks on one
+  device) or when the rank runs on the CPU (`init(device="cpu")`).
+
+Multi-process bootstrap reads the env that `horovodrun_tpu` injects:
+HOROVOD_COORDINATOR_ADDR (host:port of rank 0's store, or a full
+`tcp://` / `file://` init URL), HOROVOD_NUM_PROCESSES, HOROVOD_PROCESS_ID,
+and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE.  With no coordinator the
+job is one rank and the collectives return their local result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+from typing import List, Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from . import util
+from .exceptions import HorovodTpuError, NotInitializedError
+
+logger = logging.getLogger("horovod_tpu_torch")
+
+
+@dataclasses.dataclass
+class ProcessSet:
+    """A set of ranks with its own process group (reference:
+    horovod/common/process_set.cc).  This slice registers only the
+    global set, id 0; `group` is None when the job has no process group
+    (one rank)."""
+
+    ranks: List[int]
+    process_set_id: int = 0
+    group: Optional[object] = None
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def rank(self) -> int:
+        r = _state().rank
+        if r not in self.ranks:
+            raise HorovodTpuError(
+                f"process set {self.process_set_id} does not include "
+                f"rank {r}")
+        return self.ranks.index(r)
+
+    def __repr__(self):
+        return f"ProcessSet(id={self.process_set_id}, ranks={self.ranks})"
+
+
+@dataclasses.dataclass
+class _GlobalState:
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+    cross_rank: int
+    cross_size: int
+    device: torch.device
+    backend: Optional[str]  # None: one rank, no process group
+    global_set: ProcessSet
+
+
+_global_state: Optional[_GlobalState] = None
+_init_lock = threading.Lock()
+
+
+def _state() -> _GlobalState:
+    if _global_state is None:
+        raise NotInitializedError()
+    return _global_state
+
+
+def is_initialized() -> bool:
+    return _global_state is not None
+
+
+def _resolve_device(device: Union[str, torch.device, None],
+                    local_rank: int) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise HorovodTpuError(
+                "no CUDA device is visible; pass init(device='cpu') to run "
+                "the ranks on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise HorovodTpuError(f"device {device} requested, but no CUDA "
+                                  "device is visible")
+        if device.index is None:
+            device = torch.device(
+                "cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    elif device.type != "cpu":
+        raise HorovodTpuError(f"unsupported device {device}")
+    return device
+
+
+def _choose_backend(device: torch.device, local_size: int) -> str:
+    if device.type == "cpu":
+        return "gloo"
+    if local_size <= torch.cuda.device_count():
+        return "nccl"
+    # Local ranks share a card: NCCL refuses two ranks on one device.
+    return "gloo"
+
+
+def init(*, coordinator_address: Optional[str] = None,
+         num_processes: Optional[int] = None,
+         process_id: Optional[int] = None,
+         device: Union[str, torch.device, None] = None) -> None:
+    """Initialize the runtime (reference: operations.cc `horovod_init`).
+
+    `device`: the counterpart of the JAX package's `devices=` argument.
+    The default is `cuda:{local_rank % device_count}`; `"cpu"` runs the
+    rank on the CPU over gloo.  With no argument and no CUDA device,
+    `init` raises.
+    """
+    global _global_state
+    with _init_lock:
+        if _global_state is not None:
+            logger.debug("horovod_tpu_torch.init() called twice; ignoring")
+            return
+        coordinator_address = (coordinator_address
+                               or util.getenv("COORDINATOR_ADDR"))
+        if coordinator_address:
+            size = num_processes or util.env_int("NUM_PROCESSES", 1)
+            rank = (process_id if process_id is not None
+                    else util.env_int("PROCESS_ID", 0))
+        else:
+            size, rank = 1, 0
+        local_rank = util.env_int("LOCAL_RANK", rank)
+        local_size = util.env_int("LOCAL_SIZE", size)
+        cross_rank = util.env_int("CROSS_RANK", rank // max(local_size, 1))
+        cross_size = util.env_int("CROSS_SIZE",
+                                  max(size // max(local_size, 1), 1))
+        dev = _resolve_device(device, local_rank)
+        backend = None
+        group = None
+        if coordinator_address:
+            backend = _choose_backend(dev, local_size)
+            url = (coordinator_address if "://" in coordinator_address
+                   else f"tcp://{coordinator_address}")
+            dist.init_process_group(backend, init_method=url,
+                                    world_size=size, rank=rank)
+            group = dist.group.WORLD
+        _global_state = _GlobalState(
+            rank=rank, size=size, local_rank=local_rank,
+            local_size=local_size, cross_rank=cross_rank,
+            cross_size=cross_size, device=dev, backend=backend,
+            global_set=ProcessSet(ranks=list(range(size)), group=group))
+        logger.info(
+            "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
+            "device=%s backend=%s", rank, size, local_rank, local_size,
+            dev, backend or "none (one rank)")
+
+
+def shutdown() -> None:
+    """Tear down the runtime (reference: operations.cc
+    `horovod_shutdown`): release the process group so a later `init()`
+    can bootstrap afresh."""
+    global _global_state
+    with _init_lock:
+        if _global_state is None:
+            return
+        if _global_state.backend is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        _global_state = None
+
+
+# ---------------------------------------------------------------------------
+# Rank / size queries
+# ---------------------------------------------------------------------------
+
+def size() -> int:
+    return _state().size
+
+
+def rank() -> int:
+    return _state().rank
+
+
+def local_size() -> int:
+    return _state().local_size
+
+
+def local_rank() -> int:
+    return _state().local_rank
+
+
+def cross_size() -> int:
+    return _state().cross_size
+
+
+def cross_rank() -> int:
+    return _state().cross_rank
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks."""
+    st = _state()
+    return st.size == st.local_size * st.cross_size
+
+
+def device() -> torch.device:
+    """The device this rank's tensors and collectives live on."""
+    return _state().device
+
+
+def backend() -> Optional[str]:
+    """"nccl", "gloo", or None for a one-rank job."""
+    return _state().backend
+
+
+def global_process_set() -> ProcessSet:
+    return _state().global_set
+
+
+# ---------------------------------------------------------------------------
+# Build-info queries (reference: basics.py nccl_built/mpi_built/...)
+# ---------------------------------------------------------------------------
+
+def tpu_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return dist.is_available() and dist.is_mpi_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.backends.cuda.is_built()
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_enabled() -> bool:
+    return gloo_built()
+
+
+def mpi_threads_supported() -> bool:
+    return False

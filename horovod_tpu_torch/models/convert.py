@@ -1,0 +1,57 @@
+"""Load the JAX package's ResNet variables into the port's module.
+
+`resnet_from_jax(variables)` takes what `horovod_tpu.models.resnet_init`
+returns — {"params", "batch_stats", "config"}, leaves as numpy arrays
+(or anything `np.asarray` takes) — and returns a `ResNet` holding the
+same weights: conv HWIO → OIHW, dense (in, out) → (out, in), batch-norm
+scale/bias → weight/bias and mean/var → running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from . import layers as L
+from .resnet import ResNet
+
+
+def _tensor(a, transpose=None) -> torch.Tensor:
+    a = np.array(a, dtype=np.float32)
+    if transpose is not None:
+        a = np.ascontiguousarray(np.transpose(a, transpose))
+    return torch.from_numpy(a)
+
+
+def resnet_from_jax(variables: Dict[str, Any],
+                    compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                    ) -> ResNet:
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    depth = int(variables["config"]["depth"])
+    num_classes = int(np.shape(params["head"]["kernel"])[1])
+    model = ResNet(depth, num_classes, compute_dtype=compute_dtype)
+    with torch.no_grad():
+        for path, mod in model.named_modules():
+            if not path:
+                continue
+            keys = path.split(".")
+            p = params
+            for k in keys:
+                p = p[k]
+            if isinstance(mod, L.Conv2d):
+                mod.weight.copy_(_tensor(p["kernel"], (3, 2, 0, 1)))
+            elif isinstance(mod, L.Dense):
+                mod.weight.copy_(_tensor(p["kernel"], (1, 0)))
+                mod.bias.copy_(_tensor(p["bias"]))
+            elif isinstance(mod, L.BatchNorm):
+                s = stats
+                for k in keys:
+                    s = s[k]
+                mod.weight.copy_(_tensor(p["scale"]))
+                mod.bias.copy_(_tensor(p["bias"]))
+                mod.running_mean.copy_(_tensor(s["mean"]))
+                mod.running_var.copy_(_tensor(s["var"]))
+    return model

@@ -1,0 +1,228 @@
+"""Tests of the PyTorch/CUDA port that need a CUDA card: the hand-written
+kernels against their plain versions, the Adasum tree, the model, a
+one-rank job, and two ranks sharing the card over gloo with the
+collectives on CUDA tensors.  On a host without CUDA every test skips.
+
+This file imports neither jax nor the JAX package, so it also runs where
+only PyTorch is installed; tests/conftest.py imports JAX, so there run
+
+    python -m pytest --noconftest -q tests/test_torch_port_cuda.py
+
+Tolerances: K1 rtol 2e-5 / atol 1e-4 (f32 sums in another order), K2
+bitwise (no FMA contraction on either side), the tree 1e-5 relative to
+its largest value, the ResNet forward 1e-3 relative with TF32 off.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common.exceptions import HorovodTpuError
+from horovod_tpu_torch.models import ResNet
+from horovod_tpu_torch.ops import adasum, adasum_kernels as K
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 20), (3, 1000), (2, 7),
+                                   (4, 4097)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernels_match_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xs = torch.randn((2 * shape[0], shape[1]), generator=g,
+                     device=cuda).to(dtype)
+    a, b = xs[0::2], xs[1::2]
+    before = K.launch_counts()
+    torch.testing.assert_close(K.fused_dot_norms(a, b),
+                               K.fused_dot_norms_plain(a, b),
+                               rtol=2e-5, atol=1e-4)
+    ca = torch.rand(shape[0], generator=g, device=cuda)
+    cb = torch.rand(shape[0], generator=g, device=cuda)
+    torch.testing.assert_close(K.fused_scaled_add(ca, cb, a, b),
+                               K.fused_scaled_add_plain(ca, cb, a, b),
+                               rtol=0, atol=0)
+    after = K.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_kernel_results_are_reproducible(cuda):
+    """No atomics: the same inputs give the same bits every launch."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((1, 3_000_001), generator=g, device=cuda)
+    b = torch.randn((1, 3_000_001), generator=g, device=cuda)
+    first = K.fused_dot_norms(a, b)
+    for _ in range(5):
+        assert torch.equal(K.fused_dot_norms(a, b), first)
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    a = torch.randn((2, 64), device=cuda, dtype=torch.float64)
+    with pytest.raises(HorovodTpuError):
+        K.fused_dot_norms(a, a)
+    b = torch.randn((2, 64), device=cuda)
+    with pytest.raises(HorovodTpuError):
+        K.fused_scaled_add(torch.ones(2), torch.ones(2), b, b)  # coef on CPU
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_tree_on_the_card_matches_the_cpu(cuda, n):
+    xs = torch.from_numpy(np.random.RandomState(n).randn(n, 4, 1000)
+                          .astype(np.float32))
+    want = adasum.adasum_tree_reduce(xs)
+    got = adasum.adasum_tree_reduce(xs.to(cuda)).cpu()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    ref = adasum.adasum_reference(list(xs.numpy()))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * scale)
+
+
+def test_resnet_forward_on_the_card_matches_the_cpu(cuda):
+    model = ResNet(18, 10, compute_dtype=None, seed=3)
+    x = torch.rand(8, 3, 32, 32, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * scale)
+
+
+def test_one_rank_job_on_the_card(cuda):
+    hvd.init()
+    try:
+        assert hvd.device().type == "cuda" and hvd.backend() is None
+        x = torch.arange(6.0, device=cuda)
+        for op in (hvd.Average, hvd.Sum, hvd.Adasum):
+            torch.testing.assert_close(hvd.allreduce(x, op=op), x)
+        torch.testing.assert_close(hvd.allgather(x), x)
+        assert hvd.broadcast_object([1, "a"]) == [1, "a"]
+    finally:
+        hvd.shutdown()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GLOO_WORKER = r'''
+import sys
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import adasum_kernels as K
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r)
+dev = hvd.device()
+x = torch.randn(1000, generator=torch.Generator().manual_seed(r))
+res = {"backend": hvd.backend(), "device": str(dev), "x": x}
+for op in ("Sum", "Average", "Max"):
+    res[op] = hvd.allreduce(x.to(dev), op=getattr(hvd, op))
+for dt in (torch.float32, torch.bfloat16, torch.float16):
+    res[f"Adasum_{dt}"] = hvd.allreduce(x.to(dev, dt), op=hvd.Adasum)
+res["grouped_Adasum"] = hvd.grouped_allreduce(
+    [x[:300].to(dev), x[300:].to(dev, torch.float16)], op=hvd.Adasum)
+res["allgather"] = hvd.allgather(x.to(dev, torch.bfloat16)[None])
+res["broadcast"] = hvd.broadcast(x.to(dev), root_rank=1)
+ii = torch.arange(5, device=dev) * (r + 1)
+hvd.broadcast_(ii, root_rank=1)
+res["broadcast_"] = ii
+res["on_card"] = all(t.is_cuda for v in res.values()
+                     for t in (v if isinstance(v, list) else [v])
+                     if isinstance(t, torch.Tensor) and t is not x)
+res = {k: ([t.cpu() for t in v] if isinstance(v, list) else
+           v.cpu() if isinstance(v, torch.Tensor) else v)
+       for k, v in res.items()}
+res["launches"] = K.launch_counts()
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
+
+
+@pytest.fixture(scope="module")
+def gloo_on_card(tmp_path_factory):
+    """Two ranks on card 0 over gloo (NCCL refuses two ranks on one
+    card), every collective on CUDA tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp = tmp_path_factory.mktemp("gloo_card")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    url = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_WORKER, str(tmp), "2", str(r), url],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+
+
+def test_gloo_on_card_runs_on_cuda_tensors(gloo_on_card):
+    for d in gloo_on_card:
+        assert d["backend"] == "gloo" and d["device"] == "cuda:0"
+        assert d["on_card"]
+        # Five Adasum trees (three allreduces, the grouped one's two
+        # dtype buckets), one level each at two ranks.
+        assert d["launches"] == {"fused_dot_norms": 5, "fused_scaled_add": 5}
+
+
+@pytest.mark.parametrize("key", ["Sum", "Average", "Max", "allgather",
+                                 "broadcast", "broadcast_"])
+def test_gloo_on_card_moves_the_right_values(gloo_on_card, key):
+    x0, x1 = (d["x"] for d in gloo_on_card)
+    want = {"Sum": x0 + x1, "Average": (x0 + x1) / 2,
+            "Max": torch.maximum(x0, x1),
+            "allgather": torch.stack([x0, x1]).bfloat16(),
+            "broadcast": x1, "broadcast_": torch.arange(5) * 2}[key]
+    for d in gloo_on_card:
+        assert torch.equal(d[key], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_gloo_on_card_adasum_matches_the_cpu_tree(gloo_on_card, dtype):
+    """The kernels' tree on the gathered stack against the plain tree on
+    the CPU: 1e-5 of the largest value in f32, one rounding of the
+    result apart in bf16 / f16."""
+    stack = torch.stack([d["x"] for d in gloo_on_card]).to(dtype)
+    want = adasum.adasum_tree_reduce(stack).float()
+    got = gloo_on_card[0][f"Adasum_{dtype}"]
+    assert got.dtype == dtype
+    assert torch.equal(got, gloo_on_card[1][f"Adasum_{dtype}"])
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7,
+           torch.float16: 2 ** -10}[dtype] * float(want.abs().max())
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+def test_gloo_on_card_grouped_adasum_fuses_by_dtype(gloo_on_card):
+    xs = [d["x"] for d in gloo_on_card]
+    want32 = adasum.adasum_tree_reduce(torch.stack([x[:300] for x in xs]))
+    want16 = adasum.adasum_tree_reduce(
+        torch.stack([x[300:] for x in xs]).half())
+    got32, got16 = gloo_on_card[0]["grouped_Adasum"]
+    assert got16.dtype == torch.float16
+    torch.testing.assert_close(got32, want32, rtol=0,
+                               atol=1e-5 * float(want32.abs().max()))
+    torch.testing.assert_close(got16.float(), want16.float(), rtol=0,
+                               atol=2 ** -10 * float(want16.abs().max()))

@@ -1,0 +1,208 @@
+"""Port parity: `horovod_tpu_torch.models` (layers, ResNet, the weight
+converter) against the JAX package's `models/layers.py` and
+`models/resnet.py` on the same weights and inputs (NHWC in JAX,
+transposed to NCHW for the port).
+
+Tolerances (f32 on the CPU; XLA and oneDNN sum convolutions in other
+orders): single layers rtol/atol 1e-5; the whole ResNet-50 forward
+logits 2e-3 and batch-norm statistics 1e-3 relative, after 53
+convolutions with batch norm between them.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.models import layers as JL
+from horovod_tpu.models import resnet as JR
+from horovod_tpu_torch.models import ResNet, layers as TL, num_params
+from horovod_tpu_torch.models.convert import resnet_from_jax
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(x), (0, 3, 1, 2))))
+
+
+def _nhwc(t):
+    return np.transpose(t.detach().numpy(), (0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("size", [7, 8, 56])
+@pytest.mark.parametrize("kernel,stride", [(1, 1), (1, 2), (3, 1), (3, 2),
+                                           (7, 2)])
+def test_conv_same_padding_matches_xla(size, kernel, stride):
+    rng = np.random.RandomState(size * 10 + kernel + stride)
+    x = rng.randn(2, size, size, 3).astype(np.float32)
+    w = rng.randn(kernel, kernel, 3, 5).astype(np.float32)
+    want = JL.conv2d_apply({"kernel": jnp.asarray(w)}, jnp.asarray(x),
+                           stride=stride)
+    conv = TL.Conv2d(3, 5, kernel, stride)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(np.transpose(w, (3, 2, 0, 1))))
+    got = conv(_nchw(x))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("size,kernel,stride,want", [
+    (224, 7, 2, (2, 3)), (56, 3, 2, (0, 1)), (112, 3, 2, (0, 1)),
+    (56, 3, 1, (1, 1)), (56, 1, 2, (0, 0)), (7, 3, 2, (1, 1))])
+def test_same_padding_is_xla_asymmetric(size, kernel, stride, want):
+    assert TL.same_padding(size, kernel, stride) == want
+
+
+@pytest.mark.parametrize("size", [8, 9, 112])
+def test_max_pool_same_matches_xla(size):
+    x = np.random.RandomState(size).randn(2, size, size, 4).astype(
+        np.float32)
+    want = JL.max_pool(jnp.asarray(x), 3, 2, padding="SAME")
+    got = TL.max_pool(_nchw(x), 3, 2, padding="SAME")
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batchnorm_matches_jax(train):
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4, 6, 6, 8) * 3 + 1).astype(np.float32)
+    scale = rng.rand(8).astype(np.float32) + 0.5
+    bias = rng.randn(8).astype(np.float32)
+    mean = rng.randn(8).astype(np.float32)
+    var = rng.rand(8).astype(np.float32) + 0.5
+    want, new = JL.batchnorm_apply(
+        {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+        {"mean": jnp.asarray(mean), "var": jnp.asarray(var)},
+        jnp.asarray(x), train=train)
+    bn = TL.BatchNorm(8)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.from_numpy(mean))
+        bn.running_var.copy_(torch.from_numpy(var))
+    bn.train(train)
+    got = bn(_nchw(x))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(new["mean"]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(new["var"]), rtol=1e-5, atol=1e-6)
+
+
+def test_batchnorm_is_not_torch_batchnorm():
+    """Running var is the BIASED batch var weighted 0.1: nn.BatchNorm2d
+    would keep the unbiased one."""
+    x = torch.randn(2, 3, 2, 2)
+    bn = TL.BatchNorm(3)
+    bn(x)
+    biased = x.transpose(0, 1).reshape(3, -1).var(1, unbiased=False)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * biased)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_dense_matches_jax(compute_dtype):
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 16).astype(np.float32)
+    k = rng.randn(16, 10).astype(np.float32)
+    b = rng.randn(10).astype(np.float32)
+    jdt = None if compute_dtype is None else jnp.bfloat16
+    want = JL.dense_apply({"kernel": jnp.asarray(k), "bias": jnp.asarray(b)},
+                          jnp.asarray(x), compute_dtype=jdt)
+    dense = TL.Dense(16, 10, compute_dtype=compute_dtype)
+    with torch.no_grad():
+        dense.weight.copy_(torch.from_numpy(k.T.copy()))
+        dense.bias.copy_(torch.from_numpy(b))
+    got = dense(torch.from_numpy(x))
+    tol = 1e-5 if compute_dtype is None else 5e-2
+    np.testing.assert_allclose(got.float().detach().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_global_avg_pool_matches_jax():
+    x = np.random.RandomState(5).randn(2, 7, 7, 6).astype(np.float32)
+    np.testing.assert_allclose(TL.global_avg_pool(_nchw(x)).numpy(),
+                               np.asarray(JL.global_avg_pool(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("depth", [18, 34, 50, 101, 152])
+def test_param_count_matches_jax(depth):
+    v = jax.eval_shape(lambda: JR.resnet_init(jax.random.PRNGKey(0), depth,
+                                              num_classes=1000))
+    want = sum(int(np.prod(l.shape))
+               for l in jax.tree_util.tree_leaves(v["params"]))
+    model = ResNet(depth, 1000)
+    assert num_params(model) == want
+    if depth == 50:
+        assert want == 25_557_032
+
+
+@pytest.fixture(scope="module")
+def resnet50_pair():
+    variables = JR.resnet_init(jax.random.PRNGKey(0), 50, num_classes=10)
+    host = jax.tree_util.tree_map(np.asarray, {
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"]})
+    host["config"] = variables["config"]
+    # Batch 8: at 32x32 the last stage is 1x1, and batch norm over 2
+    # values per channel would magnify each framework's rounding.
+    x = np.random.RandomState(7).rand(8, 32, 32, 3).astype(np.float32)
+    logits, stats = JR.resnet_apply(variables, jnp.asarray(x), train=True,
+                                    compute_dtype=jnp.float32)
+    model = resnet_from_jax(host, compute_dtype=None)
+    model.train()
+    with torch.no_grad():
+        got = model(_nchw(x))
+    return model, np.asarray(logits), stats, got
+
+
+def test_resnet50_logits_match_jax(resnet50_pair):
+    _, want, _, got = resnet50_pair
+    assert got.shape == (8, 10) and got.dtype == torch.float32
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3,
+                               atol=2e-3 * scale)
+
+
+@pytest.mark.parametrize("layer", ["bn_stem", "stage0_block0.bn1",
+                                   "stage1_block0.bn_proj",
+                                   "stage3_block2.bn3"])
+def test_resnet50_batch_stats_match_jax(resnet50_pair, layer):
+    model, _, stats, _ = resnet50_pair
+    bn = model.get_submodule(layer)
+    s = stats
+    for k in layer.split("."):
+        s = s[k]
+    for ours, theirs in ((bn.running_mean, s["mean"]),
+                         (bn.running_var, s["var"])):
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-3,
+                                   atol=1e-3 * np.abs(theirs).max())
+
+
+def test_converter_round_trips_every_weight(resnet50_pair):
+    model, _, _, _ = resnet50_pair
+    v = JR.resnet_init(jax.random.PRNGKey(0), 50, num_classes=10)
+    np.testing.assert_array_equal(
+        model.stem.weight.detach().numpy(),
+        np.transpose(np.asarray(v["params"]["stem"]["kernel"]), (3, 2, 0, 1)))
+    np.testing.assert_array_equal(model.head.weight.detach().numpy(),
+                                  np.asarray(v["params"]["head"]["kernel"]).T)
+    np.testing.assert_array_equal(
+        model.stage2_block3.bn2.weight.detach().numpy(),
+        np.asarray(v["params"]["stage2_block3"]["bn2"]["scale"]))
+
+
+def test_bf16_forward_is_finite_and_close():
+    """bf16 compute against f32 compute on the same weights: within 10%
+    of the logits' range (bf16 keeps ~3 significant digits per layer)."""
+    model = ResNet(18, 10, compute_dtype=torch.bfloat16, seed=1)
+    ref = ResNet(18, 10, compute_dtype=None, seed=1)
+    x = torch.rand(8, 3, 32, 32)
+    with torch.no_grad():
+        y, y32 = model(x), ref(x)
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert float((y - y32).abs().max()) < 0.1 * float(y32.abs().max())
