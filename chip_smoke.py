@@ -10,10 +10,16 @@ Phases, each printing its own lines:
 2. build         builds every CUDA source of the port (csrc/*.cu) with
                  nvcc, one process per source, all started together;
 3. kernels       each kernel against its plain PyTorch version on the card,
-                 at the main path's shape and at ragged shapes, with the
-                 stated tolerance; kernel, plain and library times and the
-                 bound;
-4. train_adasum  the main path: two ranks share the card over gloo and run
+                 at the main paths' shapes and at others, with the stated
+                 tolerance; kernel, plain and library times and the bound.
+                 The Adasum kernels K1, K2 at the fused ResNet-50 delta;
+                 the flash kernels K4, K5, K6 over causal, non-causal,
+                 window, GQA, MQA, segment-id, lse-cotangent cases, D in
+                 {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to 4096,
+                 then timed forward and backward at the transformer's
+                 shape (1, 16384, 8, 64) bf16 causal beside
+                 F.scaled_dot_product_attention;
+4. train_adasum  main path 1: two ranks share the card over gloo and run
                  `python -m horovod_tpu_torch.synthetic_benchmark
                  --use-adasum` on full-width ResNet-50 (25,557,032 params,
                  224x224, 1000 classes, batch 32 per rank, bf16), 3 steps
@@ -22,13 +28,28 @@ Phases, each printing its own lines:
                  the parameters' SHA-256 must agree across ranks; on one
                  step rank 0 reruns the combine with the plain versions;
 5. train_average one rank on NCCL, op=Average, batch 64: img/sec and the
-                 number of fused buckets flushed.
+                 number of fused buckets flushed;
+6. train_transformer  main path 2: two ranks share the card over gloo and
+                 run `python -m horovod_tpu_torch.transformer_benchmark`
+                 on the default TransformerConfig (vocab 32000, d_model
+                 512, 8 x 64 heads, d_ff 2048, 8 layers) at T = 16384,
+                 batch 1 per rank, bf16, DistributedOptimizer(AdamW),
+                 op=Average, 3 steps after broadcast_parameters: finite
+                 losses, one digest per step, K4, K5 and K6 each launched
+                 n_layers times per step on each rank, and on one step
+                 rank 0's logits with the plain attention within
+                 LOGITS_RTOL (and those of the plain attention made
+                 non-causal, a fault, beyond it), its loss within
+                 LOSS_TOL;
+7. transformer_nccl  one rank on NCCL at the same configuration: tok/sec.
 
-`python3 chip_smoke.py --ranks N ARGS` instead runs N ranks of the
-benchmark with ARGS (rank r on card r mod the card count), holds them
-to the same checks as phases 4 and 5, and prints each rank's SUMMARY
+`python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
+ranks of the ResNet benchmark (or, with --transformer, the transformer
+trainer) with ARGS (rank r on card r mod the card count), holds them to
+the same checks as the training phases, and prints each rank's SUMMARY
 and, with `--profile K`, its PROFILE line (a torch.profiler breakdown
-of K steps: device time, idle share, host time in each `hvd.*` range).
+of K steps: device time, idle share, host time in each `hvd.*` and
+`bench.*` range).
 
 Then one JSON line with every kernel's numbers, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
@@ -52,11 +73,32 @@ LOG_DIR = os.path.join(HERE, "chiprun_out")
 # cores 67 TFLOP/s (the kernels compute in f32 for bf16 inputs too).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# Dense bf16 / f16 tensor-core peak: the least time of the attention
+# kernels' work at the main shape (bf16), whatever units compute it.
+HALF_FLOPS = 989e12
 MAIN_N = 25_557_032  # ResNet-50 params: one fused f32 delta
 K1_RTOL = 2e-5       # K1 vs plain, relative to sqrt(|a|^2|b|^2), |a|^2, |b|^2
 K2_F32_RTOL = 1e-6   # K2 f32 vs plain, relative to max|plain| (expect 0)
 K2_HALF_ULP = 1      # K2 bf16 and f16 vs plain, in ulps (expect 0)
 COMBINE_RTOL = 1e-4  # Adasum step: kernels vs plain, relative to max|result|
+# K4-K6 vs plain, relative to max|plain| of each output.  f32: sums in
+# another order, expf, and the online softmax's running max against the
+# plain row max.  bf16 / f16: in addition p (or ds) rounded from values
+# that differ in the last f32 bits, and the output's own rounding: a
+# few ulps of the largest value (bf16 ulp 2^-8, f16 2^-11).
+FLASH_RTOL = {"torch.float32": 1e-4, "torch.bfloat16": 2 ** -6,
+              "torch.float16": 2 ** -9}
+LSE_RTOL = 1e-5      # lse is f32 whatever the inputs: sums in another order
+# Transformer at T = 16384, kernels vs plain attention (both bf16): the
+# two round p, o and every later bf16 activation at other points, through
+# 8 layers.  The loss is a mean over 16384 tokens of values ~10.4; the
+# logits are compared entry by entry, relative to their largest value,
+# and must also tell a known fault apart (the plain attention made
+# non-causal reads above LOGITS_RTOL).
+LOSS_TOL = 2e-3
+LOGITS_RTOL = 5e-2
+ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
+MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
 
 
 def require(ok: bool, msg) -> None:
@@ -84,9 +126,9 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -193,8 +235,174 @@ def check_kernels(K):
     return results
 
 
+def _flash_case_inputs(case, gen, dev):
+    import torch
+
+    B, T, Hq, Hkv, D, dtype, causal, window, n_seg = case
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, T, Hq, D), (B, T, Hkv, D),
+                                 (B, T, Hkv, D), (B, T, Hq, D)))
+    seg = None
+    if n_seg:
+        seg = torch.sort(torch.randint(0, n_seg, (B, T), generator=gen,
+                                       device=dev), dim=1)[0].int()
+    return q, k, v, do, seg
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _check_flash_case(FA, case, gen, dev) -> dict:
+    """K4, K5, K6 on one case against their plain versions, fed the same
+    inputs (the backward kernels the plain lse, and a delta with a
+    nonzero lse cotangent folded in).  Returns each kernel's largest
+    absolute error."""
+    import torch
+
+    B, T, Hq, Hkv, D, dtype, causal, window, n_seg = case
+    q, k, v, do, seg = _flash_case_inputs(case, gen, dev)
+    tol = FLASH_RTOL[str(dtype)]
+    label = (f"B{B} T{T} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} causal={causal}"
+             f" window={window} segments={n_seg}")
+    o, lse = FA.flash_fwd(q, k, v, causal, window, seg)
+    po, plse = FA.flash_fwd_plain(q, k, v, causal, window, seg)
+    dlse = torch.randn(plse.shape, generator=gen, device=dev)
+    delta = (do.float() * po.float()).sum(-1) - dlse
+    dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, causal, window, seg)
+    pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal, window, seg)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, causal, window, seg)
+    pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta, causal,
+                                      window, seg)
+    torch.cuda.synchronize()
+    errs = {"o": _rel_err(o, po), "dq": _rel_err(dq, pdq),
+            "dk": _rel_err(dk, pdk), "dv": _rel_err(dv, pdv)}
+    lse_err = _rel_err(lse, plse)
+    for name, e in errs.items():
+        require(math.isfinite(e) and e <= tol,
+                f"flash {label}: {name} error {e} > {tol}")
+    require(lse_err <= LSE_RTOL, f"flash {label}: lse error {lse_err}")
+    require(o.dtype == dtype and dq.dtype == dtype and lse.dtype ==
+            torch.float32, f"flash {label}: output dtypes")
+    log("kernels", f"flash {label}: relative errors "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" lse={lse_err:.2e} (tol {tol:.2e}, lse {LSE_RTOL})")
+    return {"flash_fwd": float((o.float() - po.float()).abs().max()),
+            "flash_bwd_dq": float((dq.float() - pdq.float()).abs().max()),
+            "flash_bwd_dkv": max(float((dk.float() - pdk.float()).abs().max()),
+                                 float((dv.float() - pdv.float()).abs().max()))}
+
+
+def _check_flash_autograd(FA, gen, dev) -> None:
+    """flash_attention_lse through autograd (GQA, a nonzero lse
+    cotangent): its gradients against the plain chain."""
+    import torch
+
+    case = (2, 1024, 8, 2, 64, torch.float32, True, None, 0)
+    q, k, v, do, _ = _flash_case_inputs(case, gen, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = FA.flash_attention_lse(*leaves, causal=True)
+    dlse = torch.randn(lse.shape, generator=gen, device=dev)
+    torch.autograd.backward((o, lse), (do, dlse))
+    po, plse = FA.flash_fwd_plain(q, k, v, True)
+    delta = (do * po).sum(-1) - dlse
+    pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta, True)
+    pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta, True)
+    want = {"dq": pdq, "dk": FA._group_sum(pdk, 2, k.dtype),
+            "dv": FA._group_sum(pdv, 2, v.dtype)}
+    tol = FLASH_RTOL[str(torch.float32)]
+    errs = {n: _rel_err(t.grad, want[n]) for n, t in zip(want, leaves)}
+    for n, e in errs.items():
+        require(e <= tol, f"flash_attention_lse autograd: {n} error {e}")
+    log("kernels", "flash_attention_lse autograd, GQA 8/2, dlse != 0: "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" (tol {tol:.0e})")
+
+
+def check_flash(FA):
+    """The flash kernels against their plain versions, then timed at the
+    transformer's attention shape."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (B, T, Hq, Hkv, D, dtype, causal, window, segments)
+    cases = [(1, 4096, 8, 8, 64, bf16, True, None, 0),
+             (2, 1024, 4, 4, 64, f32, False, None, 0),
+             (1, 2048, 4, 4, 64, f16, True, 256, 0),
+             (2, 1024, 8, 2, 64, bf16, True, None, 0),
+             (1, 1024, 8, 1, 128, f32, True, None, 0),
+             (2, 512, 4, 4, 32, f32, True, None, 4),
+             (2, 512, 4, 4, 128, bf16, False, None, 3),
+             (1, 512, 2, 2, 256, f32, True, None, 0),
+             (1, 512, 2, 2, 256, bf16, False, None, 0),
+             (1, 384, 4, 2, 40, f16, True, 100, 0)]
+    for case in cases:
+        _check_flash_case(FA, case, gen, dev)
+    _check_flash_autograd(FA, gen, dev)
+
+    B, T, H, D = MAIN_ATTN
+    main = (B, T, H, H, D, bf16, True, None, 0)
+    errs = _check_flash_case(FA, main, gen, dev)
+    q, k, v, do, _ = _flash_case_inputs(main, gen, dev)
+    o, lse = FA.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    times = {
+        "flash_fwd": (lambda: FA.flash_fwd(q, k, v, True),
+                      lambda: FA.flash_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq": (
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dkv": (
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)),
+    }
+    # One library call of the same function: PyTorch's fused attention,
+    # forward, and its backward (which computes dq, dk and dv at once).
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    n = B * T * H * D * q.element_size()
+    rows = B * T * H * 4
+    pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs
+    work = {"flash_fwd": (4 * n + rows, 4 * D * pairs),
+            "flash_bwd_dq": (5 * n + 2 * rows, 6 * D * pairs),
+            "flash_bwd_dkv": (6 * n + 2 * rows, 8 * D * pairs)}
+    results = {}
+    for name, (kernel, plain) in times.items():
+        ms = cuda_time_ms(kernel, iters=10, warmup=2)
+        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        bound = bound_ms(*work[name], peak=HALF_FLOPS)
+        results[name] = dict(max_abs_err=errs[name], ms=ms,
+                             plain_ms=plain_ms, library_ms=library[name],
+                             bound_ms=bound[0], bound_by=bound[1])
+        log("kernels", f"{name} {MAIN_ATTN} bf16 causal: ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library[name]:.4f} "
+            f"bound_ms={bound[0]:.4f} ({bound[1]}) "
+            f"max_abs_err={errs[name]:.3g}")
+    # The library's backward computes dq, dk and dv in one call: both
+    # backward rows carry its time, which covers the two kernels' work.
+    bwd = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
+    log("kernels", f"flash backward, flash_bwd_dq + flash_bwd_dkv: "
+        f"ms={bwd:.4f} against one library backward (dq, dk, dv) "
+        f"library_ms={lib_bwd:.4f}: {bwd / lib_bwd:.1f}x")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the training path in subprocess ranks
+# Phases 4 to 7: the training paths in subprocess ranks
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -203,10 +411,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(phase: str, nranks: int, args, timeout: float):
-    """Run the benchmark as `nranks` processes, rank r on card r mod the
-    card count (all on card 0 when there is one); return each rank's
-    stdout lines.  Raises if a rank fails or times out."""
+RESNET = "horovod_tpu_torch.synthetic_benchmark"
+TRANSFORMER = "horovod_tpu_torch.transformer_benchmark"
+
+
+def run_ranks(phase: str, nranks: int, module: str, args, timeout: float):
+    """Run `python -m module args` as `nranks` processes, rank r on card
+    r mod the card count (all on card 0 when there is one); return each
+    rank's stdout lines.  Raises if a rank fails or times out."""
     port = _free_port()
     os.makedirs(LOG_DIR, exist_ok=True)
     procs = []
@@ -223,8 +435,7 @@ def run_ranks(phase: str, nranks: int, args, timeout: float):
                                "PYTHONPATH")] if p]))
             out = open(os.path.join(LOG_DIR, f"{phase}_rank{r}.log"), "w+")
             procs.append((subprocess.Popen(
-                [sys.executable, "-m", "horovod_tpu_torch.synthetic_benchmark",
-                 *args], cwd=HERE, env=env, stdout=out,
+                [sys.executable, "-m", module, *args], cwd=HERE, env=env, stdout=out,
                 stderr=subprocess.STDOUT, text=True), out))
         deadline = time.monotonic() + timeout
         for p, _ in procs:
@@ -251,18 +462,22 @@ def _records(lines, tag):
             if l.startswith(tag + " ")]
 
 
-def launch(phase: str, nranks: int, args, timeout: float = 900):
-    """Run `nranks` ranks of the benchmark with `args` and hold them to
-    the checks every training run shares; return each rank's SUMMARY.
+def launch(phase: str, nranks: int, args, module: str = RESNET,
+           grow=None, timeout: float = 900):
+    """Run `nranks` ranks of `module` with `args` and hold them to the
+    checks every training run shares; return each rank's SUMMARY.
 
     Every rank's last loss is finite.  With `--log-steps`, every rank
     logged one STEP line per step it took, and on every step: each loss
     is finite, the parameters' SHA-256 is the same on every rank, and
-    under `--use-adasum` with more than one rank each kernel's launch
-    count grew on every rank.  With `--check-plain-step`, rank 0's rerun
-    of the combine with the plain versions agrees with the kernels
-    within COMBINE_RTOL of the result's largest value."""
-    outs = run_ranks(phase, nranks, args, timeout)
+    each kernel named in `grow` launched on every rank: exactly
+    grow[name] times, or at least once where that is None.  With
+    `--check-plain-step`, rank 0's rerun with the plain versions agrees
+    with the kernels: the Adasum combine within COMBINE_RTOL of the
+    result's largest value; the transformer's logits within LOGITS_RTOL
+    of their largest value (and the non-causal fault's beyond it), its
+    loss within LOSS_TOL."""
+    outs = run_ranks(phase, nranks, module, args, timeout)
     steps = [_records(lines, "STEP") for lines in outs]
     summaries = [_records(lines, "SUMMARY")[-1] for lines in outs]
     for lines, s in zip(outs, summaries):
@@ -272,7 +487,7 @@ def launch(phase: str, nranks: int, args, timeout: float = 900):
                 log(phase, f"{tag} {json.dumps(rec)}")
     if "--log-steps" not in args:
         return summaries
-    adasum = "--use-adasum" in args and nranks > 1
+    grow = grow or {}
     for s, recs in zip(summaries, steps):
         require(len(recs) == s["steps"] > 0,
                 f"rank {s['rank']} logged {len(recs)} of {s['steps']} steps")
@@ -281,11 +496,11 @@ def launch(phase: str, nranks: int, args, timeout: float = 900):
     for i, recs in enumerate(zip(*steps)):
         for r, rec in enumerate(recs):
             require(math.isfinite(rec["loss"]), f"non-finite loss {rec}")
-            if adasum:
-                require(all(rec["launches"][k] > before[r][k]
-                            for k in before[r]),
-                        f"step {i}: a kernel did not launch on rank {r}: "
-                        f"{rec['launches']} after {before[r]}")
+            for name, n in grow.items():
+                got = rec["launches"][name] - before[r][name]
+                require(got == n if n is not None else got > 0,
+                        f"step {i}, rank {r}: {name} launched {got} times "
+                        f"(want {n if n is not None else '> 0'})")
             before[r] = rec["launches"]
         digests = {rec["digest"] for rec in recs}
         require(len(digests) == 1, f"step {i}: parameters differ {digests}")
@@ -299,9 +514,27 @@ def launch(phase: str, nranks: int, args, timeout: float = 900):
             line += f"; rank 0 combine, kernels vs plain max_abs_diff=" \
                     f"{diff:.3g} (tol {tol:.3g})"
             checked = True
+        if "plain_loss" in recs[0]:
+            rec = recs[0]
+            diff = abs(rec["plain_loss"] - rec["loss"])
+            rel, bad = rec["plain_logits_rel"], rec["faulted_logits_rel"]
+            require(diff <= LOSS_TOL, f"loss: kernels {rec['loss']} vs "
+                    f"plain attention {rec['plain_loss']}")
+            require(rel <= LOGITS_RTOL, f"logits: kernels vs plain "
+                    f"attention {rel} > {LOGITS_RTOL}")
+            require(bad > LOGITS_RTOL, f"logits: the non-causal fault "
+                    f"reads {bad}, within {LOGITS_RTOL}")
+            line += (f"; rank 0 with plain attention: logits rel diff "
+                     f"{rel:.3g} (tol {LOGITS_RTOL}), loss "
+                     f"{rec['plain_loss']:.6f}, diff {diff:.3g} (tol "
+                     f"{LOSS_TOL}); made non-causal: logits rel diff "
+                     f"{bad:.3g}, loss diff "
+                     f"{abs(rec['faulted_loss'] - rec['loss']):.3g}")
+            checked = True
         log(phase, line)
-    if "--check-plain-step" in args and adasum:
-        require(checked, "no step compared the combine with the plain "
+    if "--check-plain-step" in args and (module == TRANSFORMER or
+                                         "--use-adasum" in args):
+        require(checked, "no step compared the kernels with the plain "
                 "versions")
     return summaries
 
@@ -312,7 +545,7 @@ def train_adasum():
         "--image-size", "224", "--batch-size", "32",
         "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
         "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        timeout=600)
+        grow=ADASUM_GROW, timeout=600)
     require(all(s["steps"] == 3 for s in summaries),
             f"steps per rank: {[s['steps'] for s in summaries]}")
     for s in summaries:
@@ -335,6 +568,34 @@ def train_average():
     return s
 
 
+def train_transformer():
+    summaries = launch("train_transformer", 2, [
+        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+        "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
+        module=TRANSFORMER, timeout=600,
+        grow={"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8})
+    require(all(s["steps"] == 3 and s["n_layers"] == 8 for s in summaries),
+            f"steps per rank: {[s['steps'] for s in summaries]}")
+    for s in summaries:
+        log("train_transformer", f"rank {s['rank']}: "
+            f"{s['tok_sec_per_rank']:.1f} tok/sec (3 steps, checks "
+            f"included), backend {s['backend']}, peak memory "
+            f"{s['peak_mem_gb']:.2f} GB, launches {s['launches']}")
+    return summaries
+
+
+def transformer_nccl():
+    (s,) = launch("transformer_nccl", 1, [
+        "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
+        "--num-iters", "3"], module=TRANSFORMER, timeout=400)
+    require(s["backend"] is None or s["backend"] == "nccl", s)
+    log("transformer_nccl", f"{s['tok_sec_per_rank']:.1f} tok/sec "
+        f"(+- {1.96 * s['tok_sec_std']:.1f}), T 16384, batch 1, one rank "
+        f"on the card, peak memory {s['peak_mem_gb']:.2f} GB, last loss "
+        f"{s['last_loss']:.4f}")
+    return s
+
+
 def main() -> int:
     import torch
 
@@ -344,12 +605,19 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from horovod_tpu_torch import _build
     from horovod_tpu_torch.ops import adasum_kernels as K
+    from horovod_tpu_torch.ops import flash_attention as FA
 
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
-        launch(f"ranks{sys.argv[2]}", int(sys.argv[2]), sys.argv[3:])
-        log(f"ranks{sys.argv[2]}", f"{time.perf_counter() - t0:.1f} s")
+        n, rest = int(sys.argv[2]), sys.argv[3:]
+        module, grow = RESNET, None
+        if rest[:1] == ["--transformer"]:
+            module, rest = TRANSFORMER, rest[1:]
+        elif "--use-adasum" in rest and n > 1:
+            grow = ADASUM_GROW
+        launch(f"ranks{n}", n, rest, module=module, grow=grow)
+        log(f"ranks{n}", f"{time.perf_counter() - t0:.1f} s")
         return 0
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -373,35 +641,50 @@ def main() -> int:
 
     t0 = time.perf_counter()
     measured = check_kernels(K)
+    flash = check_flash(FA)
     log("kernels", "port kernels: " + ", ".join(
         f"{fn.__name__} (comparison launches {fn.launches})"
-        for fn in K.KERNELS) + f"; {time.perf_counter() - t0:.1f} s")
+        for fn in K.KERNELS + FA.KERNELS)
+        + f"; {time.perf_counter() - t0:.1f} s")
 
-    # The main path runs in fresh rank processes, whose counts start at
+    # Each main path runs in fresh rank processes, whose counts start at
     # 0 and are reset again just before the training loop.
     K.reset_launch_counts()
+    FA.reset_launch_counts()
     t0 = time.perf_counter()
     adasum_summaries = train_adasum()
     log("train_adasum", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_average()
     log("train_average", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    transformer_summaries = train_transformer()
+    log("train_transformer", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    transformer_nccl()
+    log("transformer_nccl", f"{time.perf_counter() - t0:.1f} s")
 
-    main_launches = adasum_summaries[0]["launches"]
-    kernels = []
+    rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
+             adasum_summaries[0]["launches"], "adasum_kernels.cu")
+            for fn in K.KERNELS]
+    rows += [(fn.__name__, flash[fn.__name__],
+              transformer_summaries[0]["launches"], "flash_attention.cu")
+             for fn in FA.KERNELS]
     replaces = {"fused_dot_norms": "horovod_tpu/ops/pallas_kernels.py:117",
-                "fused_scaled_add": "horovod_tpu/ops/pallas_kernels.py:147"}
-    for fn in K.KERNELS:
-        m = measured[str(torch.float32)][fn.__name__]
+                "fused_scaled_add": "horovod_tpu/ops/pallas_kernels.py:147",
+                "flash_fwd": "horovod_tpu/ops/flash_attention.py:242",
+                "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:393",
+                "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:427"}
+    kernels = []
+    for name, m, launches, src in rows:
         kernels.append({
-            "name": fn.__name__, "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/adasum_kernels.cu",
-            "replaces": replaces[fn.__name__],
-            "launches": main_launches[fn.__name__],
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{src}",
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-        require(main_launches[fn.__name__] > 0, fn.__name__)
+        require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

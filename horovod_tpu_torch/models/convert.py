@@ -1,10 +1,14 @@
-"""Load the JAX package's ResNet variables into the port's module.
+"""Load the JAX package's model parameters into the port's modules.
 
 `resnet_from_jax(variables)` takes what `horovod_tpu.models.resnet_init`
 returns — {"params", "batch_stats", "config"}, leaves as numpy arrays
 (or anything `np.asarray` takes) — and returns a `ResNet` holding the
 same weights: conv HWIO → OIHW, dense (in, out) → (out, in), batch-norm
 scale/bias → weight/bias and mean/var → running_mean/running_var.
+
+`transformer_from_jax(params, cfg)` takes `transformer_init`'s
+layer-stacked [L, ...] tree and returns a `Transformer` with the same
+weights; the port keeps the JAX shapes, so each leaf is copied as it is.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from . import layers as L
 from .resnet import ResNet
+from .transformer import Transformer, TransformerConfig
 
 
 def _tensor(a, transpose=None) -> torch.Tensor:
@@ -54,4 +59,25 @@ def resnet_from_jax(variables: Dict[str, Any],
                 mod.bias.copy_(_tensor(p["bias"]))
                 mod.running_mean.copy_(_tensor(s["mean"]))
                 mod.running_var.copy_(_tensor(s["var"]))
+    return model
+
+
+def transformer_from_jax(params: Dict[str, Any],
+                         cfg: TransformerConfig) -> Transformer:
+    """params: {"embed", "final_norm": {"scale"}, "blocks": {"ln1":
+    {"scale"}, "ln2": {"scale"}, "wq", "wk", "wv", "wo", "wi", "wg",
+    "wd"}} with a leading [n_layers] axis on every block leaf."""
+    if "moe" in params:
+        raise NotImplementedError("MoE parameters are not ported yet")
+    model = Transformer(cfg)
+    blocks = params["blocks"]
+    with torch.no_grad():
+        model.embed.copy_(_tensor(params["embed"]))
+        model.final_norm.copy_(_tensor(params["final_norm"]["scale"]))
+        for i, block in enumerate(model.blocks):
+            block.ln1.copy_(_tensor(np.asarray(blocks["ln1"]["scale"])[i]))
+            block.ln2.copy_(_tensor(np.asarray(blocks["ln2"]["scale"])[i]))
+            for name in ("wq", "wk", "wv", "wo", "wi", "wg", "wd"):
+                getattr(block, name).copy_(
+                    _tensor(np.asarray(blocks[name])[i]))
     return model

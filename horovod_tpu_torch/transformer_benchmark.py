@@ -1,0 +1,222 @@
+"""Transformer LM trainer on the port: the flagship dense configuration,
+data parallel.
+
+Counterpart of `bench.py` `run_transformer_bench` and
+`examples/transformer_lm.py` on the dp axis alone: synthetic tokens made
+from a numpy seed per rank, AdamW with optax.adamw's defaults (lr 3e-4,
+betas (0.9, 0.999), eps 1e-8, weight decay 1e-4), bf16 compute with f32
+parameters, and the horovod.torch loop:
+
+    hvd.init() → DistributedOptimizer(AdamW) → broadcast_parameters /
+    broadcast_optimizer_state → forward, backward, step()
+
+Defaults are `TransformerConfig()` (vocab 32000, d_model 512, 8 heads of
+64, d_ff 2048, 8 layers, about 50M parameters) at T = 16384, batch 1 per
+rank, where attention routes to the flash kernels on the card.  Prints
+tok/sec per rank.  `--log-steps` adds one JSON line per step (loss, the
+launch counts of every port kernel, SHA-256 of the parameters);
+`--check-plain-step S` adds to step S's line rank 0's recomputation with
+the plain attention (no kernels); `--profile K` a PROFILE line (as
+synthetic_benchmark's).
+
+Run:  python -m horovod_tpu_torch.transformer_benchmark --num-iters 3
+CPU:  python -m horovod_tpu_torch.transformer_benchmark --device cpu \\
+          --vocab-size 256 --d-model 64 --n-heads 2 --d-head 32 \\
+          --d-ff 128 --n-layers 2 --seq-len 128 --log-steps
+Multi-process: HOROVOD_COORDINATOR_ADDR, HOROVOD_NUM_PROCESSES,
+HOROVOD_PROCESS_ID (and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE) per rank.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import Transformer, TransformerConfig, \
+    lm_loss, num_params
+from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
+from horovod_tpu_torch.synthetic_benchmark import param_digest, \
+    profile_summary
+
+
+def launch_counts() -> dict:
+    return {**adasum_kernels.launch_counts(), **fa.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    adasum_kernels.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def _check_plain_attention(model, x, y, logits) -> dict:
+    """Rank 0's check of the kernels on one step: the forward again with
+    K4's plain version for attention, and once more with that plain
+    version made non-causal, a fault the check must tell apart.  For
+    each: its loss, and max|its logits - `logits`| / max|`logits`|."""
+    def faulted(q, k, v, causal, window):
+        return fa.flash_attention_plain(q, k, v, causal=False, window=window)
+
+    top = logits.abs().max()
+    rec = {}
+    with torch.no_grad():
+        for name, attn in (("plain", fa.flash_attention_plain),
+                           ("faulted", faulted)):
+            other = model(x, attn=attn)
+            rec[f"{name}_loss"] = float(lm_loss(other, y))
+            rec[f"{name}_logits_rel"] = float(
+                (other - logits).abs().max() / top)
+            del other
+    return rec
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--vocab-size", type=int, default=32000)
+    p.add_argument("--d-model", type=int, default=512)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--d-head", type=int, default=64)
+    p.add_argument("--d-ff", type=int, default=2048)
+    p.add_argument("--n-layers", type=int, default=8)
+    p.add_argument("--seq-len", type=int, default=16384)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--num-warmup-batches", type=int, default=2)
+    p.add_argument("--num-batches-per-iter", type=int, default=5)
+    p.add_argument("--num-iters", type=int, default=3)
+    p.add_argument("--device", default=None,
+                   help="default: the rank's card; 'cpu' runs on the host")
+    p.add_argument("--log-steps", action="store_true",
+                   help="one JSON line per step: loss, launches, digest")
+    p.add_argument("--profile", type=int, default=0,
+                   help="after timing, profile this many steps and print "
+                        "a PROFILE line (per-step breakdown)")
+    p.add_argument("--check-plain-step", type=int, default=-1,
+                   help="on this step, rank 0 recomputes the logits and "
+                        "the loss with the plain attention (no kernels), "
+                        "and with it made non-causal, under no_grad")
+    args = p.parse_args(argv)
+
+    hvd.init(device=args.device)
+    dev = hvd.device()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size, d_model=args.d_model,
+        n_heads=args.n_heads, d_head=args.d_head, d_ff=args.d_ff,
+        n_layers=args.n_layers, compute_dtype=torch.bfloat16)
+    model = Transformer(cfg, seed=hvd.rank()).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    rng = np.random.RandomState(hvd.rank())
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))).to(dev)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    step_no = 0
+    last_loss = float("nan")
+
+    def one_step():
+        nonlocal step_no, last_loss
+        opt.zero_grad(set_to_none=True)
+        with record_function("bench.forward"):
+            logits = model(x)
+            loss = lm_loss(logits, y)
+        with record_function("bench.backward"):
+            loss.backward()
+        check = {}
+        if step_no == args.check_plain_step and hvd.rank() == 0:
+            # Same parameters as the forward above (the step has not run).
+            check = _check_plain_attention(model, x, y, logits.detach())
+        del logits
+        with record_function("bench.optimizer_step"):
+            opt.step()
+        last_loss = loss.detach()
+        if args.log_steps:
+            sync()
+            rec = {"step": step_no, "rank": hvd.rank(),
+                   "loss": float(last_loss), "launches": launch_counts(),
+                   "digest": param_digest(model), **check}
+            print("STEP " + json.dumps(rec), flush=True)
+        step_no += 1
+
+    if hvd.rank() == 0:
+        print(f"Model: transformer ({num_params(model)} params, "
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}), seq "
+              f"{args.seq_len}, batch {args.batch_size}/rank, "
+              f"{hvd.size()} rank(s), device {dev}, backend "
+              f"{hvd.backend()}, flash attention "
+              f"{fa.flash_routed(args.seq_len, dev)}", flush=True)
+    reset_launch_counts()
+    for _ in range(args.num_warmup_batches):
+        one_step()
+    sync()
+
+    tok_secs = []
+    for i in range(args.num_iters):
+        t0 = time.perf_counter()
+        for _ in range(args.num_batches_per_iter):
+            one_step()
+        sync()
+        dt = time.perf_counter() - t0
+        tok_sec = (args.batch_size * args.seq_len
+                   * args.num_batches_per_iter / dt)
+        if hvd.rank() == 0:
+            print(f"Iter #{i}: {tok_sec:.1f} tok/sec per rank", flush=True)
+        tok_secs.append(tok_sec)
+
+    if args.profile:
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.profile):
+                one_step()
+            sync()
+            wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        profiled = profile_summary(trace, wall, args.profile,
+                                   on_card=dev.type == "cuda")
+        print("PROFILE " + json.dumps(dict(profiled, rank=hvd.rank())),
+              flush=True)
+
+    mean, std = float(np.mean(tok_secs)), float(np.std(tok_secs))
+    summary = {"rank": hvd.rank(), "size": hvd.size(),
+               "tok_sec_per_rank": mean, "tok_sec_std": std,
+               "steps": step_no, "last_loss": float(last_loss),
+               "launches": launch_counts(), "flushes": opt.total_flushes,
+               "n_layers": cfg.n_layers,
+               "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None),
+               "device": str(dev), "backend": hvd.backend()}
+    if hvd.rank() == 0:
+        print(f"Tok/sec per rank: {mean:.1f} +- {1.96 * std:.1f}")
+        print(f"Total tok/sec on {hvd.size()} rank(s): "
+              f"{mean * hvd.size():.1f} +- {1.96 * std * hvd.size():.1f}")
+    print("SUMMARY " + json.dumps(summary), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

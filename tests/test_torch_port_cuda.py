@@ -1,5 +1,5 @@
 """Tests of the PyTorch/CUDA port that need a CUDA card: the hand-written
-kernels against their plain versions, the Adasum tree, the model, a
+kernels against their plain versions, the Adasum tree, the models, a
 one-rank job, and two ranks sharing the card over gloo with the
 collectives on CUDA tensors.  On a host without CUDA every test skips.
 
@@ -10,7 +10,10 @@ only PyTorch is installed; tests/conftest.py imports JAX, so there run
 
 Tolerances: K1 rtol 2e-5 / atol 1e-4 (f32 sums in another order), K2
 bitwise (no FMA contraction on either side), the tree 1e-5 relative to
-its largest value, the ResNet forward 1e-3 relative with TF32 off.
+its largest value, the ResNet forward 1e-3 relative with TF32 off; K4-K6
+1e-4 (f32), 2^-6 (bf16), 2^-9 (f16) of each output's largest value, lse
+1e-5 (f32 sums in another order; p and the outputs rounded to the
+working dtype from values that differ in their last bits).
 """
 
 import os
@@ -23,8 +26,9 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.exceptions import HorovodTpuError
-from horovod_tpu_torch.models import ResNet
+from horovod_tpu_torch.models import ResNet, Transformer, TransformerConfig
 from horovod_tpu_torch.ops import adasum, adasum_kernels as K
+from horovod_tpu_torch.ops import flash_attention as FA
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +116,122 @@ def test_one_rank_job_on_the_card(cuda):
         assert hvd.broadcast_object([1, "a"]) == [1, "a"]
     finally:
         hvd.shutdown()
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6,
+             torch.float16: 2 ** -9}
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, Hq, Hkv, D, causal, window, segments)
+    (2, 256, 4, 4, 64, True, None, 0), (1, 384, 4, 4, 64, False, None, 0),
+    (1, 512, 4, 4, 32, True, 128, 0), (2, 256, 8, 2, 64, True, None, 0),
+    (1, 256, 4, 1, 128, True, None, 0), (2, 256, 4, 4, 64, True, None, 3),
+    (1, 256, 2, 2, 256, False, None, 2), (1, 128, 2, 2, 24, True, 50, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    B, T, Hq, Hkv, D, causal, window, n_seg = case
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q, do = (torch.randn((B, T, Hq, D), generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    seg = None
+    if n_seg:
+        seg = torch.sort(torch.randint(0, n_seg, (B, T), generator=g,
+                                       device=cuda), 1)[0].int()
+    before = FA.launch_counts()
+    o, lse = FA.flash_fwd(q, k, v, causal, window, seg)
+    po, plse = FA.flash_fwd_plain(q, k, v, causal, window, seg)
+    delta = (do.float() * po.float()).sum(-1) - 0.5
+    dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, causal, window, seg)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, causal, window, seg)
+    pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal, window, seg)
+    pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta, causal,
+                                      window, seg)
+    torch.cuda.synchronize()
+    assert FA.launch_counts() == {n: c + 1 for n, c in before.items()}
+    assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
+    assert dk.dtype == (dtype if Hq == Hkv else torch.float32)
+    assert _rel(lse, plse) <= 1e-5
+    for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
+        assert _rel(got, want) <= FLASH_TOL[dtype]
+
+
+def test_flash_attention_lse_gradients_on_the_card_match_the_cpu(cuda):
+    """Autograd through K4-K6 (GQA, a cotangent on lse) against the same
+    function on the CPU, where it runs the plain versions."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((2, 256, 4, 64), generator=g)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g) for _ in range(2))
+    do = torch.randn((2, 256, 4, 64), generator=g)
+    dlse = torch.randn((2, 256, 4), generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o, lse = FA.flash_attention_lse(*leaves, window=100)
+        torch.autograd.backward((o, lse), (do.to(dev), dlse.to(dev)))
+        grads.append([t.grad.cpu() for t in leaves])
+    for want, got in zip(*grads):
+        assert _rel(got, want) <= 1e-4
+
+
+def test_flash_kernel_results_are_reproducible(cuda):
+    """No atomics: the same inputs give the same bits every launch."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn((1, 1024, 8, 64), generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    o, lse = FA.flash_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    first = (o, FA.flash_bwd_dq(q, k, v, do, lse, delta),
+             *FA.flash_bwd_dkv(q, k, v, do, lse, delta))
+    for _ in range(3):
+        o2, _ = FA.flash_fwd(q, k, v)
+        again = (o2, FA.flash_bwd_dq(q, k, v, do, lse, delta),
+                 *FA.flash_bwd_dkv(q, k, v, do, lse, delta))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    for shape, dtype in (((1, 128, 2, 12), torch.float32),
+                         ((1, 128, 2, 264), torch.float32),
+                         ((1, 128, 2, 64), torch.float64),
+                         ((1, 100, 2, 64), torch.float32)):
+        q = torch.zeros(shape, dtype=dtype, device=cuda)
+        with pytest.raises(HorovodTpuError):
+            FA.flash_fwd(q, q, q)
+    q = torch.zeros((1, 128, 2, 64), device=cuda)
+    with pytest.raises(HorovodTpuError):
+        FA.flash_fwd(q, q.cpu(), q)
+
+
+def test_transformer_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """A small model with attention routed to the kernels: logits and
+    gradients against the CPU (plain versions), f32 with TF32 off."""
+    monkeypatch.setenv("HOROVOD_FLASH_ATTENTION", "1")
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            d_head=32, d_ff=512, n_layers=2,
+                            n_kv_heads=2, compute_dtype=torch.float32)
+    model = Transformer(cfg, seed=5)
+    x = torch.randint(0, 256, (2, 257), generator=torch.Generator()
+                      .manual_seed(6))
+    before = FA.launch_counts()["flash_fwd"]
+    out = []
+    for m, dev in ((model, "cpu"), (Transformer(cfg, seed=5).to(cuda),
+                                    cuda)):
+        loss = m.loss(x[:, :-1].to(dev), x[:, 1:].to(dev))
+        loss.backward()
+        out.append((float(loss), [p.grad.cpu() for p in m.parameters()]))
+    assert FA.launch_counts()["flash_fwd"] == before + 2
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[0][0])
+    for want, got in zip(out[0][1], out[1][1]):
+        assert _rel(got, want) <= 1e-4
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -33,7 +33,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import sys, chip_smoke, horovod_tpu_torch, horovod_tpu_torch.torch, "
         "horovod_tpu_torch._build, horovod_tpu_torch.ops.adasum, "
         "horovod_tpu_torch.ops.functions, horovod_tpu_torch.models.convert, "
-        "horovod_tpu_torch.synthetic_benchmark\n"
+        "horovod_tpu_torch.synthetic_benchmark, "
+        "horovod_tpu_torch.ops.flash_attention, "
+        "horovod_tpu_torch.parallel.sequence, "
+        "horovod_tpu_torch.models.transformer, "
+        "horovod_tpu_torch.transformer_benchmark\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)")
