@@ -18,7 +18,12 @@ Phases, each printing its own lines:
                  {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to 4096,
                  then timed forward and backward at the transformer's
                  shape (1, 16384, 8, 64) bf16 causal beside
-                 F.scaled_dot_product_attention;
+                 F.scaled_dot_product_attention; the tiled matmul K3 in
+                 f32, bf16 and f16 at the ZeRO-3 head's chunk shapes
+                 (16384, 512) @ (512, 512 / 256 / 128) and at unaligned
+                 ones (M, N, K off multiples of 128, K over several
+                 tiles, 1x1x1, a column band of a wider output), then
+                 timed at the head chunk beside torch.matmul (TF32 off);
 4. train_adasum  main path 1: two ranks share the card over gloo and run
                  `python -m horovod_tpu_torch.synthetic_benchmark
                  --use-adasum` on full-width ResNet-50 (25,557,032 params,
@@ -41,7 +46,22 @@ Phases, each printing its own lines:
                  LOGITS_RTOL (and those of the plain attention made
                  non-causal, a fault, beyond it), its loss within
                  LOSS_TOL;
-7. transformer_nccl  one rank on NCCL at the same configuration: tok/sec.
+7. transformer_nccl  one rank on NCCL at the same configuration: tok/sec;
+8. train_zero3   main path 3: two ranks share the card over gloo and run
+                 the transformer trainer as in phase 6 with
+                 `--zero-stage 3` under HOROVOD_FUSED_COLLECTIVES=1,
+                 HOROVOD_FUSED_PALLAS=1 and HOROVOD_FUSION_THRESHOLD=
+                 33554432 (the embedding a shard group of its own), 3
+                 steps and one held-out forward whose tied head is
+                 `gather_matmul`: finite losses within LOSS_TOL of phase
+                 6's (stage 0, same seeds and data), one digest per step,
+                 K4-K6 n_layers launches per step, resident parameters at
+                 most half the full bytes plus one pad element per group,
+                 and in the eval forward exactly 64 K3 launches per rank,
+                 logits within K3_RTOL (f32) of the plain head, a finite
+                 eval loss;
+9. zero3_nccl    one rank on NCCL at stage 3: tok/sec beside phase 7's,
+                 63 K3 launches in its eval forward.
 
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
@@ -89,6 +109,15 @@ COMBINE_RTOL = 1e-4  # Adasum step: kernels vs plain, relative to max|result|
 FLASH_RTOL = {"torch.float32": 1e-4, "torch.bfloat16": 2 ** -6,
               "torch.float16": 2 ** -9}
 LSE_RTOL = 1e-5      # lse is f32 whatever the inputs: sums in another order
+# K3 vs plain, relative to max|plain|: both sum K in f32 and round once,
+# in another order inside each 128-wide K tile.  f32: the sums' last
+# bits at K = 512; bf16 / f16: in addition one rounding of the output
+# apart, at most one ulp of the largest value (2^-7, 2^-10 of it).
+K3_RTOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7,
+           "torch.float16": 2 ** -10}
+HEAD_CHUNK = (16384, 512, 512)  # the ZeRO-3 eval head's K3 chunk: M, K, N
+ZERO3_ENV = {"HOROVOD_FUSED_COLLECTIVES": "1", "HOROVOD_FUSED_PALLAS": "1",
+             "HOROVOD_FUSION_THRESHOLD": "33554432"}
 # Transformer at T = 16384, kernels vs plain attention (both bf16): the
 # two round p, o and every later bf16 activation at other points, through
 # 8 layers.  The loss is a mean over 16384 tokens of values ~10.4; the
@@ -401,8 +430,66 @@ def check_flash(FA):
     return results
 
 
+def check_k3(MK):
+    """K3 against its plain version at the ZeRO-3 head's chunk shapes and
+    at unaligned ones, then timed at the head chunk.  b is the transposed
+    view of a (N, K) weight band, as `fused_allgather_matmul` hands it."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(777)
+    m, k, n = HEAD_CHUNK
+    shapes = [(m, k, n), (m, k, 256), (m, k, 128), (200, 300, 130),
+              (129, 257, 3), (7, 1000, 513), (1, 1, 1)]
+    errs = {}
+    for (mm, kk, nn) in shapes:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            a = torch.randn((mm, kk), generator=gen, device=dev).to(dtype)
+            w = torch.randn((nn, kk), generator=gen, device=dev).to(dtype)
+            got = MK.tiled_matmul(a, w.t())
+            want = MK.tiled_matmul_plain(a, w.t())
+            torch.cuda.synchronize()
+            tol = K3_RTOL[str(dtype)]
+            rel = _rel_err(got, want)
+            require(got.dtype == dtype and math.isfinite(rel) and rel <= tol,
+                    f"K3 ({mm}, {kk}) @ ({kk}, {nn}) {dtype}: {rel} > {tol}")
+            if (mm, kk, nn) == HEAD_CHUNK and dtype == torch.float32:
+                errs["max_abs_err"] = float((got - want).abs().max())
+            log("kernels", f"tiled_matmul ({mm}, {kk}) @ ({kk}, {nn}) "
+                f"{str(dtype)[6:]}: relative error {rel:.2e} (tol {tol:.2e})")
+    # Into a column band of a wider output, as the fused head writes it.
+    a = torch.randn((300, 384), generator=gen, device=dev)
+    w = torch.randn((130, 384), generator=gen, device=dev)
+    wide = torch.zeros((300, 400), device=dev)
+    MK.tiled_matmul(a, w.t(), out=wide[:, 7:137])
+    want = MK.tiled_matmul_plain(a, w.t())
+    rel = _rel_err(wide[:, 7:137], want)
+    require(rel <= K3_RTOL["torch.float32"] and not wide[:, :7].any()
+            and not wide[:, 137:].any(), f"K3 into a column band: {rel}")
+    log("kernels", f"tiled_matmul into columns 7:137 of (300, 400): "
+        f"relative error {rel:.2e}, the rest untouched")
+
+    a = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((n, k), generator=gen, device=dev)
+    b = w.t()
+    ms = cuda_time_ms(lambda: MK.tiled_matmul(a, b))
+    plain_ms = cuda_time_ms(lambda: MK.tiled_matmul_plain(a, b))
+    # One library call of the same function: cuBLAS SGEMM (TF32 off).
+    lib_ms = cuda_time_ms(lambda: torch.matmul(a, b))
+    bound = bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k)
+    log("kernels", f"tiled_matmul {HEAD_CHUNK[0]}x{k} @ {k}x{n} f32: "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+        f"bound_ms={bound[0]:.4f} ({bound[1]}) "
+        f"max_abs_err={errs['max_abs_err']:.3g}")
+    del a, w, b, wide, got, want
+    torch.cuda.empty_cache()
+    return {"tiled_matmul": dict(errs, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bound[0],
+                                 bound_by=bound[1])}
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 to 7: the training paths in subprocess ranks
+# Phases 4 to 9: the training paths in subprocess ranks
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -415,27 +502,29 @@ RESNET = "horovod_tpu_torch.synthetic_benchmark"
 TRANSFORMER = "horovod_tpu_torch.transformer_benchmark"
 
 
-def run_ranks(phase: str, nranks: int, module: str, args, timeout: float):
+def run_ranks(phase: str, nranks: int, module: str, args, timeout: float,
+              env=None):
     """Run `python -m module args` as `nranks` processes, rank r on card
-    r mod the card count (all on card 0 when there is one); return each
-    rank's stdout lines.  Raises if a rank fails or times out."""
+    r mod the card count (all on card 0 when there is one), with `env`
+    added to the environment; return each rank's stdout lines.  Raises
+    if a rank fails or times out."""
     port = _free_port()
     os.makedirs(LOG_DIR, exist_ok=True)
     procs = []
     try:
         for r in range(nranks):
-            env = dict(os.environ,
-                       HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
-                       HOROVOD_NUM_PROCESSES=str(nranks),
-                       HOROVOD_PROCESS_ID=str(r),
-                       HOROVOD_LOCAL_RANK=str(r),
-                       HOROVOD_LOCAL_SIZE=str(nranks),
-                       PYTHONPATH=os.pathsep.join(
-                           [HERE] + [p for p in [os.environ.get(
-                               "PYTHONPATH")] if p]))
+            renv = dict(os.environ, **(env or {}),
+                        HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
+                        HOROVOD_NUM_PROCESSES=str(nranks),
+                        HOROVOD_PROCESS_ID=str(r),
+                        HOROVOD_LOCAL_RANK=str(r),
+                        HOROVOD_LOCAL_SIZE=str(nranks),
+                        PYTHONPATH=os.pathsep.join(
+                            [HERE] + [p for p in [os.environ.get(
+                                "PYTHONPATH")] if p]))
             out = open(os.path.join(LOG_DIR, f"{phase}_rank{r}.log"), "w+")
             procs.append((subprocess.Popen(
-                [sys.executable, "-m", module, *args], cwd=HERE, env=env, stdout=out,
+                [sys.executable, "-m", module, *args], cwd=HERE, env=renv, stdout=out,
                 stderr=subprocess.STDOUT, text=True), out))
         deadline = time.monotonic() + timeout
         for p, _ in procs:
@@ -463,9 +552,11 @@ def _records(lines, tag):
 
 
 def launch(phase: str, nranks: int, args, module: str = RESNET,
-           grow=None, timeout: float = 900):
-    """Run `nranks` ranks of `module` with `args` and hold them to the
-    checks every training run shares; return each rank's SUMMARY.
+           grow=None, timeout: float = 900, env=None):
+    """Run `nranks` ranks of `module` with `args` (and `env`) and hold
+    them to the checks every training run shares; return each rank's
+    SUMMARY, with its STEP losses added as `step_losses` and its EVAL
+    records as `evals`.
 
     Every rank's last loss is finite.  With `--log-steps`, every rank
     logged one STEP line per step it took, and on every step: each loss
@@ -476,13 +567,17 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     with the kernels: the Adasum combine within COMBINE_RTOL of the
     result's largest value; the transformer's logits within LOGITS_RTOL
     of their largest value (and the non-causal fault's beyond it), its
-    loss within LOSS_TOL."""
-    outs = run_ranks(phase, nranks, module, args, timeout)
+    loss within LOSS_TOL.  A held-out forward's launches (an EVAL line
+    after a step's STEP line) do not count toward the next step's."""
+    outs = run_ranks(phase, nranks, module, args, timeout, env=env)
     steps = [_records(lines, "STEP") for lines in outs]
+    evals = [_records(lines, "EVAL") for lines in outs]
     summaries = [_records(lines, "SUMMARY")[-1] for lines in outs]
-    for lines, s in zip(outs, summaries):
+    for lines, s, recs, ev in zip(outs, summaries, steps, evals):
         require(math.isfinite(s["last_loss"]), f"non-finite loss {s}")
-        for tag in ("SUMMARY", "PROFILE"):
+        s["step_losses"] = [rec["loss"] for rec in recs]
+        s["evals"] = ev
+        for tag in ("SUMMARY", "PROFILE", "EVAL"):
             for rec in _records(lines, tag):
                 log(phase, f"{tag} {json.dumps(rec)}")
     if "--log-steps" not in args:
@@ -502,6 +597,9 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
                         f"step {i}, rank {r}: {name} launched {got} times "
                         f"(want {n if n is not None else '> 0'})")
             before[r] = rec["launches"]
+            for ev in evals[r]:
+                if ev["step"] == rec["step"]:
+                    before[r] = ev["launches"]
         digests = {rec["digest"] for rec in recs}
         require(len(digests) == 1, f"step {i}: parameters differ {digests}")
         line = (f"step {i}: loss " + ", ".join(f"{r['loss']:.4f}" for r in recs)
@@ -596,6 +694,69 @@ def transformer_nccl():
     return s
 
 
+def train_zero3(stage0):
+    """Main path 3 (see the module docstring); `stage0`: phase 6's
+    summaries, the same seeds and data at stage 0."""
+    summaries = launch("train_zero3", 2, [
+        "--zero-stage", "3", "--num-warmup-batches", "0",
+        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
+        "--eval-every", "3", "--check-plain-step", "2"],
+        module=TRANSFORMER, timeout=600, env=ZERO3_ENV,
+        grow={"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8})
+    tol = K3_RTOL["torch.float32"]
+    for s, s0 in zip(summaries, stage0):
+        r = s["rank"]
+        require(s["steps"] == 3 and s["n_layers"] == 8 and
+                s["zero_stage"] == 3, f"rank {r}: {s}")
+        diffs = [abs(a - b) for a, b in zip(s["step_losses"],
+                                            s0["step_losses"])]
+        require(len(diffs) == 3 and max(diffs) <= LOSS_TOL,
+                f"rank {r}: stage-3 losses {s['step_losses']} vs stage 0 "
+                f"{s0['step_losses']}")
+        cap = s["param_full_bytes"] // 2 + 4 * s["shard_groups"]
+        require(s["param_resident_bytes"] <= cap,
+                f"rank {r}: resident {s['param_resident_bytes']} > {cap}")
+        (ev,) = s["evals"]
+        require(ev["k3_launches"] == 64 and ev["k3_plain_calls"] == 0,
+                f"rank {r}: eval forward launched K3 {ev['k3_launches']} "
+                "times (want 64)")
+        require(ev["eval_logits_rel"] <= tol and
+                math.isfinite(ev["eval_loss"]),
+                f"rank {r}: eval logits vs the plain head "
+                f"{ev['eval_logits_rel']} (tol {tol}), loss {ev['eval_loss']}")
+        log("train_zero3", f"rank {r}: {s['tok_sec_per_rank']:.1f} tok/sec "
+            f"(3 steps, checks included); losses vs stage 0 max diff "
+            f"{max(diffs):.3g} (tol {LOSS_TOL}); params resident "
+            f"{s['param_resident_bytes']} of {s['param_full_bytes']} bytes "
+            f"in {s['shard_groups']} shard groups; optimizer state "
+            f"{s['opt_state_bytes']} bytes; eval forward: K3 launches "
+            f"{ev['k3_launches']}, logits vs plain head "
+            f"{ev['eval_logits_rel']:.3g} (tol {tol}), loss "
+            f"{ev['eval_loss']:.4f}; launches {s['launches']}")
+    return summaries
+
+
+def zero3_nccl(stage0):
+    """One rank on NCCL at stage 3; `stage0`: phase 7's summary."""
+    (s,) = launch("zero3_nccl", 1, [
+        "--zero-stage", "3", "--num-warmup-batches", "2",
+        "--num-batches-per-iter", "3", "--num-iters", "3",
+        "--eval-every", "11"], module=TRANSFORMER, timeout=400,
+        env=ZERO3_ENV)
+    require(s["backend"] == "nccl", s)
+    (ev,) = s["evals"]
+    require(ev["k3_launches"] == 63 and math.isfinite(ev["eval_loss"]),
+            f"eval forward launched K3 {ev['k3_launches']} times (want 63)")
+    log("zero3_nccl", f"{s['tok_sec_per_rank']:.1f} tok/sec "
+        f"(+- {1.96 * s['tok_sec_std']:.1f}) at stage 3 against "
+        f"{stage0['tok_sec_per_rank']:.1f} (+- "
+        f"{1.96 * stage0['tok_sec_std']:.1f}) at stage 0, T 16384, one "
+        f"rank; peak memory {s['peak_mem_gb']:.2f} GB (stage 0 "
+        f"{stage0['peak_mem_gb']:.2f}); eval forward K3 launches "
+        f"{ev['k3_launches']}, loss {ev['eval_loss']:.4f}")
+    return s
+
+
 def main() -> int:
     import torch
 
@@ -606,6 +767,7 @@ def main() -> int:
     from horovod_tpu_torch import _build
     from horovod_tpu_torch.ops import adasum_kernels as K
     from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import matmul_kernels as MK
 
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
@@ -642,15 +804,17 @@ def main() -> int:
     t0 = time.perf_counter()
     measured = check_kernels(K)
     flash = check_flash(FA)
+    k3 = check_k3(MK)
     log("kernels", "port kernels: " + ", ".join(
         f"{fn.__name__} (comparison launches {fn.launches})"
-        for fn in K.KERNELS + FA.KERNELS)
+        for fn in K.KERNELS + FA.KERNELS + MK.KERNELS)
         + f"; {time.perf_counter() - t0:.1f} s")
 
     # Each main path runs in fresh rank processes, whose counts start at
     # 0 and are reset again just before the training loop.
     K.reset_launch_counts()
     FA.reset_launch_counts()
+    MK.reset_launch_counts()
     t0 = time.perf_counter()
     adasum_summaries = train_adasum()
     log("train_adasum", f"{time.perf_counter() - t0:.1f} s")
@@ -661,8 +825,14 @@ def main() -> int:
     transformer_summaries = train_transformer()
     log("train_transformer", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    transformer_nccl()
+    nccl_summary = transformer_nccl()
     log("transformer_nccl", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zero3_summaries = train_zero3(transformer_summaries)
+    log("train_zero3", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zero3_nccl(nccl_summary)
+    log("zero3_nccl", f"{time.perf_counter() - t0:.1f} s")
 
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")
@@ -670,11 +840,14 @@ def main() -> int:
     rows += [(fn.__name__, flash[fn.__name__],
               transformer_summaries[0]["launches"], "flash_attention.cu")
              for fn in FA.KERNELS]
+    rows += [(fn.__name__, k3[fn.__name__], zero3_summaries[0]["launches"],
+              "tiled_matmul.cu") for fn in MK.KERNELS]
     replaces = {"fused_dot_norms": "horovod_tpu/ops/pallas_kernels.py:117",
                 "fused_scaled_add": "horovod_tpu/ops/pallas_kernels.py:147",
                 "flash_fwd": "horovod_tpu/ops/flash_attention.py:242",
                 "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:393",
-                "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:427"}
+                "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:427",
+                "tiled_matmul": "horovod_tpu/ops/fused_collectives.py:286"}
     kernels = []
     for name, m, launches, src in rows:
         kernels.append({

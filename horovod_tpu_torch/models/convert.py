@@ -9,6 +9,12 @@ scale/bias → weight/bias and mean/var → running_mean/running_var.
 `transformer_from_jax(params, cfg)` takes `transformer_init`'s
 layer-stacked [L, ...] tree and returns a `Transformer` with the same
 weights; the port keeps the JAX shapes, so each leaf is copied as it is.
+
+`zero_rows_from_jax(placement, rows)` takes the rows of the JAX
+package's ZeRO-3 placement (one (n, shard) array per shard group, as
+numpy) and returns this rank's rows of the port's `placement` over the
+same leaves, so that both hold the same shards (re-cut when the two
+world sizes differ).
 """
 
 from __future__ import annotations
@@ -81,3 +87,22 @@ def transformer_from_jax(params: Dict[str, Any],
                 getattr(block, name).copy_(
                     _tensor(np.asarray(blocks[name])[i]))
     return model
+
+
+def zero_rows_from_jax(placement, rows) -> tuple:
+    """The JAX `ZeroParamPlacement.shard` rows (numpy (n, shard) arrays,
+    one per group, the same partition) as the port placement's (1, shard)
+    rows of this rank: each group's buffer unpadded, padded again for the
+    port's world size, and this rank's band taken."""
+    if len(rows) != len(placement.groups):
+        raise ValueError(f"{len(rows)} JAX rows for "
+                         f"{len(placement.groups)} shard groups")
+    out = []
+    for g, row in zip(placement.groups, rows):
+        flat = np.asarray(row).reshape(-1)[:sum(g.sizes)]
+        flat = np.concatenate([flat, np.zeros(g.padded - flat.size,
+                                              flat.dtype)])
+        lo = placement.rank * g.shard_sz
+        out.append(torch.from_numpy(
+            flat[lo:lo + g.shard_sz].reshape(1, -1).copy()).to(g.dtype))
+    return tuple(out)

@@ -155,21 +155,30 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, g)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, tokens: torch.Tensor,
-                attn: Optional[Callable] = None) -> torch.Tensor:
-        """tokens [B, T] -> logits [B, T, V] f32.  `attn` replaces
-        `full_attention` (a check runs the plain attention through it)."""
+    def hidden(self, tokens: torch.Tensor,
+               attn: Optional[Callable] = None) -> torch.Tensor:
+        """tokens [B, T] -> the final-normed activations [B, T, D] in
+        compute_dtype.  `attn` replaces `full_attention` (a check runs
+        the plain attention through it)."""
         attn = attn or seq_mod.full_attention
-        dt = self.cfg.compute_dtype
-        x = self.embed[tokens].to(dt)
+        x = self.embed[tokens].to(self.cfg.compute_dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         for block in self.blocks:
             x = block(x, positions, attn)
-        x = _rmsnorm(self.final_norm, x)
-        # Head tied to the embedding, inputs in compute_dtype and the
-        # products summed in f32 (the JAX head's preferred_element_type).
-        return torch.einsum("btd,vd->btv", x.to(dt).float(),
+        return _rmsnorm(self.final_norm, x)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The head tied to the embedding: h [B, T, D] -> logits
+        [B, T, V] f32, inputs in compute_dtype and the products summed in
+        f32 (the JAX head's preferred_element_type)."""
+        dt = self.cfg.compute_dtype
+        return torch.einsum("btd,vd->btv", h.to(dt).float(),
                             self.embed.to(dt).float())
+
+    def forward(self, tokens: torch.Tensor,
+                attn: Optional[Callable] = None) -> torch.Tensor:
+        """tokens [B, T] -> logits [B, T, V] f32."""
+        return self.head(self.hidden(tokens, attn))
 
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor,
              attn: Optional[Callable] = None) -> torch.Tensor:

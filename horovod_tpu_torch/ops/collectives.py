@@ -17,10 +17,10 @@ Async ops return integer handles (`HandleManager`) over torch `Work`
 objects; `synchronize` waits and finishes the result.
 
 Gloo (ranks sharing a card) takes CUDA tensors for `all_reduce`,
-`broadcast` and `all_gather_into_tensor` in every dtype the port uses
-(torch 2.11 on an H100: tests/test_torch_port_cuda.py runs these
-collectives on the card over gloo), so every backend gets the tensors
-where they lie.  Allgather and broadcast move raw bytes (a uint8 view),
+`broadcast`, `all_gather_into_tensor` and `reduce_scatter_tensor` in
+every dtype the port uses (torch 2.11 on an H100:
+tests/test_torch_port_cuda.py runs these collectives on the card over
+gloo), so every backend gets the tensors where they lie.  Allgather and broadcast move raw bytes (a uint8 view),
 so every dtype takes the same path.
 """
 
@@ -272,6 +272,54 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
                             result=tensor).wait()
 
 
+# ---------------------------------------------------------------------------
+# Reduce-scatter
+# ---------------------------------------------------------------------------
+
+def _reducescatter_start(tensor: torch.Tensor, op: ReduceOp,
+                         ps: ProcessSet) -> _Pending:
+    if op is not Sum and op is not Average:
+        raise HorovodTpuError(
+            f"reducescatter supports Sum and Average, got {op}")
+    t = tensor.detach()
+    n = ps.size()
+    if t.dim() != 1 or t.numel() % n:
+        raise HorovodTpuError(
+            f"reducescatter needs a flat buffer whose length divides by "
+            f"the set size ({n}); got shape {tuple(t.shape)}")
+    if ps.group is None:
+        out = t.clone()
+        works = []
+    else:
+        out = torch.empty(t.numel() // n, dtype=t.dtype, device=t.device)
+        works = [dist.reduce_scatter_tensor(out, t.contiguous(),
+                                            op=dist.ReduceOp.SUM,
+                                            group=ps.group, async_op=True)]
+
+    def finish():
+        if op is Average:
+            return (out.float() / n).to(out.dtype)
+        return out
+
+    return _Pending(works, finish)
+
+
+def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
+                  name: Optional[str] = None,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Sum (or average) a flat buffer across the ranks and return this
+    rank's band of the result: elements [r·L/n, (r+1)·L/n) on set rank
+    r, for a buffer of length L divisible by the set size n (the ZeRO
+    layout; ragged dim 0 waits for a later slice).  Average sums in the
+    buffer's dtype and divides at f32, as `allreduce` does.
+
+    Every backend runs `reduce_scatter_tensor`, gloo on CUDA tensors
+    included (torch 2.11 on an H100: tests/test_torch_port_cuda.py
+    `test_gloo_on_card_reducescatter`)."""
+    del name
+    return _reducescatter_start(tensor, op, _resolve_set(process_set)).wait()
+
+
 def barrier(process_set: Optional[ProcessSet] = None) -> None:
     """Block until every rank reaches the barrier (reference: BarrierOp;
     a 1-element allreduce, as in the JAX package)."""
@@ -357,6 +405,14 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
     return _handle(_grouped_allreduce_start(
         tensors, op, prescale_factor, postscale_factor,
         _resolve_set(process_set)))
+
+
+def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
+                        name: Optional[str] = None,
+                        process_set: Optional[ProcessSet] = None) -> int:
+    del name
+    return _handle(_reducescatter_start(tensor, op,
+                                        _resolve_set(process_set)))
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,

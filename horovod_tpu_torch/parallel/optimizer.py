@@ -1,0 +1,266 @@
+"""The ZeRO ladder: a torch optimizer stepped on this rank's shard only.
+
+Counterpart of `DistributedGradientTransformation(zero_stage=...)` in
+`horovod_tpu/parallel/optimizer.py` (:194; the stage semantics in its
+docstring, :235-276), reached as
+`hvd.DistributedOptimizer(opt, named_parameters=..., zero_stage=k)`:
+
+- Stage 1 (alias: `shard_optimizer_states`, HOROVOD_SHARD_OPTIMIZER).
+  Parameters are grouped by `shard_group_partition`.  At the step each
+  group's gradients are packed into a flat buffer padded to a multiple
+  of n and reduce-scattered (`pipelined_psum_scatter` when
+  HOROVOD_FUSED_COLLECTIVES=1), averaged, and the inner optimizer steps
+  this rank's shard: a local `torch.optim` optimizer of the wrapped
+  one's class and defaults over one flat tensor per group, the way
+  torch's ZeroRedundancyOptimizer builds its own.  The new shards are
+  allgathered back into the parameters (`pipelined_allgather_shard` when
+  fused).  With `backward_passes_per_step` K > 1 the gradients
+  accumulate in `p.grad` and the Kth pass scatters their mean.
+- Stage 2 adds sharded accumulation: with K > 1 every pass's gradients
+  are reduce-scattered at once and only the local shard accumulates
+  (`p.grad` is released after each pass).
+- Stage 3 is stage 2 with the parameters held by `zero3_placement`:
+  `step()` leaves the parameters alone and returns the rank-identical
+  list of updates (this rank's new shard minus its old one, allgathered)
+  for `placement.apply_updates`.
+
+The arithmetic follows the JAX package's order: the mean of K passes is
+taken before the scatter at stage 1 and after it at stage 2; Average
+divides the scattered sum by n.  So integer-valued trajectories are
+bitwise equal to the JAX package's.  Contracts kept: the partition is
+baked at construction and a step raises on drift (re-init after tunables
+change), the global process set only, no Adasum.  A parameter without a
+gradient at the step counts as a zero gradient.  Every param group must
+carry the same hyperparameters.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import List, Optional
+
+import torch
+from torch.profiler import record_function
+
+from ..common import basics
+from ..common.basics import ProcessSet
+from ..common.exceptions import HorovodTpuError
+from ..ops import collectives as C
+from ..ops import fused_collectives as _fc
+from ..ops.compression import Compression
+from .data_parallel import shard_group_partition
+from .zero3 import group_slice, shard_groups, unpack
+
+
+def optimizer_state_bytes(optimizer) -> int:
+    """This rank's resident bytes of the inner optimizer state (the ZeRO-1
+    denominator).  A sharded optimizer holds only its shard's state; a
+    plain or stage-0 optimizer counts all of it."""
+    inner = getattr(optimizer, "_local", None) or getattr(
+        optimizer, "_opt", optimizer)
+    return sum(v.numel() * v.element_size()
+               for st in inner.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor))
+
+
+def grad_accum_bytes(optimizer) -> int:
+    """This rank's resident bytes of the gradient accumulator (the ZeRO-2
+    denominator): the local shard rows under stage >= 2 with
+    `backward_passes_per_step` > 1, else the parameter-shaped `p.grad`
+    accumulator."""
+    accum = getattr(optimizer, "_accum", None)
+    if accum is not None:
+        return sum(a.numel() * a.element_size() for a in accum)
+    opt = getattr(optimizer, "_opt", optimizer)
+    return sum(p.numel() * p.element_size()
+               for g in opt.param_groups for p in g["params"])
+
+
+def _hyper(group: dict) -> dict:
+    return {k: v for k, v in group.items() if k != "params"}
+
+
+def _local_optimizer(optimizer: torch.optim.Optimizer,
+                     shards: List[torch.Tensor]) -> torch.optim.Optimizer:
+    """An optimizer of `optimizer`'s class over `shards`, built from its
+    defaults (those its constructor takes: AdamW's defaults also carry
+    Adam's `decoupled_weight_decay`), then given its param group's
+    hyperparameters."""
+    cls = type(optimizer)
+    sig = inspect.signature(cls.__init__).parameters
+    kw = {k: v for k, v in optimizer.defaults.items() if k in sig}
+    local = cls(shards, **kw)
+    local.param_groups[0].update(_hyper(optimizer.param_groups[0]))
+    return local
+
+
+class _ShardedOptimizer:
+    """`DistributedOptimizer` at zero_stage 1, 2 or 3 (see the module
+    docstring)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, zero_stage: int,
+                 compression=Compression.none,
+                 backward_passes_per_step: int = 1, op=C.Average,
+                 process_set: Optional[ProcessSet] = None,
+                 fusion_threshold_bytes: Optional[int] = None,
+                 bucket_order=None):
+        if op is not C.Average and op is not C.Sum:
+            raise ValueError(
+                f"zero_stage={zero_stage} supports op=Average/Sum, got {op}: "
+                "Adasum combines post-update deltas, which have no "
+                "reduce-scatter form")
+        if process_set is not None and process_set.process_set_id != 0:
+            raise ValueError(
+                "zero_stage >= 1 requires the global process set: subset "
+                "reduce-scatter would need group-aware shard ownership")
+        hypers = [_hyper(g) for g in optimizer.param_groups]
+        if any(h != hypers[0] for h in hypers[1:]):
+            raise ValueError(
+                "zero_stage >= 1 steps one local optimizer over flat "
+                "shards, so every param group must carry the same "
+                f"hyperparameters; got {hypers}")
+        self._opt = optimizer
+        self.zero_stage = zero_stage
+        self._compression = compression
+        self._op = op
+        self._bpps = max(1, backward_passes_per_step)
+        self._pass_count = 0
+        self._fusion_threshold_bytes = fusion_threshold_bytes
+        self._bucket_order = bucket_order
+        self._ps = basics.global_process_set()
+        self.n = self._ps.size()
+        self.rank = self._ps.rank()
+        self._params = [p for g in optimizer.param_groups
+                        for p in g["params"]]
+        self._groups = shard_groups(
+            self._params, self.n, compression=compression,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order)
+        dev = self._params[0].device
+        # One flat shard per group: the local optimizer's parameters.
+        self._shards = [torch.zeros(g.shard_sz, dtype=g.dtype, device=dev)
+                        for g in self._groups]
+        self._local = _local_optimizer(optimizer, self._shards)
+        self._accum = ([torch.zeros_like(s) for s in self._shards]
+                       if zero_stage >= 2 and self._bpps > 1 else None)
+
+    def _check_drift(self) -> None:
+        live = shard_group_partition(
+            self._params, compression=self._compression,
+            fusion_threshold_bytes=self._fusion_threshold_bytes,
+            bucket_order=self._bucket_order)
+        if [list(g.idxs) for g in self._groups] != live:
+            raise ValueError(
+                f"zero_stage={self.zero_stage} partition changed since the "
+                "optimizer was built (fusion threshold / bucket order "
+                "moved?) — re-init the optimizer after tunables change")
+
+    # -- the data path -----------------------------------------------------
+
+    def _scatter(self, scale: Optional[float]) -> List[torch.Tensor]:
+        """Reduce-scatter every group's gradients (all in flight before
+        the first is finished); returns this rank's averaged shards."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params]
+        fused = _fc.fused_enabled()
+        started = []
+        for g in self._groups:
+            flat = group_slice(grads, g.idxs, g.dtype, 0, g.padded)
+            if scale is not None:
+                flat = (flat * scale).to(flat.dtype)
+            c, ctx = self._compression.compress(flat)
+            if fused:
+                red = _fc.pipelined_psum_scatter(c, self._ps)
+                started.append((lambda red=red: red, ctx))
+            else:
+                h = C._reducescatter_start(c, C.Sum, self._ps)
+                started.append((h.wait, ctx))
+        out = []
+        for wait, ctx in started:
+            red = wait()
+            if self._op is C.Average:
+                red = (red.float() / self.n).to(red.dtype)
+            out.append(self._compression.decompress(red, ctx))
+        return out
+
+    def _gather(self, sends: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Allgather one flat shard per group; returns each group's
+        rank-major flat buffer."""
+        if _fc.fused_enabled():
+            return [_fc.pipelined_allgather_shard(s, self._ps)
+                    for s in sends]
+        started = [C._allgather_start(s, self._ps) for s in sends]
+        return [h.wait() for h in started]
+
+    def _apply(self, g_shards: List[torch.Tensor]):
+        r = self.rank
+        for g, sh, gs in zip(self._groups, self._shards, g_shards):
+            sh.copy_(group_slice(self._params, g.idxs, g.dtype,
+                                 r * g.shard_sz, (r + 1) * g.shard_sz))
+            sh.grad = gs.to(sh.dtype)
+        old = ([sh.clone() for sh in self._shards]
+               if self.zero_stage == 3 else None)
+        self._local.param_groups[0].update(_hyper(self._opt.param_groups[0]))
+        with record_function("hvd.zero.local_step"):
+            self._local.step()
+        for sh in self._shards:
+            sh.grad = None
+        if self.zero_stage < 3:
+            with record_function("hvd.zero.allgather"):
+                fulls = self._gather(self._shards)
+            for g, full in zip(self._groups, fulls):
+                for i, t in unpack(g, full):
+                    self._params[i].copy_(t)
+            return None
+        with record_function("hvd.zero.allgather"):
+            fulls = self._gather([sh - o for sh, o in zip(self._shards,
+                                                          old)])
+        updates: List[Optional[torch.Tensor]] = [None] * len(self._params)
+        for g, full in zip(self._groups, fulls):
+            for i, t in unpack(g, full):
+                updates[i] = t.to(self._params[i].dtype)
+        return updates
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One pass.  On every `backward_passes_per_step`-th pass the
+        sharded step runs; at stage 3 it returns the updates for
+        `placement.apply_updates`, else None."""
+        if closure is not None:
+            raise HorovodTpuError(
+                "zero_stage >= 1 takes no closure: run forward and backward "
+                "before step()")
+        self._pass_count += 1
+        sync = self._pass_count % self._bpps == 0
+        self._check_drift()
+        if self._accum is not None:
+            # Stage 2/3 accumulation: scatter this pass now, keep only
+            # the local shard, release the full-size gradients.
+            with record_function("hvd.zero.reduce_scatter"):
+                shards = self._scatter(None)
+            for a, s in zip(self._accum, shards):
+                a.add_(s)
+            for p in self._params:
+                p.grad = None
+            if not sync:
+                return None
+            scale = 1.0 / self._bpps
+            g_shards = [(a * scale).to(a.dtype) for a in self._accum]
+            for a in self._accum:
+                a.zero_()
+        else:
+            if not sync:
+                return None  # gradients accumulate in p.grad
+            with record_function("hvd.zero.reduce_scatter"):
+                g_shards = self._scatter(
+                    1.0 / self._bpps if self._bpps > 1 else None)
+        return self._apply(g_shards)
+
+    def zero_grad(self, *a, **kw):
+        return self._opt.zero_grad(*a, **kw)
+
+    def synchronize(self) -> None:
+        """No-op for API compatibility: the collectives run in step()."""
+
+    def __getattr__(self, item):
+        return getattr(self._opt, item)

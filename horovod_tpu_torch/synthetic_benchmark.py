@@ -56,10 +56,12 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
     card's busy time (the union of this process's kernel, memcpy and
     memset intervals) and so its idle share as this process sees it
     (None off the card); host time inside each `hvd.*` / `bench.*`
-    range; and the kernels that took the most device time."""
+    range; the kernels that took the most device time, and the copies'
+    total (gloo moves a CUDA tensor through host memory)."""
     ranges: dict = {}
     kernels: dict = {}
     spans = []
+    copies = 0.0
     for e in trace.get("traceEvents", []):
         if e.get("ph") != "X":
             continue
@@ -70,6 +72,8 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
             spans.append((float(e["ts"]), float(e["ts"]) + dur))
             if cat == "kernel":
                 kernels[name[:80]] = kernels.get(name[:80], 0.0) + dur
+            elif cat == "gpu_memcpy":
+                copies += dur
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -83,6 +87,7 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
         "device_busy_ms_per_step": device_ms if on_card else None,
         "device_idle_share": 1.0 - device_ms / wall_ms if on_card else None,
         "ranges_ms_per_step": {k: v * per_step for k, v in ranges.items()},
+        "memcpy_ms_per_step": copies * per_step if on_card else None,
         "top_kernels_ms_per_step": sorted(
             ((k, v * per_step) for k, v in kernels.items()),
             key=lambda kv: -kv[1])[:top],

@@ -71,9 +71,18 @@ from ..ops.collectives import (  # noqa: F401
     grouped_allreduce,
     grouped_allreduce_async,
     poll,
+    reducescatter,
+    reducescatter_async,
 )
 from ..ops.compression import Compression  # noqa: F401
 from ..ops.functions import allgather_object, broadcast_object  # noqa: F401
+from ..parallel.optimizer import (  # noqa: F401
+    _ShardedOptimizer,
+    grad_accum_bytes,
+    optimizer_state_bytes,
+)
+from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
+from ..utils.autotune import current_zero_stage
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
@@ -86,10 +95,12 @@ __all__ = [
     "cross_rank", "cross_size", "cuda_built", "ddl_built", "device",
     "global_process_set", "gloo_built", "gloo_enabled", "grouped_allreduce",
     "grouped_allreduce_", "grouped_allreduce_async",
-    "grouped_allreduce_async_", "init", "is_homogeneous", "is_initialized",
-    "local_rank", "local_size", "mpi_built", "mpi_enabled",
-    "mpi_threads_supported", "nccl_built", "poll", "rank", "rocm_built",
-    "shutdown", "size", "synchronize", "tpu_built", "xla_built",
+    "grouped_allreduce_async_", "grad_accum_bytes", "init",
+    "is_homogeneous", "is_initialized", "local_rank", "local_size",
+    "mpi_built", "mpi_enabled", "mpi_threads_supported", "nccl_built",
+    "optimizer_state_bytes", "poll", "rank", "reducescatter",
+    "reducescatter_async", "rocm_built", "shutdown", "size", "synchronize",
+    "tpu_built", "xla_built", "ZeroParamPlacement", "zero3_placement",
 ]
 
 # handle -> tensors an in-place async op writes its result into
@@ -187,7 +198,7 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
 def _fusion_threshold() -> int:
     """HOROVOD_FUSION_THRESHOLD in bytes, default 64 MiB (the JAX
     package's default; its autotuner is not ported yet)."""
-    return util.env_int("FUSION_THRESHOLD", 64 * 1024 * 1024)
+    return util.fusion_threshold()
 
 
 class _DistributedOptimizer:
@@ -393,14 +404,53 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          backward_passes_per_step: int = 1,
                          op=Average,
                          gradient_predivide_factor: float = 1.0,
-                         process_set: Optional[ProcessSet] = None):
+                         process_set: Optional[ProcessSet] = None,
+                         zero_stage: Optional[int] = None,
+                         shard_optimizer_states: Optional[bool] = None,
+                         fusion_threshold_bytes: Optional[int] = None,
+                         bucket_order=None):
     """op=Adasum returns the delta-semantics `_DistributedAdasumOptimizer`
     (reference: optimizer.py routes op=Adasum there); any other op the
     hook-bucketed `_DistributedOptimizer`.  `gradient_predivide_factor`
     splits the averaging around a Sum wire (prescale 1/f, postscale
-    f/size)."""
+    f/size).
+
+    `zero_stage` (env HOROVOD_ZERO_STAGE) picks the ZeRO rung: 0
+    replicated; 1 (alias `shard_optimizer_states`, env
+    HOROVOD_SHARD_OPTIMIZER) the optimizer stepped on this rank's shard;
+    2 adds sharded gradient accumulation; 3 leaves the parameters to
+    `zero3_placement`, and `step()` returns the updates for
+    `placement.apply_updates` (parallel/optimizer.py).
+    `fusion_threshold_bytes` and `bucket_order` set the shard groups
+    (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER)."""
+    _check_names(named_parameters)
+    if zero_stage is None:
+        zero_stage = current_zero_stage()
+    zero_stage = int(zero_stage)
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(
+            f"zero_stage must be 0..3, got {zero_stage} (0 replicated, 1 "
+            "optimizer-state sharding, 2 + gradient-sharded accumulation, "
+            "3 + parameter sharding via zero3_placement)")
+    if zero_stage >= 1 and shard_optimizer_states is False:
+        raise ValueError(f"zero_stage={zero_stage} requires the sharded "
+                         "path; shard_optimizer_states=False contradicts it")
+    if shard_optimizer_states is None:
+        shard_optimizer_states = util.shard_optimizer()
+    if shard_optimizer_states and zero_stage == 0:
+        zero_stage = 1
     if gradient_predivide_factor != 1.0 and op is not Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
+    if zero_stage:
+        if gradient_predivide_factor != 1.0:
+            raise ValueError(f"zero_stage={zero_stage} takes no "
+                             "gradient_predivide_factor")
+        return _ShardedOptimizer(
+            optimizer, zero_stage, compression=compression,
+            backward_passes_per_step=backward_passes_per_step, op=op,
+            process_set=process_set,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order)
     if op is Adasum:
         return _DistributedAdasumOptimizer(
             optimizer, named_parameters=named_parameters,

@@ -19,6 +19,20 @@ launch counts of every port kernel, SHA-256 of the parameters);
 the plain attention (no kernels); `--profile K` a PROFILE line (as
 synthetic_benchmark's).
 
+`--zero-stage K` trains under `DistributedOptimizer(zero_stage=K)`.  At
+stage 3 the parameters live in a `zero3_placement` and the step is
+gather -> forward/backward -> sharded step -> apply_updates (the next
+step's gather runs at the end of this one, so the module always holds
+the current parameters).  `--eval-every N` adds a held-out forward every
+N steps (one fixed batch, the same on every rank) and an EVAL line: its
+loss, the launches of K3 (`tiled_matmul`) and, on the check step, the
+logits' largest difference from the plain head relative to their
+largest value (`k3_plain_calls` counts K3's wrapper taking its plain
+version, on the CPU).  At stage 3 the eval head is `placement.gather_matmul`,
+which runs K3 under HOROVOD_FUSED_PALLAS=1 (the ZeRO-3 configuration
+also sets HOROVOD_FUSED_COLLECTIVES=1 and HOROVOD_FUSION_THRESHOLD=
+33554432, where the embedding is a shard group of its own).
+
 Run:  python -m horovod_tpu_torch.transformer_benchmark --num-iters 3
 CPU:  python -m horovod_tpu_torch.transformer_benchmark --device cpu \\
           --vocab-size 256 --d-model 64 --n-heads 2 --d-head 32 \\
@@ -44,17 +58,33 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import Transformer, TransformerConfig, \
     lm_loss, num_params
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
+from horovod_tpu_torch.ops import matmul_kernels as mk
 from horovod_tpu_torch.synthetic_benchmark import param_digest, \
     profile_summary
 
 
 def launch_counts() -> dict:
-    return {**adasum_kernels.launch_counts(), **fa.launch_counts()}
+    return {**adasum_kernels.launch_counts(), **fa.launch_counts(),
+            **mk.launch_counts()}
 
 
 def reset_launch_counts() -> None:
     adasum_kernels.reset_launch_counts()
     fa.reset_launch_counts()
+    mk.reset_launch_counts()
+
+
+def embed_group(placement, model) -> int:
+    """Index of the shard group that holds the embedding alone (the tied
+    head's weight); raises if the partition grouped it with others."""
+    idx = [p is model.embed for p in model.parameters()].index(True)
+    for gi, g in enumerate(placement.groups):
+        if g.idxs == (idx,):
+            return gi
+    raise ValueError(
+        "the embedding shares a shard group with other parameters, so "
+        "gather_matmul cannot take it: lower HOROVOD_FUSION_THRESHOLD "
+        "(33554432 isolates it at the default widths)")
 
 
 def _check_plain_attention(model, x, y, logits) -> dict:
@@ -102,6 +132,12 @@ def main(argv=None) -> int:
                    help="on this step, rank 0 recomputes the logits and "
                         "the loss with the plain attention (no kernels), "
                         "and with it made non-causal, under no_grad")
+    p.add_argument("--zero-stage", type=int, default=0,
+                   choices=(0, 1, 2, 3),
+                   help="DistributedOptimizer(zero_stage=K); 3 keeps the "
+                        "parameters in a zero3_placement")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="a held-out forward every N steps (EVAL line)")
     args = p.parse_args(argv)
 
     hvd.init(device=args.device)
@@ -116,9 +152,48 @@ def main(argv=None) -> int:
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
                             betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
     opt = hvd.DistributedOptimizer(opt,
-                                   named_parameters=model.named_parameters())
+                                   named_parameters=model.named_parameters(),
+                                   zero_stage=args.zero_stage)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
+    params = list(model.parameters())
+    placement = rows = None
+    if args.zero_stage == 3:
+        placement = hvd.zero3_placement(params)
+        gi_embed = embed_group(placement, model)
+        rows = placement.shard(params)
+
+    def gather_params():
+        with torch.no_grad(), record_function("bench.gather"):
+            for p_, full in zip(params, placement.gather(rows)):
+                p_.copy_(full)
+
+    ev = np.random.RandomState(12345).randint(
+        0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))
+    xe = torch.from_numpy(ev[:, :-1]).to(dev)
+    ye = torch.from_numpy(ev[:, 1:]).to(dev)
+
+    def evaluate(check: bool) -> dict:
+        """The held-out forward; at stage 3 the head is gather_matmul."""
+        with torch.no_grad(), record_function("bench.eval"):
+            h = model.hidden(xe)
+            flat = h.reshape(-1, cfg.d_model).float()
+            k3 = mk.tiled_matmul
+            before = (k3.launches, k3.plain_calls)
+            if placement is not None:
+                logits = placement.gather_matmul(flat, rows, gi_embed)
+            else:
+                logits = model.head(h).reshape(flat.shape[0], -1)
+            rec = {"k3_launches": k3.launches - before[0],
+                   "k3_plain_calls": k3.plain_calls - before[1],
+                   "eval_loss": float(lm_loss(logits, ye.reshape(-1)))}
+            if check:
+                ref = mk.tiled_matmul_plain(flat, model.embed.detach().t())
+                rec["eval_logits_rel"] = float(
+                    (logits - ref).abs().max() / ref.abs().max())
+                del ref
+            del logits
+        return rec
 
     rng = np.random.RandomState(hvd.rank())
     tokens = torch.from_numpy(rng.randint(
@@ -131,9 +206,10 @@ def main(argv=None) -> int:
 
     step_no = 0
     last_loss = float("nan")
+    eval_s = 0.0  # held-out forwards' wall time, left out of tok/sec
 
     def one_step():
-        nonlocal step_no, last_loss
+        nonlocal step_no, last_loss, rows, eval_s
         opt.zero_grad(set_to_none=True)
         with record_function("bench.forward"):
             logits = model(x)
@@ -146,7 +222,12 @@ def main(argv=None) -> int:
             check = _check_plain_attention(model, x, y, logits.detach())
         del logits
         with record_function("bench.optimizer_step"):
-            opt.step()
+            updates = opt.step()
+        if placement is not None and updates is not None:
+            with record_function("bench.apply_updates"):
+                rows = placement.apply_updates(rows, updates)
+            del updates
+            gather_params()
         last_loss = loss.detach()
         if args.log_steps:
             sync()
@@ -154,6 +235,15 @@ def main(argv=None) -> int:
                    "loss": float(last_loss), "launches": launch_counts(),
                    "digest": param_digest(model), **check}
             print("STEP " + json.dumps(rec), flush=True)
+        if args.eval_every and (step_no + 1) % args.eval_every == 0:
+            sync()
+            t0 = time.perf_counter()
+            rec = {"step": step_no, "rank": hvd.rank(),
+                   **evaluate(step_no == args.check_plain_step),
+                   "launches": launch_counts()}
+            sync()
+            eval_s += time.perf_counter() - t0
+            print("EVAL " + json.dumps(rec), flush=True)
         step_no += 1
 
     if hvd.rank() == 0:
@@ -162,7 +252,10 @@ def main(argv=None) -> int:
               f"{args.seq_len}, batch {args.batch_size}/rank, "
               f"{hvd.size()} rank(s), device {dev}, backend "
               f"{hvd.backend()}, flash attention "
-              f"{fa.flash_routed(args.seq_len, dev)}", flush=True)
+              f"{fa.flash_routed(args.seq_len, dev)}, zero stage "
+              f"{args.zero_stage}", flush=True)
+    if placement is not None:
+        gather_params()
     reset_launch_counts()
     for _ in range(args.num_warmup_batches):
         one_step()
@@ -170,11 +263,11 @@ def main(argv=None) -> int:
 
     tok_secs = []
     for i in range(args.num_iters):
-        t0 = time.perf_counter()
+        t0, e0 = time.perf_counter(), eval_s
         for _ in range(args.num_batches_per_iter):
             one_step()
         sync()
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0 - (eval_s - e0)
         tok_sec = (args.batch_size * args.seq_len
                    * args.num_batches_per_iter / dt)
         if hvd.rank() == 0:
@@ -204,8 +297,18 @@ def main(argv=None) -> int:
     summary = {"rank": hvd.rank(), "size": hvd.size(),
                "tok_sec_per_rank": mean, "tok_sec_std": std,
                "steps": step_no, "last_loss": float(last_loss),
-               "launches": launch_counts(), "flushes": opt.total_flushes,
-               "n_layers": cfg.n_layers,
+               "launches": launch_counts(),
+               "flushes": getattr(opt, "total_flushes", None),
+               "n_layers": cfg.n_layers, "zero_stage": args.zero_stage,
+               "param_full_bytes": sum(p_.numel() * p_.element_size()
+                                       for p_ in params),
+               "param_resident_bytes": (
+                   placement.resident_bytes() if placement is not None
+                   else sum(p_.numel() * p_.element_size()
+                            for p_ in params)),
+               "opt_state_bytes": hvd.optimizer_state_bytes(opt),
+               "shard_groups": (len(placement.groups)
+                                if placement is not None else None),
                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                if dev.type == "cuda" else None),
                "device": str(dev), "backend": hvd.backend()}

@@ -13,7 +13,9 @@ bitwise (no FMA contraction on either side), the tree 1e-5 relative to
 its largest value, the ResNet forward 1e-3 relative with TF32 off; K4-K6
 1e-4 (f32), 2^-6 (bf16), 2^-9 (f16) of each output's largest value, lse
 1e-5 (f32 sums in another order; p and the outputs rounded to the
-working dtype from values that differ in their last bits).
+working dtype from values that differ in their last bits); K3 1e-5
+(f32), 2^-7 (bf16), 2^-10 (f16) of the largest value (f32 sums in
+another order inside each K tile, then one rounding of the output).
 """
 
 import os
@@ -29,6 +31,7 @@ from horovod_tpu_torch.common.exceptions import HorovodTpuError
 from horovod_tpu_torch.models import ResNet, Transformer, TransformerConfig
 from horovod_tpu_torch.ops import adasum, adasum_kernels as K
 from horovod_tpu_torch.ops import flash_attention as FA
+from horovod_tpu_torch.ops import matmul_kernels as MK
 
 pytestmark = pytest.mark.cuda
 
@@ -234,6 +237,99 @@ def test_transformer_on_the_card_matches_the_cpu(cuda, monkeypatch):
         assert _rel(got, want) <= 1e-4
 
 
+K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7,
+          torch.float16: 2 ** -10}
+
+
+@pytest.mark.parametrize("shape", [(16384, 512, 512), (16384, 512, 128),
+                                   (200, 300, 130), (129, 257, 3),
+                                   (7, 1000, 513), (1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_tiled_matmul_matches_plain(cuda, shape, dtype):
+    """K3 at the ZeRO-3 head's chunk shapes and unaligned ones, b the
+    transposed view of a weight band as on the fused path."""
+    m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    w = torch.randn((n, k), generator=g, device=cuda).to(dtype)
+    before = MK.tiled_matmul.launches
+    got = MK.tiled_matmul(a, w.t())
+    want = MK.tiled_matmul_plain(a, w.t())
+    torch.cuda.synchronize()
+    assert MK.tiled_matmul.launches == before + 1
+    assert got.dtype == dtype and _rel(got, want) <= K3_TOL[dtype]
+
+
+def test_tiled_matmul_into_a_column_band_and_reproducible(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn((300, 384), generator=g, device=cuda)
+    w = torch.randn((130, 384), generator=g, device=cuda)
+    wide = torch.zeros((300, 400), device=cuda)
+    MK.tiled_matmul(a, w.t(), out=wide[:, 7:137])
+    assert _rel(wide[:, 7:137], MK.tiled_matmul_plain(a, w.t())) <= 1e-5
+    assert not wide[:, :7].any() and not wide[:, 137:].any()
+    first = MK.tiled_matmul(a, w.t())
+    for _ in range(3):
+        assert torch.equal(MK.tiled_matmul(a, w.t()), first)
+
+
+def test_tiled_matmul_raises_on_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((4, 4), device=cuda, dtype=torch.float64)
+    with pytest.raises(HorovodTpuError):
+        MK.tiled_matmul(a, a)
+    b = torch.zeros((4, 4), device=cuda)
+    with pytest.raises(HorovodTpuError):
+        MK.tiled_matmul(b, b.cpu())
+
+
+ZERO_NCCL_WORKER = r'''
+import sys
+import torch
+import horovod_tpu_torch as hvd
+hvd.init(coordinator_address=sys.argv[1], num_processes=1, process_id=0)
+dev = hvd.device()
+g = torch.Generator().manual_seed(0)
+base = [torch.randn(64, 33, generator=g), torch.randn(70, generator=g)]
+grads = [[torch.randn_like(b) for b in base] for _ in range(3)]
+out = {}
+for stage in (0, 1):
+    ps = [torch.nn.Parameter(b.to(dev)) for b in base]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(ps, lr=1e-2, weight_decay=1e-2), zero_stage=stage,
+        fusion_threshold_bytes=4096)
+    for gs in grads:
+        for p, gg in zip(ps, gs):
+            p.grad = gg.to(dev)
+        opt.step()
+        opt.zero_grad()
+    out[stage] = [p.detach().cpu() for p in ps]
+ok = all(torch.equal(a, b) for a, b in zip(out[0], out[1]))
+print("BACKEND", hvd.backend(), "EQUAL", ok, flush=True)
+hvd.shutdown()
+'''
+
+
+def test_zero_stage1_one_rank_on_nccl(cuda):
+    """ZeRO-1 at np=1 over an NCCL group of one: the reduce-scatter and
+    the allgather run on the card, and the parameters equal stage 0's
+    bit for bit (AdamW is elementwise)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    r = subprocess.run([sys.executable, "-c", ZERO_NCCL_WORKER,
+                        f"tcp://127.0.0.1:{port}"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BACKEND nccl EQUAL True" in r.stdout, r.stdout + r.stderr
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GLOO_WORKER = r'''
@@ -258,6 +354,11 @@ res["broadcast"] = hvd.broadcast(x.to(dev), root_rank=1)
 ii = torch.arange(5, device=dev) * (r + 1)
 hvd.broadcast_(ii, root_rank=1)
 res["broadcast_"] = ii
+from horovod_tpu_torch.ops import fused_collectives as F
+flat = torch.arange(2 * 640, dtype=torch.float32, device=dev) * (r + 1)
+res["reducescatter"] = hvd.reducescatter(flat, op=hvd.Sum)
+res["reducescatter_bf16"] = hvd.reducescatter(flat.bfloat16(), op=hvd.Average)
+res["psum_scatter"] = F.pipelined_psum_scatter(flat, chunk_bytes=1024)
 res["on_card"] = all(t.is_cuda for v in res.values()
                      for t in (v if isinstance(v, list) else [v])
                      if isinstance(t, torch.Tensor) and t is not x)
@@ -317,6 +418,20 @@ def test_gloo_on_card_moves_the_right_values(gloo_on_card, key):
             "broadcast": x1, "broadcast_": torch.arange(5) * 2}[key]
     for d in gloo_on_card:
         assert torch.equal(d[key], want)
+
+
+def test_gloo_on_card_reducescatter(gloo_on_card):
+    """Gloo takes CUDA tensors for reduce_scatter_tensor (the ZeRO
+    gradient path of two ranks sharing a card), whole and chunked."""
+    flat = torch.arange(2 * 640, dtype=torch.float32)
+    total = flat * 1 + flat * 2
+    for r, d in enumerate(gloo_on_card):
+        band = total[r * 640:(r + 1) * 640]
+        assert torch.equal(d["reducescatter"], band)
+        assert torch.equal(d["psum_scatter"], band)
+        assert torch.equal(d["reducescatter_bf16"],
+                           (flat.bfloat16() * 1 + flat.bfloat16() * 2)
+                           [r * 640:(r + 1) * 640].float().div(2).bfloat16())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
