@@ -15,11 +15,19 @@ Phases, each printing its own lines:
                  The Adasum kernels K1, K2 at the fused ResNet-50 delta;
                  the flash kernels K4, K5, K6 over causal, non-causal,
                  window, GQA, MQA, segment-id, lse-cotangent cases, D in
-                 {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to 4096,
-                 then timed forward and backward at the transformer's
-                 shape (1, 16384, 8, 64) bf16 causal beside
-                 F.scaled_dot_product_attention; the tiled matmul K3 in
-                 f32, bf16 and f16 at the ZeRO-3 head's chunk shapes
+                 {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to
+                 16384 (bf16 and f16 at D 64 and 128 on the tensor-core
+                 K4 and K6 of flash_attention_sm90.cu, the rest on the
+                 CUDA-core kernels of flash_attention.cu, each case
+                 checking which route ran), each output held to its
+                 plain version both against its largest value and row
+                 by row; then forward and backward timed at the
+                 transformer's shape (1, 16384, 8, 64) and at the same
+                 width in 128-wide heads (1, 16384, 4, 128), bf16
+                 causal, beside F.scaled_dot_product_attention and the
+                 CUDA-core K4 and K6 at the same shapes (each must be
+                 the slower); the tiled matmul K3 in f32, bf16 and f16
+                 at the ZeRO-3 head's chunk shapes
                  (16384, 512) @ (512, 512 / 256 / 128) and at unaligned
                  ones (M, N, K off multiples of 128, K over several
                  tiles, 1x1x1, a column band of a wider output), then
@@ -41,7 +49,8 @@ Phases, each printing its own lines:
                  batch 1 per rank, bf16, DistributedOptimizer(AdamW),
                  op=Average, 3 steps after broadcast_parameters: finite
                  losses, one digest per step, K4, K5 and K6 each launched
-                 n_layers times per step on each rank, and on one step
+                 n_layers times per step on each rank (every K4 and K6
+                 launch on the tensor-core route), and on one step
                  rank 0's logits with the plain attention within
                  LOGITS_RTOL (and those of the plain attention made
                  non-causal, a fault, beyond it), its loss within
@@ -55,7 +64,8 @@ Phases, each printing its own lines:
                  steps and one held-out forward whose tied head is
                  `gather_matmul`: finite losses within LOSS_TOL of phase
                  6's (stage 0, same seeds and data), one digest per step,
-                 K4-K6 n_layers launches per step, resident parameters at
+                 K4-K6 n_layers launches per step (K4 and K6 all on the
+                 tensor-core route), resident parameters at
                  most half the full bytes plus one pad element per group,
                  and in the eval forward exactly 64 K3 launches per rank,
                  logits within K3_RTOL (f32) of the plain head, a finite
@@ -108,6 +118,12 @@ COMBINE_RTOL = 1e-4  # Adasum step: kernels vs plain, relative to max|result|
 # few ulps of the largest value (bf16 ulp 2^-8, f16 2^-11).
 FLASH_RTOL = {"torch.float32": 1e-4, "torch.bfloat16": 2 ** -6,
               "torch.float16": 2 ** -9}
+# The same limits row by row: for each (b, t, h), |got - want| over the
+# row's D values relative to |want| of that row, so that late causal rows
+# (values ~sqrt(e / t), far below the largest) are held to a few ulps of
+# their own size.  A row under 2^-8 of the rows' RMS size (a key that one
+# query sees, its dp - delta near 0) is measured against that floor.
+ROW_FLOOR = 2 ** -8
 LSE_RTOL = 1e-5      # lse is f32 whatever the inputs: sums in another order
 # K3 vs plain, relative to max|plain|: both sum K in f32 and round once,
 # in another order inside each 128-wide K tile.  f32: the sums' last
@@ -128,6 +144,10 @@ LOSS_TOL = 2e-3
 LOGITS_RTOL = 5e-2
 ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
 MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
+WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
+# K4-K6 per step per rank at 8 layers, K4 and K6 all on the tensor cores.
+FLASH_GROW = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+              "flash_fwd_sm90": 8, "flash_bwd_dkv_sm90": 8}
 
 
 def require(ok: bool, msg) -> None:
@@ -283,11 +303,23 @@ def _rel_err(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def _check_flash_case(FA, case, gen, dev) -> dict:
+def _row_err(got, want) -> float:
+    """Largest error of a row (the last dim) relative to that row's size
+    in `want`, floored at ROW_FLOOR of the rows' RMS size."""
+    got, want = got.double(), want.double()
+    err = (got - want).norm(dim=-1)
+    size = want.norm(dim=-1)
+    floor = ROW_FLOOR * float(size.square().mean().sqrt())
+    return float((err / size.clamp_min(max(floor, 1e-30))).max())
+
+
+def _check_flash_case(FA, case, gen, dev, sm90=None) -> dict:
     """K4, K5, K6 on one case against their plain versions, fed the same
     inputs (the backward kernels the plain lse, and a delta with a
-    nonzero lse cotangent folded in).  Returns each kernel's largest
-    absolute error."""
+    nonzero lse cotangent folded in), K4 and K6 on the route `sm90`
+    names (default: the wrappers' own).  Every output within the
+    dtype's FLASH_RTOL of its largest value and, row by row, of each
+    row's size.  Returns each kernel's largest absolute error."""
     import torch
 
     B, T, Hq, Hkv, D, dtype, causal, window, n_seg = case
@@ -295,28 +327,41 @@ def _check_flash_case(FA, case, gen, dev) -> dict:
     tol = FLASH_RTOL[str(dtype)]
     label = (f"B{B} T{T} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} causal={causal}"
              f" window={window} segments={n_seg}")
-    o, lse = FA.flash_fwd(q, k, v, causal, window, seg)
+    sm90_before = FA.sm90_launch_counts()
+    o, lse = FA.flash_fwd(q, k, v, causal, window, seg, sm90=sm90)
     po, plse = FA.flash_fwd_plain(q, k, v, causal, window, seg)
     dlse = torch.randn(plse.shape, generator=gen, device=dev)
     delta = (do.float() * po.float()).sum(-1) - dlse
     dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, causal, window, seg)
     pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal, window, seg)
-    dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, causal, window, seg)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, causal, window, seg,
+                              sm90=sm90)
     pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta, causal,
                                       window, seg)
     torch.cuda.synchronize()
-    errs = {"o": _rel_err(o, po), "dq": _rel_err(dq, pdq),
-            "dk": _rel_err(dk, pdk), "dv": _rel_err(dv, pdv)}
+    routed = FA._sm90_route(dtype, D) if sm90 is None else sm90
+    pairs = {"o": (o, po), "dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+    errs = {n: _rel_err(*p) for n, p in pairs.items()}
+    rows = {n: _row_err(*p) for n, p in pairs.items()}
     lse_err = _rel_err(lse, plse)
-    for name, e in errs.items():
-        require(math.isfinite(e) and e <= tol,
-                f"flash {label}: {name} error {e} > {tol}")
+    log("kernels", f"flash {label} [K4, K6 on the "
+        f"{'tensor' if routed else 'CUDA'} cores]: relative errors "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" lse={lse_err:.2e}; by row "
+        + " ".join(f"{n}={e:.2e}" for n, e in rows.items())
+        + f" (tol {tol:.2e}, lse {LSE_RTOL})")
+    require(FA.sm90_launch_counts() == {n: c + routed for n, c in
+                                        sm90_before.items()},
+            f"flash {label}: K4 and K6 took the wrong route (tensor cores "
+            f"expected: {routed})")
+    for name in pairs:
+        require(math.isfinite(errs[name]) and errs[name] <= tol,
+                f"flash {label}: {name} error {errs[name]} > {tol}")
+        require(math.isfinite(rows[name]) and rows[name] <= tol,
+                f"flash {label}: {name} row error {rows[name]} > {tol}")
     require(lse_err <= LSE_RTOL, f"flash {label}: lse error {lse_err}")
     require(o.dtype == dtype and dq.dtype == dtype and lse.dtype ==
             torch.float32, f"flash {label}: output dtypes")
-    log("kernels", f"flash {label}: relative errors "
-        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
-        + f" lse={lse_err:.2e} (tol {tol:.2e}, lse {LSE_RTOL})")
     return {"flash_fwd": float((o.float() - po.float()).abs().max()),
             "flash_bwd_dq": float((dq.float() - pdq.float()).abs().max()),
             "flash_bwd_dkv": max(float((dk.float() - pdk.float()).abs().max()),
@@ -341,19 +386,109 @@ def _check_flash_autograd(FA, gen, dev) -> None:
     want = {"dq": pdq, "dk": FA._group_sum(pdk, 2, k.dtype),
             "dv": FA._group_sum(pdv, 2, v.dtype)}
     tol = FLASH_RTOL[str(torch.float32)]
-    errs = {n: _rel_err(t.grad, want[n]) for n, t in zip(want, leaves)}
+    errs = {n: max(_rel_err(t.grad, want[n]), _row_err(t.grad, want[n]))
+            for n, t in zip(want, leaves)}
     for n, e in errs.items():
         require(e <= tol, f"flash_attention_lse autograd: {n} error {e}")
-    log("kernels", "flash_attention_lse autograd, GQA 8/2, dlse != 0: "
+    log("kernels", "flash_attention_lse autograd, GQA 8/2, dlse != 0, "
+        "the larger of the relative and the row error: "
         + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
         + f" (tol {tol:.0e})")
 
 
-def check_flash(FA):
-    """The flash kernels against their plain versions, then timed at the
-    transformer's attention shape."""
+def _flash_work(shape, element_size):
+    """(bytes, operations) of K4, K5, K6 at a causal [B, T, H, D]: each
+    input read once and each output written once; 4, 6 and 8 D
+    operations per unmasked (query, key) pair."""
+    B, T, H, D = shape
+    n = B * T * H * D * element_size
+    rows = B * T * H * 4
+    pairs = B * H * T * (T + 1) // 2
+    return {"flash_fwd": (4 * n + rows, 4 * D * pairs),
+            "flash_bwd_dq": (5 * n + 2 * rows, 6 * D * pairs),
+            "flash_bwd_dkv": (6 * n + 2 * rows, 8 * D * pairs)}
+
+
+def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
+    """K4, K5, K6 at a bf16 causal [B, T, H, D], each timed alone (10
+    launches after 2), K4 and K6 on both routes; one PyTorch call of the
+    same function (F.scaled_dot_product_attention forward, and its
+    backward for dq, dk and dv at once); the plain versions (3 calls
+    after 1) where `with_plain`; the bound."""
     import torch
     import torch.nn.functional as F
+
+    B, T, H, D = shape
+    q, k, v, do, _ = _flash_case_inputs(
+        (B, T, H, H, D, torch.bfloat16, True, None, 0), gen, dev)
+    o, lse = FA.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = {
+        "flash_fwd": (
+            lambda: FA.flash_fwd(q, k, v, True),
+            lambda: FA.flash_fwd(q, k, v, True, sm90=False),
+            lambda: FA.flash_fwd_plain(q, k, v, True)),
+        "flash_bwd_dq": (
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True), None,
+            lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dkv": (
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True,
+                                     sm90=False),
+            lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)),
+    }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    work = _flash_work(shape, q.element_size())
+    results = {}
+    for name, (kernel, cuda_core, plain) in runs.items():
+        bound = bound_ms(*work[name], peak=HALF_FLOPS)
+        r = dict(ms=cuda_time_ms(kernel, iters=10, warmup=2),
+                 library_ms=library[name], bound_ms=bound[0],
+                 bound_by=bound[1])
+        line = (f"{name} {shape} bf16 causal: ms={r['ms']:.4f} "
+                f"library_ms={library[name]:.4f} bound_ms={bound[0]:.4f} "
+                f"({bound[1]}, {bound[0] / r['ms']:.1%} of it)")
+        if with_plain:
+            r["plain_ms"] = cuda_time_ms(plain, iters=3, warmup=1)
+            line += f" plain_ms={r['plain_ms']:.4f}"
+        if cuda_core is not None:
+            r["cuda_core_ms"] = cuda_time_ms(cuda_core, iters=10, warmup=2)
+            line += (f"; tensor cores (flash_attention_sm90.cu), the CUDA-"
+                     f"core kernel at this shape ms={r['cuda_core_ms']:.4f} "
+                     f"({r['cuda_core_ms'] / r['ms']:.1f}x)")
+            # The route `_sm90_route` fixes for bf16 at this D must be the
+            # faster one.
+            require(r["ms"] < r["cuda_core_ms"],
+                    f"{name} {shape}: the tensor-core kernel "
+                    f"({r['ms']:.4f} ms) is not faster than the CUDA-core "
+                    f"one ({r['cuda_core_ms']:.4f} ms)")
+        log("kernels", line)
+        results[name] = r
+    # The library's backward computes dq, dk and dv in one call: both
+    # backward rows carry its time, which covers the two kernels' work.
+    bwd = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
+    log("kernels", f"flash backward {shape}, flash_bwd_dq + flash_bwd_dkv:"
+        f" ms={bwd:.4f} against one library backward (dq, dk, dv) "
+        f"library_ms={lib_bwd:.4f}: {bwd / lib_bwd:.1f}x")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_flash(FA):
+    """The flash kernels against their plain versions, then timed at the
+    transformer's attention shape and at the same width in 128-wide
+    heads."""
+    import torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -368,65 +503,29 @@ def check_flash(FA):
              (2, 512, 4, 4, 128, bf16, False, None, 3),
              (1, 512, 2, 2, 256, f32, True, None, 0),
              (1, 512, 2, 2, 256, bf16, False, None, 0),
-             (1, 384, 4, 2, 40, f16, True, 100, 0)]
+             (1, 384, 4, 2, 40, f16, True, 100, 0),
+             (1, 2048, 4, 4, 128, bf16, True, None, 0),
+             (1, 1024, 4, 1, 128, f16, True, 300, 0),
+             (2, 1024, 8, 2, 64, bf16, True, 200, 3)]
     for case in cases:
         _check_flash_case(FA, case, gen, dev)
     _check_flash_autograd(FA, gen, dev)
 
-    B, T, H, D = MAIN_ATTN
-    main = (B, T, H, H, D, bf16, True, None, 0)
-    errs = _check_flash_case(FA, main, gen, dev)
-    q, k, v, do, _ = _flash_case_inputs(main, gen, dev)
-    o, lse = FA.flash_fwd(q, k, v, True)
-    delta = (do.float() * o.float()).sum(-1)
-    times = {
-        "flash_fwd": (lambda: FA.flash_fwd(q, k, v, True),
-                      lambda: FA.flash_fwd_plain(q, k, v, True)),
-        "flash_bwd_dq": (
-            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True),
-            lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
-        "flash_bwd_dkv": (
-            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-            lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)),
-    }
-    # One library call of the same function: PyTorch's fused attention,
-    # forward, and its backward (which computes dq, dk and dv at once).
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=10)
-    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
-               "flash_bwd_dkv": lib_bwd}
-    n = B * T * H * D * q.element_size()
-    rows = B * T * H * 4
-    pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs
-    work = {"flash_fwd": (4 * n + rows, 4 * D * pairs),
-            "flash_bwd_dq": (5 * n + 2 * rows, 6 * D * pairs),
-            "flash_bwd_dkv": (6 * n + 2 * rows, 8 * D * pairs)}
-    results = {}
-    for name, (kernel, plain) in times.items():
-        ms = cuda_time_ms(kernel, iters=10, warmup=2)
-        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
-        bound = bound_ms(*work[name], peak=HALF_FLOPS)
-        results[name] = dict(max_abs_err=errs[name], ms=ms,
-                             plain_ms=plain_ms, library_ms=library[name],
-                             bound_ms=bound[0], bound_by=bound[1])
-        log("kernels", f"{name} {MAIN_ATTN} bf16 causal: ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library[name]:.4f} "
-            f"bound_ms={bound[0]:.4f} ({bound[1]}) "
-            f"max_abs_err={errs[name]:.3g}")
-    # The library's backward computes dq, dk and dv in one call: both
-    # backward rows carry its time, which covers the two kernels' work.
-    bwd = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
-    log("kernels", f"flash backward, flash_bwd_dq + flash_bwd_dkv: "
-        f"ms={bwd:.4f} against one library backward (dq, dk, dv) "
-        f"library_ms={lib_bwd:.4f}: {bwd / lib_bwd:.1f}x")
-    del q, k, v, do, o, lse, delta, qt, kt, vt, ot, dot
-    torch.cuda.empty_cache()
+    # At the two timed shapes, K4 and K6 on both routes against the plain
+    # versions before they are timed.
+    def both_routes(shape):
+        B, T, H, D = shape
+        case = (B, T, H, H, D, bf16, True, None, 0)
+        _check_flash_case(FA, case, gen, dev, sm90=False)
+        return _check_flash_case(FA, case, gen, dev)
+
+    errs = both_routes(MAIN_ATTN)
+    both_routes(WIDE_ATTN)
+    results = _time_flash(FA, MAIN_ATTN, gen, dev, with_plain=True)
+    wide = _time_flash(FA, WIDE_ATTN, gen, dev, with_plain=False)
+    for name, r in results.items():
+        r["max_abs_err"] = errs[name]
+        r["d128"] = wide[name]
     return results
 
 
@@ -670,8 +769,7 @@ def train_transformer():
     summaries = launch("train_transformer", 2, [
         "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
         "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        module=TRANSFORMER, timeout=600,
-        grow={"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8})
+        module=TRANSFORMER, timeout=600, grow=FLASH_GROW)
     require(all(s["steps"] == 3 and s["n_layers"] == 8 for s in summaries),
             f"steps per rank: {[s['steps'] for s in summaries]}")
     for s in summaries:
@@ -701,8 +799,7 @@ def train_zero3(stage0):
         "--zero-stage", "3", "--num-warmup-batches", "0",
         "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
         "--eval-every", "3", "--check-plain-step", "2"],
-        module=TRANSFORMER, timeout=600, env=ZERO3_ENV,
-        grow={"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8})
+        module=TRANSFORMER, timeout=600, env=ZERO3_ENV, grow=FLASH_GROW)
     tol = K3_RTOL["torch.float32"]
     for s, s0 in zip(summaries, stage0):
         r = s["rank"]
@@ -838,8 +935,9 @@ def main() -> int:
              adasum_summaries[0]["launches"], "adasum_kernels.cu")
             for fn in K.KERNELS]
     rows += [(fn.__name__, flash[fn.__name__],
-              transformer_summaries[0]["launches"], "flash_attention.cu")
-             for fn in FA.KERNELS]
+              transformer_summaries[0]["launches"],
+              "flash_attention_sm90.cu" if fn in FA.SM90_KERNELS
+              else "flash_attention.cu") for fn in FA.KERNELS]
     rows += [(fn.__name__, k3[fn.__name__], zero3_summaries[0]["launches"],
               "tiled_matmul.cu") for fn in MK.KERNELS]
     replaces = {"fused_dot_norms": "horovod_tpu/ops/pallas_kernels.py:117",
@@ -850,13 +948,24 @@ def main() -> int:
                 "tiled_matmul": "horovod_tpu/ops/fused_collectives.py:286"}
     kernels = []
     for name, m, launches, src in rows:
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"horovod_tpu_torch/csrc/{src}",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if "cuda_core_ms" in m:
+            # K4, K6: the tensor-core kernel's launches on the main path
+            # (all of them), the CUDA-core kernel's time at this shape,
+            # and both routes' times at WIDE_ATTN.
+            row.update(cores="tensor (wgmma, sm90)",
+                       sm90_launches=launches[name + "_sm90"],
+                       cuda_core_ms=m["cuda_core_ms"], d128=m["d128"])
+            require(launches[name + "_sm90"] == launches[name],
+                    f"{name}: {launches[name + '_sm90']} of "
+                    f"{launches[name]} launches on the tensor cores")
+        kernels.append(row)
         require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)

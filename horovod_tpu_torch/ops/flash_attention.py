@@ -12,12 +12,22 @@ Counterpart of `horovod_tpu/ops/flash_attention.py`:
   :427): dV = Σ_q pᵀ·dO, dK = Σ_q dsᵀ·Q; under GQA f32 partials per q
   head, summed over the group by the caller (`_Flash3.backward`).
 
-The kernels are CUDA C++ in `csrc/flash_attention.cu`, built with nvcc
-for sm_90a at first use (`_build.py`) and called through ctypes on
-PyTorch's current stream.  They read the public [B, T, H, D] layout in
-place.  A wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches its kernel or raises.  Each wrapper counts
-its launches in a plain integer attribute (`flash_fwd.launches`).
+The kernels are CUDA C++, built with nvcc for sm_90a at first use
+(`_build.py`) and called through ctypes on PyTorch's current stream.
+They read the public [B, T, H, D] layout in place.  K4 and K6 have two
+routes, fixed by dtype and D (`_sm90_route`): bf16 and f16 at D in {64,
+128} run the tensor-core kernels of `csrc/flash_attention_sm90.cu`
+(wgmma, TMA, a warp-specialised pipeline); f32 and every other D run
+the CUDA-core kernels of `csrc/flash_attention.cu`, as K5 always does.
+A caller may name K4's or K6's route (`sm90=False` runs the CUDA-core
+kernel at any dtype and D); naming the tensor cores where they do not
+apply raises.  A wrapper takes the plain version only for tensors on
+the CPU; for a CUDA tensor it launches its kernel or raises (a failed
+build or launch of either route raises; nothing falls back to the
+other).  Each wrapper
+counts its launches in a plain integer attribute (`flash_fwd.launches`),
+and K4 and K6 count those of the tensor-core route apart
+(`flash_fwd.sm90_launches`).
 
 Numerics, as in the JAX module: every product is formed from the input
 dtype's values and summed in f32; the online-softmax state and p, ds
@@ -27,9 +37,10 @@ The plain versions round at the same points but take each row's softmax
 over the whole row at once (per head, a dense [T, T] f32 score matrix).
 
 The port does not read HOROVOD_FLASH_BLOCK_Q/K: they size the TPU
-kernels' VMEM tiles, and the CUDA kernels fix their own tiles (64 rows;
-32 at D > 128 where shared memory runs short).  It does read
-HOROVOD_FLASH_ATTENTION and HOROVOD_FLASH_ATTENTION_MIN_T
+kernels' VMEM tiles, and the CUDA kernels fix their own tiles (CUDA
+cores: 64 rows, 32 at D > 128 where shared memory runs short; tensor
+cores: 128 resident rows, 128 keys (K4) or 64 queries (K6) per step).
+It does read HOROVOD_FLASH_ATTENTION and HOROVOD_FLASH_ATTENTION_MIN_T
 (`flash_routed`).
 """
 
@@ -50,23 +61,57 @@ _BLOCK = 128  # T must be a multiple of this, as in the JAX module
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 256
 
-_c_lib = None
+# Head widths of the tensor-core route: its tiles are 64 columns of
+# 16-bit values wide (one 128-byte swizzled row), so D is a multiple of
+# 64; 64 is the transformer's head width and 128 the other common one.
+# D = 256 would need K6's two f32 accumulators of 128 registers each per
+# thread, more than a thread has; it stays on the CUDA cores, as D = 32
+# (half a tile) does.
+_SM90_D = (64, 128)
+_c_libs = {}
+
+
+def _sm90_route(dtype, D: int) -> bool:
+    """Do K4 and K6 take the tensor-core kernels for `dtype` and head
+    width `D`?  bf16 and f16 at D in {64, 128} do.  f32 does not: the
+    tensor cores' only f32 path is TF32 (10 mantissa bits), which would
+    break the f32 contract and its 1e-4 tolerance.  Nor do other D
+    (`_SM90_D`).  Pure dispatch: the route is fixed by these two."""
+    return dtype in (torch.bfloat16, torch.float16) and D in _SM90_D
+
+
+_SHAPE = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# B T Hq Hkv D dtype causal window, scale, stream
 
 
 def _lib() -> ctypes.CDLL:
-    global _c_lib
-    if _c_lib is None:
+    """csrc/flash_attention.cu: K4, K5, K6 on the CUDA cores."""
+    lib = _c_libs.get("cuda_cores")
+    if lib is None:
         lib = _build.library("flash_attention")
-        p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        shape = [i32] * 5 + [i32, i32, i32, f32, p]  # B T Hq Hkv D, dtype..
-        lib.hvd_flash_fwd.argtypes = [p, p, p, p, p, p] + shape
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.hvd_flash_fwd.argtypes = [p] * 6 + _SHAPE
         lib.hvd_flash_fwd.restype = i32
-        lib.hvd_flash_bwd_dq.argtypes = [p] * 8 + shape
+        lib.hvd_flash_bwd_dq.argtypes = [p] * 8 + _SHAPE
         lib.hvd_flash_bwd_dq.restype = i32
-        lib.hvd_flash_bwd_dkv.argtypes = [p] * 9 + [i32] + shape
+        lib.hvd_flash_bwd_dkv.argtypes = [p] * 9 + [i32] + _SHAPE
         lib.hvd_flash_bwd_dkv.restype = i32
-        _c_lib = lib
-    return _c_lib
+        _c_libs["cuda_cores"] = lib
+    return lib
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    """csrc/flash_attention_sm90.cu: K4 and K6 on the tensor cores."""
+    lib = _c_libs.get("sm90")
+    if lib is None:
+        lib = _build.library("flash_attention_sm90")
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.hvd_flash_fwd_sm90.argtypes = [p] * 6 + _SHAPE
+        lib.hvd_flash_fwd_sm90.restype = i32
+        lib.hvd_flash_bwd_dkv_sm90.argtypes = [p] * 9 + [i32] + _SHAPE
+        lib.hvd_flash_bwd_dkv_sm90.restype = i32
+        _c_libs["sm90"] = lib
+    return lib
 
 
 def flash_routed(seq_len: int, device) -> bool:
@@ -279,23 +324,43 @@ def _raise_on(name: str, rc: int) -> None:
         raise HorovodTpuError(f"{name}: CUDA error {rc} at launch")
 
 
+def _route(name: str, q: torch.Tensor, sm90: Optional[bool]) -> bool:
+    """The route of K4 or K6 for q: `_sm90_route`'s unless `sm90` names
+    one.  Naming the tensor cores where they do not apply raises."""
+    fits = _sm90_route(q.dtype, q.shape[-1])
+    if sm90 is None:
+        return fits
+    if sm90 and not fits:
+        raise HorovodTpuError(
+            f"{name}: the tensor-core kernels take bfloat16 and float16 "
+            f"at D in {_SM90_D}, not {q.dtype} at D = {q.shape[-1]}")
+    return bool(sm90)
+
+
 def flash_fwd(q, k, v, causal: bool = True, window: Optional[int] = None,
-              seg=None):
-    """K4: (o [B, T, H, D] in q's dtype, lse [B, T, H] f32)."""
+              seg=None, *, sm90: Optional[bool] = None):
+    """K4: (o [B, T, H, D] in q's dtype, lse [B, T, H] f32).  `sm90`
+    names the route (default: `_sm90_route`'s); False runs the CUDA-core
+    kernel at any dtype and D, to set its time beside the other's."""
+    sm90 = _route("flash_fwd", q, sm90)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, window, seg)
     q, k, v = _on_card("flash_fwd", q, k, v)
     seg = _rows(seg, torch.int32)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _raise_on("flash_fwd", _lib().hvd_flash_fwd(
+    entry = (_lib_sm90().hvd_flash_fwd_sm90 if sm90
+             else _lib().hvd_flash_fwd)
+    _raise_on("flash_fwd", entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), o.data_ptr(),
         lse.data_ptr(), *_shape_args(q, k, causal, window, _stream(q))))
     flash_fwd.launches += 1
+    flash_fwd.sm90_launches += sm90
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.sm90_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
@@ -320,9 +385,11 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
-                  window: Optional[int] = None, seg=None):
+                  window: Optional[int] = None, seg=None, *,
+                  sm90: Optional[bool] = None):
     """K6: (dk, dv) per q head, [B, T, Hq, D]: f32 partials under GQA
-    (Hq > Hkv), else in k's dtype."""
+    (Hq > Hkv), else in k's dtype.  `sm90` as in `flash_fwd`."""
+    sm90 = _route("flash_bwd_dkv", q, sm90)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window,
                                    seg)
@@ -332,27 +399,39 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     out = torch.float32 if q.shape[2] > k.shape[2] else k.dtype
     dk = torch.empty(q.shape, dtype=out, device=q.device)
     dv = torch.empty(q.shape, dtype=out, device=q.device)
-    _raise_on("flash_bwd_dkv", _lib().hvd_flash_bwd_dkv(
+    entry = (_lib_sm90().hvd_flash_bwd_dkv_sm90 if sm90
+             else _lib().hvd_flash_bwd_dkv)
+    _raise_on("flash_bwd_dkv", entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg), dk.data_ptr(),
         dv.data_ptr(), _DTYPE_CODES[out],
         *_shape_args(q, k, causal, window, _stream(q))))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.sm90_launches += sm90
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.sm90_launches = 0
 
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+SM90_KERNELS = (flash_fwd, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in SM90_KERNELS:
+        fn.sm90_launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def sm90_launch_counts() -> dict:
+    """Launches of K4 and K6 that took the tensor-core route."""
+    return {fn.__name__: fn.sm90_launches for fn in SM90_KERNELS}
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,10 @@ from horovod_tpu_torch.synthetic_benchmark import param_digest, \
 
 
 def launch_counts() -> dict:
+    """Every kernel's launches, and as `<name>_sm90` those of K4 and K6
+    that took the tensor-core route."""
     return {**adasum_kernels.launch_counts(), **fa.launch_counts(),
+            **{f"{n}_sm90": c for n, c in fa.sm90_launch_counts().items()},
             **mk.launch_counts()}
 
 

@@ -130,15 +130,27 @@ def _rel(got, want):
                  / want.float().abs().max())
 
 
+def _row_rel(got, want):
+    """Largest error of a row (the last dim) relative to that row's size,
+    floored at 2^-8 of the rows' RMS size (as chip_smoke.py)."""
+    got, want = got.double(), want.double()
+    size = want.norm(dim=-1)
+    floor = 2 ** -8 * float(size.square().mean().sqrt())
+    return float(((got - want).norm(dim=-1) / size.clamp_min(floor)).max())
+
+
 @pytest.mark.parametrize("case", [
     # (B, T, Hq, Hkv, D, causal, window, segments)
     (2, 256, 4, 4, 64, True, None, 0), (1, 384, 4, 4, 64, False, None, 0),
     (1, 512, 4, 4, 32, True, 128, 0), (2, 256, 8, 2, 64, True, None, 0),
     (1, 256, 4, 1, 128, True, None, 0), (2, 256, 4, 4, 64, True, None, 3),
-    (1, 256, 2, 2, 256, False, None, 2), (1, 128, 2, 2, 24, True, 50, 0)])
+    (1, 256, 2, 2, 256, False, None, 2), (1, 128, 2, 2, 24, True, 50, 0),
+    (1, 2048, 4, 4, 128, True, None, 0), (2, 512, 8, 2, 64, True, 200, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_kernels_match_plain(cuda, case, dtype):
+    """bf16 and f16 at D in {64, 128} take the tensor-core K4 and K6
+    (their sm90 counts grow); f32 and other D the CUDA-core ones."""
     B, T, Hq, Hkv, D, causal, window, n_seg = case
     g = torch.Generator(device=cuda).manual_seed(T + D)
     q, do = (torch.randn((B, T, Hq, D), generator=g, device=cuda).to(dtype)
@@ -150,6 +162,7 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         seg = torch.sort(torch.randint(0, n_seg, (B, T), generator=g,
                                        device=cuda), 1)[0].int()
     before = FA.launch_counts()
+    sm90_before = FA.sm90_launch_counts()
     o, lse = FA.flash_fwd(q, k, v, causal, window, seg)
     po, plse = FA.flash_fwd_plain(q, k, v, causal, window, seg)
     delta = (do.float() * po.float()).sum(-1) - 0.5
@@ -160,11 +173,40 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                       window, seg)
     torch.cuda.synchronize()
     assert FA.launch_counts() == {n: c + 1 for n, c in before.items()}
+    sm90 = dtype != torch.float32 and D in (64, 128)
+    assert FA.sm90_launch_counts() == {n: c + sm90
+                                       for n, c in sm90_before.items()}
     assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
     assert dk.dtype == (dtype if Hq == Hkv else torch.float32)
     assert _rel(lse, plse) <= 1e-5
     for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
         assert _rel(got, want) <= FLASH_TOL[dtype]
+        assert _row_rel(got, want) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_core_route_named_at_a_tensor_core_shape(cuda, D):
+    """`sm90=False` runs the CUDA-core K4 and K6 at bf16 (whose route is
+    the tensor cores by default): within the same limits of the plain
+    versions, counted as launches but not as tensor-core ones."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = (torch.randn((1, 512, 4, D), generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    before = FA.launch_counts()
+    sm90_before = FA.sm90_launch_counts()
+    o, lse = FA.flash_fwd(q, k, v, sm90=False)
+    po, plse = FA.flash_fwd_plain(q, k, v)
+    delta = (do.float() * po.float()).sum(-1)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, sm90=False)
+    pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta)
+    torch.cuda.synchronize()
+    assert FA.sm90_launch_counts() == sm90_before
+    assert FA.launch_counts()["flash_fwd"] == before["flash_fwd"] + 1
+    assert FA.launch_counts()["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert _rel(lse, plse) <= 1e-5
+    for got, want in ((o, po), (dk, pdk), (dv, pdv)):
+        assert _rel(got, want) <= FLASH_TOL[torch.bfloat16]
+        assert _row_rel(got, want) <= FLASH_TOL[torch.bfloat16]
 
 
 def test_flash_attention_lse_gradients_on_the_card_match_the_cpu(cuda):
@@ -186,10 +228,12 @@ def test_flash_attention_lse_gradients_on_the_card_match_the_cpu(cuda):
 
 
 def test_flash_kernel_results_are_reproducible(cuda):
-    """No atomics: the same inputs give the same bits every launch."""
+    """No atomics: the same inputs give the same bits every launch (bf16,
+    D = 64: K4 and K6 on the tensor-core route)."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, do = (torch.randn((1, 1024, 8, 64), generator=g, device=cuda)
                    .bfloat16() for _ in range(4))
+    sm90_before = FA.sm90_launch_counts()
     o, lse = FA.flash_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     first = (o, FA.flash_bwd_dq(q, k, v, do, lse, delta),
@@ -199,6 +243,8 @@ def test_flash_kernel_results_are_reproducible(cuda):
         again = (o2, FA.flash_bwd_dq(q, k, v, do, lse, delta),
                  *FA.flash_bwd_dkv(q, k, v, do, lse, delta))
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert FA.sm90_launch_counts() == {n: c + 4
+                                       for n, c in sm90_before.items()}
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

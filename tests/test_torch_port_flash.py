@@ -128,6 +128,61 @@ def test_wrapper_refuses_a_tensor_neither_on_the_cpu_nor_on_a_card():
             fn(*args)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [24, 32, 40, 64, 128, 256])
+def test_sm90_route_is_fixed_by_dtype_and_head_width(dtype, D):
+    """bf16 and f16 at D in {64, 128} take the tensor-core K4 and K6;
+    f32 (TF32 would break its contract) and every other D do not."""
+    want = dtype != torch.float32 and D in (64, 128)
+    assert FA._sm90_route(dtype, D) is want
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.float16, 128)])
+def test_sm90_wrappers_raise_without_a_card(dtype, D):
+    """A tensor that is neither on the CPU nor on a card raises before
+    any route is taken; nothing counts as launched."""
+    before = (FA.launch_counts(), FA.sm90_launch_counts())
+    q = torch.zeros((1, 128, 2, D), dtype=dtype, device="meta")
+    lse = torch.zeros((1, 128, 2), device="meta")
+    for fn, args in ((FA.flash_fwd, (q, q, q)),
+                     (FA.flash_bwd_dkv, (q, q, q, q, lse, lse))):
+        with pytest.raises(HorovodTpuError, match="CUDA"):
+            fn(*args)
+    assert (FA.launch_counts(), FA.sm90_launch_counts()) == before
+
+
+def test_cpu_bf16_takes_the_plain_versions_on_either_route():
+    """On the CPU the wrappers run the plain versions whatever the route
+    of the dtype and D would be on a card: no launch of either kind."""
+    before = (FA.launch_counts(), FA.sm90_launch_counts())
+    q, k, v, *_ = _inputs(1, 128, 2, 2, 64, 0, seed=6)
+    q, k, v = (torch.tensor(x, dtype=torch.bfloat16, requires_grad=True)
+               for x in (q, k, v))
+    FA.flash_attention(q, k, v).float().sum().backward()
+    assert (FA.launch_counts(), FA.sm90_launch_counts()) == before
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 40),
+                                     (torch.float16, 256)])
+def test_naming_the_tensor_cores_where_they_do_not_apply_raises(dtype, D):
+    """`sm90=True` outside bf16 / f16 at D in {64, 128} raises, on the
+    CPU as on a card, and launches nothing; `sm90=False` names the
+    CUDA-core route, which on the CPU is the plain version."""
+    before = (FA.launch_counts(), FA.sm90_launch_counts())
+    q = torch.zeros((1, 128, 2, D), dtype=dtype)
+    lse = torch.zeros((1, 128, 2))
+    for fn, args in ((FA.flash_fwd, (q, q, q)),
+                     (FA.flash_bwd_dkv, (q, q, q, q, lse, lse))):
+        with pytest.raises(HorovodTpuError, match="tensor-core"):
+            fn(*args, sm90=True)
+    o, _ = FA.flash_fwd(q, q, q, sm90=False)
+    assert torch.equal(o, FA.flash_fwd_plain(q, q, q)[0])
+    assert (FA.launch_counts(), FA.sm90_launch_counts()) == before
+
+
 # Argument errors: each must raise ValueError on both sides.
 BAD = {
     "kv_shape": dict(k=(1, 128, 2, 32), v=(1, 128, 1, 32)),

@@ -164,7 +164,7 @@ def test_blocks_per_row_depends_on_n_only(n, es, want):
 def test_build_targets_hopper_and_lists_every_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.sources() == ["adasum_kernels", "flash_attention",
-                                "tiled_matmul"]
+                                "flash_attention_sm90", "tiled_matmul"]
     for name in _build.sources():
         path = _build._library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")

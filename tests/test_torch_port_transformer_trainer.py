@@ -168,7 +168,11 @@ def test_the_trainer_on_two_cpu_ranks(tmp_path):
         assert r0["digest"] == r1["digest"]
         assert set(r0["launches"]) == {"fused_dot_norms", "fused_scaled_add",
                                        "flash_fwd", "flash_bwd_dq",
-                                       "flash_bwd_dkv", "tiled_matmul"}
+                                       "flash_bwd_dkv", "tiled_matmul",
+                                       "flash_fwd_sm90",
+                                       "flash_bwd_dkv_sm90"}
+        # The CPU runs the plain versions: no kernel launched.
+        assert not any(r0["launches"].values())
     check = steps[0][1]
     assert check["plain_loss"] == check["loss"]
     assert check["plain_logits_rel"] == 0.0
