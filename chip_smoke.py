@@ -17,21 +17,24 @@ Phases, each printing its own lines:
                  window, GQA, MQA, segment-id, lse-cotangent cases, D in
                  {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to
                  16384 (bf16 and f16 at D 64 and 128 on the tensor-core
-                 K4 and K6 of flash_attention_sm90.cu, the rest on the
-                 CUDA-core kernels of flash_attention.cu, each case
+                 K4, K5 and K6 of flash_attention_sm90.cu, the rest on
+                 the CUDA-core kernels of flash_attention.cu, each case
                  checking which route ran), each output held to its
                  plain version both against its largest value and row
                  by row; then forward and backward timed at the
                  transformer's shape (1, 16384, 8, 64) and at the same
                  width in 128-wide heads (1, 16384, 4, 128), bf16
                  causal, beside F.scaled_dot_product_attention and the
-                 CUDA-core K4 and K6 at the same shapes (each must be
-                 the slower); the tiled matmul K3 in f32, bf16 and f16
+                 CUDA-core K4, K5 and K6 at the same shapes (each must
+                 be the slower); the tiled matmul K3 in f32, bf16 and f16
                  at the ZeRO-3 head's chunk shapes
                  (16384, 512) @ (512, 512 / 256 / 128) and at unaligned
-                 ones (M, N, K off multiples of 128, K over several
-                 tiles, 1x1x1, a column band of a wider output), then
-                 timed at the head chunk beside torch.matmul (TF32 off);
+                 ones (M, N, K off multiples of 128 and of K3's 32-deep
+                 stage, 1x1x1, a column band of a wider output), on both
+                 load paths (a base one element off, an operand strided
+                 along K and an odd ldc take the strided one; each case
+                 checks which ran), then timed at the head chunk beside
+                 torch.matmul (TF32 off) and on the strided path;
 4. train_adasum  main path 1: two ranks share the card over gloo and run
                  `python -m horovod_tpu_torch.synthetic_benchmark
                  --use-adasum` on full-width ResNet-50 (25,557,032 params,
@@ -49,8 +52,8 @@ Phases, each printing its own lines:
                  batch 1 per rank, bf16, DistributedOptimizer(AdamW),
                  op=Average, 3 steps after broadcast_parameters: finite
                  losses, one digest per step, K4, K5 and K6 each launched
-                 n_layers times per step on each rank (every K4 and K6
-                 launch on the tensor-core route), and on one step
+                 n_layers times per step on each rank (every one on the
+                 tensor-core route), and on one step
                  rank 0's logits with the plain attention within
                  LOGITS_RTOL (and those of the plain attention made
                  non-causal, a fault, beyond it), its loss within
@@ -64,14 +67,16 @@ Phases, each printing its own lines:
                  steps and one held-out forward whose tied head is
                  `gather_matmul`: finite losses within LOSS_TOL of phase
                  6's (stage 0, same seeds and data), one digest per step,
-                 K4-K6 n_layers launches per step (K4 and K6 all on the
+                 K4-K6 n_layers launches per step (all on the
                  tensor-core route), resident parameters at
                  most half the full bytes plus one pad element per group,
                  and in the eval forward exactly 64 K3 launches per rank,
+                 all on the vector load path,
                  logits within K3_RTOL (f32) of the plain head, a finite
                  eval loss;
 9. zero3_nccl    one rank on NCCL at stage 3: tok/sec beside phase 7's,
-                 63 K3 launches in its eval forward.
+                 63 K3 launches in its eval forward, all on the vector
+                 load path.
 
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
@@ -145,9 +150,10 @@ LOGITS_RTOL = 5e-2
 ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
 MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
 WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
-# K4-K6 per step per rank at 8 layers, K4 and K6 all on the tensor cores.
+# K4-K6 per step per rank at 8 layers, all on the tensor cores.
 FLASH_GROW = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
-              "flash_fwd_sm90": 8, "flash_bwd_dkv_sm90": 8}
+              "flash_fwd_sm90": 8, "flash_bwd_dq_sm90": 8,
+              "flash_bwd_dkv_sm90": 8}
 
 
 def require(ok: bool, msg) -> None:
@@ -316,8 +322,8 @@ def _row_err(got, want) -> float:
 def _check_flash_case(FA, case, gen, dev, sm90=None) -> dict:
     """K4, K5, K6 on one case against their plain versions, fed the same
     inputs (the backward kernels the plain lse, and a delta with a
-    nonzero lse cotangent folded in), K4 and K6 on the route `sm90`
-    names (default: the wrappers' own).  Every output within the
+    nonzero lse cotangent folded in), each on the route `sm90` names
+    (default: the wrappers' own).  Every output within the
     dtype's FLASH_RTOL of its largest value and, row by row, of each
     row's size.  Returns each kernel's largest absolute error."""
     import torch
@@ -332,7 +338,8 @@ def _check_flash_case(FA, case, gen, dev, sm90=None) -> dict:
     po, plse = FA.flash_fwd_plain(q, k, v, causal, window, seg)
     dlse = torch.randn(plse.shape, generator=gen, device=dev)
     delta = (do.float() * po.float()).sum(-1) - dlse
-    dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, causal, window, seg)
+    dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, causal, window, seg,
+                         sm90=sm90)
     pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta, causal, window, seg)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, causal, window, seg,
                               sm90=sm90)
@@ -344,7 +351,7 @@ def _check_flash_case(FA, case, gen, dev, sm90=None) -> dict:
     errs = {n: _rel_err(*p) for n, p in pairs.items()}
     rows = {n: _row_err(*p) for n, p in pairs.items()}
     lse_err = _rel_err(lse, plse)
-    log("kernels", f"flash {label} [K4, K6 on the "
+    log("kernels", f"flash {label} [K4-K6 on the "
         f"{'tensor' if routed else 'CUDA'} cores]: relative errors "
         + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
         + f" lse={lse_err:.2e}; by row "
@@ -352,7 +359,7 @@ def _check_flash_case(FA, case, gen, dev, sm90=None) -> dict:
         + f" (tol {tol:.2e}, lse {LSE_RTOL})")
     require(FA.sm90_launch_counts() == {n: c + routed for n, c in
                                         sm90_before.items()},
-            f"flash {label}: K4 and K6 took the wrong route (tensor cores "
+            f"flash {label}: K4-K6 took the wrong route (tensor cores "
             f"expected: {routed})")
     for name in pairs:
         require(math.isfinite(errs[name]) and errs[name] <= tol,
@@ -411,7 +418,7 @@ def _flash_work(shape, element_size):
 
 def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
     """K4, K5, K6 at a bf16 causal [B, T, H, D], each timed alone (10
-    launches after 2), K4 and K6 on both routes; one PyTorch call of the
+    launches after 2), on both routes; one PyTorch call of the
     same function (F.scaled_dot_product_attention forward, and its
     backward for dq, dk and dv at once); the plain versions (3 calls
     after 1) where `with_plain`; the bound."""
@@ -429,7 +436,9 @@ def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
             lambda: FA.flash_fwd(q, k, v, True, sm90=False),
             lambda: FA.flash_fwd_plain(q, k, v, True)),
         "flash_bwd_dq": (
-            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True), None,
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True,
+                                    sm90=False),
             lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
         "flash_bwd_dkv": (
             lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True),
@@ -460,17 +469,16 @@ def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
         if with_plain:
             r["plain_ms"] = cuda_time_ms(plain, iters=3, warmup=1)
             line += f" plain_ms={r['plain_ms']:.4f}"
-        if cuda_core is not None:
-            r["cuda_core_ms"] = cuda_time_ms(cuda_core, iters=10, warmup=2)
-            line += (f"; tensor cores (flash_attention_sm90.cu), the CUDA-"
-                     f"core kernel at this shape ms={r['cuda_core_ms']:.4f} "
-                     f"({r['cuda_core_ms'] / r['ms']:.1f}x)")
-            # The route `_sm90_route` fixes for bf16 at this D must be the
-            # faster one.
-            require(r["ms"] < r["cuda_core_ms"],
-                    f"{name} {shape}: the tensor-core kernel "
-                    f"({r['ms']:.4f} ms) is not faster than the CUDA-core "
-                    f"one ({r['cuda_core_ms']:.4f} ms)")
+        r["cuda_core_ms"] = cuda_time_ms(cuda_core, iters=10, warmup=2)
+        line += (f"; tensor cores (flash_attention_sm90.cu), the CUDA-core "
+                 f"kernel at this shape ms={r['cuda_core_ms']:.4f} "
+                 f"({r['cuda_core_ms'] / r['ms']:.1f}x)")
+        # The route `_sm90_route` fixes for bf16 at this D must be the
+        # faster one.
+        require(r["ms"] < r["cuda_core_ms"],
+                f"{name} {shape}: the tensor-core kernel ({r['ms']:.4f} ms) "
+                f"is not faster than the CUDA-core one "
+                f"({r['cuda_core_ms']:.4f} ms)")
         log("kernels", line)
         results[name] = r
     # The library's backward computes dq, dk and dv in one call: both
@@ -511,7 +519,7 @@ def check_flash(FA):
         _check_flash_case(FA, case, gen, dev)
     _check_flash_autograd(FA, gen, dev)
 
-    # At the two timed shapes, K4 and K6 on both routes against the plain
+    # At the two timed shapes, K4-K6 on both routes against the plain
     # versions before they are timed.
     def both_routes(shape):
         B, T, H, D = shape
@@ -529,33 +537,92 @@ def check_flash(FA):
     return results
 
 
+def _k3_case(gen, dev, mm, kk, nn, dtype, layout):
+    """Operands of one K3 case: a (mm, kk), b = w.t() for a (nn, kk)
+    weight band (as `fused_allgather_matmul` hands them) and the output,
+    laid out as `layout` says: "head" (a, w and the output contiguous),
+    "band" (the output the first nn columns of a wider one whose row
+    pitch is a multiple of 4), "offset" (a's base one element past an
+    aligned one), "k_strided" (a stored K-major, so that its rows are
+    strided along K), "odd_ldc" (the output the first nn columns of one
+    2 nn + 1 wide)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    a, w = randn(mm, kk), randn(nn, kk)
+    out = torch.zeros((mm, nn), dtype=dtype, device=dev)
+    if layout == "band":
+        out = torch.zeros((mm, nn + 4 - nn % 4), dtype=dtype,
+                          device=dev)[:, :nn]
+    elif layout == "offset":
+        a = randn(mm * kk + 1)[1:].view(mm, kk)
+    elif layout == "k_strided":
+        a = randn(kk, mm).t()
+    elif layout == "odd_ldc":
+        out = torch.zeros((mm, 2 * nn + 1), dtype=dtype, device=dev)[:, :nn]
+    return a, w.t(), out
+
+
 def check_k3(MK):
     """K3 against its plain version at the ZeRO-3 head's chunk shapes and
-    at unaligned ones, then timed at the head chunk.  b is the transposed
-    view of a (N, K) weight band, as `fused_allgather_matmul` hands it."""
+    at unaligned ones, on both load paths (each case checks which one
+    ran: `vector_path`), then timed at the head chunk.  b is the
+    transposed view of a (N, K) weight band, as `fused_allgather_matmul`
+    hands it."""
     import torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(777)
     m, k, n = HEAD_CHUNK
-    shapes = [(m, k, n), (m, k, 256), (m, k, 128), (200, 300, 130),
-              (129, 257, 3), (7, 1000, 513), (1, 1, 1)]
+    # (M, K, N, layout, vector path in f32, in bf16 / f16): the head's
+    # chunks; K off the kernel's 32-deep stage (304: a 16-deep tail; 300,
+    # whose 16-bit rows are not 16-byte multiples); row pitches off 16
+    # bytes (257); ldc off 4 (3, 513); 1x1x1; N off 4 into a band whose
+    # pitch is a multiple of 4; then a base one element off, an operand
+    # strided along K and an odd ldc, each at two sizes.
+    cases = [(m, k, n, "head", True, True), (m, k, 256, "head", True, True),
+             (m, k, 128, "head", True, True),
+             (200, 304, 132, "head", True, True),
+             (200, 300, 132, "head", True, False),
+             (129, 257, 3, "head", False, False),
+             (7, 1000, 512, "head", True, True),
+             (7, 1000, 513, "head", False, False),
+             (1, 1, 1, "head", True, True),
+             (300, 512, 130, "band", True, True)]
+    cases += [(mm, kk, nn, layout, False, False)
+              for layout in ("offset", "k_strided", "odd_ldc")
+              for (mm, kk, nn) in ((300, 512, 256), (129, 96, 77))]
     errs = {}
-    for (mm, kk, nn) in shapes:
+    for (mm, kk, nn, layout, vec32, vec16) in cases:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            a = torch.randn((mm, kk), generator=gen, device=dev).to(dtype)
-            w = torch.randn((nn, kk), generator=gen, device=dev).to(dtype)
-            got = MK.tiled_matmul(a, w.t())
-            want = MK.tiled_matmul_plain(a, w.t())
+            a, b, c = _k3_case(gen, dev, mm, kk, nn, dtype, layout)
+            vec = MK.vector_path(
+                a.element_size(), mm, nn, kk, a.data_ptr(), a.stride(0),
+                a.stride(1), b.data_ptr(), b.stride(0), b.stride(1),
+                c.data_ptr(), c.stride(0) if mm > 1 else nn)
+            require(vec == (vec32 if dtype == torch.float32 else vec16),
+                    f"K3 ({mm}, {kk}) @ ({kk}, {nn}) {dtype} {layout}: "
+                    f"vector path {vec}")
+            before = MK.tiled_matmul.strided_launches
+            got = MK.tiled_matmul(a, b, out=c)
+            want = MK.tiled_matmul_plain(a, b)
             torch.cuda.synchronize()
+            require(MK.tiled_matmul.strided_launches - before == (not vec),
+                    f"K3 {layout}: the strided path ran "
+                    f"{MK.tiled_matmul.strided_launches - before} times")
             tol = K3_RTOL[str(dtype)]
             rel = _rel_err(got, want)
             require(got.dtype == dtype and math.isfinite(rel) and rel <= tol,
-                    f"K3 ({mm}, {kk}) @ ({kk}, {nn}) {dtype}: {rel} > {tol}")
+                    f"K3 ({mm}, {kk}) @ ({kk}, {nn}) {dtype} {layout}: "
+                    f"{rel} > {tol}")
             if (mm, kk, nn) == HEAD_CHUNK and dtype == torch.float32:
                 errs["max_abs_err"] = float((got - want).abs().max())
             log("kernels", f"tiled_matmul ({mm}, {kk}) @ ({kk}, {nn}) "
-                f"{str(dtype)[6:]}: relative error {rel:.2e} (tol {tol:.2e})")
+                f"{str(dtype)[6:]} {layout}, "
+                f"{'vector' if vec else 'strided'} path: relative error "
+                f"{rel:.2e} (tol {tol:.2e})")
     # Into a column band of a wider output, as the fused head writes it.
     a = torch.randn((300, 384), generator=gen, device=dev)
     w = torch.randn((130, 384), generator=gen, device=dev)
@@ -575,16 +642,20 @@ def check_k3(MK):
     plain_ms = cuda_time_ms(lambda: MK.tiled_matmul_plain(a, b))
     # One library call of the same function: cuBLAS SGEMM (TF32 off).
     lib_ms = cuda_time_ms(lambda: torch.matmul(a, b))
+    # The strided path at the same shape: a's base one element off.
+    a_off = torch.empty((m * k + 1,), device=dev)[1:].view(m, k).copy_(a)
+    strided_ms = cuda_time_ms(lambda: MK.tiled_matmul(a_off, b))
     bound = bound_ms(4 * (m * k + k * n + m * n), 2 * m * n * k)
     log("kernels", f"tiled_matmul {HEAD_CHUNK[0]}x{k} @ {k}x{n} f32: "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-        f"bound_ms={bound[0]:.4f} ({bound[1]}) "
-        f"max_abs_err={errs['max_abs_err']:.3g}")
-    del a, w, b, wide, got, want
+        f"bound_ms={bound[0]:.4f} ({bound[1]}, {bound[0] / ms:.1%} of it) "
+        f"max_abs_err={errs['max_abs_err']:.3g}; the strided path "
+        f"ms={strided_ms:.4f}")
+    del a, w, b, wide, got, want, a_off
     torch.cuda.empty_cache()
     return {"tiled_matmul": dict(errs, ms=ms, plain_ms=plain_ms,
                                  library_ms=lib_ms, bound_ms=bound[0],
-                                 bound_by=bound[1])}
+                                 bound_by=bound[1], strided_ms=strided_ms)}
 
 
 # ---------------------------------------------------------------------------
@@ -814,9 +885,11 @@ def train_zero3(stage0):
         require(s["param_resident_bytes"] <= cap,
                 f"rank {r}: resident {s['param_resident_bytes']} > {cap}")
         (ev,) = s["evals"]
-        require(ev["k3_launches"] == 64 and ev["k3_plain_calls"] == 0,
+        require(ev["k3_launches"] == 64 and ev["k3_plain_calls"] == 0
+                and ev["k3_strided_launches"] == 0,
                 f"rank {r}: eval forward launched K3 {ev['k3_launches']} "
-                "times (want 64)")
+                f"times (want 64), {ev['k3_strided_launches']} on the "
+                "strided path (want 0)")
         require(ev["eval_logits_rel"] <= tol and
                 math.isfinite(ev["eval_loss"]),
                 f"rank {r}: eval logits vs the plain head "
@@ -827,7 +900,8 @@ def train_zero3(stage0):
             f"{s['param_resident_bytes']} of {s['param_full_bytes']} bytes "
             f"in {s['shard_groups']} shard groups; optimizer state "
             f"{s['opt_state_bytes']} bytes; eval forward: K3 launches "
-            f"{ev['k3_launches']}, logits vs plain head "
+            f"{ev['k3_launches']} (strided path "
+            f"{ev['k3_strided_launches']}), logits vs plain head "
             f"{ev['eval_logits_rel']:.3g} (tol {tol}), loss "
             f"{ev['eval_loss']:.4f}; launches {s['launches']}")
     return summaries
@@ -842,15 +916,18 @@ def zero3_nccl(stage0):
         env=ZERO3_ENV)
     require(s["backend"] == "nccl", s)
     (ev,) = s["evals"]
-    require(ev["k3_launches"] == 63 and math.isfinite(ev["eval_loss"]),
-            f"eval forward launched K3 {ev['k3_launches']} times (want 63)")
+    require(ev["k3_launches"] == 63 and ev["k3_strided_launches"] == 0
+            and math.isfinite(ev["eval_loss"]),
+            f"eval forward launched K3 {ev['k3_launches']} times (want 63), "
+            f"{ev['k3_strided_launches']} on the strided path (want 0)")
     log("zero3_nccl", f"{s['tok_sec_per_rank']:.1f} tok/sec "
         f"(+- {1.96 * s['tok_sec_std']:.1f}) at stage 3 against "
         f"{stage0['tok_sec_per_rank']:.1f} (+- "
         f"{1.96 * stage0['tok_sec_std']:.1f}) at stage 0, T 16384, one "
         f"rank; peak memory {s['peak_mem_gb']:.2f} GB (stage 0 "
         f"{stage0['peak_mem_gb']:.2f}); eval forward K3 launches "
-        f"{ev['k3_launches']}, loss {ev['eval_loss']:.4f}")
+        f"{ev['k3_launches']} (strided path {ev['k3_strided_launches']}), "
+        f"loss {ev['eval_loss']:.4f}")
     return s
 
 
@@ -934,10 +1011,11 @@ def main() -> int:
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")
             for fn in K.KERNELS]
+    # The main path's bf16 flash kernels at D = 64 are the tensor-core
+    # ones (each row below requires all its launches there).
     rows += [(fn.__name__, flash[fn.__name__],
-              transformer_summaries[0]["launches"],
-              "flash_attention_sm90.cu" if fn in FA.SM90_KERNELS
-              else "flash_attention.cu") for fn in FA.KERNELS]
+              transformer_summaries[0]["launches"], "flash_attention_sm90.cu")
+             for fn in FA.KERNELS]
     rows += [(fn.__name__, k3[fn.__name__], zero3_summaries[0]["launches"],
               "tiled_matmul.cu") for fn in MK.KERNELS]
     replaces = {"fused_dot_norms": "horovod_tpu/ops/pallas_kernels.py:117",
@@ -956,7 +1034,7 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
         if "cuda_core_ms" in m:
-            # K4, K6: the tensor-core kernel's launches on the main path
+            # K4-K6: the tensor-core kernel's launches on the main path
             # (all of them), the CUDA-core kernel's time at this shape,
             # and both routes' times at WIDE_ATTN.
             row.update(cores="tensor (wgmma, sm90)",
@@ -965,6 +1043,12 @@ def main() -> int:
             require(launches[name + "_sm90"] == launches[name],
                     f"{name}: {launches[name + '_sm90']} of "
                     f"{launches[name]} launches on the tensor cores")
+        if name == "tiled_matmul":
+            # The launches of the main path's eval forward that took the
+            # strided load path (train_zero3 and zero3_nccl require 0),
+            # and that path's time at the head chunk.
+            row.update(strided_launches=zero3_summaries[0]["evals"][0][
+                "k3_strided_launches"], strided_ms=m["strided_ms"])
         kernels.append(row)
         require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")

@@ -1,56 +1,71 @@
-// Flash attention K4 (forward) and K6 (dk, dv) on Hopper's tensor cores
-// (sm_90a: wgmma, TMA, mbarriers), for bf16 and f16 inputs at
+// Flash attention K4 (forward), K5 (dq) and K6 (dk, dv) on Hopper's tensor
+// cores (sm_90a: wgmma, TMA, mbarriers), for bf16 and f16 inputs at
 // D in {64, 128}, with a plain C interface loaded through ctypes
 // (horovod_tpu_torch/ops/flash_attention.py routes to these entries by
 // dtype and D; f32 and the other D take csrc/flash_attention.cu).
 //
 // K4 hvd_flash_fwd_sm90 replaces horovod_tpu/ops/flash_attention.py _fwd
 //    (_fwd_kernel): online softmax in f32; o in q's dtype, lse in f32.
+// K5 hvd_flash_bwd_dq_sm90 replaces _bwd's dq kernel (_bwd_dq_kernel):
+//    p = exp(s - lse), ds = p (dp - delta) scale, dQ = sum_k ds K; dq is
+//    per q head, so GQA needs no partials.
 // K6 hvd_flash_bwd_dkv_sm90 replaces _bwd's dk/dv kernel
 //    (_bwd_dkv_kernel): dV = sum_q p^T dO, dK = sum_q ds^T Q, f32 partials
 //    per q head under GQA (summed by the caller: no atomics).
 //
-// The contract is that of csrc/flash_attention.cu: q, k, v, dO, o, dk, dv
-// are contiguous [B, T, H, D], read in place; lse and delta [B, T, Hq] f32;
-// segment ids [B, T] int32 or null; T % 128 == 0.  Every product is of two
-// input-dtype values, summed in f32 (wgmma .f32.bf16.bf16 / .f32.f16.f16:
-// a 16-bit product is exact in f32, so only the order of the sums
-// differs); masked scores are -1e30; p is rounded to v's dtype before P.V
-// (K4), p to dO's and ds to q's dtype for dV and dK (K6); the outputs are
-// rounded once at the end.  The softmax runs in the log2 domain (scores
-// times scale * log2(e), ex2), the same function up to f32 rounding.
+// The contract is that of csrc/flash_attention.cu: q, k, v, dO, o, dq, dk,
+// dv are contiguous [B, T, H, D], read in place; lse and delta [B, T, Hq]
+// f32; segment ids [B, T] int32 or null; T % 128 == 0.  Every product is
+// of two input-dtype values, summed in f32 (wgmma .f32.bf16.bf16 /
+// .f32.f16.f16: a 16-bit product is exact in f32, so only the order of the
+// sums differs); masked scores are -1e30; p is rounded to v's dtype before
+// P.V (K4), ds to k's dtype for dQ (K5), p to dO's and ds to q's dtype for
+// dV and dK (K6); the outputs are rounded once at the end.  The softmax
+// runs in the log2 domain (scores times scale * log2(e), ex2), the same
+// function up to f32 rounding.
 //
 // What bounds them: at the main shape (1, 16384, 8, 64) causal, K4 does
-// 4 * D flops per unmasked (query, key) pair and K6 8 * D against a few MB
-// of inputs: operations, at the tensor cores' 989 TFLOP/s (bf16, f16).
-// The design feeds the tensor cores from shared memory without the CUDA
-// cores touching the operands:
+// 4 * D flops per unmasked (query, key) pair, K5 6 * D and K6 8 * D against
+// a few MB of inputs: operations, at the tensor cores' 989 TFLOP/s (bf16,
+// f16).  The design feeds the tensor cores from shared memory without the
+// CUDA cores touching the operands:
 //
-// - A CTA owns 128 rows (K4: queries; K6: keys): two consumer warpgroups
-//   of 64 rows each and one producer warp, 288 threads.  ptxas gives each
-//   thread at most 168 registers (three warps share a quarter of the SM's
-//   register file), as it did with a producer warpgroup and setmaxnreg;
-//   at D = 128 both kernels spill and serialize their wgmmas (PERF.md).
+// - A CTA owns 128 rows (K4, K5: queries; K6: keys): two consumer
+//   warpgroups of 64 rows each and one producer warp, 288 threads.  ptxas
+//   gives each thread at most 168 registers (three warps share a quarter
+//   of the SM's register file), as it did with a producer warpgroup and
+//   setmaxnreg; at D = 128 K4 and K6 spill and serialize their wgmmas
+//   (PERF.md).
 // - TMA loads every tile.  A 4-D tensor map (D, H, T, B) with a box of
 //   (64, 1, rows, 1) lands one head's rows as a [rows][64] tile, swizzled
 //   by 128 bytes (one 64-wide row of 16-bit values); D = 128 takes two
-//   such tiles side by side.  The 128 resident rows are loaded once; the
-//   walked tiles (K4: K and V, BK = 128 keys; K6: Q and dO, 64 queries,
-//   with their lse, delta and segment ids) flow through a ring of three
-//   stages (two for K4 at D = 128, where shared memory runs short) with
-//   full and empty mbarriers.
+//   such tiles side by side.  The 128 resident rows are loaded once (K5:
+//   Q and dO); the walked tiles (K4: K and V, BK = 128 keys; K5: K and V,
+//   64 keys, with their segment ids; K6: Q and dO, 64 queries, with their
+//   lse, delta and segment ids) flow through a ring of three stages (K5:
+//   four; K4 at D = 128: two, where shared memory runs short) with full
+//   and empty mbarriers.
 // - K4's consumers issue their tile products in batches: turn i holds the
 //   scores of tile i with the P.V product of tile i - 1, and the two
 //   consumers take turns (named barriers), so one warpgroup's batch runs
 //   on the tensor cores while the other computes its softmax on the CUDA
-//   cores.  K6 issues and waits per product: batched, its two more
-//   accumulator sets overran the registers and it measured slower.
+//   cores.  K5 and K6 wait for each tile's products before they use them:
+//   batched, K6's two more accumulator sets overran the registers and it
+//   measured slower, and K5 carrying dQ of one tile beside the scores of
+//   the next measured slower too.
 // - K4: S = Q K^T by wgmma m64n128k16 with both operands in shared memory
 //   (K-major); the online softmax in registers, row max and sum reduced
 //   across the four threads of a quad; p rounded in registers and packed
 //   from the accumulator layout straight into wgmma's A-fragment layout;
 //   O += P V by wgmma with P in registers and V in shared memory read
 //   MN-major (the transpose bit of a 16-bit wgmma).
+// - K5: S = Q K^T and dP = dO V^T (m64n64, shared-memory operands, two
+//   wgmma groups: P's exponentials run while dP finishes), P and dS in
+//   registers with the thread's rows' lse and delta read once, then dQ +=
+//   dS K with dS as the register A operand and the same K tile read
+//   MN-major.  dQ stays in f32 registers over the whole walk (one
+//   accumulator, where K6 holds two) and is rounded once.  At D = 64 the
+//   two consumer warpgroups take turns to issue, as K4's do.
 // - K6: S^T = K Q^T and dP^T = V dO^T (shared-memory operands), P^T and
 //   dS^T in registers, dV += P^T dO and dK += dS^T Q with the register
 //   A operand and dO, Q read MN-major: one shared tile serves both as a
@@ -59,8 +74,8 @@
 // - Mask arithmetic runs only on tiles that straddle the causal diagonal,
 //   the window's edge, or a segment boundary; a tile whose rows and
 //   columns all share one segment id skips it.  The walked band is
-//   _block_gate's (as in flash_attention.cu); K4 schedules its heaviest
-//   causal q tiles first.
+//   _block_gate's (as in flash_attention.cu); K4 and K5 schedule their
+//   heaviest causal q tiles first.
 //
 // The tensor-map encoder cuTensorMapEncodeTiled is a driver-API function;
 // it is fetched through the runtime's cudaGetDriverEntryPoint, so the
@@ -85,12 +100,13 @@ constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 producer warp
 constexpr int kCols = 64;      // columns of D per swizzled tile (128 bytes)
 constexpr int kBK = 128;       // K4: keys per walked tile
 constexpr int kBQ = 64;        // K6: queries per walked tile
+constexpr int kBKey = 64;      // K5: keys per walked tile
 
 struct Params {
   const int* seg;
-  const float* lse_in;  // K6
-  const float* delta;   // K6
-  void* o;              // K4: o; K6: dk
+  const float* lse_in;  // K5, K6
+  const float* delta;   // K5, K6
+  void* o;              // K4: o; K5: dq; K6: dk
   void* o2;             // K6: dv
   float* lse;           // K4
   int T, Hq, Hkv;
@@ -165,10 +181,11 @@ DEV void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
       : "memory");
 }
 
-// Named barriers 1 and 2 order the two consumer warpgroups' wgmma issue:
-// warpgroup c waits on barrier 1 + c for its turn and hands the turn on by
-// arriving at the other one, so that one warpgroup's tile products run on
-// the tensor cores while the other computes its softmax.
+// Named barriers 1 and 2 order the two consumer warpgroups' wgmma issue
+// (K4, and K5 at D = 64): warpgroup c waits on barrier 1 + c for its turn
+// and hands the turn on by arriving at the other one, so that one
+// warpgroup's tile products run on the tensor cores while the other
+// computes its softmax.
 DEV void turn_wait(int cw) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
 }
@@ -184,6 +201,9 @@ DEV void wg_commit() {
 }
 DEV void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+DEV void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
@@ -382,7 +402,7 @@ DEV void stage_segments(int* dst, const int* src) {
 
 // Tiles [first, last) of width BC along the walked sequence that can hold
 // an unmasked entry for rows [r0, r0 + BR) (_block_gate).  `rows_are_q`:
-// the resident rows are queries (K4) or keys (K6).
+// the resident rows are queries (K4, K5) or keys (K6).
 template <int BR, int BC>
 DEV void band(int r0, bool rows_are_q, const Params& a, int& first,
               int& last) {
@@ -827,6 +847,201 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K5: dq.  CTA (q tile of 128 rows, b * Hq + h): K6's pipeline with the
+// roles swapped.  Q and dO rows are resident, K and V tiles walked.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqPlan {
+  static constexpr int kStages = 4;  // 3: 4% slower (PERF.md)
+  static constexpr int kQ = kRows * D * 2;     // bytes of the Q or dO tile
+  static constexpr int kKV = kBKey * D * 2;    // bytes of one K or V tile
+  static constexpr int kTiles = 2 * kQ + 2 * kStages * kKV;
+  static constexpr int kSeg = kStages * (kBKey + 2) * 4;
+  static constexpr int kBars = (1 + 2 * kStages) * 8;
+  static constexpr int kBytes = 1024 + kTiles + kSeg + kBars;
+};
+
+template <int D, int DT>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mdo, const Params a) {
+  using P = DqPlan<D>;
+  constexpr int kStages = P::kStages;
+  extern __shared__ uint8_t raw[];
+  uint8_t* sm = aligned_smem(raw);
+  uint16_t* qs = reinterpret_cast<uint16_t*>(sm);
+  uint16_t* dos = reinterpret_cast<uint16_t*>(sm + P::kQ);
+  uint8_t* ks = sm + 2 * P::kQ;                     // [stage] of kKV bytes
+  uint8_t* vs = sm + 2 * P::kQ + kStages * P::kKV;  // [stage] of kKV bytes
+  int* kseg = reinterpret_cast<int*>(sm + P::kTiles);  // [stage][kBKey + 2]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + P::kTiles + P::kSeg);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int qt = a.T / kRows - 1 - blockIdx.x;  // heaviest causal first
+  const int bh = blockIdx.y;
+  const int b = bh / a.Hq, h = bh % a.Hq, hk = h / (a.Hq / a.Hkv);
+  const int q0 = qt * kRows;
+  int first, last;
+  band<kRows, kBKey>(q0, true, a, first, last);
+  const int n = last - first;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);   // the producer warp's lanes
+      mbar_init(&empty[s], 8);   // one lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_tx(qbar, 2 * P::kQ);
+      for (int c = 0; c < D / kCols; ++c) {
+        tma_load(reinterpret_cast<uint8_t*>(qs) + c * kRows * 128, &mq, qbar,
+                 c * kCols, h, q0, b);
+        tma_load(reinterpret_cast<uint8_t*>(dos) + c * kRows * 128, &mdo,
+                 qbar, c * kCols, h, q0, b);
+      }
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const int k0 = (first + i) * kBKey;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      if (a.seg)
+        stage_segments<kBKey>(kseg + s * (kBKey + 2),
+                              a.seg + int64_t(b) * a.T + k0);
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * P::kKV);
+        for (int c = 0; c < D / kCols; ++c) {
+          tma_load(ks + s * P::kKV + c * kBKey * 128, &mk, &full[s],
+                   c * kCols, hk, k0, b);
+          tma_load(vs + s * P::kKV + c * kBKey * 128, &mv, &full[s],
+                   c * kCols, hk, k0, b);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128;  // consumer warpgroup 0 or 1
+  const int warp = (threadIdx.x / 32) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = q0 + cw * 64;          // this warpgroup's first query
+  const int r0 = qw + warp * 16 + g;    // this thread's rows: r0, r0 + 8
+  int qs0 = 0, qs1 = 0, qval = 0;
+  bool quni = false;
+  if (a.seg) {
+    const int* sg = a.seg + int64_t(b) * a.T;
+    qs0 = sg[r0];
+    qs1 = sg[r0 + 8];
+    quni = uniform64(sg + qw, qval);
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = (int64_t(b) * a.T + r0 + 8 * r) * a.Hq + h;
+    lse2[r] = a.lse_in[row] * kLog2e;
+    dl[r] = a.delta[row];
+  }
+  const float sl2 = a.scale * kLog2e;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  // Per k tile: S and dP as two wgmma groups; P's exponentials once S is
+  // done (wait_group 1) while dP finishes; then dS in registers and dQ +=
+  // dS K, waited for.  At D = 64 the two consumer warpgroups take turns
+  // to issue (K4's named barriers, two turns a tile), so that one's
+  // products run while the other computes; at D = 128 the turns measured
+  // slower (PERF.md) and each warpgroup issues when it is ready.
+  constexpr bool kTurns = D == 64;
+  mbar_wait(qbar, 0);
+  if (kTurns && cw == 1) turn_pass(cw);  // warpgroup 0 issues first
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const int k0 = (first + i) * kBKey;
+    const uint16_t* kt = reinterpret_cast<const uint16_t*>(ks + s * P::kKV);
+    const uint16_t* vt = reinterpret_cast<const uint16_t*>(vs + s * P::kKV);
+    const int* ksg = kseg + s * (kBKey + 2);
+    mbar_wait(&full[s], (i / kStages) & 1);
+
+    float sc[kBKey / 2], dp[kBKey / 2];
+    if (kTurns) turn_wait(cw);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Mma<kBKey, DT>::ss(sc, kmajor<kRows>(qs, cw * 64, kk),
+                         kmajor<kBKey>(kt, 0, kk), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Mma<kBKey, DT>::ss(dp, kmajor<kRows>(dos, cw * 64, kk),
+                         kmajor<kBKey>(vt, 0, kk), kk > 0);
+    wg_commit();
+    if (kTurns) turn_pass(cw);
+    wg_wait1();
+    hold(sc);
+
+    const bool mask =
+        (a.causal && k0 + kBKey - 1 > qw) ||
+        (a.window > 0 && qw + 63 - k0 >= a.window) ||
+        (a.seg && !(quni && ksg[kBKey] && ksg[kBKey + 1] == qval));
+#pragma unroll
+    for (int j = 0; j < kBKey / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float x = sc[4 * j + e] * sl2;
+        if (mask) {
+          const int qp = (e & 2) ? r0 + 8 : r0;
+          bool k = keep(qp, k0 + c, a);
+          if (a.seg) k = k && ((e & 2) ? qs1 : qs0) == ksg[c];
+          if (!k) x = kNegL;
+        }
+        sc[4 * j + e] = ex2(x - lse2[e >> 1]);
+      }
+    }
+    wg_wait0();
+    hold(dp);
+#pragma unroll
+    for (int e = 0; e < kBKey / 2; ++e)
+      dp[e] = sc[e] * (dp[e] - dl[(e >> 1) & 1]) * a.scale;
+    uint32_t df[kBKey / 16][4];
+    to_frags<DT>(dp, df);
+
+    if (kTurns) turn_wait(cw);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBKey / 16; ++kk)
+      Mma<D, DT>::rs(dq, df[kk], mnmajor<kBKey>(kt, kk), 1);
+    wg_commit();
+    // Warpgroup 1 takes no turn after its last.
+    if (kTurns && (cw == 0 || i + 1 < n)) turn_pass(cw);
+    wg_wait0();
+    hold(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t off = ((int64_t(b) * a.T + r0 + 8 * r) * a.Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair<DT>(a.o, off + 8 * j + 2 * t, dq[4 * j + 2 * r],
+                     dq[4 * j + 2 * r + 1], false);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
@@ -939,6 +1154,19 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                 BwdPlan<D>::kBytes, stream, mq, mk, mv, mdo, a);
 }
 
+template <int D, int DT>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const Params& a, int B, void* stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = head_rows_map(&mq, q, B, a.T, a.Hq, D, kRows, DT);
+  if (!rc) rc = head_rows_map(&mdo, dout, B, a.T, a.Hq, D, kRows, DT);
+  if (!rc) rc = head_rows_map(&mk, k, B, a.T, a.Hkv, D, kBKey, DT);
+  if (!rc) rc = head_rows_map(&mv, v, B, a.T, a.Hkv, D, kBKey, DT);
+  if (rc) return rc;
+  return launch(bwd_dq_sm90<D, DT>, dim3(a.T / kRows, B * a.Hq), kThreads,
+                DqPlan<D>::kBytes, stream, mq, mk, mv, mdo, a);
+}
+
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launch, the error of the
@@ -963,6 +1191,28 @@ extern "C" int hvd_flash_fwd_sm90(const void* q, const void* k,
                    : fwd<128, kBf16>(q, k, v, a, B, stream);
   return D == 64 ? fwd<64, kF16>(q, k, v, a, B, stream)
                  : fwd<128, kF16>(q, k, v, a, B, stream);
+}
+
+// dq: [B, T, Hq, D] in q's dtype.
+extern "C" int hvd_flash_bwd_dq_sm90(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     const int* seg, void* dq, int B, int T,
+                                     int Hq, int Hkv, int D, int dtype,
+                                     int causal, int window, float scale,
+                                     void* stream) {
+  if (!valid(B, T, Hq, Hkv, D, dtype) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params a = make_params(seg, T, Hq, Hkv, causal, window, scale);
+  a.lse_in = lse;
+  a.delta = delta;
+  a.o = dq;
+  if (dtype == kBf16)
+    return D == 64 ? bwd_dq<64, kBf16>(q, k, v, dout, a, B, stream)
+                   : bwd_dq<128, kBf16>(q, k, v, dout, a, B, stream);
+  return D == 64 ? bwd_dq<64, kF16>(q, k, v, dout, a, B, stream)
+                 : bwd_dq<128, kF16>(q, k, v, dout, a, B, stream);
 }
 
 // dk, dv: [B, T, Hq, D], f32 partials per q head when out_dtype is 0 (GQA),

@@ -14,20 +14,18 @@ Counterpart of `horovod_tpu/ops/flash_attention.py`:
 
 The kernels are CUDA C++, built with nvcc for sm_90a at first use
 (`_build.py`) and called through ctypes on PyTorch's current stream.
-They read the public [B, T, H, D] layout in place.  K4 and K6 have two
-routes, fixed by dtype and D (`_sm90_route`): bf16 and f16 at D in {64,
-128} run the tensor-core kernels of `csrc/flash_attention_sm90.cu`
+They read the public [B, T, H, D] layout in place.  Each kernel has
+two routes, fixed by dtype and D (`_sm90_route`): bf16 and f16 at D in
+{64, 128} run the tensor-core kernels of `csrc/flash_attention_sm90.cu`
 (wgmma, TMA, a warp-specialised pipeline); f32 and every other D run
-the CUDA-core kernels of `csrc/flash_attention.cu`, as K5 always does.
-A caller may name K4's or K6's route (`sm90=False` runs the CUDA-core
-kernel at any dtype and D); naming the tensor cores where they do not
-apply raises.  A wrapper takes the plain version only for tensors on
-the CPU; for a CUDA tensor it launches its kernel or raises (a failed
-build or launch of either route raises; nothing falls back to the
-other).  Each wrapper
-counts its launches in a plain integer attribute (`flash_fwd.launches`),
-and K4 and K6 count those of the tensor-core route apart
-(`flash_fwd.sm90_launches`).
+the CUDA-core kernels of `csrc/flash_attention.cu`.  A caller may name
+the route (`sm90=False` runs the CUDA-core kernel at any dtype and D);
+naming the tensor cores where they do not apply raises.  A wrapper
+takes the plain version only for tensors on the CPU; for a CUDA tensor
+it launches its kernel or raises (a failed build or launch of either
+route raises; nothing falls back to the other).  Each wrapper counts
+its launches in a plain integer attribute (`flash_fwd.launches`), and
+those of the tensor-core route apart (`flash_fwd.sm90_launches`).
 
 Numerics, as in the JAX module: every product is formed from the input
 dtype's values and summed in f32; the online-softmax state and p, ds
@@ -39,7 +37,8 @@ over the whole row at once (per head, a dense [T, T] f32 score matrix).
 The port does not read HOROVOD_FLASH_BLOCK_Q/K: they size the TPU
 kernels' VMEM tiles, and the CUDA kernels fix their own tiles (CUDA
 cores: 64 rows, 32 at D > 128 where shared memory runs short; tensor
-cores: 128 resident rows, 128 keys (K4) or 64 queries (K6) per step).
+cores: 128 resident rows, 128 keys (K4), 64 keys (K5) or 64 queries
+(K6) per step).
 It does read HOROVOD_FLASH_ATTENTION and HOROVOD_FLASH_ATTENTION_MIN_T
 (`flash_routed`).
 """
@@ -72,7 +71,7 @@ _c_libs = {}
 
 
 def _sm90_route(dtype, D: int) -> bool:
-    """Do K4 and K6 take the tensor-core kernels for `dtype` and head
+    """Do K4, K5 and K6 take the tensor-core kernels for `dtype` and head
     width `D`?  bf16 and f16 at D in {64, 128} do.  f32 does not: the
     tensor cores' only f32 path is TF32 (10 mantissa bits), which would
     break the f32 contract and its 1e-4 tolerance.  Nor do other D
@@ -101,13 +100,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def _lib_sm90() -> ctypes.CDLL:
-    """csrc/flash_attention_sm90.cu: K4 and K6 on the tensor cores."""
+    """csrc/flash_attention_sm90.cu: K4, K5, K6 on the tensor cores."""
     lib = _c_libs.get("sm90")
     if lib is None:
         lib = _build.library("flash_attention_sm90")
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.hvd_flash_fwd_sm90.argtypes = [p] * 6 + _SHAPE
         lib.hvd_flash_fwd_sm90.restype = i32
+        lib.hvd_flash_bwd_dq_sm90.argtypes = [p] * 8 + _SHAPE
+        lib.hvd_flash_bwd_dq_sm90.restype = i32
         lib.hvd_flash_bwd_dkv_sm90.argtypes = [p] * 9 + [i32] + _SHAPE
         lib.hvd_flash_bwd_dkv_sm90.restype = i32
         _c_libs["sm90"] = lib
@@ -325,7 +326,7 @@ def _raise_on(name: str, rc: int) -> None:
 
 
 def _route(name: str, q: torch.Tensor, sm90: Optional[bool]) -> bool:
-    """The route of K4 or K6 for q: `_sm90_route`'s unless `sm90` names
+    """The route of a flash kernel for q: `_sm90_route`'s unless `sm90` names
     one.  Naming the tensor cores where they do not apply raises."""
     fits = _sm90_route(q.dtype, q.shape[-1])
     if sm90 is None:
@@ -364,8 +365,11 @@ flash_fwd.sm90_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
-                 window: Optional[int] = None, seg=None):
-    """K5: dq [B, T, H, D] in q's dtype.  lse, delta: [B, T, H] f32."""
+                 window: Optional[int] = None, seg=None, *,
+                 sm90: Optional[bool] = None):
+    """K5: dq [B, T, H, D] in q's dtype.  lse, delta: [B, T, H] f32.
+    `sm90` as in `flash_fwd`."""
+    sm90 = _route("flash_bwd_dq", q, sm90)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, window,
                                   seg)
@@ -373,15 +377,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     lse, delta = _rows(lse, torch.float32), _rows(delta, torch.float32)
     seg = _rows(seg, torch.int32)
     dq = torch.empty_like(q)
-    _raise_on("flash_bwd_dq", _lib().hvd_flash_bwd_dq(
+    entry = (_lib_sm90().hvd_flash_bwd_dq_sm90 if sm90
+             else _lib().hvd_flash_bwd_dq)
+    _raise_on("flash_bwd_dq", entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg), dq.data_ptr(),
         *_shape_args(q, k, causal, window, _stream(q))))
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.sm90_launches += sm90
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.sm90_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
@@ -415,13 +423,11 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dkv.sm90_launches = 0
 
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-SM90_KERNELS = (flash_fwd, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in SM90_KERNELS:
         fn.sm90_launches = 0
 
 
@@ -430,8 +436,8 @@ def launch_counts() -> dict:
 
 
 def sm90_launch_counts() -> dict:
-    """Launches of K4 and K6 that took the tensor-core route."""
-    return {fn.__name__: fn.sm90_launches for fn in SM90_KERNELS}
+    """Launches of K4, K5 and K6 that took the tensor-core route."""
+    return {fn.__name__: fn.sm90_launches for fn in KERNELS}
 
 
 # ---------------------------------------------------------------------------

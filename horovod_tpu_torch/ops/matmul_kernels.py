@@ -14,7 +14,11 @@ sm_90a at first use (`_build.py`) and called through ctypes on
 PyTorch's current stream.  It is bound by operations: at the head chunk
 (16384, 512) @ (512, 512) f32 the H100 SXM's 67 TFLOP/s f32 rate
 outside the tensor cores gives 0.128 ms (see the note at the top of the
-source).
+source).  It has two load paths, chosen by layout (`vector_path`): 16-byte
+`cp.async` copies of K-contiguous, 16-byte aligned rows with 4-wide
+stores of C, which the head's operands take, and element loads and
+stores through any strides.  `tiled_matmul.strided_launches` counts the
+launches of the second.
 
 Numerics.  The Pallas kernel pads each dimension to a multiple of 128
 and, for bf16 and f16 outputs, rounds the running sum to the output
@@ -44,6 +48,7 @@ from ..common.exceptions import HorovodTpuError
 
 _MM_BLOCK = 128  # the Pallas kernel's tile, and the plain version's K step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_COPY_BYTES = 16  # one cp.async copy
 
 _c_lib = None
 
@@ -86,6 +91,26 @@ def _check(a: torch.Tensor, b: torch.Tensor,
                 f"{out.dtype} on {out.device}")
 
 
+def vector_path(es: int, m: int, n: int, k: int, a_ptr: int, sam: int,
+                sak: int, b_ptr: int, sbk: int, sbn: int, c_ptr: int,
+                ldc: int) -> bool:
+    """Does K3 take its vector path for these operands?  Elements of
+    `es` bytes; A (m, k) at a_ptr with strides (sam, sak), B (k, n) at
+    b_ptr with (sbk, sbn), C (m, n) at c_ptr with row stride ldc.
+
+    Each row of A and each column of B must be contiguous along K and
+    start on a 16-byte boundary (the copies are 16 bytes), and C's rows
+    must take stores of 4 elements.  A dimension of length 1 imposes no
+    stride.  Pure dispatch by layout: anything else takes the strided
+    path."""
+    def rows_copy(ptr, rows, row_stride, k_stride):
+        return ((k == 1 or k_stride == 1) and ptr % _COPY_BYTES == 0
+                and (rows == 1 or row_stride * es % _COPY_BYTES == 0))
+
+    return (rows_copy(a_ptr, m, sam, sak) and rows_copy(b_ptr, n, sbn, sbk)
+            and (m == 1 or ldc % 4 == 0) and c_ptr % (4 * es) == 0)
+
+
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the f32 products of the
@@ -125,20 +150,24 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    es = a.element_size()
     ldc = out.stride(0) if m > 1 else n
-    vec = ldc % 4 == 0 and out.data_ptr() % (4 * es) == 0
+    strides = (a.stride(0), a.stride(1), b.stride(0), b.stride(1))
+    vec = vector_path(a.element_size(), m, n, k, a.data_ptr(), strides[0],
+                      strides[1], b.data_ptr(), strides[2], strides[3],
+                      out.data_ptr(), ldc)
     rc = _lib().hvd_tiled_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0),
-        a.stride(1), b.stride(0), b.stride(1), ldc, int(vec),
-        _DTYPE_CODES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, *strides, ldc,
+        int(vec), _DTYPE_CODES[a.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
     if rc:
         raise HorovodTpuError(f"tiled_matmul: CUDA error {rc} at launch")
     tiled_matmul.launches += 1
+    tiled_matmul.strided_launches += not vec
     return out
 
 
 tiled_matmul.launches = 0
+tiled_matmul.strided_launches = 0  # launches that took the strided path
 tiled_matmul.plain_calls = 0  # CPU calls, which take the plain version
 
 KERNELS = (tiled_matmul,)
@@ -147,6 +176,7 @@ KERNELS = (tiled_matmul,)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    tiled_matmul.strided_launches = 0
     tiled_matmul.plain_calls = 0
 
 

@@ -28,7 +28,8 @@ N steps (one fixed batch, the same on every rank) and an EVAL line: its
 loss, the launches of K3 (`tiled_matmul`) and, on the check step, the
 logits' largest difference from the plain head relative to their
 largest value (`k3_plain_calls` counts K3's wrapper taking its plain
-version, on the CPU).  At stage 3 the eval head is `placement.gather_matmul`,
+version, on the CPU; `k3_strided_launches` the launches that took its
+strided load path).  At stage 3 the eval head is `placement.gather_matmul`,
 which runs K3 under HOROVOD_FUSED_PALLAS=1 (the ZeRO-3 configuration
 also sets HOROVOD_FUSED_COLLECTIVES=1 and HOROVOD_FUSION_THRESHOLD=
 33554432, where the embedding is a shard group of its own).
@@ -64,8 +65,8 @@ from horovod_tpu_torch.synthetic_benchmark import param_digest, \
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches, and as `<name>_sm90` those of K4 and K6
-    that took the tensor-core route."""
+    """Every kernel's launches, and as `<name>_sm90` those of K4-K6 that
+    took the tensor-core route."""
     return {**adasum_kernels.launch_counts(), **fa.launch_counts(),
             **{f"{n}_sm90": c for n, c in fa.sm90_launch_counts().items()},
             **mk.launch_counts()}
@@ -182,13 +183,14 @@ def main(argv=None) -> int:
             h = model.hidden(xe)
             flat = h.reshape(-1, cfg.d_model).float()
             k3 = mk.tiled_matmul
-            before = (k3.launches, k3.plain_calls)
+            before = (k3.launches, k3.plain_calls, k3.strided_launches)
             if placement is not None:
                 logits = placement.gather_matmul(flat, rows, gi_embed)
             else:
                 logits = model.head(h).reshape(flat.shape[0], -1)
             rec = {"k3_launches": k3.launches - before[0],
                    "k3_plain_calls": k3.plain_calls - before[1],
+                   "k3_strided_launches": k3.strided_launches - before[2],
                    "eval_loss": float(lm_loss(logits, ye.reshape(-1)))}
             if check:
                 ref = mk.tiled_matmul_plain(flat, model.embed.detach().t())

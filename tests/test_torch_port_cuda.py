@@ -149,8 +149,8 @@ def _row_rel(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_kernels_match_plain(cuda, case, dtype):
-    """bf16 and f16 at D in {64, 128} take the tensor-core K4 and K6
-    (their sm90 counts grow); f32 and other D the CUDA-core ones."""
+    """bf16 and f16 at D in {64, 128} take the tensor-core K4, K5 and
+    K6 (their sm90 counts grow); f32 and other D the CUDA-core ones."""
     B, T, Hq, Hkv, D, causal, window, n_seg = case
     g = torch.Generator(device=cuda).manual_seed(T + D)
     q, do = (torch.randn((B, T, Hq, D), generator=g, device=cuda).to(dtype)
@@ -186,9 +186,9 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_cuda_core_route_named_at_a_tensor_core_shape(cuda, D):
-    """`sm90=False` runs the CUDA-core K4 and K6 at bf16 (whose route is
-    the tensor cores by default): within the same limits of the plain
-    versions, counted as launches but not as tensor-core ones."""
+    """`sm90=False` runs the CUDA-core K4, K5 and K6 at bf16 (whose
+    route is the tensor cores by default): within the same limits of the
+    plain versions, counted as launches but not as tensor-core ones."""
     g = torch.Generator(device=cuda).manual_seed(D)
     q, k, v, do = (torch.randn((1, 512, 4, D), generator=g, device=cuda)
                    .bfloat16() for _ in range(4))
@@ -197,14 +197,15 @@ def test_cuda_core_route_named_at_a_tensor_core_shape(cuda, D):
     o, lse = FA.flash_fwd(q, k, v, sm90=False)
     po, plse = FA.flash_fwd_plain(q, k, v)
     delta = (do.float() * po.float()).sum(-1)
+    dq = FA.flash_bwd_dq(q, k, v, do, plse, delta, sm90=False)
+    pdq = FA.flash_bwd_dq_plain(q, k, v, do, plse, delta)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, plse, delta, sm90=False)
     pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, do, plse, delta)
     torch.cuda.synchronize()
     assert FA.sm90_launch_counts() == sm90_before
-    assert FA.launch_counts()["flash_fwd"] == before["flash_fwd"] + 1
-    assert FA.launch_counts()["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert FA.launch_counts() == {n: c + 1 for n, c in before.items()}
     assert _rel(lse, plse) <= 1e-5
-    for got, want in ((o, po), (dk, pdk), (dv, pdv)):
+    for got, want in ((o, po), (dq, pdq), (dk, pdk), (dv, pdv)):
         assert _rel(got, want) <= FLASH_TOL[torch.bfloat16]
         assert _row_rel(got, want) <= FLASH_TOL[torch.bfloat16]
 
@@ -229,7 +230,7 @@ def test_flash_attention_lse_gradients_on_the_card_match_the_cpu(cuda):
 
 def test_flash_kernel_results_are_reproducible(cuda):
     """No atomics: the same inputs give the same bits every launch (bf16,
-    D = 64: K4 and K6 on the tensor-core route)."""
+    D = 64: K4, K5 and K6 on the tensor-core route)."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, do = (torch.randn((1, 1024, 8, 64), generator=g, device=cuda)
                    .bfloat16() for _ in range(4))
@@ -287,37 +288,78 @@ K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7,
           torch.float16: 2 ** -10}
 
 
+def _k3_operands(cuda, shape, dtype, layout, g):
+    """a (m, k) and b = w.t() for a (n, k) weight band, as on the fused
+    path: "contiguous", or a's base one element off ("offset"), or a
+    stored K-major ("k_strided")."""
+    m, k, n = shape
+    a = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    if layout == "offset":
+        a = torch.empty((m * k + 1,), dtype=dtype, device=cuda)[1:] \
+            .view(m, k).copy_(a)
+    elif layout == "k_strided":
+        a = a.t().contiguous().t()
+    w = torch.randn((n, k), generator=g, device=cuda).to(dtype)
+    return a, w.t()
+
+
+def _k3_vector_path(a, b, out) -> bool:
+    m, n = out.shape
+    return MK.vector_path(a.element_size(), m, n, a.shape[1], a.data_ptr(),
+                          a.stride(0), a.stride(1), b.data_ptr(),
+                          b.stride(0), b.stride(1), out.data_ptr(),
+                          out.stride(0) if m > 1 else n)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "k_strided"])
 @pytest.mark.parametrize("shape", [(16384, 512, 512), (16384, 512, 128),
-                                   (200, 300, 130), (129, 257, 3),
-                                   (7, 1000, 513), (1, 1, 1)])
+                                   (200, 304, 132), (200, 300, 130),
+                                   (129, 257, 3), (7, 1000, 513), (1, 1, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-def test_tiled_matmul_matches_plain(cuda, shape, dtype):
+def test_tiled_matmul_matches_plain(cuda, shape, dtype, layout):
     """K3 at the ZeRO-3 head's chunk shapes and unaligned ones, b the
-    transposed view of a weight band as on the fused path."""
+    transposed view of a weight band as on the fused path, on the load
+    path `vector_path` picks: the head's layout takes the vector path, a
+    base one element off or an operand strided along K the strided one."""
     m, k, n = shape
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
-    a = torch.randn((m, k), generator=g, device=cuda).to(dtype)
-    w = torch.randn((n, k), generator=g, device=cuda).to(dtype)
-    before = MK.tiled_matmul.launches
-    got = MK.tiled_matmul(a, w.t())
-    want = MK.tiled_matmul_plain(a, w.t())
+    a, b = _k3_operands(cuda, shape, dtype, layout, g)
+    out = torch.empty((m, n), dtype=dtype, device=cuda)
+    vec = _k3_vector_path(a, b, out)
+    if shape[0] == 16384:
+        assert vec == (layout == "contiguous")
+    elif layout != "contiguous" and k > 1:
+        assert not vec
+    before = (MK.tiled_matmul.launches, MK.tiled_matmul.strided_launches)
+    got = MK.tiled_matmul(a, b, out=out)
+    want = MK.tiled_matmul_plain(a, b)
     torch.cuda.synchronize()
-    assert MK.tiled_matmul.launches == before + 1
+    assert (MK.tiled_matmul.launches, MK.tiled_matmul.strided_launches) == \
+        (before[0] + 1, before[1] + (not vec))
     assert got.dtype == dtype and _rel(got, want) <= K3_TOL[dtype]
 
 
-def test_tiled_matmul_into_a_column_band_and_reproducible(cuda):
+@pytest.mark.parametrize("col0,vec", [(7, False), (8, True)])
+def test_tiled_matmul_into_a_column_band_and_reproducible(cuda, col0, vec):
+    """Into a column band of a wider output, as the fused head writes it:
+    at column 7 (not 16-byte aligned: the strided path) and at 8 (the
+    vector path); the same bits on every launch of either path."""
     g = torch.Generator(device=cuda).manual_seed(11)
     a = torch.randn((300, 384), generator=g, device=cuda)
     w = torch.randn((130, 384), generator=g, device=cuda)
     wide = torch.zeros((300, 400), device=cuda)
-    MK.tiled_matmul(a, w.t(), out=wide[:, 7:137])
-    assert _rel(wide[:, 7:137], MK.tiled_matmul_plain(a, w.t())) <= 1e-5
-    assert not wide[:, :7].any() and not wide[:, 137:].any()
-    first = MK.tiled_matmul(a, w.t())
+    band = wide[:, col0:col0 + 130]
+    assert _k3_vector_path(a, w.t(), band) is vec
+    before = MK.tiled_matmul.strided_launches
+    MK.tiled_matmul(a, w.t(), out=band)
+    assert MK.tiled_matmul.strided_launches == before + (not vec)
+    assert _rel(band, MK.tiled_matmul_plain(a, w.t())) <= 1e-5
+    assert not wide[:, :col0].any() and not wide[:, col0 + 130:].any()
+    first = band.clone()
     for _ in range(3):
-        assert torch.equal(MK.tiled_matmul(a, w.t()), first)
+        MK.tiled_matmul(a, w.t(), out=band)
+        assert torch.equal(band, first)
 
 
 def test_tiled_matmul_raises_on_what_the_kernel_does_not_take(cuda):

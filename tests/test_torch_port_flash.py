@@ -132,8 +132,8 @@ def test_wrapper_refuses_a_tensor_neither_on_the_cpu_nor_on_a_card():
                                    torch.float16])
 @pytest.mark.parametrize("D", [24, 32, 40, 64, 128, 256])
 def test_sm90_route_is_fixed_by_dtype_and_head_width(dtype, D):
-    """bf16 and f16 at D in {64, 128} take the tensor-core K4 and K6;
-    f32 (TF32 would break its contract) and every other D do not."""
+    """bf16 and f16 at D in {64, 128} take the tensor-core K4, K5 and
+    K6; f32 (TF32 would break its contract) and every other D do not."""
     want = dtype != torch.float32 and D in (64, 128)
     assert FA._sm90_route(dtype, D) is want
 
@@ -147,6 +147,7 @@ def test_sm90_wrappers_raise_without_a_card(dtype, D):
     q = torch.zeros((1, 128, 2, D), dtype=dtype, device="meta")
     lse = torch.zeros((1, 128, 2), device="meta")
     for fn, args in ((FA.flash_fwd, (q, q, q)),
+                     (FA.flash_bwd_dq, (q, q, q, q, lse, lse)),
                      (FA.flash_bwd_dkv, (q, q, q, q, lse, lse))):
         with pytest.raises(HorovodTpuError, match="CUDA"):
             fn(*args)
@@ -175,12 +176,25 @@ def test_naming_the_tensor_cores_where_they_do_not_apply_raises(dtype, D):
     q = torch.zeros((1, 128, 2, D), dtype=dtype)
     lse = torch.zeros((1, 128, 2))
     for fn, args in ((FA.flash_fwd, (q, q, q)),
+                     (FA.flash_bwd_dq, (q, q, q, q, lse, lse)),
                      (FA.flash_bwd_dkv, (q, q, q, q, lse, lse))):
         with pytest.raises(HorovodTpuError, match="tensor-core"):
             fn(*args, sm90=True)
     o, _ = FA.flash_fwd(q, q, q, sm90=False)
     assert torch.equal(o, FA.flash_fwd_plain(q, q, q)[0])
+    dq = FA.flash_bwd_dq(q, q, q, q, lse, lse, sm90=False)
+    assert torch.equal(dq, FA.flash_bwd_dq_plain(q, q, q, q, lse, lse))
     assert (FA.launch_counts(), FA.sm90_launch_counts()) == before
+
+
+def test_every_flash_kernel_counts_its_tensor_core_launches():
+    """K4, K5 and K6 each count the launches that took the tensor-core
+    route, under their own names; a reset sets every count to 0."""
+    names = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert set(FA.launch_counts()) == set(FA.sm90_launch_counts()) == names
+    FA.reset_launch_counts()
+    assert not any(FA.launch_counts().values())
+    assert not any(FA.sm90_launch_counts().values())
 
 
 # Argument errors: each must raise ValueError on both sides.

@@ -117,6 +117,7 @@ def test_cpu_takes_plain_version_and_counts_no_launch():
     MK.reset_launch_counts()
     MK.tiled_matmul(torch.ones((3, 4)), torch.ones((4, 2)))
     assert MK.launch_counts() == {"tiled_matmul": 0}
+    assert MK.tiled_matmul.strided_launches == 0
     assert MK.tiled_matmul.plain_calls == 1
     MK.reset_launch_counts()
     assert MK.tiled_matmul.plain_calls == 0
@@ -126,6 +127,56 @@ def test_off_cpu_tensor_launches_or_raises():
     a = torch.empty((4, 4), device="meta")
     with pytest.raises(HorovodTpuError, match="kernel runs on CUDA"):
         MK.tiled_matmul(a, a)
+
+
+# vector_path's arguments at the head's chunk, (16384, 512) @ (512, 512)
+# f32: a contiguous, b the transposed view of a band of the gathered
+# weight at row 512, the output a column band of the (16384, 32000)
+# logits at column 512.
+HEAD = dict(es=4, m=16384, n=512, k=512, a_ptr=1 << 20, sam=512, sak=1,
+            b_ptr=(1 << 30) + 512 * 512 * 4, sbk=1, sbn=512,
+            c_ptr=(1 << 32) + 512 * 4, ldc=32000)
+
+
+@pytest.mark.parametrize("change,vec", [
+    ({}, True),
+    ({"es": 2}, True),                            # bf16 / f16 rows, 1 KiB
+    ({"k": 304, "sam": 304, "sbn": 304}, True),   # K off the 32-deep stage
+    ({"n": 130, "ldc": 132}, True),               # N off 4, ldc a multiple
+    ({"m": 1, "sam": 7, "ldc": 3}, True),         # one row: no pitch
+    ({"k": 1, "sak": 9, "sbk": 5}, True),         # K = 1: no K stride
+    ({"a_ptr": (1 << 20) + 4}, False),            # a's base one element off
+    ({"b_ptr": (1 << 30) + 8}, False),            # b's base off 16 bytes
+    ({"c_ptr": (1 << 32) + 4}, False),            # C's base off 4 elements
+    ({"ldc": 32001}, False),                      # an odd ldc
+    ({"ldc": 32002}, False),                      # ldc off 4
+    ({"sam": 1, "sak": 16384}, False),            # a strided along K
+    ({"sbk": 512, "sbn": 1}, False),              # b strided along K
+    ({"k": 300, "sam": 300, "sbn": 300, "es": 2}, False),  # 600-byte rows
+    ({"k": 257, "sam": 257, "sbn": 257}, False),  # 1028-byte rows
+])
+def test_vector_path_is_chosen_by_layout(change, vec):
+    """K3 takes its vector path (16-byte copies of K-contiguous rows,
+    4-wide stores) for the head's operands; a base, a row pitch or an
+    ldc off those boundaries, or an operand strided along K, takes the
+    strided path."""
+    assert MK.vector_path(**dict(HEAD, **change)) is vec
+
+
+def test_vector_path_of_the_head_operands_as_torch_lays_them_out():
+    """The tensors `fused_allgather_matmul` hands K3 at the head: the
+    flattened hidden rows, a band of the gathered weight transposed, and
+    a column band of the logits."""
+    hidden = torch.zeros((64, 512))
+    weight = torch.zeros((2048, 512))
+    logits = torch.zeros((64, 2048))
+    a, b, c = hidden, weight[512:1024].t(), logits[:, 512:1024]
+    args = (4, 64, 512, 512, a.data_ptr(), *a.stride(), b.data_ptr(),
+            *b.stride(), c.data_ptr(), c.stride(0))
+    assert MK.vector_path(*args)
+    off = torch.zeros(64 * 512 + 1)[1:].view(64, 512)
+    assert not MK.vector_path(4, 64, 512, 512, off.data_ptr(),
+                              *off.stride(), *args[7:])
 
 
 @pytest.mark.parametrize("env", [None, "0", "1"])

@@ -170,6 +170,7 @@ def test_the_trainer_on_two_cpu_ranks(tmp_path):
                                        "flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv", "tiled_matmul",
                                        "flash_fwd_sm90",
+                                       "flash_bwd_dq_sm90",
                                        "flash_bwd_dkv_sm90"}
         # The CPU runs the plain versions: no kernel launched.
         assert not any(r0["launches"].values())

@@ -769,6 +769,7 @@ def test_trainer_stage3_matches_stage0(trainer_runs):
             assert abs(a["loss"] - b["loss"]) <= 1e-6 * abs(a["loss"])
         (ev,) = s3["EVAL"]
         assert ev["k3_plain_calls"] == 8 and ev["k3_launches"] == 0
+        assert ev["k3_strided_launches"] == 0
         assert ev["eval_logits_rel"] == 0.0
         assert np.isfinite(ev["eval_loss"])
         (ev0,) = s0["EVAL"]
