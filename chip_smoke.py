@@ -76,7 +76,26 @@ Phases, each printing its own lines:
                  eval loss;
 9. zero3_nccl    one rank on NCCL at stage 3: tok/sec beside phase 7's,
                  63 K3 launches in its eval forward, all on the vector
-                 load path.
+                 load path;
+10. surface_np2  two ranks share the card over gloo and run the
+                 collective half of the horovod.torch surface on CUDA
+                 tensors (`python -m chip_smoke --surface-rank`): a
+                 ragged allgather, grouped allgather, alltoall with and
+                 without splits, an uneven and a grouped reducescatter,
+                 their async handles, a process set that leaves rank 0
+                 out, the autograd wrappers' gradients, and join with
+                 uneven steps; every result held bitwise to a numpy
+                 reference computed here (integer-valued inputs, so
+                 every sum is exact).
+
+Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
+the tensor cores) to the f32 path it replaced: in the kernels phase at
+the main shape (logits within HEAD_RTOL, both gradients equal, the
+forward GEMM's ms beside the f32 GEMM's), and on the check step of each
+transformer run (rank 0's logits within HEAD_RTOL).  At stage 3 every
+parameter's storage must be 0 bytes between steps, the measured
+resident bytes at most full / n plus one pad element per group, and
+train_zero3's peak memory at most train_transformer's, rank by rank.
 
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
@@ -137,6 +156,11 @@ LSE_RTOL = 1e-5      # lse is f32 whatever the inputs: sums in another order
 K3_RTOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7,
            "torch.float16": 2 ** -10}
 HEAD_CHUNK = (16384, 512, 512)  # the ZeRO-3 eval head's K3 chunk: M, K, N
+# The tied head (bf16 x bf16, f32 sums) vs the f32 GEMM of the same
+# bf16-rounded operands, relative to the largest logit: the products are
+# exact in f32 in both, the sums over D = 512 run in another order.
+HEAD_RTOL = 1e-5
+HEAD_SHAPE = (16384, 512, 32000)  # tokens, d_model, vocab
 ZERO3_ENV = {"HOROVOD_FUSED_COLLECTIVES": "1", "HOROVOD_FUSED_PALLAS": "1",
              "HOROVOD_FUSION_THRESHOLD": "33554432"}
 # Transformer at T = 16384, kernels vs plain attention (both bf16): the
@@ -658,6 +682,60 @@ def check_k3(MK):
                                  bound_by=bound[1], strided_ms=strided_ms)}
 
 
+def check_head():
+    """The tied head at the transformer's shape: `TiedHead` (bf16 x bf16
+    with f32 output on the tensor cores) against the f32 einsum of the
+    bf16-rounded operands that it replaced: logits within HEAD_RTOL of
+    their largest value, both gradients equal; both forwards timed, and
+    the bf16 GEMM with a bf16 output beside them."""
+    import torch
+    from horovod_tpu_torch.models.transformer import TiedHead
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    t, d, v = HEAD_SHAPE
+    dt = torch.bfloat16
+    h = torch.randn((1, t, d), generator=gen, device=dev).to(dt)
+    e = torch.randn((v, d), generator=gen, device=dev) / math.sqrt(d)
+    g = torch.randn((1, t, v), generator=gen, device=dev) / t
+
+    def run(fn):
+        hh, ee = h.clone().requires_grad_(), e.clone().requires_grad_()
+        out = fn(hh, ee)
+        out.backward(g)
+        return out.detach(), hh.grad, ee.grad
+
+    def old(hh, ee):
+        return torch.einsum("btd,vd->btv", hh.to(dt).float(),
+                            ee.to(dt).float())
+
+    want, wh, we = run(old)
+    got, gh, ge = run(lambda hh, ee: TiedHead.apply(hh, ee, dt))
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    require(got.dtype == torch.float32 and rel <= HEAD_RTOL,
+            f"tied head: logits {rel} off the f32 path (tol {HEAD_RTOL})")
+    require(torch.equal(gh, wh) and torch.equal(ge, we),
+            "tied head: gradients differ from the f32 path's "
+            f"(h {float((gh.float() - wh.float()).abs().max())}, "
+            f"embed {float((ge - we).abs().max())})")
+    del want, got, wh, we, gh, ge
+    hb, eb = h[0], e.to(dt)
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: TiedHead.apply(h, e, dt), iters=10)
+        f32_ms = cuda_time_ms(lambda: old(h, e), iters=10)
+        bf16_ms = cuda_time_ms(lambda: hb @ eb.t(), iters=10)
+    bound = bound_ms(2 * t * d + 4 * v * d + 4 * t * v, 2 * t * d * v,
+                     peak=HALF_FLOPS)
+    log("kernels", f"tied head {HEAD_SHAPE} bf16 -> f32: logits rel err "
+        f"{rel:.3g} (tol {HEAD_RTOL}), gradients equal to the f32 "
+        f"path's; forward GEMM ms={ms:.4f} (torch.mm out_dtype=float32), "
+        f"f32 path ms={f32_ms:.4f}, bf16-output GEMM ms={bf16_ms:.4f}, "
+        f"bound_ms={bound[0]:.4f} ({bound[1]})")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "f32_ms": f32_ms, "bf16_ms": bf16_ms, "rel": rel}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 to 9: the training paths in subprocess ranks
 # ---------------------------------------------------------------------------
@@ -792,6 +870,10 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
                     f"attention {rel} > {LOGITS_RTOL}")
             require(bad > LOGITS_RTOL, f"logits: the non-causal fault "
                     f"reads {bad}, within {LOGITS_RTOL}")
+            head = rec["head_logits_rel"]
+            require(head <= HEAD_RTOL, f"tied head: logits {head} off the "
+                    f"f32 path (tol {HEAD_RTOL})")
+            line += f"; tied head vs f32 path {head:.3g} (tol {HEAD_RTOL})"
             line += (f"; rank 0 with plain attention: logits rel diff "
                      f"{rel:.3g} (tol {LOGITS_RTOL}), loss "
                      f"{rec['plain_loss']:.6f}, diff {diff:.3g} (tol "
@@ -884,6 +966,12 @@ def train_zero3(stage0):
         cap = s["param_full_bytes"] // 2 + 4 * s["shard_groups"]
         require(s["param_resident_bytes"] <= cap,
                 f"rank {r}: resident {s['param_resident_bytes']} > {cap}")
+        require(s["param_storage_bytes"] == 0,
+                f"rank {r}: parameters hold {s['param_storage_bytes']} "
+                "bytes between steps (want 0)")
+        require(s["peak_mem_gb"] <= s0["peak_mem_gb"],
+                f"rank {r}: stage 3 peaks at {s['peak_mem_gb']:.3f} GB, "
+                f"stage 0 at {s0['peak_mem_gb']:.3f}")
         (ev,) = s["evals"]
         require(ev["k3_launches"] == 64 and ev["k3_plain_calls"] == 0
                 and ev["k3_strided_launches"] == 0,
@@ -898,7 +986,12 @@ def train_zero3(stage0):
             f"(3 steps, checks included); losses vs stage 0 max diff "
             f"{max(diffs):.3g} (tol {LOSS_TOL}); params resident "
             f"{s['param_resident_bytes']} of {s['param_full_bytes']} bytes "
-            f"in {s['shard_groups']} shard groups; optimizer state "
+            f"in {s['shard_groups']} shard groups (parameters' storage "
+            f"{s['param_storage_bytes']}); peak memory "
+            f"{s['peak_mem_gb']:.3f} GB (stage 0 {s0['peak_mem_gb']:.3f}), "
+            f"between steps {s['between_steps_mem_gb']:.3f} GB (stage 0 "
+            f"{s0['between_steps_mem_gb']:.3f}); "
+            f"optimizer state "
             f"{s['opt_state_bytes']} bytes; eval forward: K3 launches "
             f"{ev['k3_launches']} (strided path "
             f"{ev['k3_strided_launches']}), logits vs plain head "
@@ -915,6 +1008,12 @@ def zero3_nccl(stage0):
         "--eval-every", "11"], module=TRANSFORMER, timeout=400,
         env=ZERO3_ENV)
     require(s["backend"] == "nccl", s)
+    cap = s["param_full_bytes"] + 4 * s["shard_groups"]
+    require(s["param_storage_bytes"] == 0 and
+            s["param_resident_bytes"] <= cap,
+            f"parameters hold {s['param_storage_bytes']} bytes between "
+            f"steps (want 0), resident {s['param_resident_bytes']} (cap "
+            f"{cap})")
     (ev,) = s["evals"]
     require(ev["k3_launches"] == 63 and ev["k3_strided_launches"] == 0
             and math.isfinite(ev["eval_loss"]),
@@ -924,11 +1023,207 @@ def zero3_nccl(stage0):
         f"(+- {1.96 * s['tok_sec_std']:.1f}) at stage 3 against "
         f"{stage0['tok_sec_per_rank']:.1f} (+- "
         f"{1.96 * stage0['tok_sec_std']:.1f}) at stage 0, T 16384, one "
-        f"rank; peak memory {s['peak_mem_gb']:.2f} GB (stage 0 "
+        f"rank; resident parameter bytes {s['param_resident_bytes']}, "
+        f"their storage {s['param_storage_bytes']}; peak memory "
+        f"{s['peak_mem_gb']:.2f} GB (stage 0 "
         f"{stage0['peak_mem_gb']:.2f}); eval forward K3 launches "
         f"{ev['k3_launches']} (strided path {ev['k3_strided_launches']}), "
         f"loss {ev['eval_loss']:.4f}")
     return s
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the collective surface on the card
+# ---------------------------------------------------------------------------
+
+SURFACE_STEPS = (1, 2)  # join: rank r takes SURFACE_STEPS[r] steps
+
+
+def _surface_inputs(r: int, n: int) -> dict:
+    """Rank r's inputs: integer-valued f32 (every sum below is exact),
+    ragged where the op allows it."""
+    import numpy as np
+
+    rng = np.random.RandomState(600 + r)
+
+    def ints(*shape):
+        return rng.randint(-8, 9, size=shape).astype(np.float32)
+
+    splits = [1 + (r + k) % 3 for k in range(n)]
+    return {"rag": ints(r + 2, 3), "bf": ints(2 * r + 1, 4),
+            "a2a": ints(2 * n, 5), "a2av": ints(sum(splits), 2),
+            "splits": np.asarray(splits, np.int64), "rs": ints(2 * n + 1, 3),
+            "x": ints(6), "w": ints(6), "wrag": ints(n * (n + 3) // 2, 3),
+            "join": ints(max(SURFACE_STEPS), 4)}
+
+
+def surface_rank() -> int:
+    """One rank of phase 10 (run by `surface_np2` through run_ranks):
+    every new collective, join and the autograd wrappers on CUDA
+    tensors; the results go to LOG_DIR/surface_rank<r>.pt."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    require(dev.type == "cuda", f"rank {r} runs on {dev}")
+    d = {k: torch.from_numpy(v).to(dev)
+         for k, v in _surface_inputs(r, n).items()}
+    res, ms = {"backend": hvd.backend()}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    res["allgather"] = timed("allgather", lambda: hvd.allgather(d["rag"]))
+    res["grouped_allgather"] = timed("grouped_allgather", lambda: (
+        hvd.grouped_allgather([d["rag"], d["bf"].bfloat16()])))
+    res["alltoall"] = timed("alltoall", lambda: hvd.alltoall(d["a2a"]))
+    res["alltoallv"] = timed("alltoallv", lambda: hvd.alltoall(
+        d["a2av"], splits=d["splits"].tolist()))
+    res["reducescatter"] = timed("reducescatter", lambda: (
+        hvd.reducescatter(d["rs"], op=hvd.Sum)))
+    res["grouped_reducescatter"] = timed("grouped_reducescatter", lambda: (
+        hvd.grouped_reducescatter([d["rs"], d["a2a"]], op=hvd.Average)))
+    handles = [hvd.allgather_async(d["rag"]),
+               hvd.grouped_allgather_async([d["bf"]]),
+               hvd.alltoall_async(d["a2av"], splits=d["splits"].tolist()),
+               hvd.reducescatter_async(d["rs"], op=hvd.Sum)]
+    res["async"] = [hvd.synchronize(h) for h in handles]
+    sub = hvd.add_process_set([1])
+    if sub.included():
+        res["subset"] = hvd.allreduce(d["x"], op=hvd.Sum, process_set=sub)
+    hvd.barrier()
+    hvd.remove_process_set(sub)
+
+    def grad(fn, x, w):
+        x = x.clone().requires_grad_()
+        y = fn(x)
+        y = y[0] if isinstance(y, tuple) else y
+        (y * w).sum().backward()
+        return x.grad
+
+    res["grad_allreduce"] = grad(lambda x: hvd.allreduce(x, op=hvd.Sum),
+                                 d["x"], d["w"])
+    res["grad_allgather"] = grad(hvd.allgather, d["rag"], d["wrag"])
+    res["grad_broadcast"] = grad(lambda x: hvd.broadcast(x, root_rank=1),
+                                 d["x"], d["w"])
+    rows = res["reducescatter"].shape[0]
+    res["grad_reducescatter"] = grad(
+        lambda x: hvd.reducescatter(x, op=hvd.Sum), d["rs"],
+        d["wrag"][:rows].sum(1, keepdim=True).expand(rows, 3))
+    recv = res["alltoallv"][0].shape[0]
+    res["grad_alltoall"] = grad(
+        lambda x: hvd.alltoall(x, splits=d["splits"].tolist()), d["a2av"],
+        torch.arange(recv * 2, dtype=torch.float32, device=dev
+                     ).reshape(recv, 2))
+    hvd.join_mode()
+    res["join_steps"] = [
+        timed(f"join_allreduce_{s}", lambda s=s: hvd.allreduce(
+            d["join"][s], op=hvd.Average))
+        for s in range(SURFACE_STEPS[r])]
+    res["join_last"] = timed("join", hvd.join)
+    res["ms"] = ms
+    torch.save(torch.utils._pytree.tree_map(
+        lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, res),
+        os.path.join(LOG_DIR, f"surface_rank{r}.pt"))
+    hvd.shutdown()
+    return 0
+
+
+def surface_np2() -> None:
+    """Phase 10: two ranks on the card over gloo (see the module
+    docstring); every result against numpy, bitwise."""
+    import numpy as np
+    import torch
+
+    n = 2
+    run_ranks("surface_np2", n, "chip_smoke", ["--surface-rank"], 300)
+    res = [torch.load(os.path.join(LOG_DIR, f"surface_rank{r}.pt"),
+                      weights_only=False) for r in range(n)]
+    ins = [_surface_inputs(r, n) for r in range(n)]
+
+    def same(got, want, what):
+        got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+        require(np.array_equal(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64)),
+                f"surface_np2 {what}: {got} != {want}")
+
+    rag = np.concatenate([i["rag"] for i in ins])
+    bf = np.concatenate([i["bf"] for i in ins])
+    rs_sum = sum(i["rs"] for i in ins)
+    c = -(-rs_sum.shape[0] // n)
+    a2a_sum = sum(i["a2a"] for i in ins)
+    wsum = sum(i["w"] for i in ins)
+    for r, d in enumerate(res):
+        require(d["backend"] == "gloo", f"rank {r}: backend {d['backend']}")
+        recv = [ins[s]["splits"][r] for s in range(n)]
+        offs = [[int(sum(ins[s]["splits"][:k])) for k in range(n + 1)]
+                for s in range(n)]
+        a2av = np.concatenate([ins[s]["a2av"][offs[s][r]:offs[s][r + 1]]
+                               for s in range(n)])
+        a2a = np.concatenate([ins[s]["a2a"][2 * r:2 * r + 2]
+                              for s in range(n)])
+        same(d["allgather"], rag, "ragged allgather")
+        same(d["grouped_allgather"][0], rag, "grouped allgather")
+        same(d["grouped_allgather"][1], bf, "grouped allgather bf16")
+        require(d["grouped_allgather"][1].dtype == torch.bfloat16,
+                "grouped allgather: bf16 lost its dtype")
+        same(d["alltoall"], a2a, "alltoall")
+        same(d["alltoallv"][0], a2av, "alltoall with splits")
+        same(d["alltoallv"][1], recv, "alltoall received splits")
+        same(d["reducescatter"], rs_sum[r * c:(r + 1) * c], "reducescatter")
+        grs = d["grouped_reducescatter"]
+        same(grs[0], rs_sum[r * c:(r + 1) * c] / n, "grouped reducescatter")
+        same(grs[1], (a2a_sum / n)[2 * r:2 * r + 2],
+             "grouped reducescatter, second tensor")
+        same(d["async"][0], rag, "allgather_async")
+        same(d["async"][1][0], bf, "grouped_allgather_async")
+        same(d["async"][2][0], a2av, "alltoall_async")
+        same(d["async"][3], rs_sum[r * c:(r + 1) * c], "reducescatter_async")
+        if r == 1:
+            same(d["subset"], ins[1]["x"], "allreduce over the set [1]")
+        else:
+            require("subset" not in d, "rank 0 ran the set [1]'s allreduce")
+        same(d["grad_allreduce"], wsum, "allreduce gradient")
+        begin = sum(ins[s]["rag"].shape[0] for s in range(r))
+        same(d["grad_allgather"],
+             sum(i["wrag"] for i in ins)[begin:begin + r + 2],
+             "allgather gradient")
+        same(d["grad_broadcast"], wsum if r == 1 else 0 * wsum,
+             "broadcast gradient")
+        same(d["join_last"], n - 1, "join's last rank")
+        for s, got in enumerate(d["join_steps"]):
+            active = [q for q in range(n) if s < SURFACE_STEPS[q]]
+            same(got, sum(ins[q]["join"][s] for q in active) / len(active),
+                 f"masked Average at step {s}")
+    # Gradients that cross ranks: reducescatter's is the allgather of
+    # the row gradients, alltoall's goes back with the received splits.
+    rs_w = [np.repeat(ins[r]["wrag"][:res[r]["reducescatter"].shape[0]]
+                      .sum(1, keepdims=True), 3, 1) for r in range(n)]
+    for r, d in enumerate(res):
+        same(d["grad_reducescatter"], np.concatenate(rs_w),
+             "reducescatter gradient")
+    back = []
+    for r in range(n):
+        recv = res[r]["alltoallv"][0].shape[0]
+        back.append(np.arange(recv * 2, dtype=np.float32).reshape(recv, 2))
+    for r, d in enumerate(res):
+        rows = []
+        for s in range(n):
+            # What rank s received from r sits after what it received
+            # from the ranks before r.
+            start = sum(ins[q]["splits"][s] for q in range(r))
+            rows.append(back[s][start:start + ins[r]["splits"][s]])
+        same(d["grad_alltoall"], np.concatenate(rows), "alltoall gradient")
+    for r, d in enumerate(res):
+        log("surface_np2", f"rank {r}: every result bitwise the numpy "
+            "reference; host ms " + ", ".join(
+                f"{k} {v:.2f}" for k, v in d["ms"].items()))
 
 
 def main() -> int:
@@ -943,6 +1238,8 @@ def main() -> int:
     from horovod_tpu_torch.ops import flash_attention as FA
     from horovod_tpu_torch.ops import matmul_kernels as MK
 
+    if sys.argv[1:2] == ["--surface-rank"]:
+        return surface_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -979,6 +1276,7 @@ def main() -> int:
     measured = check_kernels(K)
     flash = check_flash(FA)
     k3 = check_k3(MK)
+    check_head()
     log("kernels", "port kernels: " + ", ".join(
         f"{fn.__name__} (comparison launches {fn.launches})"
         for fn in K.KERNELS + FA.KERNELS + MK.KERNELS)
@@ -1007,6 +1305,9 @@ def main() -> int:
     t0 = time.perf_counter()
     zero3_nccl(nccl_summary)
     log("zero3_nccl", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    surface_np2()
+    log("surface_np2", f"{time.perf_counter() - t0:.1f} s")
 
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -36,16 +36,28 @@ logger = logging.getLogger("horovod_tpu_torch")
 @dataclasses.dataclass
 class ProcessSet:
     """A set of ranks with its own process group (reference:
-    horovod/common/process_set.cc).  This slice registers only the
-    global set, id 0; `group` is None when the job has no process group
-    (one rank)."""
+    horovod/common/process_set.cc).  The global set is id 0;
+    `add_process_set` registers the others over `dist.new_group`.
+    `group` is None when the job has no process group (one rank)."""
 
     ranks: List[int]
     process_set_id: int = 0
     group: Optional[object] = None
+    removed: bool = False  # remove_process_set ran: collectives refuse it
 
     def size(self) -> int:
         return len(self.ranks)
+
+    @property
+    def comm(self) -> Optional[object]:
+        """The group the set's collectives run over, or None when there
+        is nothing to exchange: one rank, or no process group.  A
+        collective over one rank is the identity (the JAX package's
+        compiled collectives over a one-device axis do no work)."""
+        return self.group if len(self.ranks) > 1 else None
+
+    def included(self) -> bool:
+        return _state().rank in self.ranks
 
     def rank(self) -> int:
         r = _state().rank
@@ -70,6 +82,9 @@ class _GlobalState:
     device: torch.device
     backend: Optional[str]  # None: one rank, no process group
     global_set: ProcessSet
+    process_sets: Dict[int, ProcessSet] = dataclasses.field(
+        default_factory=dict)
+    next_set_id: int = 1
 
 
 _global_state: Optional[_GlobalState] = None
@@ -156,11 +171,12 @@ def init(*, coordinator_address: Optional[str] = None,
             dist.init_process_group(backend, init_method=url,
                                     world_size=size, rank=rank)
             group = dist.group.WORLD
+        global_set = ProcessSet(ranks=list(range(size)), group=group)
         _global_state = _GlobalState(
             rank=rank, size=size, local_rank=local_rank,
             local_size=local_size, cross_rank=cross_rank,
             cross_size=cross_size, device=dev, backend=backend,
-            global_set=ProcessSet(ranks=list(range(size)), group=group))
+            global_set=global_set, process_sets={0: global_set})
         logger.info(
             "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
             "device=%s backend=%s", rank, size, local_rank, local_size,
@@ -172,12 +188,15 @@ def shutdown() -> None:
     `horovod_shutdown`): release the process group so a later `init()`
     can bootstrap afresh."""
     global _global_state
+    from ..ops import join
+
     with _init_lock:
         if _global_state is None:
             return
         if _global_state.backend is not None and dist.is_initialized():
             dist.destroy_process_group()
         _global_state = None
+        join.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +245,64 @@ def backend() -> Optional[str]:
 
 def global_process_set() -> ProcessSet:
     return _state().global_set
+
+
+# ---------------------------------------------------------------------------
+# Process sets (reference: horovod/common/process_sets.py; JAX package
+# common/basics.py add_process_set :477, remove_process_set :495)
+# ---------------------------------------------------------------------------
+
+def add_process_set(ranks: Sequence[int]) -> ProcessSet:
+    """Register a process set over `ranks` with a process group of its
+    own.  `dist.new_group` is collective: every rank calls this, in the
+    same order, members of the set or not.  Ids count up from 1 in the
+    order of registration, as in the JAX package."""
+    st = _state()
+    ranks = sorted(int(r) for r in ranks)
+    if len(set(ranks)) != len(ranks):
+        dups = sorted({r for r in ranks if ranks.count(r) > 1})
+        raise HorovodTpuError(
+            f"process set ranks contain duplicates {dups}: each rank "
+            "may appear at most once")
+    if any(r < 0 or r >= st.size for r in ranks):
+        raise HorovodTpuError(f"process set ranks {ranks} out of range")
+    with _init_lock:
+        for existing in st.process_sets.values():
+            if existing.ranks == ranks:
+                raise HorovodTpuError(
+                    f"A process set with ranks {ranks} already exists "
+                    f"(id={existing.process_set_id})")
+        ps_id = st.next_set_id
+        st.next_set_id += 1
+    group = dist.new_group(ranks) if st.backend is not None else None
+    ps = ProcessSet(ranks=ranks, process_set_id=ps_id, group=group)
+    with _init_lock:
+        st.process_sets[ps_id] = ps
+    return ps
+
+
+def remove_process_set(ps: ProcessSet) -> None:
+    """Drop a process set: it leaves the table and its collectives raise
+    from then on.  Its group is destroyed on the ranks that belong to
+    it (a rank outside holds no group to destroy)."""
+    st = _state()
+    if ps.process_set_id == 0:
+        raise HorovodTpuError("Cannot remove the global process set")
+    with _init_lock:
+        if st.process_sets.pop(ps.process_set_id, None) is None:
+            raise HorovodTpuError(
+                f"Unknown process set id {ps.process_set_id}")
+    group, ps.group = ps.group, None
+    ps.removed = True
+    if group is not None and st.rank in ps.ranks:
+        dist.destroy_process_group(group)
+
+
+def get_process_set(ps_id: int) -> ProcessSet:
+    try:
+        return _state().process_sets[ps_id]
+    except KeyError:
+        raise HorovodTpuError(f"Unknown process set id {ps_id}") from None
 
 
 # ---------------------------------------------------------------------------

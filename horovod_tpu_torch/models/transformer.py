@@ -89,6 +89,48 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+class TiedHead(torch.autograd.Function):
+    """The tied head's logits: h [B, T, D] against the embedding [V, D],
+    both rounded to `dt` (compute_dtype), products summed in f32, logits
+    [B, T, V] f32 (the JAX head's `preferred_element_type=float32`).
+
+    Forward: on a CUDA tensor with a 16-bit `dt`, one tensor-core GEMM
+    with f32 output (`torch.mm(..., out_dtype=torch.float32)`): a
+    16-bit by 16-bit product is exact in f32, so it differs from the f32
+    GEMM of the upcast operands only in the order of the sums over D.
+    Otherwise (the CPU, or an f32 `dt`) the plain version: that f32
+    einsum of the upcast operands.
+
+    Backward: the products autograd takes through the plain version's
+    einsum (a bmm of the f32 cotangent with the f32-upcast operands,
+    strides and all), each gradient rounded through `dt` by the casts,
+    so both gradients are those of the plain version."""
+
+    @staticmethod
+    def forward(ctx, h, embed, dt):
+        hc, ec = h.to(dt), embed.to(dt)
+        ctx.save_for_backward(hc, ec)
+        ctx.dtypes = (h.dtype, embed.dtype, dt)
+        if hc.is_cuda and dt in (torch.bfloat16, torch.float16):
+            b, t, d = hc.shape
+            return torch.mm(hc.reshape(b * t, d), ec.t(),
+                            out_dtype=torch.float32).reshape(b, t, -1)
+        return torch.einsum("btd,vd->btv", hc.float(), ec.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        hc, ec = ctx.saved_tensors
+        h_dtype, e_dtype, dt = ctx.dtypes
+        b, t, d = hc.shape
+        hf, ef = hc.float(), ec.float()
+        g3 = g.reshape(1, b * t, -1)
+        # einsum ran bmm(h (1, BT, D), embed viewed (1, D, V)); its
+        # backward: g @ (1, V, D), and (1, D, BT) @ g.
+        dh = torch.bmm(g3, ef.unsqueeze(0)).reshape(b, t, d)
+        de = torch.bmm(hf.reshape(1, b * t, d).transpose(1, 2), g3)[0].t()
+        return dh.to(dt).to(h_dtype), de.to(dt).to(e_dtype), None
+
+
 def _normal(shape, scale: float, g: torch.Generator) -> nn.Parameter:
     return nn.Parameter(torch.randn(shape, generator=g) * scale)
 
@@ -170,10 +212,8 @@ class Transformer(nn.Module):
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """The head tied to the embedding: h [B, T, D] -> logits
         [B, T, V] f32, inputs in compute_dtype and the products summed in
-        f32 (the JAX head's preferred_element_type)."""
-        dt = self.cfg.compute_dtype
-        return torch.einsum("btd,vd->btv", h.to(dt).float(),
-                            self.embed.to(dt).float())
+        f32 (the JAX head's preferred_element_type; `TiedHead`)."""
+        return TiedHead.apply(h, self.embed, self.cfg.compute_dtype)
 
     def forward(self, tokens: torch.Tensor,
                 attn: Optional[Callable] = None) -> torch.Tensor:

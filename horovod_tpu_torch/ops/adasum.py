@@ -91,8 +91,9 @@ def adasum_allreduce(tensor: torch.Tensor,
     from . import collectives as C
 
     with record_function("hvd.adasum.allgather"):
-        xs = C.allgather(tensor.detach().unsqueeze(0),
-                         process_set=process_set)
+        # Every rank's buffer has the same shape: no size exchange.
+        xs = C._allgather_start(tensor.detach().unsqueeze(0),
+                                C._resolve_set(process_set)).wait()
     with record_function("hvd.adasum.tree"):
         return adasum_tree_reduce(xs)
 

@@ -13,15 +13,30 @@ keep the JAX package's semantics:
   buffer (JAX :761-789).  Grouped Adasum therefore combines over the
   whole fused buffer, not tensor by tensor.
 
+- `allgather` takes a ragged dim 0 (sizes exchanged first, each rank
+  padded to the largest and sliced back); `reducescatter` takes any dim
+  0 under the JAX package's eager rule (ceil(dim0 / n) rows per rank,
+  the padding cut off); `alltoall` takes splits and returns the
+  received splits; `grouped_allgather` and `grouped_reducescatter`
+  fuse as the JAX eager path does.
+- Every collective takes `process_set=` (`add_process_set`: a
+  `dist.new_group` of its own) and refuses a removed set or a rank
+  outside it.  A set of one rank exchanges nothing (`ProcessSet.comm`).
+- Under join mode (`ops/join.py`) each outermost collective publishes
+  its signature for joined ranks to mirror, and a joined rank
+  contributes its op's identity: Average divides by the active count.
+
 Async ops return integer handles (`HandleManager`) over torch `Work`
 objects; `synchronize` waits and finishes the result.
 
 Gloo (ranks sharing a card) takes CUDA tensors for `all_reduce`,
-`broadcast`, `all_gather_into_tensor` and `reduce_scatter_tensor` in
-every dtype the port uses (torch 2.11 on an H100:
-tests/test_torch_port_cuda.py runs these collectives on the card over
-gloo), so every backend gets the tensors where they lie.  Allgather and broadcast move raw bytes (a uint8 view),
-so every dtype takes the same path.
+`broadcast`, `all_gather_into_tensor`, `reduce_scatter_tensor` and
+`all_to_all_single` (uneven splits included) in every dtype the port
+uses (torch 2.11 on an H100: tests/test_torch_port_cuda.py and
+chip_smoke.py phase `surface_np2` run these collectives on the card
+over gloo), so every backend gets the tensors where they lie.
+Allgather, broadcast and alltoall move raw bytes (a uint8 view), so
+every dtype takes the same path.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import torch.distributed as dist
 from ..common import basics
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
+from . import join as _join
 
 
 class ReduceOp:
@@ -62,8 +78,18 @@ _WIRE_OPS = {
 
 
 def _resolve_set(process_set: Optional[ProcessSet]) -> ProcessSet:
-    return process_set if process_set is not None \
+    """The set a collective runs over (default: the global one); raises
+    for a removed set and on a rank outside the set, as the JAX package
+    does."""
+    ps = process_set if process_set is not None \
         else basics.global_process_set()
+    if ps.removed:
+        raise HorovodTpuError(
+            f"process set {ps.process_set_id} was removed")
+    if not ps.included():
+        raise HorovodTpuError(
+            f"This process has no ranks in process set {ps.process_set_id}")
+    return ps
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -96,6 +122,101 @@ def _scale(t: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Join mode: signatures and masked contributions (ops/join.py)
+# ---------------------------------------------------------------------------
+
+_join_tls = threading.local()
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+class _joinable:
+    """Bracket for the outermost eager collective: when join mode is
+    armed, publish this op's signature so that joined ranks can mirror
+    it (JAX `_joinable`).  Collectives nested inside it (a barrier's
+    allreduce, the size exchange of a ragged allgather) publish
+    nothing."""
+
+    __slots__ = ("_outer",)
+
+    def __init__(self, kind: str, tensors: Sequence[torch.Tensor] = (),
+                 op: Optional["ReduceOp"] = None,
+                 root_rank: Optional[int] = None,
+                 process_set: Optional[ProcessSet] = None,
+                 prescale: float = 1.0, postscale: float = 1.0,
+                 extra: Optional[Dict[str, Any]] = None):
+        self._outer = not getattr(_join_tls, "nested", False)
+        if not (self._outer and _join.armed()):
+            return
+        shapes = [list(t.shape) for t in tensors]
+        if kind == "allgather":
+            # Ragged dim 0: the mirror sends no rows anyway.
+            shapes = [[0] + s[1:] if s else s for s in shapes]
+        sig: Dict[str, Any] = {
+            "kind": kind, "shapes": shapes,
+            "dtypes": [_dtype_name(t.dtype) for t in tensors]}
+        if op is not None:
+            sig["op"] = op.name
+        if root_rank is not None:
+            sig["root_rank"] = root_rank
+        if process_set is not None and process_set.process_set_id:
+            sig["ps"] = process_set.process_set_id
+        if prescale != 1.0:
+            sig["pre"] = float(prescale)
+        if postscale != 1.0:
+            sig["post"] = float(postscale)
+        sig.update(extra or {})
+        _join.publish_signature(sig)
+
+    def __enter__(self):
+        if self._outer:
+            _join_tls.nested = True
+        return self
+
+    def __exit__(self, *exc):
+        if self._outer:
+            _join_tls.nested = False
+        return False
+
+
+def _masked(x: torch.Tensor, op: "ReduceOp") -> torch.Tensor:
+    """This rank's contribution to a reduction under join mode: itself
+    while active; once joined, the op's identity (JAX
+    `masked_reduce_in_graph`: x · mask for Sum and Average, the dtype's
+    largest value for Min, its smallest for Max, 1 for Product)."""
+    if not _join.is_joined():
+        return x  # x · 1 is x
+    if op is Sum or op is Average:
+        return torch.zeros_like(x)
+    info = (torch.finfo if x.dtype.is_floating_point else torch.iinfo)(
+        x.dtype)
+    fill = {"Min": info.max, "Max": info.min, "Product": 1}[op.name]
+    return torch.full_like(x, fill)
+
+
+def _active_count(ps: ProcessSet, device) -> tuple:
+    """Start the sum of the ranks' active flags (the divisor of a masked
+    Average); returns (works, the count's buffer)."""
+    flag = torch.tensor([0.0 if _join.is_joined() else 1.0],
+                        dtype=torch.float32, device=device)
+    works = []
+    if ps.comm is not None:
+        works.append(dist.all_reduce(flag, op=dist.ReduceOp.SUM,
+                                     group=ps.comm, async_op=True))
+    return works, flag
+
+
+def _divide(out: torch.Tensor, n: int, count) -> torch.Tensor:
+    """Average's division at f32, cast back: by the set size, or under
+    join mode by the active count (at least 1)."""
+    if count is not None:
+        return (out.float() / count.clamp(min=1.0)).to(out.dtype)
+    return (out.float() / n).to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Allreduce
 # ---------------------------------------------------------------------------
 
@@ -109,18 +230,23 @@ def _allreduce_start(tensor: torch.Tensor, op: ReduceOp, prescale: float,
     n = ps.size()
     src = tensor.detach()
     buf = _scale(src, prescale)
+    if _join.armed():
+        buf = _masked(buf, op)
     # The wire reduces in place: never into the caller's tensor.
     buf = (src.clone(memory_format=torch.contiguous_format)
            if buf is src and not owned else buf.contiguous())
-    works = []
-    if ps.group is not None:
+    works, count = [], None
+    if ps.comm is not None:
         works.append(dist.all_reduce(buf, op=_WIRE_OPS[op.name],
-                                     group=ps.group, async_op=True))
+                                     group=ps.comm, async_op=True))
+    if _join.armed() and op is Average:
+        count_works, count = _active_count(ps, buf.device)
+        works += count_works
 
     def finish():
         out = buf
         if op is Average:
-            out = (out.float() / n).to(out.dtype)
+            out = _divide(out, n, count)
         return _scale(out, postscale)
 
     return _Pending(works, finish)
@@ -136,14 +262,16 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
     if op is None:
         op = Sum if average is False else Average
     ps = _resolve_set(process_set)
-    if op is Adasum:
-        from . import adasum as _adasum
+    with _joinable("allreduce", [tensor], op=op, process_set=ps,
+                   prescale=prescale_factor, postscale=postscale_factor):
+        if op is Adasum:
+            from . import adasum as _adasum
 
-        x = _scale(tensor.detach(), prescale_factor)
-        out = _adasum.adasum_allreduce(x, process_set=ps)
-        return _scale(out, postscale_factor)
-    return _allreduce_start(tensor, op, prescale_factor, postscale_factor,
-                            ps).wait()
+            x = _scale(tensor.detach(), prescale_factor)
+            out = _adasum.adasum_allreduce(x, process_set=ps)
+            return _scale(out, postscale_factor)
+        return _allreduce_start(tensor, op, prescale_factor,
+                                postscale_factor, ps).wait()
 
 
 def _grouped_allreduce_start(tensors: Sequence[torch.Tensor], op: ReduceOp,
@@ -194,39 +322,146 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
         op = Sum if average is False else Average
     if not tensors:
         return []
-    return _grouped_allreduce_start(tensors, op, prescale_factor,
-                                    postscale_factor,
-                                    _resolve_set(process_set)).wait()
+    ps = _resolve_set(process_set)
+    with _joinable("grouped_allreduce", tensors, op=op, process_set=ps,
+                   prescale=prescale_factor, postscale=postscale_factor):
+        return _grouped_allreduce_start(tensors, op, prescale_factor,
+                                        postscale_factor, ps).wait()
 
 
 # ---------------------------------------------------------------------------
-# Allgather / broadcast / barrier
+# Allgather: equal shapes, ragged dim 0, groups
 # ---------------------------------------------------------------------------
 
-def _allgather_start(tensor: torch.Tensor, ps: ProcessSet) -> _Pending:
+def _gather_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """t (at least 1-D) zero-padded along dim 0 to `rows` rows."""
+    if t.shape[0] == rows:
+        return t
+    pad = t.new_zeros((rows - t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat([t, pad])
+
+
+def _allgather_start(tensor: torch.Tensor, ps: ProcessSet,
+                     out: Optional[torch.Tensor] = None) -> _Pending:
+    """Allgather a tensor whose shape is the same on every rank: one
+    `all_gather_into_tensor` of its bytes, with no size exchange.
+    `out` (n·dim0 rows, the tensor's dtype, contiguous) receives the
+    gather when given."""
     t = tensor.detach()
     if t.dim() == 0:
         t = t.reshape(1)
     n = ps.size()
     out_shape = (n * t.shape[0],) + tuple(t.shape[1:])
-    if ps.group is None:
-        return _Pending([], lambda: t.clone().reshape(out_shape))
-    flat = _as_bytes(t)
-    gathered = torch.empty(n * flat.numel(), dtype=torch.uint8,
-                           device=flat.device)
-    works = [dist.all_gather_into_tensor(gathered, flat, group=ps.group,
-                                         async_op=True)]
-    return _Pending(works,
-                    lambda: gathered.view(t.dtype).reshape(out_shape))
+    if out is None:
+        out = torch.empty(out_shape, dtype=t.dtype, device=t.device)
+    if ps.comm is None:
+        out.copy_(t.reshape(out_shape))
+    if ps.comm is None or t.numel() == 0:
+        return _Pending([], lambda: out.reshape(out_shape))
+    works = [dist.all_gather_into_tensor(_as_bytes(out), _as_bytes(t),
+                                         group=ps.comm, async_op=True)]
+    return _Pending(works, lambda: out.reshape(out_shape))
+
+
+def _exchange_dims(dims: Sequence[int], ps: ProcessSet,
+                   device) -> List[List[int]]:
+    """Every rank's list of k integers (the same k on each rank), as an
+    (n, k) table in rank order: one small blocking allgather."""
+    mine = torch.tensor(list(dims), dtype=torch.int64, device=device)
+    if ps.comm is None:
+        return [list(dims)]
+    table = _allgather_start(mine.reshape(1, -1), ps).wait()
+    return table.cpu().tolist()
+
+
+def allgather_sizes(local_dim0: Sequence[int], ps: ProcessSet,
+                    device=None) -> List[int]:
+    """Every rank's first-dim size, in rank order (the displacement
+    exchange of AllgatherOp::SetDisplacements; JAX `allgather_sizes`).
+    `local_dim0` holds this process's one rank's size."""
+    if len(local_dim0) != 1:
+        raise HorovodTpuError(
+            f"allgather_sizes takes this process's one rank's size; got "
+            f"{len(local_dim0)} values")
+    device = basics.device() if device is None else device
+    return [row[0] for row in _exchange_dims(local_dim0, ps, device)]
+
+
+def _ragged_allgather_start(t: torch.Tensor, sizes: List[int],
+                            ps: ProcessSet) -> _Pending:
+    """Allgather where rank r holds sizes[r] rows: each rank pads to the
+    largest, and the padding is sliced off again."""
+    top = max(sizes)
+    if all(s == top for s in sizes):
+        return _allgather_start(t, ps)
+    padded = _allgather_start(_gather_rows(t, top), ps)
+
+    def finish():
+        got = padded.wait()
+        return torch.cat([got[r * top: r * top + s]
+                          for r, s in enumerate(sizes)])
+
+    return _Pending(padded._works, finish)
+
+
+def _allgather_any_start(tensor: torch.Tensor, ps: ProcessSet) -> _Pending:
+    t = tensor.detach()
+    if t.dim() == 0:
+        t = t.reshape(1)
+    if ps.comm is None:
+        return _allgather_start(t, ps)
+    return _ragged_allgather_start(
+        t, allgather_sizes([t.shape[0]], ps, t.device), ps)
 
 
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0, in rank order.  All
-    ranks give the same shape (ragged dim 0 waits for a later slice)."""
+    """Concatenate every rank's tensor along dim 0, in rank order
+    (reference: EnqueueTensorAllgather).  Dim 0 may differ between
+    ranks: the sizes are exchanged first (`allgather_sizes`), and when
+    they differ each rank pads to the largest and the padding is sliced
+    off; when they agree the data moves in one
+    `all_gather_into_tensor`."""
     del name
-    return _allgather_start(tensor, _resolve_set(process_set)).wait()
+    ps = _resolve_set(process_set)
+    with _joinable("allgather", [tensor], process_set=ps):
+        return _allgather_any_start(tensor, ps).wait()
 
+
+def _grouped_allgather_start(tensors: Sequence[torch.Tensor],
+                             ps: ProcessSet) -> _Pending:
+    """One size exchange for the whole group, then each tensor's gather
+    in flight at once."""
+    ts = [t.detach().reshape(1) if t.dim() == 0 else t.detach()
+          for t in tensors]
+    if ps.comm is None:
+        starts = [_allgather_start(t, ps) for t in ts]
+    else:
+        table = _exchange_dims([t.shape[0] for t in ts], ps, ts[0].device)
+        starts = [_ragged_allgather_start(t, [row[j] for row in table], ps)
+                  for j, t in enumerate(ts)]
+    return _Pending([w for p in starts for w in p._works],
+                    lambda: [p.wait() for p in starts])
+
+
+def grouped_allgather(tensors: Sequence[torch.Tensor],
+                      name: Optional[str] = None,
+                      process_set: Optional[ProcessSet] = None
+                      ) -> List[torch.Tensor]:
+    """Allgather each tensor of a group (JAX `grouped_allgather`'s exact
+    path), dim 0 ragged as in `allgather`; the sizes of the whole group
+    are exchanged in one collective."""
+    del name
+    if not tensors:
+        return []
+    ps = _resolve_set(process_set)
+    with _joinable("grouped_allgather", tensors, process_set=ps):
+        return _grouped_allgather_start(tensors, ps).wait()
+
+
+# ---------------------------------------------------------------------------
+# Broadcast / barrier
+# ---------------------------------------------------------------------------
 
 def _broadcast_start(tensor: torch.Tensor, root_rank: int,
                      ps: ProcessSet, out: torch.Tensor,
@@ -234,14 +469,18 @@ def _broadcast_start(tensor: torch.Tensor, root_rank: int,
     """Broadcast `tensor` from set-rank `root_rank` into `out` (which may
     be `tensor` itself); the handle yields `result` (default `out`): the
     caller's own tensor for the in-place variants."""
+    if root_rank not in range(ps.size()):
+        raise HorovodTpuError(
+            f"root_rank {root_rank} out of range for set of size "
+            f"{ps.size()}")
     result = out if result is None else result
     if out is not tensor:
         out.copy_(tensor)
-    if ps.group is None:
+    if ps.comm is None:
         return _Pending([], lambda: result)
     buf = out if out.is_contiguous() else out.contiguous()
     works = [dist.broadcast(_as_bytes(buf), src=ps.ranks[root_rank],
-                            group=ps.group, async_op=True)]
+                            group=ps.comm, async_op=True)]
 
     def finish():
         if buf is not out:
@@ -256,10 +495,12 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Return root's value of `tensor` on every rank (a new tensor)."""
     del name
+    ps = _resolve_set(process_set)
     out = torch.empty_like(tensor.detach(),
                            memory_format=torch.contiguous_format)
-    return _broadcast_start(tensor.detach(), root_rank,
-                            _resolve_set(process_set), out).wait()
+    with _joinable("broadcast", [tensor], root_rank=root_rank,
+                   process_set=ps):
+        return _broadcast_start(tensor.detach(), root_rank, ps, out).wait()
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
@@ -267,64 +508,269 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
                process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """In-place broadcast from root."""
     del name
+    ps = _resolve_set(process_set)
     t = tensor.detach()
-    return _broadcast_start(t, root_rank, _resolve_set(process_set), t,
-                            result=tensor).wait()
-
-
-# ---------------------------------------------------------------------------
-# Reduce-scatter
-# ---------------------------------------------------------------------------
-
-def _reducescatter_start(tensor: torch.Tensor, op: ReduceOp,
-                         ps: ProcessSet) -> _Pending:
-    if op is not Sum and op is not Average:
-        raise HorovodTpuError(
-            f"reducescatter supports Sum and Average, got {op}")
-    t = tensor.detach()
-    n = ps.size()
-    if t.dim() != 1 or t.numel() % n:
-        raise HorovodTpuError(
-            f"reducescatter needs a flat buffer whose length divides by "
-            f"the set size ({n}); got shape {tuple(t.shape)}")
-    if ps.group is None:
-        out = t.clone()
-        works = []
-    else:
-        out = torch.empty(t.numel() // n, dtype=t.dtype, device=t.device)
-        works = [dist.reduce_scatter_tensor(out, t.contiguous(),
-                                            op=dist.ReduceOp.SUM,
-                                            group=ps.group, async_op=True)]
-
-    def finish():
-        if op is Average:
-            return (out.float() / n).to(out.dtype)
-        return out
-
-    return _Pending(works, finish)
-
-
-def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
-                  name: Optional[str] = None,
-                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
-    """Sum (or average) a flat buffer across the ranks and return this
-    rank's band of the result: elements [r·L/n, (r+1)·L/n) on set rank
-    r, for a buffer of length L divisible by the set size n (the ZeRO
-    layout; ragged dim 0 waits for a later slice).  Average sums in the
-    buffer's dtype and divides at f32, as `allreduce` does.
-
-    Every backend runs `reduce_scatter_tensor`, gloo on CUDA tensors
-    included (torch 2.11 on an H100: tests/test_torch_port_cuda.py
-    `test_gloo_on_card_reducescatter`)."""
-    del name
-    return _reducescatter_start(tensor, op, _resolve_set(process_set)).wait()
+    with _joinable("broadcast", [tensor], root_rank=root_rank,
+                   process_set=ps):
+        return _broadcast_start(t, root_rank, ps, t, result=tensor).wait()
 
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:
     """Block until every rank reaches the barrier (reference: BarrierOp;
     a 1-element allreduce, as in the JAX package)."""
-    allreduce(torch.zeros((1,), dtype=torch.int32, device=basics.device()),
-              op=Sum, process_set=process_set)
+    ps = _resolve_set(process_set)
+    with _joinable("barrier", process_set=ps):
+        allreduce(torch.zeros((1,), dtype=torch.int32,
+                              device=basics.device()),
+                  op=Sum, process_set=ps)
+
+
+def join(process_set: Optional[ProcessSet] = None) -> int:
+    """Uneven-data join (reference: EnqueueJoin / JoinOp; ops/join.py):
+    from now on this rank contributes zeros to every collective of the
+    others until all ranks have joined; returns the last rank to join."""
+    return _join.join(process_set)
+
+
+# ---------------------------------------------------------------------------
+# Alltoall
+# ---------------------------------------------------------------------------
+
+def _rows_as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """t (at least 1-D) as (dim0, row bytes) uint8, so that split sizes
+    count rows and every dtype takes the same path."""
+    rest = 1
+    for d in t.shape[1:]:
+        rest *= d
+    return t.contiguous().reshape(t.shape[0], rest).view(torch.uint8)
+
+
+def _alltoall_exchange_splits(splits: Sequence[int], ps: ProcessSet,
+                              device) -> List[List[int]]:
+    """Every rank's send splits as an (n, n) table: row s is what rank s
+    sends to each rank (reference: MPIController::
+    AlltoallGetRecvSplits; JAX `_alltoall_exchange_splits`)."""
+    return _exchange_dims([int(s) for s in splits], ps, device)
+
+
+def _alltoall_start(t: torch.Tensor, send: List[int], recv: List[int],
+                    ps: ProcessSet) -> _Pending:
+    """One `all_to_all_single` of t's rows: send[i] rows to set rank i,
+    recv[i] rows from it.  Gloo takes CUDA tensors here too (torch 2.11
+    on an H100, uneven splits included)."""
+    out = torch.empty((sum(recv),) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    if ps.comm is None:
+        out.copy_(t)
+        return _Pending([], lambda: out)
+    works = [dist.all_to_all_single(
+        _rows_as_bytes(out), _rows_as_bytes(t), output_split_sizes=recv,
+        input_split_sizes=send, group=ps.comm, async_op=True)]
+    return _Pending(works, lambda: out)
+
+
+def _alltoall_any_start(tensor: torch.Tensor, splits,
+                        ps: ProcessSet) -> _Pending:
+    t = tensor.detach()
+    n = ps.size()
+    if splits is None:
+        d0 = t.shape[0] if t.dim() else 1
+        if t.dim() == 0 or d0 % n:
+            raise HorovodTpuError(
+                f"alltoall without splits requires dim0 ({d0}) divisible "
+                f"by set size ({n})")
+        even = [d0 // n] * n
+        return _alltoall_start(t, even, even, ps)
+    send = [int(s) for s in (splits.tolist() if isinstance(
+        splits, torch.Tensor) else splits)]
+    if len(send) != n:
+        raise HorovodTpuError(
+            f"alltoall splits must have one entry per rank ({n}), got "
+            f"shape ({len(send)},)")
+    d0 = t.shape[0] if t.dim() else 1
+    if any(s < 0 for s in send) or sum(send) != d0:
+        raise HorovodTpuError(
+            f"alltoall splits must be non-negative and sum to dim0 ({d0}), "
+            f"got {send}")
+    table = _alltoall_exchange_splits(send, ps, t.device)
+    me = ps.rank()
+    recv = [int(table[s][me]) for s in range(n)]
+    moved = _alltoall_start(t, send, recv, ps)
+    rsplits = torch.tensor(recv, dtype=torch.int32)
+    return _Pending(moved._works, lambda: (moved.wait(), rsplits))
+
+
+def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
+             process_set: Optional[ProcessSet] = None):
+    """Send slices of `tensor`'s dim 0 to every rank (reference:
+    EnqueueTensorAlltoall).  Without `splits`, dim 0 divides by the set
+    size n and rank r receives the r-th chunk of every rank, in rank
+    order.  With `splits` (n non-negative counts summing to dim 0): rank
+    r sends splits[i] rows to rank i, and the call returns (received,
+    received_splits) as the JAX package's `alltoall` does, the splits an
+    int32 tensor."""
+    del name
+    ps = _resolve_set(process_set)
+    t = tensor.detach()
+    if splits is None:
+        with _joinable("alltoall", [t], process_set=ps):
+            return _alltoall_any_start(t, None, ps).wait()
+    # A joined rank mirrors with zero rows and zero splits.
+    sig = [0] + list(t.shape[1:])
+    with _joinable("alltoallv", [], process_set=ps,
+                   extra={"shapes": [sig],
+                          "dtypes": [_dtype_name(t.dtype)]}):
+        return _alltoall_any_start(t, splits, ps).wait()
+
+
+# ---------------------------------------------------------------------------
+# Reduce-scatter: any dim 0, groups
+# ---------------------------------------------------------------------------
+
+def _scatter_geometry(t: torch.Tensor, n: int):
+    """(dim0, rows per rank c = ceil(dim0 / n), elements per row)."""
+    if t.dim() == 0:
+        raise HorovodTpuError("reducescatter needs at least one dimension")
+    d0 = t.shape[0]
+    rest = 1
+    for d in t.shape[1:]:
+        rest *= d
+    return d0, -(-d0 // n) if d0 else 0, rest
+
+
+def _keep_rows(d0: int, c: int, pos: int) -> int:
+    """Rows of the scattered result that set rank `pos` keeps: the
+    padding is cut off, so trailing ranks may keep fewer, or none."""
+    return max(0, min(d0 - pos * c, c))
+
+
+def _reducescatter_flat(buf: torch.Tensor, op: ReduceOp, ps: ProcessSet,
+                        masked: bool) -> _Pending:
+    """Reduce-scatter a flat buffer of n·w elements into this rank's w:
+    Sum, or Average divided at f32 (by the active count under join
+    mode)."""
+    n = ps.size()
+    if masked:
+        buf = _masked(buf, op)
+    if ps.comm is None or buf.numel() == 0:
+        out = buf.clone()
+        works = []
+    else:
+        out = torch.empty(buf.numel() // n, dtype=buf.dtype,
+                          device=buf.device)
+        works = [dist.reduce_scatter_tensor(out, buf.contiguous(),
+                                            op=dist.ReduceOp.SUM,
+                                            group=ps.comm, async_op=True)]
+    count = None
+    if masked and op is Average:
+        count_works, count = _active_count(ps, buf.device)
+        works += count_works
+
+    def finish():
+        if op is not Average:
+            return out
+        if count is None and not out.dtype.is_floating_point:
+            return out.float() / n  # jnp.mean of integers: float32
+        return _divide(out, n, count)
+
+    return _Pending(works, finish)
+
+
+def _check_scatter_op(op: ReduceOp) -> None:
+    if op is not Sum and op is not Average:
+        raise HorovodTpuError(
+            f"reducescatter supports Sum and Average, got {op}")
+
+
+def _reducescatter_start(tensor: torch.Tensor, op: ReduceOp,
+                         ps: ProcessSet) -> _Pending:
+    _check_scatter_op(op)
+    t = tensor.detach()
+    n = ps.size()
+    d0, c, rest = _scatter_geometry(t, n)
+    pos = ps.rank()
+    keep = _keep_rows(d0, c, pos)
+    flat = _gather_rows(t, n * c).reshape(-1) if d0 else t.reshape(-1)
+    red = _reducescatter_flat(flat, op, ps, _join.armed())
+
+    def finish():
+        return red.wait().reshape((c,) + tuple(t.shape[1:]))[:keep]
+
+    return _Pending(red._works, finish)
+
+
+def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
+                  name: Optional[str] = None,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Reduce across the ranks and return this rank's rows of dim 0
+    (JAX `reducescatter`, eager rule): dim 0 is zero-padded to n·c rows,
+    c = ceil(dim0 / n), and set rank r gets rows [r·c, (r+1)·c) with
+    the padding cut off, so trailing ranks may get fewer rows, or none.
+    Sum and Average only; Average sums in the tensor's dtype and divides
+    at f32, as `allreduce` does, except that an integer tensor's Average
+    comes back in f32 (the JAX eager path's `jnp.mean`).  A flat buffer whose length divides by
+    n (the ZeRO layout) gets its band [r·L/n, (r+1)·L/n).
+
+    Every backend runs `reduce_scatter_tensor`, gloo on CUDA tensors
+    included (torch 2.11 on an H100: tests/test_torch_port_cuda.py
+    `test_gloo_on_card_reducescatter`)."""
+    del name
+    ps = _resolve_set(process_set)
+    with _joinable("reducescatter", [tensor], op=op, process_set=ps):
+        return _reducescatter_start(tensor, op, ps).wait()
+
+
+def _grouped_reducescatter_start(tensors: Sequence[torch.Tensor],
+                                 op: ReduceOp, ps: ProcessSet) -> _Pending:
+    """The JAX eager fusion: per dtype, each tensor padded to n·c_i rows
+    and viewed as (n, c_i·rest_i), the views concatenated along their
+    second axis, and the (n, W) buffer scattered in one collective."""
+    n = ps.size()
+    pos = ps.rank()
+    ts = [t.detach() for t in tensors]
+    geo = [_scatter_geometry(t, n) for t in ts]
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(ts):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    buckets = []
+    for idxs in by_dtype.values():
+        fused = torch.cat([_gather_rows(ts[i], n * geo[i][1]).reshape(n, -1)
+                           for i in idxs], dim=1)
+        buckets.append((idxs, _reducescatter_flat(fused.reshape(-1), op, ps,
+                                                  masked=False)))
+
+    def finish():
+        out: List[Any] = [None] * len(ts)
+        for idxs, pending in buckets:
+            red = pending.wait()
+            off = 0
+            for i in idxs:
+                d0, c, rest = geo[i]
+                out[i] = red[off: off + c * rest].reshape(
+                    (c,) + tuple(ts[i].shape[1:]))[:_keep_rows(d0, c, pos)]
+                off += c * rest
+        return out
+
+    return _Pending([w for _, p in buckets for w in p._works], finish)
+
+
+def grouped_reducescatter(tensors: Sequence[torch.Tensor],
+                          op: ReduceOp = Average,
+                          name: Optional[str] = None,
+                          process_set: Optional[ProcessSet] = None
+                          ) -> List[torch.Tensor]:
+    """Fused reduce-scatter of a tensor group, one collective per dtype
+    (JAX `grouped_reducescatter`, eager path), each tensor under
+    `reducescatter`'s rule.  Under join mode each tensor is scattered
+    on its own, as in the JAX package."""
+    del name
+    _check_scatter_op(op)
+    if not tensors:
+        return []
+    ps = _resolve_set(process_set)
+    if _join.armed():
+        return [reducescatter(t, op=op, process_set=ps) for t in tensors]
+    return _grouped_reducescatter_start(tensors, op, ps).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +817,12 @@ def _handle(pending: _Pending) -> int:
     return HandleManager.global_instance().allocate(pending)
 
 
+def _async(kind: str, tensors, start, **sig) -> int:
+    """A handle over `start()`, under the collective's join bracket."""
+    with _joinable(kind, tensors, **sig):
+        return _handle(start())
+
+
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                     name: Optional[str] = None,
                     op: Optional[ReduceOp] = None,
@@ -384,9 +836,10 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                         postscale_factor=postscale_factor,
                         process_set=process_set)
         return _handle(_Pending([], lambda: out))
-    return _handle(_allreduce_start(tensor, op, prescale_factor,
-                                    postscale_factor,
-                                    _resolve_set(process_set)))
+    ps = _resolve_set(process_set)
+    return _async("allreduce", [tensor], lambda: _allreduce_start(
+        tensor, op, prescale_factor, postscale_factor, ps), op=op,
+        process_set=ps, prescale=prescale_factor, postscale=postscale_factor)
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -402,42 +855,90 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
         op = Sum if average is False else Average
     if not tensors:
         return _handle(_Pending([], lambda: []))
-    return _handle(_grouped_allreduce_start(
-        tensors, op, prescale_factor, postscale_factor,
-        _resolve_set(process_set)))
+    ps = _resolve_set(process_set)
+    return _async("grouped_allreduce", tensors,
+                  lambda: _grouped_allreduce_start(
+                      tensors, op, prescale_factor, postscale_factor, ps),
+                  op=op, process_set=ps, prescale=prescale_factor,
+                  postscale=postscale_factor)
 
 
 def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
                         name: Optional[str] = None,
                         process_set: Optional[ProcessSet] = None) -> int:
+    """`reducescatter`'s handle, any dim 0 (JAX `reducescatter_async`)."""
     del name
-    return _handle(_reducescatter_start(tensor, op,
-                                        _resolve_set(process_set)))
+    ps = _resolve_set(process_set)
+    return _async("reducescatter", [tensor],
+                  lambda: _reducescatter_start(tensor, op, ps), op=op,
+                  process_set=ps)
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
                     process_set: Optional[ProcessSet] = None) -> int:
+    """`allgather`'s handle; a ragged dim 0's sizes are exchanged before
+    it returns."""
     del name
-    return _handle(_allgather_start(tensor, _resolve_set(process_set)))
+    ps = _resolve_set(process_set)
+    return _async("allgather", [tensor],
+                  lambda: _allgather_any_start(tensor, ps), process_set=ps)
+
+
+def grouped_allgather_async(tensors: Sequence[torch.Tensor],
+                            name: Optional[str] = None,
+                            process_set: Optional[ProcessSet] = None) -> int:
+    """One handle for `grouped_allgather`."""
+    del name
+    if not tensors:
+        return _handle(_Pending([], lambda: []))
+    ps = _resolve_set(process_set)
+    return _async("grouped_allgather", tensors,
+                  lambda: _grouped_allgather_start(tensors, ps),
+                  process_set=ps)
+
+
+def alltoall_async(tensor: torch.Tensor, splits=None,
+                   name: Optional[str] = None,
+                   process_set: Optional[ProcessSet] = None) -> int:
+    """`alltoall`'s handle: the received tensor, or with `splits`
+    (received, received_splits).  The split table is exchanged before it
+    returns."""
+    del name
+    ps = _resolve_set(process_set)
+    t = tensor.detach()
+    if splits is None:
+        return _async("alltoall", [t],
+                      lambda: _alltoall_any_start(t, None, ps),
+                      process_set=ps)
+    return _async("alltoallv", [],
+                  lambda: _alltoall_any_start(t, splits, ps),
+                  process_set=ps, extra={
+                      "shapes": [[0] + list(t.shape[1:])],
+                      "dtypes": [_dtype_name(t.dtype)]})
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None,
                     process_set: Optional[ProcessSet] = None) -> int:
     del name
+    ps = _resolve_set(process_set)
     t = tensor.detach()
     out = torch.empty_like(t, memory_format=torch.contiguous_format)
-    return _handle(_broadcast_start(t, root_rank,
-                                    _resolve_set(process_set), out))
+    return _async("broadcast", [t],
+                  lambda: _broadcast_start(t, root_rank, ps, out),
+                  root_rank=root_rank, process_set=ps)
 
 
 def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
                      name: Optional[str] = None,
                      process_set: Optional[ProcessSet] = None) -> int:
     del name
+    ps = _resolve_set(process_set)
     t = tensor.detach()
-    return _handle(_broadcast_start(t, root_rank, _resolve_set(process_set),
-                                    t, result=tensor))
+    return _async("broadcast", [t],
+                  lambda: _broadcast_start(t, root_rank, ps, t,
+                                           result=tensor),
+                  root_rank=root_rank, process_set=ps)
 
 
 def poll(handle: int) -> bool:

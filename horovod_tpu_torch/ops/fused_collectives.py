@@ -26,7 +26,8 @@ the fused matmuls, computed), and the works are waited for in order.
   dot the JAX package leaves to XLA).
 
 Armed by HOROVOD_FUSED_COLLECTIVES=1 (`fused_enabled`), sized by
-HOROVOD_FUSED_CHUNK_BYTES.  A cast wire's cast belongs to the caller, as
+HOROVOD_FUSED_CHUNK_BYTES.  A set of one rank exchanges nothing
+(`ProcessSet.comm`): its scatter and gather are one copy each.  A cast wire's cast belongs to the caller, as
 in the JAX package; the cooperative codecs and the quantized ring
 (`pipelined_allreduce_shard`) are not ported yet.
 """
@@ -38,7 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..common import basics, util
+from ..common import util
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from . import collectives as C
@@ -84,8 +85,7 @@ def plan_chunks(n_elements: int, itemsize: int,
 
 
 def _resolve(process_set: Optional[ProcessSet]) -> ProcessSet:
-    return process_set if process_set is not None \
-        else basics.global_process_set()
+    return C._resolve_set(process_set)
 
 
 def _wait(works) -> None:
@@ -134,10 +134,10 @@ def pipelined_grouped_allreduce(tensors: Sequence[torch.Tensor],
                 lo, hi = max(off, s), min(off + w, s + f.numel())
                 if lo < hi:
                     buf[lo:hi].copy_(f[lo - s:hi - s])
-            if ps.group is not None:
+            if ps.comm is not None:
                 works.append(dist.all_reduce(
                     buf[off:off + w], op=C._WIRE_OPS[op.name],
-                    group=ps.group, async_op=True))
+                    group=ps.comm, async_op=True))
         pending.append((idxs, buf, works))
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for idxs, buf, works in pending:
@@ -168,6 +168,8 @@ def pipelined_psum_scatter(flat: torch.Tensor,
         raise HorovodTpuError(
             f"pipelined_psum_scatter needs a flat buffer divisible by the "
             f"set size ({n}); got shape {tuple(flat.shape)}")
+    if ps.comm is None:
+        return flat.detach().clone()  # one rank: the sum is the buffer
     shard = flat.numel() // n
     band = flat.detach().reshape(n, shard)
     out = torch.empty(shard, dtype=flat.dtype, device=flat.device)
@@ -175,12 +177,9 @@ def pipelined_psum_scatter(flat: torch.Tensor,
     for off, w in plan_chunks(shard, flat.element_size(),
                               chunk_bytes=chunk_bytes):
         send = band[:, off:off + w].contiguous().reshape(-1)
-        if ps.group is None:
-            out[off:off + w].copy_(send)
-            continue
         keep.append(send)
         works.append(dist.reduce_scatter_tensor(
-            out[off:off + w], send, op=dist.ReduceOp.SUM, group=ps.group,
+            out[off:off + w], send, op=dist.ReduceOp.SUM, group=ps.comm,
             async_op=True))
     _wait(works)
     return out
@@ -190,12 +189,16 @@ def pipelined_allgather_shard(shard: torch.Tensor,
                               process_set: Optional[ProcessSet] = None,
                               wire: Optional[str] = None,
                               chunk_bytes: Optional[int] = None,
-                              stacked: bool = False) -> torch.Tensor:
+                              stacked: bool = False,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Chunked allgather of a flat local shard, every chunk in flight at
     once and unpacked in order.  Returns the rank-major flat gather, or
-    the (n, shard) stacked view with `stacked=True`.  Gathers move bytes,
-    so the result is bitwise the unchunked gather.  `wire` is resolved
-    (a cooperative codec raises); a cast wire's cast is the caller's."""
+    the (n, shard) stacked view with `stacked=True`; `out` (n·shard
+    elements of the shard's dtype, contiguous) receives it when given.
+    Gathers move bytes, so the result is bitwise the unchunked gather.
+    `wire` is resolved (a cooperative codec raises); a cast wire's cast
+    is the caller's."""
     get_codec(wire)
     if shard.dim() != 1:
         raise HorovodTpuError(
@@ -204,8 +207,9 @@ def pipelined_allgather_shard(shard: torch.Tensor,
     ps = _resolve(process_set)
     n = ps.size()
     s = shard.detach()
-    band = torch.empty((n, s.numel()), dtype=s.dtype, device=s.device)
-    if ps.group is None:
+    band = (out.view(n, s.numel()) if out is not None else
+            torch.empty((n, s.numel()), dtype=s.dtype, device=s.device))
+    if ps.comm is None:
         band[0].copy_(s)
         return band if stacked else band.reshape(-1)
     chunks = []
@@ -215,7 +219,7 @@ def pipelined_allgather_shard(shard: torch.Tensor,
         got = torch.empty(n * seg.numel(), dtype=torch.uint8,
                           device=s.device)
         chunks.append((off, w, got, dist.all_gather_into_tensor(
-            got, seg, group=ps.group, async_op=True)))
+            got, seg, group=ps.comm, async_op=True)))
     for off, w, got, work in chunks:
         work.wait()
         band[:, off:off + w] = got.view(s.dtype).view(n, w)
@@ -258,13 +262,13 @@ def fused_matmul_reduce_scatter(a: torch.Tensor, b: torch.Tensor,
     for off, w in plan_chunks(cols, max(1, m * a.element_size()),
                               chunk_bytes=chunk_bytes, align=1):
         partial = _chunk_matmul(a, b[:, off:off + w])
-        if ps.group is None:
+        if ps.comm is None:
             out[:, off:off + w] = partial
             continue
         recv = torch.empty((m // n, w), dtype=a.dtype, device=a.device)
         pending.append((off, w, recv, partial, dist.reduce_scatter_tensor(
             recv, partial.contiguous(), op=dist.ReduceOp.SUM,
-            group=ps.group, async_op=True)))
+            group=ps.comm, async_op=True)))
     for off, w, recv, _, work in pending:
         work.wait()
         out[:, off:off + w] = recv
@@ -292,13 +296,13 @@ def fused_allgather_matmul(x: torch.Tensor, w_shard: torch.Tensor,
     for off, w in plan_chunks(s, max(1, k * ws.element_size()),
                               chunk_bytes=chunk_bytes, align=1):
         seg = ws[off:off + w]
-        if ps.group is None:
+        if ps.comm is None:
             chunks.append((off, w, seg.reshape(1, w, k), None))
             continue
         got = torch.empty(n * w * k * ws.element_size(), dtype=torch.uint8,
                           device=ws.device)
         chunks.append((off, w, got, dist.all_gather_into_tensor(
-            got, C._as_bytes(seg), group=ps.group, async_op=True)))
+            got, C._as_bytes(seg), group=ps.comm, async_op=True)))
     for off, w, got, work in chunks:
         if work is not None:
             work.wait()

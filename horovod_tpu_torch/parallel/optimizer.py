@@ -19,10 +19,16 @@ docstring, :235-276), reached as
 - Stage 2 adds sharded accumulation: with K > 1 every pass's gradients
   are reduce-scattered at once and only the local shard accumulates
   (`p.grad` is released after each pass).
+- At every stage the shards are scratch: each step copies them in from
+  the parameters, and between steps only their optimizer state holds
+  memory.
 - Stage 3 is stage 2 with the parameters held by `zero3_placement`:
-  `step()` leaves the parameters alone and returns the rank-identical
-  list of updates (this rank's new shard minus its old one, allgathered)
-  for `placement.apply_updates`.
+  `step()` leaves the parameters alone, releases `p.grad` once it is
+  scattered, and returns the rank-identical list of updates (this rank's
+  new shard minus its old one, allgathered; each leaf a view of its
+  group's flat update) for `placement.apply_updates`.  Parameters bound
+  to the placement are views of their group's buffer, and the step
+  takes its shard as one slice of it.
 
 The arithmetic follows the JAX package's order: the mean of K passes is
 taken before the scatter at stage 1 and after it at stage 2; Average
@@ -49,7 +55,7 @@ from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
 from ..ops.compression import Compression
 from .data_parallel import shard_group_partition
-from .zero3 import group_slice, shard_groups, unpack
+from .zero3 import group_buffer, group_slice, shard_groups, unpack
 
 
 def optimizer_state_bytes(optimizer) -> int:
@@ -138,11 +144,18 @@ class _ShardedOptimizer:
             bucket_order=bucket_order)
         dev = self._params[0].device
         # One flat shard per group: the local optimizer's parameters.
+        # Each step copies them in from the parameters (`_apply`), so
+        # between steps they hold no storage; their state stays.
         self._shards = [torch.zeros(g.shard_sz, dtype=g.dtype, device=dev)
                         for g in self._groups]
         self._local = _local_optimizer(optimizer, self._shards)
         self._accum = ([torch.zeros_like(s) for s in self._shards]
                        if zero_stage >= 2 and self._bpps > 1 else None)
+        self._release_shards()
+
+    def _release_shards(self) -> None:
+        for sh in self._shards:
+            sh.untyped_storage().resize_(0)
 
     def _check_drift(self) -> None:
         live = shard_group_partition(
@@ -159,13 +172,19 @@ class _ShardedOptimizer:
 
     def _scatter(self, scale: Optional[float]) -> List[torch.Tensor]:
         """Reduce-scatter every group's gradients (all in flight before
-        the first is finished); returns this rank's averaged shards."""
+        the first is finished); returns this rank's averaged shards.
+        Each group's gradients are packed by one `torch.cat`, the pad
+        appended."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
         fused = _fc.fused_enabled()
         started = []
         for g in self._groups:
-            flat = group_slice(grads, g.idxs, g.dtype, 0, g.padded)
+            parts = [grads[i].reshape(-1) for i in g.idxs]
+            pad = g.padded - sum(g.sizes)
+            if pad:
+                parts.append(parts[0].new_zeros(pad))
+            flat = torch.cat(parts)
             if scale is not None:
                 flat = (flat * scale).to(flat.dtype)
             c, ctx = self._compression.compress(flat)
@@ -195,8 +214,13 @@ class _ShardedOptimizer:
     def _apply(self, g_shards: List[torch.Tensor]):
         r = self.rank
         for g, sh, gs in zip(self._groups, self._shards, g_shards):
-            sh.copy_(group_slice(self._params, g.idxs, g.dtype,
-                                 r * g.shard_sz, (r + 1) * g.shard_sz))
+            lo, hi = r * g.shard_sz, (r + 1) * g.shard_sz
+            sh.untyped_storage().resize_(sh.numel() * sh.element_size())
+            # Parameters bound to a zero3_placement are views of their
+            # group's buffer: the shard is one slice of it.
+            flat = group_buffer(self._params, g)
+            sh.copy_(flat[lo:hi] if flat is not None else
+                     group_slice(self._params, g.idxs, g.dtype, lo, hi))
             sh.grad = gs.to(sh.dtype)
         old = ([sh.clone() for sh in self._shards]
                if self.zero_stage == 3 else None)
@@ -208,6 +232,7 @@ class _ShardedOptimizer:
         if self.zero_stage < 3:
             with record_function("hvd.zero.allgather"):
                 fulls = self._gather(self._shards)
+            self._release_shards()
             for g, full in zip(self._groups, fulls):
                 for i, t in unpack(g, full):
                     self._params[i].copy_(t)
@@ -215,6 +240,7 @@ class _ShardedOptimizer:
         with record_function("hvd.zero.allgather"):
             fulls = self._gather([sh - o for sh, o in zip(self._shards,
                                                           old)])
+        self._release_shards()
         updates: List[Optional[torch.Tensor]] = [None] * len(self._params)
         for g, full in zip(self._groups, fulls):
             for i, t in unpack(g, full):
@@ -254,6 +280,10 @@ class _ShardedOptimizer:
             with record_function("hvd.zero.reduce_scatter"):
                 g_shards = self._scatter(
                     1.0 / self._bpps if self._bpps > 1 else None)
+            if self.zero_stage == 3:
+                # Scattered: only the shards of the gradients stay.
+                for p in self._params:
+                    p.grad = None
         return self._apply(g_shards)
 
     def zero_grad(self, *a, **kw):

@@ -1,4 +1,4 @@
-"""ZeRO-3: parameters sharded at rest, gathered just in time.
+"""ZeRO-3: parameters sharded at rest, gathered for each step.
 
 Counterpart of `horovod_tpu/parallel/zero3.py` (`ZeroParamPlacement`
 :76, `zero3_placement` :406).  The placement bakes the same
@@ -9,19 +9,30 @@ rank here, so the (n, shard) compat stack has no use).
 
     placement = hvd.zero3_placement(model.parameters())
     rows = placement.shard(model.parameters())
-    for p, full in zip(model.parameters(), placement.gather(rows)):
-        p.data.copy_(full)                  # just-in-time gather
-    ... backward; updates = opt.step()       # zero_stage=3
-    rows = placement.apply_updates(rows, updates)
+    placement.bind(model.parameters())       # views, released
+    for step ...:
+        placement.gather(rows)               # into the group buffers
+        ... forward, backward; updates = opt.step()   # zero_stage=3
+        rows = placement.apply_updates(rows, updates)
+        placement.release()                  # only the rows stay
+
+`bind` makes every parameter a view of its group's flat buffer, at
+`unpack`'s offsets, so that `gather` writes each group's allgather
+straight into the buffer the parameters read (no per-leaf copy), and
+`release` frees every buffer's storage between steps: the parameters
+keep their shapes, and reading one while released raises.  As in the
+JAX package's compiled step, every group stays gathered from the
+forward through the backward and the optimizer step.  Unbound, `gather`
+returns fresh full tensors in leaf order.
 
 `gather` issues every group's allgather at once, in `prefetch_order`
 (the reversed partition order: the partition's first group holds the
-last layers, so the forward consumes groups back to front), and unpacks
-them in that order.  Routing (`_gather_flat`): HOROVOD_FUSED_COLLECTIVES=1
-takes `pipelined_allgather_shard`; a cast gather wire (bf16 / fp16,
-HOROVOD_ZERO_GATHER_WIRE) gathers in the cast dtype; the exact wire
-gathers the row as it is.  The cooperative wires are not ported yet and
-raise.
+last layers, so the forward consumes groups back to front).  Routing
+(`_gather_start`): HOROVOD_FUSED_COLLECTIVES=1 takes
+`pipelined_allgather_shard`; a cast gather wire (bf16 / fp16,
+HOROVOD_ZERO_GATHER_WIRE) gathers in the cast dtype and copies once per
+group; the exact wire gathers the row as it is.  The cooperative wires
+are not ported yet and raise.
 
 `gather_matmul` computes `x @ Wᵀ` for a group that holds one 2-D leaf W,
 the gather fused behind the matmul (`fused_allgather_matmul`): the
@@ -104,6 +115,65 @@ def group_slice(leaves: Sequence[torch.Tensor], idxs: Sequence[int],
     return out
 
 
+def group_buffer(leaves: Sequence[torch.Tensor],
+                 g: _GroupMeta) -> Optional[torch.Tensor]:
+    """Group g's flat buffer of `g.padded` elements, when its leaves are
+    contiguous views of one laid out as `unpack` lays them (a bound
+    placement's parameters, the updates of a stage-3 step); else None.
+    Read from the leaves' storages and offsets alone."""
+    first = leaves[g.idxs[0]]
+    st = first.untyped_storage()
+    if st.data_ptr() == 0:
+        return None
+    base = off = first.storage_offset()
+    for i, sz, shp in zip(g.idxs, g.sizes, g.shapes):
+        leaf = leaves[i]
+        if (leaf.dtype != g.dtype or tuple(leaf.shape) != shp
+                or not leaf.is_contiguous()
+                or leaf.untyped_storage().data_ptr() != st.data_ptr()
+                or leaf.storage_offset() != off):
+            return None
+        off += sz
+    if st.nbytes() < (base + g.padded) * first.element_size():
+        return None
+    return torch.empty(0, dtype=g.dtype, device=first.device).set_(
+        st, base, (g.padded,))
+
+
+class _ReleasedParameter(torch.nn.Parameter):
+    """A bound parameter while its group's storage is released.  It
+    keeps its shape, dtype, device and `.grad`, so the optimizer's param
+    groups and the partition checks stay valid; any operation that would
+    read its values raises instead of reading freed memory (torch's
+    `UninitializedParameter` swaps its class the same way)."""
+
+    _metadata = {torch.Tensor.__hash__, torch.Tensor.size,
+                 torch.Tensor.dim, torch.Tensor.numel,
+                 torch.Tensor.nelement, torch.Tensor.element_size,
+                 torch.Tensor.untyped_storage, torch.Tensor.storage_offset,
+                 torch.Tensor.stride, torch.Tensor.is_contiguous,
+                 torch.Tensor.is_floating_point, torch.Tensor.is_complex}
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        # Attribute reads and writes (shape, dtype, grad, ...) arrive as
+        # a descriptor's method-wrapper; `.data` would hand out the
+        # freed storage.
+        attr = getattr(getattr(func, "__self__", None), "__name__", None)
+        if func in cls._metadata or (
+                type(func).__name__ == "method-wrapper" and attr != "data"):
+            return super().__torch_function__(func, types, args,
+                                              kwargs or {})
+        raise HorovodTpuError(
+            f"{getattr(func, '__name__', func)} read a ZeRO-3 parameter "
+            "whose storage is released between steps: call "
+            "placement.gather(rows) first")
+
+    def __repr__(self):
+        return (f"ReleasedParameter(shape={tuple(self.shape)}, "
+                f"dtype={self.dtype})")
+
+
 class ZeroParamPlacement:
     """Parameter residency for ZeRO stage 3 (build it with
     `zero3_placement`).  Holds the baked shard-group partition and moves
@@ -140,6 +210,9 @@ class ZeroParamPlacement:
         # Reverse-availability prefetch: the forward consumes the groups
         # back to front.
         self.prefetch_order = tuple(reversed(range(len(self.groups))))
+        self._rows: Tuple[torch.Tensor, ...] = ()  # the last rows seen
+        self._bound: Optional[List[torch.Tensor]] = None
+        self._flats: List[torch.Tensor] = []
 
     # -- layout ------------------------------------------------------------
 
@@ -150,10 +223,16 @@ class ZeroParamPlacement:
                    for _, sz, dt in self._leaf_meta)
 
     def resident_bytes(self) -> int:
-        """This rank's at-rest parameter bytes: one shard row per group,
-        about full_bytes / n plus at most one pad element per group."""
-        return sum(g.shard_sz * torch.empty((), dtype=g.dtype).element_size()
-                   for g in self.groups)
+        """The parameter bytes this placement holds now, read from the
+        storages: the rows it last made or was given, and every bound
+        parameter and group buffer (0 once released).  Between steps,
+        one shard row per group: about full_bytes / n plus at most one
+        pad element per group."""
+        held = {}
+        for t in (*self._rows, *self._flats, *(self._bound or ())):
+            st = t.untyped_storage()
+            held[st.data_ptr()] = st.nbytes()
+        return sum(held.values())
 
     def _check_drift(self, rows) -> None:
         if len(rows) != len(self.groups):
@@ -184,44 +263,108 @@ class ZeroParamPlacement:
                     "the placement")
 
     def _band(self, leaves, g: _GroupMeta) -> torch.Tensor:
-        """This rank's (1, shard) band of group g's buffer over `leaves`."""
+        """This rank's (1, shard) band of group g's buffer over `leaves`:
+        a view when the leaves are views of one buffer (`group_buffer`),
+        else a copy from the leaves that overlap it."""
         lo = self.rank * g.shard_sz
+        flat = group_buffer(leaves, g)
+        if flat is not None:
+            return flat[lo:lo + g.shard_sz].reshape(1, g.shard_sz)
         return group_slice(leaves, g.idxs, g.dtype, lo,
                            lo + g.shard_sz).reshape(1, g.shard_sz)
+
+    def _check_leaves(self, leaves, what: str) -> None:
+        if len(leaves) != len(self._leaf_meta) or any(
+                tuple(l.shape) != m[0] for l, m in zip(leaves,
+                                                       self._leaf_meta)):
+            raise ValueError(
+                f"zero3_placement.{what}: params do not match the leaves "
+                "the placement was built from — re-init the placement")
 
     def shard(self, params) -> Tuple[torch.Tensor, ...]:
         """Parameters → this rank's at-rest rows: one (1, shard) tensor
         per shard group (a copy; the parameters are not touched)."""
         leaves = _leaves(params)
-        if len(leaves) != len(self._leaf_meta) or any(
-                tuple(l.shape) != m[0] for l, m in zip(leaves,
-                                                       self._leaf_meta)):
-            raise ValueError(
-                "zero3_placement.shard: params do not match the leaves "
-                "the placement was built from — re-init the placement")
-        return tuple(self._band(leaves, g) for g in self.groups)
+        self._check_leaves(leaves, "shard")
+        self._rows = tuple(self._band(leaves, g).clone()
+                           for g in self.groups)
+        return self._rows
 
-    # -- just-in-time gather ----------------------------------------------
+    # -- residency: parameters as views of the group buffers ---------------
 
-    def _gather_start(self, row: torch.Tensor, g: _GroupMeta):
+    def bind(self, params) -> None:
+        """Make every parameter (the leaves the placement was built from)
+        a view of its group's flat buffer, at `unpack`'s offsets, and
+        release the buffers.  From here on the parameters' values live in
+        the rows: `gather(rows)` writes them into the buffers, `release()`
+        frees the buffers again.  Take `shard` (and broadcast the
+        parameters or the optimizer's state) before binding."""
+        leaves = _leaves(params)
+        self._check_leaves(leaves, "bind")
+        self._flats = []
+        for g in self.groups:
+            flat = torch.empty(g.padded, dtype=g.dtype,
+                               device=leaves[g.idxs[0]].device)
+            for i, view in unpack(g, flat):
+                leaves[i].data = view
+            self._flats.append(flat)
+        self._bound = leaves
+        self.release()
+
+    def release(self) -> None:
+        """Free every group buffer's storage: the bound parameters hold 0
+        bytes and raise if read, until the next `gather`."""
+        if self._bound is None:
+            raise HorovodTpuError("release() needs bind(params) first")
+        for flat in self._flats:
+            flat.untyped_storage().resize_(0)
+        for p in self._bound:
+            p.__class__ = _ReleasedParameter
+
+    # -- gather -------------------------------------------------------------
+
+    def _gather_start(self, row: torch.Tensor, g: _GroupMeta,
+                      out: Optional[torch.Tensor] = None):
         """Start gathering one group's rows (`_gather_flat`'s routing);
         returns a function that waits and gives the rank-major flat
-        buffer in the group's dtype."""
+        buffer in the group's dtype: `out` when given (a cast wire lands
+        in a buffer of its own and is copied into `out` once)."""
         cast = self._codec.cast_dtype
         send = row.reshape(-1)
         send = send.to(cast) if cast is not None else send
+        land = out if cast is None else None
         if _fc.fused_enabled():
-            full = _fc.pipelined_allgather_shard(send, self.process_set)
-            return lambda: full.to(g.dtype)
-        h = C._allgather_start(send, self.process_set)
-        return lambda: h.wait().to(g.dtype)
+            full = _fc.pipelined_allgather_shard(send, self.process_set,
+                                                 out=land)
+            wait = lambda: full  # noqa: E731
+        else:
+            wait = C._allgather_start(send, self.process_set, out=land).wait
+        if out is None:
+            return lambda: wait().to(g.dtype)
+        if land is None:
+            return lambda: out.copy_(wait())
+        return wait
 
     def gather(self, rows) -> List[torch.Tensor]:
         """At-rest rows → the full parameters, as a list in leaf order.
         Every group's gather is issued in `prefetch_order` before the
-        first is unpacked."""
+        first is waited for.  Bound (`bind`), each group's gather lands
+        in its buffer, whose storage it restores, and the list holds the
+        parameters themselves; unbound, fresh tensors."""
         rows = tuple(rows)
         self._check_drift(rows)
+        self._rows = rows
+        if self._bound is not None:
+            started = []
+            for gi in self.prefetch_order:
+                g, flat = self.groups[gi], self._flats[gi]
+                flat.untyped_storage().resize_(g.padded * flat.element_size())
+                started.append(self._gather_start(rows[gi], g, out=flat))
+            for wait in started:
+                wait()
+            for p in self._bound:
+                p.__class__ = torch.nn.Parameter
+            return list(self._bound)
         started = [(gi, self._gather_start(rows[gi], self.groups[gi]))
                    for gi in self.prefetch_order]
         leaves: List[Any] = [None] * len(self._leaf_meta)
@@ -239,6 +382,7 @@ class ZeroParamPlacement:
         JAX package's in-jit-only refusal)."""
         rows = tuple(rows)
         self._check_drift(rows)
+        self._rows = rows
         g = self.groups[gi]
         if len(g.idxs) != 1 or len(g.shapes[0]) != 2:
             raise ValueError(
@@ -269,7 +413,9 @@ class ZeroParamPlacement:
     def apply_updates(self, rows, updates) -> Tuple[torch.Tensor, ...]:
         """Fold a full list of additive updates (the rank-identical output
         of `DistributedOptimizer(zero_stage=3).step()`) into the at-rest
-        rows: each row adds this rank's band.  Returns new rows."""
+        rows: each row adds this rank's band, one op per group when the
+        updates are views of one flat buffer per group (as the step
+        returns them).  Returns new rows."""
         rows = tuple(rows)
         self._check_drift(rows)
         leaves = _leaves(updates)
@@ -277,8 +423,9 @@ class ZeroParamPlacement:
             raise ValueError(
                 "zero3_placement.apply_updates: updates do not match the "
                 "leaves the placement was built from")
-        return tuple(r + self._band(leaves, g).to(r.dtype)
-                     for g, r in zip(self.groups, rows))
+        self._rows = tuple(r + self._band(leaves, g).to(r.dtype)
+                           for g, r in zip(self.groups, rows))
+        return self._rows
 
 
 def zero3_placement(params, process_set: Optional[ProcessSet] = None,
@@ -298,4 +445,4 @@ def zero3_placement(params, process_set: Optional[ProcessSet] = None,
         bucket_order=bucket_order, gather_wire=gather_wire)
 
 
-__all__ = ["ZeroParamPlacement", "zero3_placement"]
+__all__ = ["ZeroParamPlacement", "group_buffer", "zero3_placement"]

@@ -43,7 +43,9 @@ from horovod_tpu_torch.ops import adasum, adasum_kernels
 def param_digest(model: torch.nn.Module) -> str:
     h = hashlib.sha256()
     for p in model.parameters():
-        h.update(p.detach().float().cpu().numpy().tobytes())
+        # A copy: a numpy view would mark a CPU parameter's storage as
+        # never resizable, and ZeRO-3 releases it between steps.
+        h.update(p.detach().float().cpu().clone().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -60,18 +62,30 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
     total (gloo moves a CUDA tensor through host memory)."""
     ranges: dict = {}
     kernels: dict = {}
+    launchers: dict = {}  # kernel -> the torch ops that launched it
+    runtime: dict = {}    # CUDA runtime call -> [host us, calls]
     spans = []
     copies = 0.0
-    for e in trace.get("traceEvents", []):
-        if e.get("ph") != "X":
-            continue
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    for e in events:
         cat, name, dur = e.get("cat"), e.get("name", ""), float(e["dur"])
         if cat == "user_annotation" and name.startswith(("hvd.", "bench.")):
             ranges[name] = ranges.get(name, 0.0) + dur
+        elif cat == "cuda_runtime":
+            rec = runtime.setdefault(name, [0.0, 0])
+            rec[0] += dur
+            rec[1] += 1
         elif cat in _DEVICE_CATS:
             spans.append((float(e["ts"]), float(e["ts"]) + dur))
             if cat == "kernel":
-                kernels[name[:80]] = kernels.get(name[:80], 0.0) + dur
+                # Long enough to keep an elementwise kernel's functor.
+                key = name[:300]
+                kernels[key] = kernels.get(key, 0.0) + dur
+                op = ops.get(e.get("args", {}).get("External id"))
+                if op is not None:
+                    launchers.setdefault(key, set()).add(op)
             elif cat == "gpu_memcpy":
                 copies += dur
     busy, end = 0.0, float("-inf")
@@ -89,7 +103,13 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
         "ranges_ms_per_step": {k: v * per_step for k, v in ranges.items()},
         "memcpy_ms_per_step": copies * per_step if on_card else None,
         "top_kernels_ms_per_step": sorted(
-            ((k, v * per_step) for k, v in kernels.items()),
+            ((k, v * per_step, sorted(launchers.get(k, ())))
+             for k, v in kernels.items()),
+            key=lambda kv: -kv[1])[:top],
+        # Host time inside CUDA runtime calls (launches, syncs, mallocs)
+        # and their count, per step.
+        "runtime_ms_calls_per_step": sorted(
+            ((k, v[0] * per_step, v[1] / steps) for k, v in runtime.items()),
             key=lambda kv: -kv[1])[:top],
     }
 

@@ -22,6 +22,7 @@ from torch.profiler import record_function
 from ..common import basics, util
 from ..common.basics import (  # noqa: F401
     ProcessSet,
+    add_process_set,
     backend,
     ccl_built,
     cross_rank,
@@ -29,6 +30,7 @@ from ..common.basics import (  # noqa: F401
     cuda_built,
     ddl_built,
     device,
+    get_process_set,
     global_process_set,
     gloo_built,
     gloo_enabled,
@@ -42,6 +44,7 @@ from ..common.basics import (  # noqa: F401
     mpi_threads_supported,
     nccl_built,
     rank,
+    remove_process_set,
     rocm_built,
     shutdown,
     size,
@@ -59,23 +62,24 @@ from ..ops.collectives import (  # noqa: F401
     Product,
     ReduceOp,
     Sum,
-    allgather,
     allgather_async,
-    allreduce,
     allreduce_async,
+    alltoall_async,
     barrier,
-    broadcast,
     broadcast_,
     broadcast_async,
     broadcast_async_,
-    grouped_allreduce,
+    grouped_allgather,
+    grouped_allgather_async,
     grouped_allreduce_async,
+    grouped_reducescatter,
+    join,
     poll,
-    reducescatter,
     reducescatter_async,
 )
 from ..ops.compression import Compression  # noqa: F401
 from ..ops.functions import allgather_object, broadcast_object  # noqa: F401
+from ..ops.join import join_mode  # noqa: F401
 from ..parallel.optimizer import (  # noqa: F401
     _ShardedOptimizer,
     grad_accum_bytes,
@@ -87,21 +91,225 @@ from ..utils.autotune import current_zero_stage
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
     "HandleManager", "HorovodInternalError", "Max", "Min", "ProcessSet",
-    "Product", "ReduceOp", "Sum", "allgather", "allgather_async",
-    "allgather_object", "allreduce", "allreduce_", "allreduce_async",
-    "allreduce_async_", "backend", "barrier", "broadcast", "broadcast_",
-    "broadcast_async", "broadcast_async_", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "ccl_built",
-    "cross_rank", "cross_size", "cuda_built", "ddl_built", "device",
-    "global_process_set", "gloo_built", "gloo_enabled", "grouped_allreduce",
+    "Product", "ReduceOp", "Sum", "add_process_set", "allgather",
+    "allgather_async", "allgather_object", "allreduce", "allreduce_",
+    "allreduce_async", "allreduce_async_", "alltoall", "alltoall_async",
+    "backend", "barrier", "broadcast", "broadcast_", "broadcast_async",
+    "broadcast_async_", "broadcast_object", "broadcast_optimizer_state",
+    "broadcast_parameters", "ccl_built", "cross_rank", "cross_size",
+    "cuda_built", "ddl_built", "device", "get_process_set",
+    "global_process_set", "gloo_built", "gloo_enabled",
+    "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
     "grouped_allreduce_", "grouped_allreduce_async",
-    "grouped_allreduce_async_", "grad_accum_bytes", "init",
-    "is_homogeneous", "is_initialized", "local_rank", "local_size",
-    "mpi_built", "mpi_enabled", "mpi_threads_supported", "nccl_built",
-    "optimizer_state_bytes", "poll", "rank", "reducescatter",
-    "reducescatter_async", "rocm_built", "shutdown", "size", "synchronize",
-    "tpu_built", "xla_built", "ZeroParamPlacement", "zero3_placement",
+    "grouped_allreduce_async_", "grouped_reducescatter", "grad_accum_bytes",
+    "init", "is_homogeneous", "is_initialized", "join", "join_mode",
+    "local_rank", "local_size", "mpi_built", "mpi_enabled",
+    "mpi_threads_supported", "nccl_built", "optimizer_state_bytes", "poll",
+    "rank", "reducescatter", "reducescatter_async", "remove_process_set",
+    "rocm_built", "shutdown", "size", "synchronize", "tpu_built",
+    "xla_built", "ZeroParamPlacement", "zero3_placement",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (reference: torch/mpi_ops.py autograd
+# Functions; the JAX shim's `_AllreduceFn` ... `_GroupedAllreduceFn`).  A
+# tensor that requires grad goes through its Function; any other takes
+# the plain collective.
+# ---------------------------------------------------------------------------
+
+def _set_rank(ps: Optional[ProcessSet]) -> int:
+    return C._resolve_set(ps).rank()
+
+
+class _AllreduceFn(torch.autograd.Function):
+    """The gradient of an allreduce is the allreduce of the gradients
+    with the same op and scale factors."""
+
+    @staticmethod
+    def forward(ctx, tensor, op, prescale, postscale, process_set):
+        ctx.args = dict(op=op, prescale_factor=prescale,
+                        postscale_factor=postscale, process_set=process_set)
+        return C.allreduce(tensor, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return C.allreduce(grad, **ctx.args), None, None, None, None
+
+
+class _AllgatherFn(torch.autograd.Function):
+    """Backward sums the output gradient over the ranks and takes this
+    rank's rows, dim 0 ragged included."""
+
+    @staticmethod
+    def forward(ctx, tensor, process_set):
+        ctx.ps, ctx.n0 = process_set, tensor.shape[0]
+        return C.allgather(tensor, process_set=process_set)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = C.allreduce(grad, op=Sum, process_set=ctx.ps)
+        sizes = C.allgather(torch.tensor([ctx.n0], dtype=torch.int64,
+                                         device=grad.device),
+                            process_set=ctx.ps)
+        begin = int(sizes[:_set_rank(ctx.ps)].sum())
+        return summed[begin:begin + ctx.n0], None
+
+
+class _BroadcastFn(torch.autograd.Function):
+    """The gradients sum onto the root; the other ranks' inputs did not
+    reach the output, so theirs is zero."""
+
+    @staticmethod
+    def forward(ctx, tensor, root_rank, process_set):
+        ctx.ps, ctx.root = process_set, root_rank
+        return C.broadcast(tensor, root_rank=root_rank,
+                           process_set=process_set)
+
+    @staticmethod
+    def backward(ctx, grad):
+        red = C.allreduce(grad, op=Sum, process_set=ctx.ps)
+        if _set_rank(ctx.ps) != ctx.root:
+            red = torch.zeros_like(red)
+        return red, None, None
+
+
+class _ReducescatterFn(torch.autograd.Function):
+    """Backward allgathers the rows' gradients (ragged when the rows did
+    not divide), divided by n for Average."""
+
+    @staticmethod
+    def forward(ctx, tensor, op, process_set):
+        ctx.op, ctx.ps = op, process_set
+        return C.reducescatter(tensor, op=op, process_set=process_set)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = C.allgather(grad, process_set=ctx.ps)
+        if ctx.op is Average:
+            g = g / C._resolve_set(ctx.ps).size()
+        return g, None, None
+
+
+class _AlltoallFn(torch.autograd.Function):
+    """The gradient goes back by another alltoall: with the received
+    splits when splits were given (each rank returns what it got), by
+    equal chunks when not."""
+
+    @staticmethod
+    def forward(ctx, tensor, splits, process_set):
+        ctx.ps = process_set
+        if splits is None:
+            ctx.back = None
+            return C.alltoall(tensor, process_set=process_set)
+        out, rsplits = C.alltoall(tensor, splits=splits,
+                                  process_set=process_set)
+        ctx.back = rsplits
+        ctx.mark_non_differentiable(rsplits)
+        return out, rsplits
+
+    @staticmethod
+    def backward(ctx, grad, *_):
+        if ctx.back is None:
+            return C.alltoall(grad, process_set=ctx.ps), None, None
+        g, _ = C.alltoall(grad, splits=ctx.back, process_set=ctx.ps)
+        return g, None, None
+
+
+class _GroupedAllreduceFn(torch.autograd.Function):
+    """The gradient of a grouped allreduce is the grouped allreduce of
+    the gradients (one fused collective each way)."""
+
+    @staticmethod
+    def forward(ctx, op, prescale, postscale, process_set, *tensors):
+        ctx.args = dict(op=op, prescale_factor=prescale,
+                        postscale_factor=postscale, process_set=process_set)
+        return tuple(C.grouped_allreduce(list(tensors), **ctx.args))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, None) + tuple(
+            C.grouped_allreduce(list(grads), **ctx.args))
+
+
+def _resolve_op(op, average):
+    if op is None:
+        op = Sum if average is False else Average
+    return op
+
+
+def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
+              name: Optional[str] = None, op=None,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """`ops.collectives.allreduce`, differentiable."""
+    op = _resolve_op(op, average)
+    if tensor.requires_grad:
+        return _AllreduceFn.apply(tensor, op, prescale_factor,
+                                  postscale_factor, process_set)
+    return C.allreduce(tensor, name=name, op=op,
+                       prescale_factor=prescale_factor,
+                       postscale_factor=postscale_factor,
+                       process_set=process_set)
+
+
+def grouped_allreduce(tensors, average: Optional[bool] = None,
+                      name: Optional[str] = None, op=None,
+                      prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0,
+                      process_set: Optional[ProcessSet] = None
+                      ) -> List[torch.Tensor]:
+    """`ops.collectives.grouped_allreduce`, differentiable."""
+    op = _resolve_op(op, average)
+    if any(t.requires_grad for t in tensors):
+        return list(_GroupedAllreduceFn.apply(
+            op, prescale_factor, postscale_factor, process_set, *tensors))
+    return C.grouped_allreduce(tensors, name=name, op=op,
+                               prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor,
+                               process_set=process_set)
+
+
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """`ops.collectives.allgather` (dim 0 may be ragged),
+    differentiable."""
+    if tensor.requires_grad:
+        # 0-d: gathered as [1] slices; unsqueeze so that the backward's
+        # row slice sees the same shape.
+        t = tensor.unsqueeze(0) if tensor.dim() == 0 else tensor
+        return _AllgatherFn.apply(t, process_set)
+    return C.allgather(tensor, name=name, process_set=process_set)
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int = 0,
+              name: Optional[str] = None,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """`ops.collectives.broadcast`, differentiable."""
+    if tensor.requires_grad:
+        return _BroadcastFn.apply(tensor, root_rank, process_set)
+    return C.broadcast(tensor, root_rank=root_rank, name=name,
+                       process_set=process_set)
+
+
+def reducescatter(tensor: torch.Tensor, op=Average,
+                  name: Optional[str] = None,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """`ops.collectives.reducescatter` (any dim 0), differentiable."""
+    if tensor.requires_grad:
+        return _ReducescatterFn.apply(tensor, op, process_set)
+    return C.reducescatter(tensor, op=op, name=name,
+                           process_set=process_set)
+
+
+def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
+             process_set: Optional[ProcessSet] = None):
+    """`ops.collectives.alltoall`, differentiable: the received tensor,
+    or with `splits` (received, received_splits)."""
+    if tensor.requires_grad:
+        return _AlltoallFn.apply(tensor, splits, process_set)
+    return C.alltoall(tensor, splits=splits, name=name,
+                      process_set=process_set)
 
 # handle -> tensors an in-place async op writes its result into
 _inplace: Dict[int, List[torch.Tensor]] = {}

@@ -20,10 +20,12 @@ the plain attention (no kernels); `--profile K` a PROFILE line (as
 synthetic_benchmark's).
 
 `--zero-stage K` trains under `DistributedOptimizer(zero_stage=K)`.  At
-stage 3 the parameters live in a `zero3_placement` and the step is
-gather -> forward/backward -> sharded step -> apply_updates (the next
-step's gather runs at the end of this one, so the module always holds
-the current parameters).  `--eval-every N` adds a held-out forward every
+stage 3 the parameters are bound to a `zero3_placement` (views of one
+buffer per shard group) and the step is gather -> forward/backward ->
+sharded step -> apply_updates -> release: between steps only the rows
+and the optimizer's shards stay on the device (SUMMARY's
+`param_resident_bytes` and `param_storage_bytes` read the storages).
+`--eval-every N` adds a held-out forward every
 N steps (one fixed batch, the same on every rank) and an EVAL line: its
 loss, the launches of K3 (`tiled_matmul`) and, on the check step, the
 logits' largest difference from the plain head relative to their
@@ -78,6 +80,15 @@ def reset_launch_counts() -> None:
     mk.reset_launch_counts()
 
 
+def storage_bytes(tensors) -> int:
+    """Bytes the tensors' storages hold now, each storage once."""
+    held = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        held[st.data_ptr()] = st.nbytes()
+    return sum(held.values())
+
+
 def embed_group(placement, model) -> int:
     """Index of the shard group that holds the embedding alone (the tied
     head's weight); raises if the partition grouped it with others."""
@@ -95,7 +106,10 @@ def _check_plain_attention(model, x, y, logits) -> dict:
     """Rank 0's check of the kernels on one step: the forward again with
     K4's plain version for attention, and once more with that plain
     version made non-causal, a fault the check must tell apart.  For
-    each: its loss, and max|its logits - `logits`| / max|`logits`|."""
+    each: its loss, and max|its logits - `logits`| / max|`logits`|.
+    Also the tied head against the f32 path it replaced (the f32 einsum
+    of the compute-dtype operands): `head_logits_rel`, relative to the
+    largest logit."""
     def faulted(q, k, v, causal, window):
         return fa.flash_attention_plain(q, k, v, causal=False, window=window)
 
@@ -104,11 +118,19 @@ def _check_plain_attention(model, x, y, logits) -> dict:
     with torch.no_grad():
         for name, attn in (("plain", fa.flash_attention_plain),
                            ("faulted", faulted)):
-            other = model(x, attn=attn)
+            h = model.hidden(x, attn=attn)
+            other = model.head(h)
             rec[f"{name}_loss"] = float(lm_loss(other, y))
             rec[f"{name}_logits_rel"] = float(
                 (other - logits).abs().max() / top)
-            del other
+            if name == "plain":
+                dt = model.cfg.compute_dtype
+                f32 = torch.einsum("btd,vd->btv", h.to(dt).float(),
+                                   model.embed.to(dt).float())
+                rec["head_logits_rel"] = float(
+                    (other - f32).abs().max() / f32.abs().max())
+                del f32
+            del h, other
     return rec
 
 
@@ -166,11 +188,25 @@ def main(argv=None) -> int:
         placement = hvd.zero3_placement(params)
         gi_embed = embed_group(placement, model)
         rows = placement.shard(params)
+        placement.bind(params)
 
     def gather_params():
-        with torch.no_grad(), record_function("bench.gather"):
-            for p_, full in zip(params, placement.gather(rows)):
-                p_.copy_(full)
+        if placement is not None:
+            with torch.no_grad(), record_function("bench.gather"):
+                placement.gather(rows)
+
+    def release_params():
+        if placement is not None:
+            with record_function("bench.release"):
+                placement.release()
+
+    def digest() -> str:
+        """The parameters' SHA-256 after the step (at stage 3 gathered
+        for it, then released again)."""
+        gather_params()
+        d = param_digest(model)
+        release_params()
+        return d
 
     ev = np.random.RandomState(12345).randint(
         0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))
@@ -178,8 +214,10 @@ def main(argv=None) -> int:
     ye = torch.from_numpy(ev[:, 1:]).to(dev)
 
     def evaluate(check: bool) -> dict:
-        """The held-out forward; at stage 3 the head is gather_matmul."""
+        """The held-out forward; at stage 3 the parameters are gathered
+        for it and released after, and the head is gather_matmul."""
         with torch.no_grad(), record_function("bench.eval"):
+            gather_params()
             h = model.hidden(xe)
             flat = h.reshape(-1, cfg.d_model).float()
             k3 = mk.tiled_matmul
@@ -198,6 +236,7 @@ def main(argv=None) -> int:
                     (logits - ref).abs().max() / ref.abs().max())
                 del ref
             del logits
+            release_params()
         return rec
 
     rng = np.random.RandomState(hvd.rank())
@@ -212,15 +251,32 @@ def main(argv=None) -> int:
     step_no = 0
     last_loss = float("nan")
     eval_s = 0.0  # held-out forwards' wall time, left out of tok/sec
+    peak = 0  # the largest allocation peak of the phases read so far
+
+    def phase_peak():
+        """With --log-steps on the card: the allocation peak since the
+        last call, in GB (the allocator counts on the host, so no sync
+        is needed), and a fresh count for the next phase."""
+        nonlocal peak
+        if not args.log_steps or dev.type != "cuda":
+            return None
+        p_ = torch.cuda.max_memory_allocated(dev)
+        peak = max(peak, p_)
+        torch.cuda.reset_peak_memory_stats(dev)
+        return p_ / 1e9
 
     def one_step():
         nonlocal step_no, last_loss, rows, eval_s
         opt.zero_grad(set_to_none=True)
+        mem = {"before": phase_peak()}
+        gather_params()
         with record_function("bench.forward"):
             logits = model(x)
             loss = lm_loss(logits, y)
+        mem["forward"] = phase_peak()
         with record_function("bench.backward"):
             loss.backward()
+        mem["backward"] = phase_peak()
         check = {}
         if step_no == args.check_plain_step and hvd.rank() == 0:
             # Same parameters as the forward above (the step has not run).
@@ -231,14 +287,15 @@ def main(argv=None) -> int:
         if placement is not None and updates is not None:
             with record_function("bench.apply_updates"):
                 rows = placement.apply_updates(rows, updates)
-            del updates
-            gather_params()
+        del updates
+        release_params()
+        mem["step"] = phase_peak()
         last_loss = loss.detach()
         if args.log_steps:
             sync()
             rec = {"step": step_no, "rank": hvd.rank(),
                    "loss": float(last_loss), "launches": launch_counts(),
-                   "digest": param_digest(model), **check}
+                   "digest": digest(), "mem_peak_gb": mem, **check}
             print("STEP " + json.dumps(rec), flush=True)
         if args.eval_every and (step_no + 1) % args.eval_every == 0:
             sync()
@@ -259,8 +316,6 @@ def main(argv=None) -> int:
               f"{hvd.backend()}, flash attention "
               f"{fa.flash_routed(args.seq_len, dev)}, zero stage "
               f"{args.zero_stage}", flush=True)
-    if placement is not None:
-        gather_params()
     reset_launch_counts()
     for _ in range(args.num_warmup_batches):
         one_step()
@@ -309,13 +364,17 @@ def main(argv=None) -> int:
                                        for p_ in params),
                "param_resident_bytes": (
                    placement.resident_bytes() if placement is not None
-                   else sum(p_.numel() * p_.element_size()
-                            for p_ in params)),
+                   else storage_bytes(params)),
+               "param_storage_bytes": storage_bytes(params),
                "opt_state_bytes": hvd.optimizer_state_bytes(opt),
                "shard_groups": (len(placement.groups)
                                 if placement is not None else None),
-               "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                               if dev.type == "cuda" else None),
+               "peak_mem_gb": (max(peak, torch.cuda.max_memory_allocated(
+                   dev)) / 1e9 if dev.type == "cuda" else None),
+               # What stays allocated between steps: parameters (or
+               # rows), gradients, optimizer state.
+               "between_steps_mem_gb": (torch.cuda.memory_allocated(dev) / 1e9
+                                        if dev.type == "cuda" else None),
                "device": str(dev), "backend": hvd.backend()}
     if hvd.rank() == 0:
         print(f"Tok/sec per rank: {mean:.1f} +- {1.96 * std:.1f}")

@@ -228,3 +228,42 @@ def test_full_attention_refuses_a_window_without_causal(flash_on):
     q, k, v = (torch.from_numpy(a) for a in _qkv())
     with pytest.raises(ValueError, match="window requires causal"):
         TS.full_attention(q, k, v, causal=False, window=8)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("h_dt", ["compute", "f32"])
+def test_tied_head_matches_the_f32_path(dt, h_dt):
+    """`TiedHead` on CPU tensors (its plain version) against the head it
+    replaced: the f32 einsum of the operands rounded to compute_dtype,
+    through autograd.  The logits and both gradients are bitwise equal;
+    the logits are also the JAX head's (`preferred_element_type=f32`)
+    within 1e-6 of their largest value (f32 sums over D = 32 in another
+    order)."""
+    from horovod_tpu_torch.models.transformer import TiedHead
+
+    jdt, tdt = DTYPES[dt]
+    rng = np.random.RandomState(11)
+    h_np = rng.randn(2, 64, 32).astype(np.float32)
+    e_np = rng.randn(48, 32).astype(np.float32)
+    g = torch.from_numpy(rng.randn(2, 64, 48).astype(np.float32))
+
+    def leaves():
+        h = torch.from_numpy(h_np).to(tdt if h_dt == "compute"
+                                      else torch.float32)
+        return h.requires_grad_(), torch.from_numpy(e_np).requires_grad_()
+
+    h0, e0 = leaves()
+    old = torch.einsum("btd,vd->btv", h0.to(tdt).float(), e0.to(tdt).float())
+    old.backward(g)
+    h1, e1 = leaves()
+    new = TiedHead.apply(h1, e1, tdt)
+    new.backward(g)
+    assert new.dtype == torch.float32
+    assert torch.equal(new, old)
+    assert h1.grad.dtype == h0.dtype and torch.equal(h1.grad, h0.grad)
+    assert torch.equal(e1.grad, e0.grad)
+    want = np.asarray(jnp.einsum(
+        "btd,vd->btv", jnp.asarray(h_np).astype(jdt),
+        jnp.asarray(e_np).astype(jdt), preferred_element_type=jnp.float32))
+    np.testing.assert_allclose(new.detach().numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())

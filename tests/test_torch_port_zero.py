@@ -592,6 +592,93 @@ def test_zero_schedule_bytes(zero_worlds):
         assert d["z1_accum"] == 56 and d["z2_accum"] == d["z3_accum"] == 28
 
 
+BOUND_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common.exceptions import HorovodTpuError
+from horovod_tpu_torch.parallel.zero3 import group_buffer
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r, device="cpu")
+K, WINDOWS, SHAPES, FUSION = 2, 2, [(6,), (4, 2)], 16
+rng = np.random.RandomState(0)
+data = [np.round(rng.randn(n, K * WINDOWS, *s) * 4).astype(np.float32)
+        for s in SHAPES]
+res = {}
+for fused in ("0", "1"):
+    os.environ["HOROVOD_FUSED_COLLECTIVES"] = fused
+    params = [torch.nn.Parameter(torch.zeros(s)) for s in SHAPES]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.25, momentum=0.5), zero_stage=3,
+        backward_passes_per_step=K, fusion_threshold_bytes=FUSION)
+    pl = hvd.zero3_placement(params, fusion_threshold_bytes=FUSION)
+    rows = pl.shard(params)
+    pl.bind(params)
+    released, shared, resident = [], [], []
+    for j in range(K * WINDOWS):
+        got = pl.gather(rows)
+        shared.append(all(a is b for a, b in zip(got, params)) and all(
+            group_buffer(params, g) is not None for g in pl.groups))
+        for p, d in zip(params, data):
+            p.grad = torch.from_numpy(d[r, j].copy())
+        updates = opt.step()
+        if updates is not None:
+            rows = pl.apply_updates(rows, updates)
+        pl.release()
+        released.append([t.untyped_storage().nbytes()
+                         for t in params + opt._shards])
+        resident.append((pl.resident_bytes(), sum(
+            row.untyped_storage().nbytes() for row in rows)))
+    try:
+        params[0].sum()
+        res[f"read_{fused}"] = None
+    except HorovodTpuError as e:
+        res[f"read_{fused}"] = str(e)
+    res[f"shape_{fused}"] = [tuple(p.shape) for p in params]
+    res[f"released_{fused}"], res[f"shared_{fused}"] = released, shared
+    res[f"resident_{fused}"] = resident
+    res[f"final_{fused}"] = [p.detach().clone() for p in pl.gather(rows)]
+    pl.release()
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
+
+
+@pytest.fixture(scope="module")
+def bound_world(tmp_path_factory):
+    return run_world(tmp_path_factory.mktemp("zero_bound"), 2, BOUND_WORKER)
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_bound_stage3_releases_and_stays_bitwise(zero_worlds, bound_world,
+                                                 fused):
+    """The schedule of zero_main.py at stage 3 with the parameters bound
+    to the placement (views of one buffer per group), gathered into
+    those buffers (unchunked, and chunked under
+    HOROVOD_FUSED_COLLECTIVES=1) and released after every step: each
+    parameter's storage, and each of the optimizer's shards, holds 0
+    bytes between steps, a parameter raises if read,
+    the gather hands back the parameters themselves as views of their
+    group's buffer, the measured resident bytes are the rows' storage
+    (the JAX package's param_resident_bytes), and the finals are bitwise
+    the JAX package's."""
+    _, jx = zero_worlds
+    for d, j in zip(bound_world, jx):
+        # Two parameters and the optimizer's shard of each group.
+        assert all(len(sizes) >= 3 and not any(sizes)
+                   for sizes in d[f"released_{fused}"])
+        assert all(d[f"shared_{fused}"])
+        assert d[f"shape_{fused}"] == [(6,), (4, 2)]
+        assert "released between steps" in d[f"read_{fused}"]
+        for measured, rows in d[f"resident_{fused}"]:
+            assert measured == rows == j["param_resident_bytes"]
+        for got, want in zip(d[f"final_{fused}"], j["z3"]):
+            np.testing.assert_array_equal(got.numpy(),
+                                          np.asarray(want, np.float32))
+
+
 # ---------------------------------------------------------------------------
 # Contracts, at one rank in this process
 # ---------------------------------------------------------------------------
@@ -649,6 +736,65 @@ def test_partition_drift_raises(one_rank, monkeypatch):
         pl.gather(rows * 2)
     with pytest.raises(ValueError, match="re-init"):
         pl.gather((rows[0][:, :-1],))
+
+
+@pytest.mark.parametrize("fn", ["psum_scatter", "allgather_shard"])
+def test_one_rank_pipeline_moves_nothing(one_rank, fn):
+    """At one rank the chunked collectives are one copy of the buffer,
+    whatever the chunk plan (here 8 chunks): bitwise the input, not an
+    alias of it."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(8 * 512)
+                         .astype(F32))
+    run = {"psum_scatter": F.pipelined_psum_scatter,
+           "allgather_shard": F.pipelined_allgather_shard}[fn]
+    got = run(x, chunk_bytes=2048)
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+
+
+def test_released_parameters_keep_metadata_and_refuse_reads(one_rank):
+    """Bound and released: shapes, dtype, `.grad` and the optimizer's
+    param groups stay; reading values, `.data` or a state_dict raises;
+    a gather restores the storage, shared with the group's buffer, and
+    the values; `resident_bytes` follows the storages."""
+    from horovod_tpu_torch.parallel.zero3 import group_buffer
+
+    model = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.Linear(4, 2))
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    opt = torch.optim.SGD(params, lr=0.1)
+    pl = hvd.zero3_placement(params, fusion_threshold_bytes=64)
+    rows = pl.shard(params)
+    row_bytes = sum(r.untyped_storage().nbytes() for r in rows)
+    pl.bind(params)
+    assert [tuple(p.shape) for p in params] == [(4, 8), (4,), (2, 4), (2,)]
+    assert all(p.untyped_storage().nbytes() == 0 for p in params)
+    assert all(isinstance(p, torch.nn.Parameter) for p in params)
+    assert opt.param_groups[0]["params"][0] is params[0]
+    assert pl.resident_bytes() == row_bytes
+    assert "ReleasedParameter(shape=(4, 8)" in repr(params[0])
+    opt.zero_grad()
+    for read in (lambda: params[0] * 2, lambda: params[1].data,
+                 lambda: model(torch.ones(1, 8)), model.state_dict,
+                 lambda: params[2].detach()):
+        with pytest.raises(HorovodTpuError, match="released between steps"):
+            read()
+    got = pl.gather(rows)
+    assert all(a is b for a, b in zip(got, params))
+    for g in pl.groups:
+        flat = group_buffer(params, g)
+        assert flat is not None and all(
+            params[i].untyped_storage().data_ptr() == flat.data_ptr()
+            for i in g.idxs)
+    for p, b in zip(params, before):
+        assert torch.equal(p.detach(), b)
+    assert pl.resident_bytes() == row_bytes + sum(
+        g.padded * 4 for g in pl.groups)
+    model(torch.ones(1, 8)).sum().backward()
+    assert all(p.grad is not None for p in params)
+    pl.release()
+    assert pl.resident_bytes() == row_bytes
+    with pytest.raises(HorovodTpuError, match="bind"):
+        hvd.zero3_placement(params).release()
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3])
@@ -755,6 +901,21 @@ def test_trainer_stage1_is_bitwise_stage0(trainer_runs):
         for a, b in zip(trainer_runs[0, r]["STEP"],
                         trainer_runs[1, r]["STEP"]):
             assert a["loss"] == b["loss"] and a["digest"] == b["digest"]
+
+
+def test_trainer_stage3_holds_only_the_rows_between_steps(trainer_runs):
+    """After the last step the stage-3 trainer's parameters hold 0
+    bytes of storage, and its measured resident bytes are the rows:
+    about half the parameters at two ranks, one pad element per group at
+    most.  Stage 0 holds every parameter."""
+    for r in range(2):
+        (s0,) = trainer_runs[0, r]["SUMMARY"]
+        (s3,) = trainer_runs[3, r]["SUMMARY"]
+        assert s0["param_storage_bytes"] == s0["param_full_bytes"]
+        assert s0["param_resident_bytes"] == s0["param_full_bytes"]
+        assert s3["param_storage_bytes"] == 0
+        assert s3["param_full_bytes"] // 2 <= s3["param_resident_bytes"] \
+            <= s3["param_full_bytes"] // 2 + 4 * s3["shard_groups"]
 
 
 def test_trainer_stage3_matches_stage0(trainer_runs):
