@@ -86,7 +86,49 @@ Phases, each printing its own lines:
                  out, the autograd wrappers' gradients, and join with
                  uneven steps; every result held bitwise to a numpy
                  reference computed here (integer-valued inputs, so
-                 every sum is exact).
+                 every sum is exact); then, each rank checking against a
+                 reference it computes itself: `sparse_allreduce_async`
+                 of the gradient of nn.Embedding(32000, 512,
+                 sparse=True) over 16,384 token ids per rank (the
+                 transformer's embedding at full width) against the
+                 dense allreduce of the same gradient densified, within
+                 SPARSE_RTOL of the largest value, and
+                 DistributedOptimizer's two sparse routes (the sparse
+                 allreduce, and sparse_as_dense: bitwise the dense
+                 allreduce); and hvd.SyncBatchNorm(256) on (32, 256, 56,
+                 56) bf16 per rank against one BatchNorm2d over both
+                 ranks' batches (output and input gradient within
+                 SYNC_BN_TOL of their largest value, the running
+                 statistics within SYNC_BN_STAT_TOL, the sum of the
+                 ranks' weight and bias gradients within SYNC_BN_TOL);
+11. train_elastic main path 4: two ranks share the card over gloo and
+                 run `python -m horovod_tpu_torch.elastic_resnet` at its
+                 full-width defaults (ResNet-50, 224x224, 1000 classes,
+                 batch 32 per rank, bf16, synchronized batch norm over
+                 the global set, DistributedOptimizer(SGD), TorchState
+                 with an ElasticSampler) for 2 epochs x 4 batches,
+                 committing every 2, twice: fault-free, then under one
+                 seeded HOROVOD_FAULT_SPEC on `collective.allreduce`
+                 (`elastic_fault_spec`: the first fault falls in the
+                 backward of the fourth step, after the first commit,
+                 and the next one past the run).
+                 Each rank resets at least once and as often as the
+                 other; after each restore its digest is the one of its
+                 last commit, after each sync the ranks' digests agree,
+                 every loss is finite, the last epoch's losses are within
+                 LOSS_TOL of the fault-free run's, and each epoch covers
+                 its indices exactly once; img/sec per rank for both runs
+                 and the seconds each reset took;
+12. autotune_np2 two ranks over gloo run the ResNet-50 synthetic
+                 benchmark (batch 32) under HOROVOD_AUTOTUNE=1 with a
+                 short search (1 warmup sample, 2 steps a sample, 3
+                 samples): each rank's log has warmup, sample and frozen
+                 rows, the threshold takes at least two values, the
+                 ranks use the same threshold in every step, and in
+                 every step each rank flushed the bucket count that the
+                 threshold in force gives for ResNet-50's gradients in
+                 the order the backward makes them final (recorded here
+                 from a ResNet-50 of its own on the card).
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -171,6 +213,31 @@ ZERO3_ENV = {"HOROVOD_FUSED_COLLECTIVES": "1", "HOROVOD_FUSED_PALLAS": "1",
 # non-causal reads above LOGITS_RTOL).
 LOSS_TOL = 2e-3
 LOGITS_RTOL = 5e-2
+# Sparse allreduce vs the dense allreduce of the densified gradient,
+# relative to the largest value: each value is divided by n before the
+# duplicates are summed (the JAX order), the dense path sums then
+# divides.
+SPARSE_RTOL = 1e-6
+# SyncBatchNorm (bf16 input, f32 statistics) vs one BatchNorm2d in f32
+# over both ranks' batches: the bf16 output and input gradient are one
+# bf16 rounding (half an ulp: up to 2^-8 of a value) from f32 results
+# whose statistics sum in another order, so one ulp of the largest
+# value; the running statistics and the weight and bias gradients are
+# f32.
+SYNC_BN_TOL = 2 ** -7
+SYNC_BN_STAT_TOL = 1e-4
+EMBED = (32000, 512, 16384)    # vocab, d_model, token ids per rank
+SYNC_BN_SHAPE = (32, 256, 56, 56)
+ELASTIC_ARGS = ["--epochs", "2", "--batches-per-epoch", "4",
+                "--commit-every", "2", "--log-steps"]
+# collective.allreduce hits per ResNet-50 step with sync_bn: 53 batch
+# norms, one allreduce each way, and 2 gradient buckets at the default
+# 64 MiB threshold (102 MB of f32 gradients).
+ELASTIC_HITS_PER_STEP = 2 * 53 + 2
+AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                "HOROVOD_AUTOTUNE_MAX_SAMPLES": "3"}
 ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
 MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
 WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
@@ -751,17 +818,18 @@ TRANSFORMER = "horovod_tpu_torch.transformer_benchmark"
 
 
 def run_ranks(phase: str, nranks: int, module: str, args, timeout: float,
-              env=None):
+              env=None, rank_env=None):
     """Run `python -m module args` as `nranks` processes, rank r on card
     r mod the card count (all on card 0 when there is one), with `env`
-    added to the environment; return each rank's stdout lines.  Raises
-    if a rank fails or times out."""
+    (and `rank_env(r)`) added to the environment; return each rank's
+    stdout lines.  Raises if a rank fails or times out."""
     port = _free_port()
     os.makedirs(LOG_DIR, exist_ok=True)
     procs = []
     try:
         for r in range(nranks):
             renv = dict(os.environ, **(env or {}),
+                        **(rank_env(r) if rank_env else {}),
                         HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
                         HOROVOD_NUM_PROCESSES=str(nranks),
                         HOROVOD_PROCESS_ID=str(r),
@@ -800,7 +868,7 @@ def _records(lines, tag):
 
 
 def launch(phase: str, nranks: int, args, module: str = RESNET,
-           grow=None, timeout: float = 900, env=None):
+           grow=None, timeout: float = 900, env=None, rank_env=None):
     """Run `nranks` ranks of `module` with `args` (and `env`) and hold
     them to the checks every training run shares; return each rank's
     SUMMARY, with its STEP losses added as `step_losses` and its EVAL
@@ -817,7 +885,8 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     of their largest value (and the non-causal fault's beyond it), its
     loss within LOSS_TOL.  A held-out forward's launches (an EVAL line
     after a step's STEP line) do not count toward the next step's."""
-    outs = run_ranks(phase, nranks, module, args, timeout, env=env)
+    outs = run_ranks(phase, nranks, module, args, timeout, env=env,
+                     rank_env=rank_env)
     steps = [_records(lines, "STEP") for lines in outs]
     evals = [_records(lines, "EVAL") for lines in outs]
     summaries = [_records(lines, "SUMMARY")[-1] for lines in outs]
@@ -1121,6 +1190,7 @@ def surface_rank() -> int:
         lambda x: hvd.alltoall(x, splits=d["splits"].tolist()), d["a2av"],
         torch.arange(recv * 2, dtype=torch.float32, device=dev
                      ).reshape(recv, 2))
+    res.update(surface_sparse_and_syncbn(hvd, dev, timed))
     hvd.join_mode()
     res["join_steps"] = [
         timed(f"join_allreduce_{s}", lambda s=s: hvd.allreduce(
@@ -1133,6 +1203,90 @@ def surface_rank() -> int:
         os.path.join(LOG_DIR, f"surface_rank{r}.pt"))
     hvd.shutdown()
     return 0
+
+
+def surface_sparse_and_syncbn(hvd, dev, timed, embed=EMBED,
+                              bn_shape=SYNC_BN_SHAPE) -> dict:
+    """The sparse allreduce and SyncBatchNorm cases of phase 10, on this
+    rank (see the module docstring).  Each rank makes every rank's
+    inputs from their seeds and computes the references itself, so only
+    the errors leave the rank.  Returns the errors and their scales."""
+    import torch
+
+    r, n = hvd.rank(), hvd.size()
+    out = {}
+    vocab, width, tokens = embed
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    g = gen(900 + r)
+    ids = torch.randint(0, vocab, (tokens,), generator=g, device=dev)
+    w = torch.randn((tokens, width), generator=g, device=dev)
+
+    def embedding_grad(opt_kw=None):
+        emb = torch.nn.Embedding(vocab, width, sparse=True, device=dev)
+        opt = None
+        if opt_kw is not None:
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(emb.parameters(), lr=0.1), **opt_kw)
+        (emb(ids) * w).sum().backward()
+        if opt is not None:
+            opt.synchronize()
+        return emb.weight.grad
+
+    grad = embedding_grad()
+    sparse = timed("sparse_allreduce", lambda: hvd.synchronize(
+        hvd.sparse_allreduce_async(grad)))
+    dense = timed("dense_allreduce", lambda: hvd.allreduce(grad.to_dense()))
+    scale = float(dense.abs().max())
+    out["sparse"] = {"is_sparse": sparse.is_sparse, "nnz": sparse._nnz(),
+                     "scale": scale, "err": float(
+                         (sparse.to_dense() - dense).abs().max())}
+    for as_dense in (False, True):
+        got = embedding_grad({"sparse_as_dense": as_dense})
+        out[f"sparse_opt_{as_dense}"] = {
+            "is_sparse": got.is_sparse,
+            "err": float((got.to_dense() - dense).abs().max())}
+
+    # SyncBatchNorm against one BatchNorm2d over every rank's batch.
+    c = bn_shape[1]
+    xs = [torch.randn(bn_shape, generator=gen(950 + q), device=dev)
+          .mul_(2).add_(0.5).bfloat16() for q in range(n)]
+    ws = [torch.randn(bn_shape, generator=gen(970 + q), device=dev)
+          .bfloat16() for q in range(n)]
+    g = gen(990)
+    scale_w = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev)
+    sbn = hvd.SyncBatchNorm(c).to(dev)
+    ref = torch.nn.BatchNorm2d(c).to(dev)
+    with torch.no_grad():
+        for m in (sbn, ref):
+            m.weight.copy_(scale_w)
+            m.bias.copy_(bias)
+    x = xs[r].clone().requires_grad_()
+    y = timed("sync_batchnorm_forward", lambda: sbn(x))
+    timed("sync_batchnorm_backward", lambda: (
+        y.float() * ws[r].float()).sum().backward())
+    xa = torch.cat(xs).float().requires_grad_()
+    ya = ref(xa)
+    (ya * torch.cat(ws).float()).sum().backward()
+    mine = slice(r * bn_shape[0], (r + 1) * bn_shape[0])
+    wsum = hvd.allreduce(sbn.weight.grad, op=hvd.Sum)
+    bsum = hvd.allreduce(sbn.bias.grad, op=hvd.Sum)
+
+    def rel(got, want):
+        got, want = got.detach().float(), want.detach().float()
+        return float((got - want).abs().max() / want.abs().max())
+
+    out["sync_bn"] = {
+        "dtype": str(y.dtype), "y": rel(y, ya[mine]),
+        "grad_x": rel(x.grad, xa.grad[mine]),
+        "running_mean": rel(sbn.running_mean, ref.running_mean),
+        "running_var": rel(sbn.running_var, ref.running_var),
+        "grad_weight": rel(wsum, ref.weight.grad),
+        "grad_bias": rel(bsum, ref.bias.grad)}
+    return out
 
 
 def surface_np2() -> None:
@@ -1221,9 +1375,225 @@ def surface_np2() -> None:
             rows.append(back[s][start:start + ins[r]["splits"][s]])
         same(d["grad_alltoall"], np.concatenate(rows), "alltoall gradient")
     for r, d in enumerate(res):
+        sp = d["sparse"]
+        tol = SPARSE_RTOL * sp["scale"]
+        require(sp["is_sparse"] and sp["err"] <= tol,
+                f"rank {r}: sparse allreduce vs dense {sp}, tol {tol}")
+        for as_dense in (False, True):
+            got = d[f"sparse_opt_{as_dense}"]
+            require(got["is_sparse"] != as_dense and got["err"] <= tol,
+                    f"rank {r}: DistributedOptimizer(sparse_as_dense="
+                    f"{as_dense}) gradient {got}, tol {tol}")
+        bn = d["sync_bn"]
+        require(bn["dtype"] == "torch.bfloat16", f"rank {r}: {bn}")
+        for k in ("y", "grad_x", "grad_weight", "grad_bias"):
+            require(bn[k] <= SYNC_BN_TOL, f"rank {r}: SyncBatchNorm {k} "
+                    f"{bn[k]} > {SYNC_BN_TOL} of the largest value")
+        for k in ("running_mean", "running_var"):
+            require(bn[k] <= SYNC_BN_STAT_TOL, f"rank {r}: SyncBatchNorm "
+                    f"{k} {bn[k]} > {SYNC_BN_STAT_TOL}")
         log("surface_np2", f"rank {r}: every result bitwise the numpy "
-            "reference; host ms " + ", ".join(
+            f"reference; sparse allreduce of the embedding gradient "
+            f"({sp['nnz']} entries) vs the dense allreduce: max abs "
+            f"{sp['err']:.3g} (tol {tol:.3g}), the optimizer's sparse "
+            f"route {d['sparse_opt_False']['err']:.3g}, sparse_as_dense "
+            f"{d['sparse_opt_True']['err']:.3g}; SyncBatchNorm{SYNC_BN_SHAPE} "
+            "bf16 vs BatchNorm2d over both batches, relative: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in bn.items() if k != "dtype")
+            + f" (tol {SYNC_BN_TOL:.3g}, statistics {SYNC_BN_STAT_TOL}); "
+            "host ms " + ", ".join(
                 f"{k} {v:.2f}" for k, v in d["ms"].items()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: elastic ResNet-50 under an injected fault
+# ---------------------------------------------------------------------------
+
+ELASTIC = "horovod_tpu_torch.elastic_resnet"
+
+
+def elastic_fault_spec(steps: int, hits: int = ELASTIC_HITS_PER_STEP):
+    """A seeded spec on `collective.allreduce` whose first fault falls in
+    the backward of the fourth step (the second of its commit interval:
+    the ranks roll a finished step back and replay it; past the step's
+    hits/2 forward batch-norm allreduces, so the error comes out of the
+    autograd engine) and whose next fault falls past everything the run
+    can replay.  Found with the port's own schedule: a draw depends only
+    on the seed, the point and the hit index, so every rank decides
+    alike.  Returns (spec, seed, first hit)."""
+    import logging
+
+    from horovod_tpu_torch.faults import FaultSchedule, parse_spec
+
+    start, end, p = 3 * hits + hits // 2 + 6, 4 * hits - 4, 0.001
+    spec = f"collective.allreduce@{start}:err:{p}"
+    quiet = logging.getLogger("horovod_tpu_torch.faults")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    try:
+        for seed in range(100_000):
+            sched = FaultSchedule(parse_spec(spec), seed=seed)
+            fires = []
+            for k in range(1, 3 * steps * hits):
+                if sched._decide("collective.allreduce") is not None:
+                    fires.append(k)
+                if len(fires) == 2 or (k >= end and not fires) or \
+                        (fires and fires[0] >= end):
+                    break
+            if (fires and fires[0] < end and
+                    (len(fires) == 1 or fires[1] > 2 * steps * hits)):
+                return spec, seed, fires[0]
+    finally:
+        quiet.setLevel(level)
+    raise RuntimeError(f"no seed places one fault of {spec}")
+
+
+def _elastic_run(name: str, env=None):
+    outs = run_ranks(name, 2, ELASTIC, ELASTIC_ARGS, timeout=600, env=env)
+    runs = []
+    for r, lines in enumerate(outs):
+        (summary,) = _records(lines, "SUMMARY")
+        commits, resets = [], 0
+        for line in lines:
+            if line.startswith("COMMIT "):
+                commits.append(json.loads(line[7:])["digest"])
+            elif line.startswith("RESET "):
+                resets += 1
+                rec = json.loads(line[6:])
+                require(commits and rec["digest"] == commits[-1],
+                        f"{name}, rank {r}: after reset {resets} the "
+                        f"parameters are not the last commit's")
+        steps = _records(lines, "STEP")
+        require(steps and all(math.isfinite(s["loss"]) for s in steps),
+                f"{name}, rank {r}: a non-finite loss")
+        epochs = _records(lines, "EPOCH")
+        require(len(epochs) == 2 and all(e["covered"] and e["no_repeats"]
+                                         for e in epochs),
+                f"{name}, rank {r}: the sampler's epochs {epochs}")
+        require(summary["resets"] == resets, f"{name}, rank {r}: {summary}")
+        runs.append({"summary": summary,
+                     "enters": [e["digest"] for e in
+                                _records(lines, "ENTER")]})
+    require(runs[0]["enters"] == runs[1]["enters"],
+            f"{name}: the ranks' parameters differ after a sync")
+    require(runs[0]["summary"]["digest"] == runs[1]["summary"]["digest"],
+            f"{name}: the ranks end with different parameters")
+    return [run["summary"] for run in runs]
+
+
+def train_elastic():
+    clean = _elastic_run("train_elastic_clean")
+    steps = 2 * 4
+    spec, seed, first = elastic_fault_spec(steps)
+    faulted = _elastic_run("train_elastic_fault", env={
+        "HOROVOD_FAULT_SPEC": spec, "HOROVOD_FAULT_SEED": str(seed)})
+    require(all(s["resets"] == 0 for s in clean), f"fault-free run reset "
+            f"{[s['resets'] for s in clean]} times")
+    resets = [s["resets"] for s in faulted]
+    require(resets[0] == resets[1] >= 1,
+            f"resets per rank under {spec} (seed {seed}): {resets}")
+    diffs = []
+    for s, c in zip(faulted, clean):
+        last = [k for k in c["losses"] if k.startswith("1.")]
+        require(sorted(last) == sorted(k for k in s["losses"]
+                                       if k.startswith("1.")),
+                f"rank {s['rank']}: the last epoch's steps differ")
+        diffs += [abs(s["losses"][k] - c["losses"][k]) for k in last]
+    require(max(diffs) <= LOSS_TOL, f"the faulted run's last losses are "
+            f"{max(diffs)} off the fault-free run's (tol {LOSS_TOL})")
+    for c, s in zip(clean, faulted):
+        log("train_elastic", f"rank {c['rank']}: fault-free "
+            f"{c['img_sec_per_rank']:.2f} img/sec ({c['steps_run']} "
+            f"steps, {c['wall_s']:.2f} s, checks included); under {spec} "
+            f"seed {seed} (first fault at hit {first}; "
+            f"{s['allreduce_hits']} allreduce hits in the run): "
+            f"{s['img_sec_per_rank']:.2f} img/sec ({s['steps_run']} steps "
+            f"with the replays, {s['wall_s']:.2f} s), {s['resets']} "
+            f"reset(s) taking " + ", ".join(
+                f"{t:.3f}" for t in s["reset_seconds"])
+            + f" s; the last epoch's losses within {max(diffs):.3g} of "
+            f"the fault-free run's (tol {LOSS_TOL}); backend "
+            f"{s['backend']}; host ms a step, fault-free: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in c["host_ms"].items()))
+    return clean, faulted
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the live fusion-threshold tuner at np=2
+# ---------------------------------------------------------------------------
+
+def resnet50_hook_order():
+    """The bytes of ResNet-50's gradients in the order the backward makes
+    them final (post-accumulate-grad hooks of a model of its own: the
+    order does not depend on the image size)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import ResNet
+
+    model = ResNet(50, 1000, compute_dtype=torch.bfloat16).cuda()
+    order = []
+    for p in model.parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda p: order.append(p.numel() * p.element_size()))
+    x = torch.rand((2, 3, 64, 64), device="cuda")
+    F.cross_entropy(model(x), torch.tensor([1, 2], device="cuda")).backward()
+    del model
+    torch.cuda.empty_cache()
+    return order
+
+
+def expected_buckets(sizes, threshold: int) -> int:
+    """The hook path's bucket count: a bucket is dispatched once its
+    bytes reach the threshold, and the rest at synchronize."""
+    count, filled = 0, 0
+    for size in sizes:
+        filled += size
+        if filled >= threshold:
+            count, filled = count + 1, 0
+    return count + (1 if filled else 0)
+
+
+def autotune_np2():
+    sizes = resnet50_hook_order()
+    logs = [os.path.join(LOG_DIR, f"autotune_rank{r}.csv") for r in (0, 1)]
+    for path in logs:
+        if os.path.exists(path):
+            os.remove(path)
+    summaries = launch("autotune_np2", 2, [
+        "--depth", "50", "--num-classes", "1000", "--image-size", "224",
+        "--batch-size", "32", "--num-warmup-batches", "1",
+        "--num-batches-per-iter", "4", "--num-iters", "3", "--log-steps"],
+        env=AUTOTUNE_ENV, timeout=600,
+        rank_env=lambda r: {"HOROVOD_AUTOTUNE_LOG": logs[r]})
+    steps = [_records(open(os.path.join(LOG_DIR, f"autotune_np2_rank{r}.log"))
+                      .read().splitlines(), "STEP") for r in (0, 1)]
+    thresholds = [[s["fusion_threshold"] for s in rec] for rec in steps]
+    require(thresholds[0] == thresholds[1],
+            f"the ranks' thresholds differ: {thresholds}")
+    require(len(set(thresholds[0])) >= 2,
+            f"the threshold took one value: {thresholds[0]}")
+    for r, rec in enumerate(steps):
+        before = 0
+        for s in rec:
+            got, before = s["flushes"] - before, s["flushes"]
+            want = expected_buckets(sizes, s["fusion_threshold"])
+            require(got == want, f"rank {r}, step {s['step']}: {got} "
+                    f"buckets at threshold {s['fusion_threshold']} (want "
+                    f"{want})")
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            kinds = [line.split(",")[1] for line in f]
+        require({"warmup", "sample", "frozen"} <= set(kinds),
+                f"rank {r}: autotune log rows {kinds}")
+    for s in summaries:
+        log("autotune_np2", f"rank {s['rank']}: {s['img_sec_per_rank']:.2f} "
+            f"img/sec over {s['steps']} steps, thresholds by step "
+            f"{thresholds[0]}, buckets by step "
+            f"{[expected_buckets(sizes, t) for t in thresholds[0]]}, each "
+            "as the threshold in force implies; log rows " + ", ".join(
+                line.split(",")[1] for line in open(logs[s["rank"]])))
+    return summaries
 
 
 def main() -> int:
@@ -1308,6 +1678,12 @@ def main() -> int:
     t0 = time.perf_counter()
     surface_np2()
     log("surface_np2", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_elastic()
+    log("train_elastic", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    autotune_np2()
+    log("autotune_np2", f"{time.perf_counter() - t0:.1f} s")
 
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")

@@ -15,6 +15,16 @@ HOROVOD_COORDINATOR_ADDR (host:port of rank 0's store, or a full
 `tcp://` / `file://` init URL), HOROVOD_NUM_PROCESSES, HOROVOD_PROCESS_ID,
 and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE.  With no coordinator the
 job is one rank and the collectives return their local result.
+
+`shutdown()` then `init()` bootstraps again on the same coordinator, as
+often as elastic recovery needs: the key-value store behind the
+coordinator address is built once per process and outlives the process
+groups, and each group gets a generation of its own in it
+(`PrefixStore("gen<g>")`).  Building a store afresh each time would not
+do: a `file://` store deletes its file when its last user closes it, so
+a fast rank could join the old file or lose the new one, and at
+`tcp://` rank 0 would bind the port again while clients may still reach
+the old server.
 """
 
 from __future__ import annotations
@@ -22,7 +32,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
-from typing import Dict, List, Optional, Sequence, Union
+import urllib.parse
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -43,7 +54,8 @@ class ProcessSet:
     ranks: List[int]
     process_set_id: int = 0
     group: Optional[object] = None
-    removed: bool = False  # remove_process_set ran: collectives refuse it
+    # remove_process_set or shutdown ran: collectives refuse the set
+    removed: bool = False
 
     def size(self) -> int:
         return len(self.ranks)
@@ -90,6 +102,14 @@ class _GlobalState:
 _global_state: Optional[_GlobalState] = None
 _init_lock = threading.Lock()
 
+# The coordinator's store, kept across shutdown/init: (url, size) -> the
+# store and the number of process groups built on it so far.
+_store_key: Optional[Tuple[str, int]] = None
+_store: Optional[object] = None
+_generation = 0
+# The arguments of the last init(), resolved (see init_arguments).
+_init_args: Optional[dict] = None
+
 
 def _state() -> _GlobalState:
     if _global_state is None:
@@ -132,6 +152,26 @@ def _choose_backend(device: torch.device, local_size: int) -> str:
     return "gloo"
 
 
+def _generation_store(url: str, rank: int, size: int):
+    """The store of the next process group on `url`: a prefix of its own
+    in the process's one store for that coordinator."""
+    global _store_key, _store, _generation
+    if _store_key != (url, size):
+        parsed = urllib.parse.urlparse(url)
+        if parsed.scheme == "file":
+            store = dist.FileStore(parsed.path, size)
+        elif parsed.scheme == "tcp":
+            store = dist.TCPStore(parsed.hostname, parsed.port, size,
+                                  rank == 0,
+                                  timeout=dist.constants.default_pg_timeout)
+        else:
+            raise HorovodTpuError(
+                f"coordinator address {url!r}: want host:port, tcp:// or "
+                "file://")
+        _store_key, _store, _generation = (url, size), store, 0
+    return dist.PrefixStore(f"gen{_generation}", _store)
+
+
 def init(*, coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None,
@@ -143,7 +183,7 @@ def init(*, coordinator_address: Optional[str] = None,
     rank on the CPU over gloo.  With no argument and no CUDA device,
     `init` raises.
     """
-    global _global_state
+    global _global_state, _generation, _init_args
     with _init_lock:
         if _global_state is not None:
             logger.debug("horovod_tpu_torch.init() called twice; ignoring")
@@ -168,9 +208,13 @@ def init(*, coordinator_address: Optional[str] = None,
             backend = _choose_backend(dev, local_size)
             url = (coordinator_address if "://" in coordinator_address
                    else f"tcp://{coordinator_address}")
-            dist.init_process_group(backend, init_method=url,
-                                    world_size=size, rank=rank)
+            dist.init_process_group(
+                backend, store=_generation_store(url, rank, size),
+                world_size=size, rank=rank)
+            _generation += 1
             group = dist.group.WORLD
+        _init_args = dict(coordinator_address=coordinator_address,
+                          num_processes=size, process_id=rank, device=dev)
         global_set = ProcessSet(ranks=list(range(size)), group=group)
         _global_state = _GlobalState(
             rank=rank, size=size, local_rank=local_rank,
@@ -181,22 +225,57 @@ def init(*, coordinator_address: Optional[str] = None,
             "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
             "device=%s backend=%s", rank, size, local_rank, local_size,
             dev, backend or "none (one rank)")
+    from ..utils import autotune
+
+    autotune.init_from_env()
+
+
+def init_arguments() -> dict:
+    """The last `init()`'s arguments as it resolved them (coordinator,
+    world size, rank, device): what an elastic reset calls `init` with
+    again."""
+    if _init_args is None:
+        raise NotInitializedError()
+    return dict(_init_args)
 
 
 def shutdown() -> None:
     """Tear down the runtime (reference: operations.cc
-    `horovod_shutdown`): release the process group so a later `init()`
-    can bootstrap afresh."""
+    `horovod_shutdown`): wait for the collectives still in flight (their
+    results are dropped), release the process group so that a later
+    `init()` can bootstrap afresh, and mark every process set removed,
+    so that a set a caller still holds refuses to run rather than wait
+    on a group that is gone.  The autotuner goes with it, as in the JAX
+    package."""
     global _global_state
-    from ..ops import join
+    from ..ops import collectives, join
+    from ..utils import autotune
 
     with _init_lock:
         if _global_state is None:
             return
-        if _global_state.backend is not None and dist.is_initialized():
+        st = _global_state
+        collectives.HandleManager.global_instance().drain()
+        if st.device.type == "cuda":
+            torch.cuda.synchronize(st.device)
+        if st.backend is not None and dist.is_initialized():
             dist.destroy_process_group()
+        for ps in st.process_sets.values():
+            ps.group, ps.removed = None, True
         _global_state = None
         join.reset()
+        autotune.shutdown_manager()
+
+
+def autotune_record_step(items: float = 1.0) -> None:
+    """Feed the autotuner one training step of `items` samples or tokens
+    (nothing unless HOROVOD_AUTOTUNE=1; JAX `horovod_tpu/__init__.py`
+    :177).  Every rank calls it once per step."""
+    from ..utils import autotune
+
+    mgr = autotune.get_manager()
+    if mgr is not None:
+        mgr.record_step(items)
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,85 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_JOIN_MODE", "0", "ops",
        "1 arms join mode: joined ranks contribute masked zeros to every "
        "collective."),
+    # -- the autotuner (utils/autotune.py) -----------------------------------
+    _v("HOROVOD_AUTOTUNE", "0", "autotune",
+       "1: init() builds the online tuner (fusion threshold, bucket order, "
+       "min buckets, ...); the training loop feeds it through "
+       "autotune_record_step."),
+    _v("HOROVOD_AUTOTUNE_LOG", "(unset)", "autotune",
+       "CSV file the tuner appends its warmup, sample and frozen rows "
+       "to."),
+    _v("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "3", "autotune",
+       "Throughput samples discarded before the search starts."),
+    _v("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", "10", "autotune",
+       "Training steps per throughput sample."),
+    _v("HOROVOD_AUTOTUNE_MAX_SAMPLES", "40", "autotune",
+       "Samples after which the tuner freezes at the best seen."),
+    _v("HOROVOD_SHARD_AG_FUSION", "0", "autotune",
+       "Initial value of the tuner's ag_fusion knob (its reader, the "
+       "sharded optimizer's fused allgather, is not ported yet)."),
+    _v("HOROVOD_WIRE_THRESHOLD", "1048576", "autotune",
+       "Initial value of the tuner's wire_threshold knob (the wire "
+       "policy that reads it is not ported yet)."),
+    _v("HOROVOD_WIRE_BIG_FORMAT", "int8", "autotune",
+       "Initial value of the tuner's wire_big_format knob (the wire "
+       "policy that reads it is not ported yet)."),
+    _v("HOROVOD_GUARD_GROWTH_INTERVAL", "2000", "autotune",
+       "Initial value of the tuner's loss_scale_growth_interval knob "
+       "(guard/ is not ported yet)."),
+    _v("HOROVOD_GUARD_DIGEST_INTERVAL", "100", "autotune",
+       "Initial value of the tuner's guard_digest_interval knob (guard/ "
+       "is not ported yet)."),
+    _v("HOROVOD_SERVE_PAGE_TOKENS", "16", "autotune",
+       "Initial value of the tuner's serve_page_tokens knob (serve/ is "
+       "not ported yet)."),
+    _v("HOROVOD_SERVE_MAX_BATCH", "8", "autotune",
+       "Initial value of the tuner's serve_max_batch knob (serve/ is not "
+       "ported yet)."),
+    _v("HOROVOD_SERVE_SPEC_GAMMA", "4", "autotune",
+       "Initial value of the tuner's serve_spec_gamma knob (serve/ is "
+       "not ported yet)."),
+    _v("HOROVOD_SERVE_FLIGHTREC_DEPTH", "512", "autotune",
+       "Initial value of the tuner's serve_flightrec_depth knob (serve/ "
+       "is not ported yet)."),
+    _v("HOROVOD_RESHARD_CHUNK_BYTES", "0 (4 MiB)", "autotune",
+       "Initial value of the tuner's reshard_chunk_bytes knob "
+       "(parallel/reshard.py is not ported yet)."),
+    _v("HOROVOD_AUTOSCALE_COOLDOWN", "32", "autotune",
+       "Initial value of the tuner's autoscale_cooldown knob (serve/ is "
+       "not ported yet)."),
+    _v("HOROVOD_AUTOSCALE_DWELL", "8", "autotune",
+       "Initial value of the tuner's autoscale_dwell knob (serve/ is not "
+       "ported yet)."),
+    # -- fault injection and retries (faults/) -------------------------------
+    _v("HOROVOD_FAULT_SPEC", "(unset)", "faults",
+       "Fault schedule, point[@N]:mode[:arg] entries separated by commas "
+       "(faults/spec.py); the port fires the collective.* points, "
+       "chaos.straggler_delay and state.commit."),
+    _v("HOROVOD_FAULT_SEED", "0", "faults",
+       "Seed of the schedule's per-point RNGs: the same spec and seed "
+       "replay the same faults."),
+    _v("HOROVOD_FAULT_HOSTS", "(all)", "faults",
+       "Comma list of HOROVOD_HOSTNAME values the spec is armed on."),
+    _v("HOROVOD_HOSTNAME", "(unset)", "topology",
+       "This host's name, matched against HOROVOD_FAULT_HOSTS."),
+    _v("HOROVOD_RETRY_MAX_ATTEMPTS", "5", "faults",
+       "Attempts of a retried operation (HOROVOD_<SITE>_RETRY_MAX_ATTEMPTS "
+       "overrides per site, e.g. RESET: the elastic re-rendezvous)."),
+    _v("HOROVOD_RETRY_BASE_DELAY", "0.5", "faults",
+       "First backoff delay in seconds (HOROVOD_<SITE>_RETRY_BASE_DELAY "
+       "per site)."),
+    _v("HOROVOD_RETRY_MAX_DELAY", "30.0", "faults",
+       "Backoff cap in seconds (HOROVOD_<SITE>_RETRY_MAX_DELAY per "
+       "site)."),
+    _v("HOROVOD_RETRY_MULTIPLIER", "2.0", "faults",
+       "Backoff multiplier (HOROVOD_<SITE>_RETRY_MULTIPLIER per site)."),
+    _v("HOROVOD_RETRY_JITTER", "0.1", "faults",
+       "Random extra fraction of each delay (HOROVOD_<SITE>_RETRY_JITTER "
+       "per site)."),
+    _v("HOROVOD_RETRY_DEADLINE", "(none)", "faults",
+       "Wall-clock cap in seconds over all attempts "
+       "(HOROVOD_<SITE>_RETRY_DEADLINE per site)."),
 )
 
 BY_NAME: Dict[str, EnvVar] = {v.name: v for v in CATALOG}

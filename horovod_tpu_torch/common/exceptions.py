@@ -19,3 +19,12 @@ class NotInitializedError(HorovodTpuError):
         super().__init__(
             f"{what} has not been initialized; call "
             "horovod_tpu_torch.init() first.")
+
+
+class HostsUpdatedInterrupt(HorovodTpuError):
+    """Cluster membership changed; raised at a commit boundary so elastic
+    training can re-rendezvous without losing state."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__()
+        self.skip_sync = skip_sync

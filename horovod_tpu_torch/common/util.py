@@ -38,6 +38,16 @@ def env_int(name: str, default: int) -> int:
         return default
 
 
+def env_float(name: str, default: float) -> float:
+    val = getenv(name)
+    if val is None:
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
+
+
 # -- knobs of the ZeRO ladder and the fused collective pipeline ---------
 # Raw env reads, with the JAX package's defaults; `utils/autotune.py`
 # validates them and is what the rest of the port calls.

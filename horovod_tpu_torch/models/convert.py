@@ -37,13 +37,14 @@ def _tensor(a, transpose=None) -> torch.Tensor:
 
 
 def resnet_from_jax(variables: Dict[str, Any],
-                    compute_dtype: Optional[torch.dtype] = torch.bfloat16
-                    ) -> ResNet:
+                    compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                    sync_bn=None) -> ResNet:
     params = variables["params"]
     stats = variables["batch_stats"]
     depth = int(variables["config"]["depth"])
     num_classes = int(np.shape(params["head"]["kernel"])[1])
-    model = ResNet(depth, num_classes, compute_dtype=compute_dtype)
+    model = ResNet(depth, num_classes, compute_dtype=compute_dtype,
+                   sync_bn=sync_bn)
     with torch.no_grad():
         for path, mod in model.named_modules():
             if not path:

@@ -11,7 +11,9 @@ exactly:
 - Batch norm as `batchnorm_apply`: statistics in f32 with
   var = E[x²] - mean², running update 0.9·old + 0.1·batch with the
   biased var, eps 1e-5.  (`nn.BatchNorm2d` weights the new value by its
-  momentum and keeps the unbiased var.)
+  momentum and keeps the unbiased var.)  `process_set` is the
+  counterpart of its `axis_name`: the statistics of the set's global
+  batch.
 - `compute_dtype` casts the input and the weight before a conv or a
   dense layer.
 
@@ -114,13 +116,22 @@ class Conv2d(nn.Module):
 
 class BatchNorm(nn.Module):
     """Batch norm over every axis but channels (JAX `batchnorm_apply`,
-    train-mode batch statistics; local to the rank)."""
+    train-mode batch statistics).
+
+    `process_set`: None (or False) keeps the statistics local to the
+    rank; a `ProcessSet`, or True for the global set (looked up at each
+    call, so that it follows an elastic reset), averages the train-mode
+    mean and mean of the squares across the set, as `axis_name` does
+    with `lax.pmean`: [mean, mean2] as one tensor through one allreduce
+    of the autograd wrapper, whose backward is the allreduce of the
+    cotangents (the transpose of pmean)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, process_set=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.process_set = process_set
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -132,7 +143,14 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             mean = xf.mean(dims)
-            var = xf.square().mean(dims) - mean.square()
+            mean2 = xf.square().mean(dims)
+            if self.process_set is not None and self.process_set is not False:
+                from ..torch import Average, allreduce
+
+                ps = None if self.process_set is True else self.process_set
+                mean, mean2 = allreduce(torch.stack([mean, mean2]),
+                                        op=Average, process_set=ps)
+            var = mean2 - mean.square()
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

@@ -10,6 +10,10 @@ relies on.
 
     model = ResNet(50, num_classes=1000, compute_dtype=torch.bfloat16)
     logits = model(images)              # images: (N, 3, H, W); logits f32
+
+`sync_bn` (None, True for the global set, or a `ProcessSet`) is the
+counterpart of `resnet_apply(axis_name=...)`: every batch norm takes the
+statistics of the set's global batch (`layers.BatchNorm`).
 """
 
 from __future__ import annotations
@@ -38,11 +42,15 @@ class Block(nn.Module):
 
     def __init__(self, in_ch: int, width: int, stride: int, bottleneck: bool,
                  compute_dtype: Optional[torch.dtype],
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], sync_bn=None):
         super().__init__()
         self.bottleneck = bottleneck
         self.out_ch = width * 4 if bottleneck else width
         cd, g = compute_dtype, generator
+
+        def bn(features):
+            return L.BatchNorm(features, process_set=sync_bn)
+
         if bottleneck:
             self.conv1 = L.Conv2d(in_ch, width, 1, 1, compute_dtype=cd,
                                   generator=g)
@@ -50,18 +58,18 @@ class Block(nn.Module):
                                   generator=g)
             self.conv3 = L.Conv2d(width, self.out_ch, 1, 1,
                                   compute_dtype=cd, generator=g)
-            self.bn3 = L.BatchNorm(self.out_ch)
+            self.bn3 = bn(self.out_ch)
         else:
             self.conv1 = L.Conv2d(in_ch, width, 3, stride, compute_dtype=cd,
                                   generator=g)
             self.conv2 = L.Conv2d(width, self.out_ch, 3, 1,
                                   compute_dtype=cd, generator=g)
-        self.bn1 = L.BatchNorm(width)
-        self.bn2 = L.BatchNorm(width if bottleneck else self.out_ch)
+        self.bn1 = bn(width)
+        self.bn2 = bn(width if bottleneck else self.out_ch)
         if stride != 1 or in_ch != self.out_ch:
             self.proj = L.Conv2d(in_ch, self.out_ch, 1, stride,
                                  compute_dtype=cd, generator=g)
-            self.bn_proj = L.BatchNorm(self.out_ch)
+            self.bn_proj = bn(self.out_ch)
         else:
             self.proj = None
 
@@ -80,7 +88,7 @@ class ResNet(nn.Module):
 
     def __init__(self, depth: int = 50, num_classes: int = 1000,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                 seed: int = 0):
+                 seed: int = 0, sync_bn=None):
         super().__init__()
         if depth not in STAGE_SIZES:
             raise ValueError(f"Unsupported ResNet depth {depth}")
@@ -88,7 +96,7 @@ class ResNet(nn.Module):
         g = torch.Generator().manual_seed(seed)
         self.stem = L.Conv2d(3, 64, 7, 2, compute_dtype=compute_dtype,
                              generator=g)
-        self.bn_stem = L.BatchNorm(64)
+        self.bn_stem = L.BatchNorm(64, process_set=sync_bn)
         in_ch = 64
         self.block_names = []
         for stage, (n_blocks, width) in enumerate(
@@ -97,7 +105,7 @@ class ResNet(nn.Module):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"stage{stage}_block{b}"
                 block = Block(in_ch, width, stride, bottleneck,
-                              compute_dtype, g)
+                              compute_dtype, g, sync_bn)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 in_ch = block.out_ch

@@ -25,6 +25,12 @@ keep the JAX package's semantics:
 - Under join mode (`ops/join.py`) each outermost collective publishes
   its signature for joined ranks to mirror, and a joined rank
   contributes its op's identity: Average divides by the active count.
+- Every eager dispatch fires the fault points `collective.<kind>` and
+  `chaos.straggler_delay` (`_fault_point`, JAX `_traced.__enter__`),
+  nested ones included, so hit indices line up with the JAX package's;
+  an injected error, and a failure of `torch.distributed` at dispatch or
+  at the wait, surfaces as HorovodInternalError, the signal elastic
+  recovery catches.
 
 Async ops return integer handles (`HandleManager`) over torch `Work`
 objects; `synchronize` waits and finishes the result.
@@ -41,16 +47,20 @@ every dtype takes the same path.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from .. import faults as _faults
 from ..common import basics
 from ..common.basics import ProcessSet
-from ..common.exceptions import HorovodTpuError
+from ..common.exceptions import HorovodInternalError, HorovodTpuError
 from . import join as _join
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 class ReduceOp:
@@ -108,9 +118,39 @@ class _Pending:
         return all(w.is_completed() for w in self._works)
 
     def wait(self) -> Any:
-        for w in self._works:
-            w.wait()
+        try:
+            for w in self._works:
+                w.wait()
+        except RuntimeError as e:
+            raise HorovodInternalError(f"collective failed: {e}") from e
         return self._finish()
+
+
+def _launch(fn: Callable, *args, **kwargs) -> Any:
+    """Start a `torch.distributed` collective.  A failure of the process
+    group (a DistBackendError, or another RuntimeError out of the
+    backend) becomes HorovodInternalError, as a failed collective does
+    in the JAX package."""
+    try:
+        return fn(*args, **kwargs)
+    except RuntimeError as e:
+        raise HorovodInternalError(f"{fn.__name__} failed: {e}") from e
+
+
+def _fault_point(kind: str) -> None:
+    """The fault bracket of one eager dispatch (JAX `_traced.__enter__`):
+    fire `collective.<kind>` when the catalog names it, then
+    `chaos.straggler_delay`.  An injected error becomes
+    HorovodInternalError.  One test when no schedule is armed."""
+    if not _faults.active():
+        return
+    try:
+        pt = f"collective.{kind}"
+        if pt in _faults.CATALOG:
+            _faults.point(pt)
+        _faults.point("chaos.straggler_delay")
+    except _faults.FaultInjected as e:
+        raise HorovodInternalError(str(e)) from e
 
 
 def _scale(t: torch.Tensor, factor: float) -> torch.Tensor:
@@ -203,8 +243,8 @@ def _active_count(ps: ProcessSet, device) -> tuple:
                         dtype=torch.float32, device=device)
     works = []
     if ps.comm is not None:
-        works.append(dist.all_reduce(flag, op=dist.ReduceOp.SUM,
-                                     group=ps.comm, async_op=True))
+        works.append(_launch(dist.all_reduce, flag, op=dist.ReduceOp.SUM,
+                             group=ps.comm, async_op=True))
     return works, flag
 
 
@@ -237,8 +277,8 @@ def _allreduce_start(tensor: torch.Tensor, op: ReduceOp, prescale: float,
            if buf is src and not owned else buf.contiguous())
     works, count = [], None
     if ps.comm is not None:
-        works.append(dist.all_reduce(buf, op=_WIRE_OPS[op.name],
-                                     group=ps.comm, async_op=True))
+        works.append(_launch(dist.all_reduce, buf, op=_WIRE_OPS[op.name],
+                             group=ps.comm, async_op=True))
     if _join.armed() and op is Average:
         count_works, count = _active_count(ps, buf.device)
         works += count_works
@@ -250,6 +290,14 @@ def _allreduce_start(tensor: torch.Tensor, op: ReduceOp, prescale: float,
         return _scale(out, postscale)
 
     return _Pending(works, finish)
+
+
+def _allreduce_dispatch(tensor: torch.Tensor, op: ReduceOp,
+                        prescale: float, postscale: float,
+                        ps: ProcessSet) -> _Pending:
+    """One eager allreduce dispatch (a hit of `collective.allreduce`)."""
+    _fault_point("allreduce")
+    return _allreduce_start(tensor, op, prescale, postscale, ps)
 
 
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -267,11 +315,12 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
         if op is Adasum:
             from . import adasum as _adasum
 
+            _fault_point("allreduce")
             x = _scale(tensor.detach(), prescale_factor)
             out = _adasum.adasum_allreduce(x, process_set=ps)
             return _scale(out, postscale_factor)
-        return _allreduce_start(tensor, op, prescale_factor,
-                                postscale_factor, ps).wait()
+        return _allreduce_dispatch(tensor, op, prescale_factor,
+                                   postscale_factor, ps).wait()
 
 
 def _grouped_allreduce_start(tensors: Sequence[torch.Tensor], op: ReduceOp,
@@ -288,6 +337,7 @@ def _grouped_allreduce_start(tensors: Sequence[torch.Tensor], op: ReduceOp,
                             postscale_factor=postscale, process_set=ps)
             buckets.append((idxs, _Pending([], lambda red=red: red)))
         else:
+            _fault_point("allreduce")  # one per dtype, as in JAX
             buckets.append((idxs, _allreduce_start(
                 fused, op, prescale, postscale, ps, owned=True)))
 
@@ -358,8 +408,8 @@ def _allgather_start(tensor: torch.Tensor, ps: ProcessSet,
         out.copy_(t.reshape(out_shape))
     if ps.comm is None or t.numel() == 0:
         return _Pending([], lambda: out.reshape(out_shape))
-    works = [dist.all_gather_into_tensor(_as_bytes(out), _as_bytes(t),
-                                         group=ps.comm, async_op=True)]
+    works = [_launch(dist.all_gather_into_tensor, _as_bytes(out),
+                     _as_bytes(t), group=ps.comm, async_op=True)]
     return _Pending(works, lambda: out.reshape(out_shape))
 
 
@@ -384,6 +434,7 @@ def allgather_sizes(local_dim0: Sequence[int], ps: ProcessSet,
             f"allgather_sizes takes this process's one rank's size; got "
             f"{len(local_dim0)} values")
     device = basics.device() if device is None else device
+    _fault_point("allgather_sizes")
     return [row[0] for row in _exchange_dims(local_dim0, ps, device)]
 
 
@@ -405,13 +456,17 @@ def _ragged_allgather_start(t: torch.Tensor, sizes: List[int],
 
 
 def _allgather_any_start(tensor: torch.Tensor, ps: ProcessSet) -> _Pending:
+    """A multi-rank job exchanges the sizes first, over any set, as the
+    JAX package's multi-process path does."""
     t = tensor.detach()
     if t.dim() == 0:
         t = t.reshape(1)
+    sizes = (allgather_sizes([t.shape[0]], ps, t.device)
+             if basics.size() > 1 else [t.shape[0]])
+    _fault_point("allgather")
     if ps.comm is None:
         return _allgather_start(t, ps)
-    return _ragged_allgather_start(
-        t, allgather_sizes([t.shape[0]], ps, t.device), ps)
+    return _ragged_allgather_start(t, sizes, ps)
 
 
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
@@ -434,6 +489,10 @@ def _grouped_allgather_start(tensors: Sequence[torch.Tensor],
     in flight at once."""
     ts = [t.detach().reshape(1) if t.dim() == 0 else t.detach()
           for t in tensors]
+    for _ in ts:  # JAX gathers tensor by tensor: sizes, then rows
+        if basics.size() > 1:
+            _fault_point("allgather_sizes")
+        _fault_point("allgather")
     if ps.comm is None:
         starts = [_allgather_start(t, ps) for t in ts]
     else:
@@ -473,14 +532,15 @@ def _broadcast_start(tensor: torch.Tensor, root_rank: int,
         raise HorovodTpuError(
             f"root_rank {root_rank} out of range for set of size "
             f"{ps.size()}")
+    _fault_point("broadcast")
     result = out if result is None else result
     if out is not tensor:
         out.copy_(tensor)
     if ps.comm is None:
         return _Pending([], lambda: result)
     buf = out if out.is_contiguous() else out.contiguous()
-    works = [dist.broadcast(_as_bytes(buf), src=ps.ranks[root_rank],
-                            group=ps.comm, async_op=True)]
+    works = [_launch(dist.broadcast, _as_bytes(buf), src=ps.ranks[root_rank],
+                     group=ps.comm, async_op=True)]
 
     def finish():
         if buf is not out:
@@ -520,6 +580,7 @@ def barrier(process_set: Optional[ProcessSet] = None) -> None:
     a 1-element allreduce, as in the JAX package)."""
     ps = _resolve_set(process_set)
     with _joinable("barrier", process_set=ps):
+        _fault_point("barrier")
         allreduce(torch.zeros((1,), dtype=torch.int32,
                               device=basics.device()),
                   op=Sum, process_set=ps)
@@ -550,6 +611,7 @@ def _alltoall_exchange_splits(splits: Sequence[int], ps: ProcessSet,
     """Every rank's send splits as an (n, n) table: row s is what rank s
     sends to each rank (reference: MPIController::
     AlltoallGetRecvSplits; JAX `_alltoall_exchange_splits`)."""
+    _fault_point("alltoall_splits")
     return _exchange_dims([int(s) for s in splits], ps, device)
 
 
@@ -560,12 +622,14 @@ def _alltoall_start(t: torch.Tensor, send: List[int], recv: List[int],
     on an H100, uneven splits included)."""
     out = torch.empty((sum(recv),) + tuple(t.shape[1:]), dtype=t.dtype,
                       device=t.device)
+    _fault_point("alltoall")
     if ps.comm is None:
         out.copy_(t)
         return _Pending([], lambda: out)
-    works = [dist.all_to_all_single(
-        _rows_as_bytes(out), _rows_as_bytes(t), output_split_sizes=recv,
-        input_split_sizes=send, group=ps.comm, async_op=True)]
+    works = [_launch(
+        dist.all_to_all_single, _rows_as_bytes(out), _rows_as_bytes(t),
+        output_split_sizes=recv, input_split_sizes=send, group=ps.comm,
+        async_op=True)]
     return _Pending(works, lambda: out)
 
 
@@ -658,9 +722,9 @@ def _reducescatter_flat(buf: torch.Tensor, op: ReduceOp, ps: ProcessSet,
     else:
         out = torch.empty(buf.numel() // n, dtype=buf.dtype,
                           device=buf.device)
-        works = [dist.reduce_scatter_tensor(out, buf.contiguous(),
-                                            op=dist.ReduceOp.SUM,
-                                            group=ps.comm, async_op=True)]
+        works = [_launch(dist.reduce_scatter_tensor, out, buf.contiguous(),
+                         op=dist.ReduceOp.SUM, group=ps.comm,
+                         async_op=True)]
     count = None
     if masked and op is Average:
         count_works, count = _active_count(ps, buf.device)
@@ -717,6 +781,8 @@ def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
     del name
     ps = _resolve_set(process_set)
     with _joinable("reducescatter", [tensor], op=op, process_set=ps):
+        _check_scatter_op(op)
+        _fault_point("reducescatter")
         return _reducescatter_start(tensor, op, ps).wait()
 
 
@@ -734,6 +800,7 @@ def _grouped_reducescatter_start(tensors: Sequence[torch.Tensor],
         by_dtype.setdefault(t.dtype, []).append(i)
     buckets = []
     for idxs in by_dtype.values():
+        _fault_point("reducescatter")  # one per dtype, as in JAX
         fused = torch.cat([_gather_rows(ts[i], n * geo[i][1]).reshape(n, -1)
                            for i in idxs], dim=1)
         buckets.append((idxs, _reducescatter_flat(fused.reshape(-1), op, ps,
@@ -812,6 +879,20 @@ class HandleManager:
             pending = self._pending.pop(handle)
         return pending.wait()
 
+    def drain(self) -> None:
+        """Wait for every collective still in flight and drop the
+        handles (`shutdown`: a process group is destroyed only with no
+        work on it).  A failure here is logged, not raised: draining
+        follows a failure that is already being handled, such as the
+        collective error that started an elastic reset."""
+        with self._lock:
+            pending, self._pending = list(self._pending.values()), {}
+        for p in pending:
+            try:
+                p.wait()
+            except HorovodTpuError as e:
+                logger.warning("dropped collective failed: %s", e)
+
 
 def _handle(pending: _Pending) -> int:
     return HandleManager.global_instance().allocate(pending)
@@ -837,7 +918,7 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                         process_set=process_set)
         return _handle(_Pending([], lambda: out))
     ps = _resolve_set(process_set)
-    return _async("allreduce", [tensor], lambda: _allreduce_start(
+    return _async("allreduce", [tensor], lambda: _allreduce_dispatch(
         tensor, op, prescale_factor, postscale_factor, ps), op=op,
         process_set=ps, prescale=prescale_factor, postscale=postscale_factor)
 
@@ -869,9 +950,13 @@ def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
     """`reducescatter`'s handle, any dim 0 (JAX `reducescatter_async`)."""
     del name
     ps = _resolve_set(process_set)
-    return _async("reducescatter", [tensor],
-                  lambda: _reducescatter_start(tensor, op, ps), op=op,
-                  process_set=ps)
+
+    def start():
+        _check_scatter_op(op)
+        _fault_point("reducescatter")
+        return _reducescatter_start(tensor, op, ps)
+
+    return _async("reducescatter", [tensor], start, op=op, process_set=ps)
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,

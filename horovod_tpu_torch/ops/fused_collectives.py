@@ -89,8 +89,9 @@ def _resolve(process_set: Optional[ProcessSet]) -> ProcessSet:
 
 
 def _wait(works) -> None:
-    for w in works:
-        w.wait()
+    """Wait for chunk collectives; a failure of the process group is
+    HorovodInternalError, as in `ops/collectives.py`."""
+    C._Pending(works, lambda: None).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -135,9 +136,9 @@ def pipelined_grouped_allreduce(tensors: Sequence[torch.Tensor],
                 if lo < hi:
                     buf[lo:hi].copy_(f[lo - s:hi - s])
             if ps.comm is not None:
-                works.append(dist.all_reduce(
-                    buf[off:off + w], op=C._WIRE_OPS[op.name],
-                    group=ps.comm, async_op=True))
+                works.append(C._launch(
+                    dist.all_reduce, buf[off:off + w],
+                    op=C._WIRE_OPS[op.name], group=ps.comm, async_op=True))
         pending.append((idxs, buf, works))
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for idxs, buf, works in pending:
@@ -178,9 +179,9 @@ def pipelined_psum_scatter(flat: torch.Tensor,
                               chunk_bytes=chunk_bytes):
         send = band[:, off:off + w].contiguous().reshape(-1)
         keep.append(send)
-        works.append(dist.reduce_scatter_tensor(
-            out[off:off + w], send, op=dist.ReduceOp.SUM, group=ps.comm,
-            async_op=True))
+        works.append(C._launch(
+            dist.reduce_scatter_tensor, out[off:off + w], send,
+            op=dist.ReduceOp.SUM, group=ps.comm, async_op=True))
     _wait(works)
     return out
 
@@ -218,10 +219,11 @@ def pipelined_allgather_shard(shard: torch.Tensor,
         seg = C._as_bytes(s[off:off + w])
         got = torch.empty(n * seg.numel(), dtype=torch.uint8,
                           device=s.device)
-        chunks.append((off, w, got, dist.all_gather_into_tensor(
-            got, seg, group=ps.comm, async_op=True)))
+        chunks.append((off, w, got, C._launch(
+            dist.all_gather_into_tensor, got, seg, group=ps.comm,
+            async_op=True)))
     for off, w, got, work in chunks:
-        work.wait()
+        _wait([work])
         band[:, off:off + w] = got.view(s.dtype).view(n, w)
     return band if stacked else band.reshape(-1)
 
@@ -266,11 +268,11 @@ def fused_matmul_reduce_scatter(a: torch.Tensor, b: torch.Tensor,
             out[:, off:off + w] = partial
             continue
         recv = torch.empty((m // n, w), dtype=a.dtype, device=a.device)
-        pending.append((off, w, recv, partial, dist.reduce_scatter_tensor(
-            recv, partial.contiguous(), op=dist.ReduceOp.SUM,
-            group=ps.comm, async_op=True)))
+        pending.append((off, w, recv, partial, C._launch(
+            dist.reduce_scatter_tensor, recv, partial.contiguous(),
+            op=dist.ReduceOp.SUM, group=ps.comm, async_op=True)))
     for off, w, recv, _, work in pending:
-        work.wait()
+        _wait([work])
         out[:, off:off + w] = recv
     return out / n if average else out
 
@@ -301,11 +303,12 @@ def fused_allgather_matmul(x: torch.Tensor, w_shard: torch.Tensor,
             continue
         got = torch.empty(n * w * k * ws.element_size(), dtype=torch.uint8,
                           device=ws.device)
-        chunks.append((off, w, got, dist.all_gather_into_tensor(
-            got, C._as_bytes(seg), group=ps.comm, async_op=True)))
+        chunks.append((off, w, got, C._launch(
+            dist.all_gather_into_tensor, got, C._as_bytes(seg),
+            group=ps.comm, async_op=True)))
     for off, w, got, work in chunks:
         if work is not None:
-            work.wait()
+            _wait([work])
             got = got.view(ws.dtype).view(n, w, k)
         for r in range(n):
             _chunk_matmul(x, got[r].t(),

@@ -12,7 +12,9 @@ and the horovod.torch loop:
 
 Prints img/sec like the reference's pytorch_synthetic_benchmark.py.
 `--log-steps` adds one JSON line per step (loss, kernel launch counts,
-SHA-256 of the parameters) for checks across ranks.
+SHA-256 of the parameters, the fusion threshold in force and the
+gradient buckets flushed so far) for checks across ranks.  Each step
+feeds the autotuner (`hvd.autotune_record_step`; HOROVOD_AUTOTUNE=1).
 
 Run:  python -m horovod_tpu_torch.synthetic_benchmark --num-iters 3
       python -m horovod_tpu_torch.synthetic_benchmark --use-adasum
@@ -38,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import ResNet, num_params
 from horovod_tpu_torch.ops import adasum, adasum_kernels
+from horovod_tpu_torch.utils.autotune import current_fusion_threshold
 
 
 def param_digest(model: torch.nn.Module) -> str:
@@ -202,12 +205,14 @@ def main(argv=None) -> int:
         check = None
         if args.use_adasum and step_no == args.check_plain_step:
             check = _check_plain_combine(opt)
+        threshold = current_fusion_threshold()
         opt.zero_grad(set_to_none=True)
         with record_function("bench.forward_backward"):
             loss = F.cross_entropy(model(x), y)
             loss.backward()
         with record_function("bench.optimizer_step"):
             opt.step()
+        hvd.autotune_record_step(args.batch_size)
         if check is not None:
             opt.__dict__.pop("_reduce_deltas")
         last_loss = loss.detach()
@@ -216,7 +221,9 @@ def main(argv=None) -> int:
             rec = {"step": step_no, "rank": hvd.rank(),
                    "loss": float(last_loss),
                    "launches": adasum_kernels.launch_counts(),
-                   "digest": param_digest(model)}
+                   "digest": param_digest(model),
+                   "fusion_threshold": threshold,
+                   "flushes": getattr(opt, "total_flushes", None)}
             if check is not None and "diff" in check:
                 rec["plain_max_abs_diff"] = check["diff"]
                 rec["plain_max_abs"] = check["max_abs"]

@@ -10,6 +10,9 @@ they are and the collectives run on them through `torch.distributed`.
     opt = hvd.DistributedOptimizer(opt, named_parameters=model.named_parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+It also carries `SyncBatchNorm`, the sparse allreduce and the elastic
+namespace (`hvd.elastic.run`, `TorchState`, `ElasticSampler`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..common import basics, util
 from ..common.basics import (  # noqa: F401
     ProcessSet,
     add_process_set,
+    autotune_record_step,
     backend,
     ccl_built,
     cross_rank,
@@ -86,12 +90,13 @@ from ..parallel.optimizer import (  # noqa: F401
     optimizer_state_bytes,
 )
 from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
-from ..utils.autotune import current_zero_stage
+from ..utils.autotune import current_fusion_threshold, current_zero_stage
 
 __all__ = [
     "Adasum", "Average", "Compression", "DistributedOptimizer",
     "HandleManager", "HorovodInternalError", "Max", "Min", "ProcessSet",
-    "Product", "ReduceOp", "Sum", "add_process_set", "allgather",
+    "Product", "ReduceOp", "Sum", "SyncBatchNorm", "add_process_set",
+    "allgather", "autotune_record_step", "elastic",
     "allgather_async", "allgather_object", "allreduce", "allreduce_",
     "allreduce_async", "allreduce_async_", "alltoall", "alltoall_async",
     "backend", "barrier", "broadcast", "broadcast_", "broadcast_async",
@@ -106,7 +111,8 @@ __all__ = [
     "local_rank", "local_size", "mpi_built", "mpi_enabled",
     "mpi_threads_supported", "nccl_built", "optimizer_state_bytes", "poll",
     "rank", "reducescatter", "reducescatter_async", "remove_process_set",
-    "rocm_built", "shutdown", "size", "synchronize", "tpu_built",
+    "rocm_built", "shutdown", "size", "sparse_allreduce_async",
+    "synchronize", "tpu_built",
     "xla_built", "ZeroParamPlacement", "zero3_placement",
 ]
 
@@ -340,6 +346,40 @@ def grouped_allreduce_async_(tensors, **kw) -> int:
     return h
 
 
+def sparse_allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
+                           op=Average,
+                           process_set: Optional[ProcessSet] = None) -> int:
+    """Allreduce a sparse COO tensor (reference: torch/mpi_ops.py
+    `sparse_allreduce_async`; JAX shim :275-301): each rank's coalesced
+    (indices [nnz, ndim], values) go through the ragged allgather, and
+    `synchronize(handle)` returns the sparse tensor of every entry, each
+    value divided by the set size under Average, then coalesced (the
+    duplicates summed), in the JAX package's order."""
+    del name
+    if not getattr(tensor, "is_sparse", False):
+        raise ValueError(
+            "sparse_allreduce_async expects a torch sparse COO tensor; "
+            "use allreduce/allreduce_async for dense tensors")
+    ps = C._resolve_set(process_set)
+    t = tensor.coalesce()
+    idx = t.indices().t().contiguous()
+    vals = t.values().contiguous()
+    with C._joinable("allgather", [idx], process_set=ps):
+        gi = C._allgather_any_start(idx, ps)
+    with C._joinable("allgather", [vals], process_set=ps):
+        gv = C._allgather_any_start(vals, ps)
+    denom = ps.size() if op is Average else 1
+
+    def finish():
+        i, v = gi.wait(), gv.wait()
+        if denom != 1:
+            v = v / denom
+        return torch.sparse_coo_tensor(i.t(), v.to(t.dtype),
+                                       size=tuple(t.shape)).coalesce()
+
+    return C._handle(C._Pending(gi._works + gv._works, finish))
+
+
 def synchronize(handle: int):
     """Wait for the handle's collective; return its result (in-place
     variants copy into, and return, the original tensors)."""
@@ -404,18 +444,22 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
 # ---------------------------------------------------------------------------
 
 def _fusion_threshold() -> int:
-    """HOROVOD_FUSION_THRESHOLD in bytes, default 64 MiB (the JAX
-    package's default; its autotuner is not ported yet)."""
-    return util.fusion_threshold()
+    """The fusion threshold in force, in bytes: the autotuner's while
+    it is active, else HOROVOD_FUSION_THRESHOLD (64 MiB by default).
+    Read on every enqueue, as the JAX shim does."""
+    return current_fusion_threshold()
 
 
 class _DistributedOptimizer:
     """Wraps a torch.optim.Optimizer: gradients are allreduced before
     each step.  Post-accumulate-grad hooks enqueue each gradient as it
-    is final, into size-capped buckets (HOROVOD_FUSION_THRESHOLD); a full
-    bucket is dispatched at once as one async grouped allreduce, so
-    communication overlaps the rest of backward.  `step()` waits for the
-    buckets and copies the results into `p.grad`.
+    is final, into size-capped buckets (HOROVOD_FUSION_THRESHOLD, read
+    live on every enqueue, so the autotuner's moves take effect at
+    once); a full bucket is dispatched at once as one async grouped
+    allreduce, so communication overlaps the rest of backward.  `step()`
+    waits for the buckets and copies the results into `p.grad`.  A
+    sparse gradient is densified (`sparse_as_dense`) or goes through
+    `sparse_allreduce_async` and is replaced by its result.
     `backward_passes_per_step` accumulates locally and reduces every Nth
     pass."""
 
@@ -424,11 +468,13 @@ class _DistributedOptimizer:
                  compression=Compression.none,
                  backward_passes_per_step: int = 1,
                  op=Average,
+                 sparse_as_dense: bool = False,
                  gradient_predivide_factor: float = 1.0,
                  process_set: Optional[ProcessSet] = None):
         self._opt = optimizer
         self._compression = compression
         self._op = op
+        self._sparse_as_dense = sparse_as_dense
         self._predivide = gradient_predivide_factor
         self._ps = process_set
         self._bpps = max(1, backward_passes_per_step)
@@ -436,27 +482,48 @@ class _DistributedOptimizer:
         _check_names(named_parameters)
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
-        self._threshold = _fusion_threshold()
+        self.total_flushes = 0  # observable: fused buckets dispatched
+        self.reset_step_state()
+        for p in self._params:
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(self._hook)
+
+    def reset_step_state(self) -> None:
+        """Drop the state of the step in progress: the open bucket, the
+        handles in flight, the gradients already enqueued, and a partial
+        accumulation of `backward_passes_per_step`.  Elastic recovery
+        (`TorchState.on_reset`) calls it after a failed step: that state
+        belongs to the step the restore rolled back.  (The JAX shim has
+        no such state to drop: its work in flight is XLA programs.)"""
         self._bucket: List[torch.Tensor] = []
         self._bucket_bytes = 0
         # (handle, params, ctxs) per dispatched bucket.
         self._in_flight: list = []
+        # (param, handle) per sparse gradient in flight.
+        self._sparse_in_flight: list = []
         self._reduced_ids: set = set()
-        self.total_flushes = 0  # observable: fused buckets dispatched
-        for p in self._params:
-            if p.requires_grad:
-                p.register_post_accumulate_grad_hook(self._hook)
         self._synchronized = False
+        self._pass_count -= self._pass_count % self._bpps
 
     def _enqueue(self, p: torch.Tensor) -> None:
         """Add a gradient to the current bucket once per step; a full
-        bucket is dispatched."""
+        bucket is dispatched.  Sparse gradients never share a bucket with
+        dense ones (JAX shim :543-554)."""
         if id(p) in self._reduced_ids:
             return
+        if p.grad.is_sparse:
+            if self._sparse_as_dense:
+                p.grad = p.grad.to_dense()
+            else:
+                self._reduced_ids.add(id(p))
+                self._sparse_in_flight.append(
+                    (p, sparse_allreduce_async(p.grad, op=self._op,
+                                               process_set=self._ps)))
+                return
         self._reduced_ids.add(id(p))
         self._bucket.append(p)
         self._bucket_bytes += p.grad.numel() * p.grad.element_size()
-        if self._bucket_bytes >= self._threshold:
+        if self._bucket_bytes >= _fusion_threshold():
             self._flush()
 
     def _hook(self, p: torch.Tensor) -> None:
@@ -494,7 +561,12 @@ class _DistributedOptimizer:
                 outs = C.synchronize(h)
                 for p, o, ctx in zip(params, outs, ctxs):
                     p.grad.copy_(self._compression.decompress(o, ctx))
+            for p, h in self._sparse_in_flight:
+                # Replaced, not copied into: the reduced gradient has
+                # other entries than the local one.
+                p.grad = synchronize(h)
         self._in_flight = []
+        self._sparse_in_flight = []
         self._synchronized = True
 
     def step(self, closure=None):
@@ -552,6 +624,12 @@ class _DistributedAdasumOptimizer:
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
         self._starting = {id(p): torch.empty_like(p) for p in self._params}
+
+    def reset_step_state(self) -> None:
+        """Drop a partial accumulation of `backward_passes_per_step`
+        (elastic recovery; the delta reduction holds nothing else
+        between calls)."""
+        self._pass_count -= self._pass_count % self._bpps
 
     def _reduce_deltas(self, deltas: List[torch.Tensor]
                        ) -> List[torch.Tensor]:
@@ -612,6 +690,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          backward_passes_per_step: int = 1,
                          op=Average,
                          gradient_predivide_factor: float = 1.0,
+                         num_groups: int = 0, groups=None,
+                         sparse_as_dense: bool = False,
                          process_set: Optional[ProcessSet] = None,
                          zero_stage: Optional[int] = None,
                          shard_optimizer_states: Optional[bool] = None,
@@ -621,7 +701,10 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     (reference: optimizer.py routes op=Adasum there); any other op the
     hook-bucketed `_DistributedOptimizer`.  `gradient_predivide_factor`
     splits the averaging around a Sum wire (prescale 1/f, postscale
-    f/size).
+    f/size).  `num_groups` and `groups` are accepted and ignored, as in
+    the JAX package (buckets follow the live fusion threshold).
+    `sparse_as_dense` densifies sparse gradients; by default they go
+    through `sparse_allreduce_async`.
 
     `zero_stage` (env HOROVOD_ZERO_STAGE) picks the ZeRO rung: 0
     replicated; 1 (alias `shard_optimizer_states`, env
@@ -631,6 +714,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     `placement.apply_updates` (parallel/optimizer.py).
     `fusion_threshold_bytes` and `bucket_order` set the shard groups
     (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER)."""
+    del num_groups, groups
     _check_names(named_parameters)
     if zero_stage is None:
         zero_stage = current_zero_stage()
@@ -668,5 +752,64 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         optimizer, named_parameters=named_parameters,
         compression=compression,
         backward_passes_per_step=backward_passes_per_step, op=op,
+        sparse_as_dense=sparse_as_dense,
         gradient_predivide_factor=gradient_predivide_factor,
         process_set=process_set)
+
+
+class SyncBatchNorm(torch.nn.modules.batchnorm._BatchNorm):
+    """Batch norm with the global batch's statistics (reference:
+    horovod/torch/sync_batch_norm.py; JAX shim :750-804).
+
+    The torch `_BatchNorm` contract holds: the running variance is the
+    unbiased one of the global batch, `momentum=None` is a cumulative
+    average, the input is at least 2-D, and in eval mode or at one rank
+    this is the plain `_BatchNorm`.  In train mode the statistics are
+    computed in f32 whatever the input's dtype, and [mean, mean of the
+    squares] travel as one tensor through one allreduce (Average) of the
+    autograd wrapper, whose backward is the allreduce of the cotangents:
+    the gradient is the exact cross-rank one, that of the JAX package's
+    `batchnorm_apply(axis_name=...)` and of upstream.  (The JAX shim
+    takes a straight-through gradient through the local statistics; the
+    two agree where every rank has the same input.)"""
+
+    def _check_input_dim(self, input):
+        if input.dim() < 2:
+            raise ValueError(
+                f"expected at least 2D input (got {input.dim()}D)")
+
+    def forward(self, input: torch.Tensor) -> torch.Tensor:
+        if not self.training or size() == 1:
+            return super().forward(input)
+        self._check_input_dim(input)
+        dims = [0] + list(range(2, input.dim()))
+        shape = [1, -1] + [1] * (input.dim() - 2)
+        xf = input.float()
+        local = torch.stack([xf.mean(dims), xf.square().mean(dims)])
+        mean, mean2 = allreduce(local, op=Average)
+        # E[x^2] - mean^2 can round below 0 in f32 for a channel of large
+        # mean and small variance; the sqrt below must not see it.
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if self.track_running_stats and self.running_mean is not None:
+            n = input.numel() // input.size(1) * size()
+            unbiased = var.detach() * n / max(n - 1, 1)
+            if self.num_batches_tracked is not None:
+                self.num_batches_tracked.add_(1)
+            if self.momentum is None:
+                m = 1.0 / float(self.num_batches_tracked)
+            else:
+                m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1 - m).add_(unbiased, alpha=m)
+        out = (xf - mean.reshape(shape)) / torch.sqrt(
+            var.reshape(shape) + self.eps)
+        if self.affine:
+            out = out * self.weight.float().reshape(shape) + \
+                self.bias.float().reshape(shape)
+        return out.to(input.dtype)
+
+
+# The elastic namespace (hvd.elastic.run, TorchState, ...); last, because
+# torch/elastic.py imports the names above.
+from . import elastic  # noqa: F401,E402

@@ -18,6 +18,7 @@ working dtype from values that differ in their last bits); K3 1e-5
 another order inside each K tile, then one rounding of the output).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -549,3 +550,143 @@ def test_gloo_on_card_grouped_adasum_fuses_by_dtype(gloo_on_card):
                                atol=1e-5 * float(want32.abs().max()))
     torch.testing.assert_close(got16.float(), want16.float(), rtol=0,
                                atol=2 ** -10 * float(want16.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# SyncBatchNorm, the sparse allreduce and an elastic reset on the card
+# ---------------------------------------------------------------------------
+
+SURFACE7_WORKER = r'''
+import sys
+import torch
+import horovod_tpu_torch as hvd
+import chip_smoke
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r)
+res = chip_smoke.surface_sparse_and_syncbn(hvd, hvd.device(),
+                                           lambda name, fn: fn())
+res["backend"] = hvd.backend()
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
+
+
+@pytest.fixture(scope="module")
+def sparse_syncbn_on_card(tmp_path_factory):
+    """Two ranks on card 0 over gloo at chip_smoke's surface_np2 shapes:
+    the gradient of nn.Embedding(32000, 512, sparse=True) over 16,384
+    ids per rank, and SyncBatchNorm(256) on (32, 256, 56, 56) bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp = tmp_path_factory.mktemp("sparse_syncbn_card")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    url = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SURFACE7_WORKER, str(tmp), "2", str(r), url],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+
+
+def test_sparse_allreduce_on_card_matches_the_dense_allreduce(
+        sparse_syncbn_on_card):
+    """Within chip_smoke.SPARSE_RTOL of the largest value (each value
+    divided before the duplicates are summed); the optimizer's sparse
+    route stays sparse, sparse_as_dense is dense, both within it too."""
+    import chip_smoke
+
+    for d in sparse_syncbn_on_card:
+        assert d["backend"] == "gloo"
+        tol = chip_smoke.SPARSE_RTOL * d["sparse"]["scale"]
+        assert d["sparse"]["is_sparse"] and d["sparse"]["err"] <= tol
+        assert d["sparse_opt_False"]["is_sparse"]
+        assert not d["sparse_opt_True"]["is_sparse"]
+        for k in ("sparse_opt_False", "sparse_opt_True"):
+            assert d[k]["err"] <= tol, (k, d[k])
+
+
+@pytest.mark.parametrize("key", ["y", "grad_x", "grad_weight", "grad_bias",
+                                 "running_mean", "running_var"])
+def test_sync_batchnorm_on_card_is_batchnorm2d_over_both_batches(
+        sparse_syncbn_on_card, key):
+    """bf16 output and gradients within one bf16 ulp of the largest
+    value (chip_smoke.SYNC_BN_TOL), the f32 running statistics within
+    SYNC_BN_STAT_TOL, of one f32 BatchNorm2d over both ranks' batches."""
+    import chip_smoke
+
+    tol = (chip_smoke.SYNC_BN_STAT_TOL if key.startswith("running")
+           else chip_smoke.SYNC_BN_TOL)
+    for d in sparse_syncbn_on_card:
+        assert d["sync_bn"]["dtype"] == "torch.bfloat16"
+        assert d["sync_bn"][key] <= tol, (key, d["sync_bn"])
+
+
+NCCL_RESET_WORKER = r'''
+import importlib, json, os, sys
+import torch
+import torch.distributed as dist
+import horovod_tpu_torch as hvd
+
+elastic = importlib.import_module("horovod_tpu_torch.elastic")
+hvd.init(coordinator_address=sys.argv[1], num_processes=1, process_id=0)
+dev = hvd.device()
+out = {"backend": [hvd.backend()]}
+model = torch.nn.Sequential(*[torch.nn.Linear(1024, 1024) for _ in range(4)]).to(dev)
+opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1))
+os.environ["HOROVOD_FUSION_THRESHOLD"] = str(4 << 20)
+model(torch.ones(8, 1024, device=dev)).sum().backward()
+out["in_flight_handles"] = len(opt._in_flight)
+# NCCL work still queued on the group when it is torn down.
+big = torch.ones(1 << 24, device=dev)
+work = dist.all_reduce(big, async_op=True)
+elastic._reset()
+opt.reset_step_state()
+out["backend"].append(hvd.backend())
+out["after_reset"] = (len(opt._in_flight), len(opt._bucket))
+opt.zero_grad()
+model(torch.ones(8, 1024, device=dev)).sum().backward()
+opt.step()
+out["allreduce"] = float(hvd.allreduce(torch.full((3,), 2.0, device=dev))[0])
+out["finite"] = all(torch.isfinite(p).all().item() for p in model.parameters())
+print("RESULT " + json.dumps(out), flush=True)
+hvd.shutdown()
+'''
+
+
+def test_elastic_reset_of_an_nccl_group_with_buckets_in_flight(cuda):
+    """np=1 on NCCL: gradient buckets dispatched and not waited for, and
+    an NCCL allreduce queued on the group, when `_reset` tears the
+    group down and builds it again on the same tcp:// store; the
+    optimizer drops the failed step's state, and the next step runs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    r = subprocess.run([sys.executable, "-c", NCCL_RESET_WORKER,
+                        f"tcp://127.0.0.1:{port}"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = [l for l in r.stdout.splitlines() if l.startswith("RESULT ")][0]
+    out = json.loads(line[7:])
+    assert out["backend"] == ["nccl", "nccl"]
+    assert out["in_flight_handles"] >= 1
+    assert out["after_reset"] == [0, 0]
+    assert out["allreduce"] == 2.0 and out["finite"]

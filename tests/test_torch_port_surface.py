@@ -51,6 +51,11 @@ def _inputs(r, n):
         "rsi": (np.arange(2 * n + 1) * (r + 1) - 3).astype(I32),
         "gr": rng.randn(n, 2).astype(F32),
         "x": rng.randn(6).astype(F32),
+        # A sparse (7, 3) COO tensor, integer-valued, with a duplicate
+        # entry; and token ids for a sparse embedding's gradient.
+        "sp_i": np.asarray([[0, 3, 3, 6, r % 7], [1, 2, 2, 0, 1]]),
+        "sp_v": rng.randint(-8, 9, size=5).astype(F32),
+        "tok": rng.randint(0, 10, size=6),
     }
 
 
@@ -137,6 +142,34 @@ res["sub_lookup"] = refusal(lambda: hvd.get_process_set(sub.process_set_id))
 again = hvd.add_process_set(members)
 res["again_id"] = again.process_set_id
 hvd.barrier()
+
+# Sparse allreduce: rank 0's tensor on every rank, then each its own.
+def sparse(rank_d):
+    return torch.sparse_coo_tensor(rank_d["sp_i"], rank_d["sp_v"], (7, 3))
+d0 = {k: torch.from_numpy(v) for k, v in np.load(f"{out_dir}/inputs0.npz").items()}
+for op in ("Sum", "Average"):
+    h = hvd.sparse_allreduce_async(sparse(d0), op=getattr(hvd, op))
+    res["sp_same_" + op] = hvd.synchronize(h)
+    res["sp_diff_" + op] = hvd.synchronize(
+        hvd.sparse_allreduce_async(sparse(d), op=getattr(hvd, op)))
+res["refuse_dense"] = None
+try:
+    hvd.sparse_allreduce_async(torch.ones(3))
+except ValueError as e:
+    res["refuse_dense"] = str(e)
+# DistributedOptimizer on a sparse embedding: the sparse route and
+# sparse_as_dense.
+for as_dense in (False, True):
+    emb = torch.nn.Embedding(10, 3, sparse=True)
+    with torch.no_grad():
+        emb.weight.copy_(torch.arange(30, dtype=torch.float32).reshape(10, 3))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(emb.parameters(), lr=0.5),
+                                   sparse_as_dense=as_dense)
+    (emb(d["tok"].long()) * (r + 1)).sum().backward()
+    opt.synchronize()
+    res[f"emb_grad_{as_dense}"] = emb.weight.grad.clone()
+    opt.step()
+    res[f"emb_weight_{as_dense}"] = emb.weight.detach().clone()
 torch.save(res, f"{out_dir}/rank{r}.pt")
 hvd.shutdown()
 '''
@@ -357,6 +390,72 @@ def test_grouped_reducescatter_matches_jax(world, op):
 
 
 # ---------------------------------------------------------------------------
+# Sparse allreduce and the optimizer's sparse routes
+# ---------------------------------------------------------------------------
+
+def _sparse(ins):
+    return torch.sparse_coo_tensor(torch.from_numpy(ins["sp_i"]),
+                                   torch.from_numpy(ins["sp_v"]), (7, 3))
+
+
+@pytest.mark.parametrize("op", ["Sum", "Average"])
+def test_sparse_allreduce_matches_the_jax_shim_bitwise(world, op):
+    """Rank 0's tensor on every rank: the port and the JAX shim over a
+    process set of the same n ranks return the same coalesced entries,
+    bit for bit (integer-valued values; the same divisions, then the
+    same coalesce)."""
+    import horovod_tpu.torch as jshim
+
+    n, res = world
+    with _JaxSet(range(n)) as ps:
+        want = jshim.synchronize(jshim.sparse_allreduce_async(
+            _sparse(_inputs(0, n)), op=getattr(jshim, op), process_set=ps))
+    for d in res:
+        got = d["sp_same_" + op]
+        assert got.is_sparse and got.is_coalesced()
+        assert torch.equal(got.indices(), want.indices())
+        assert torch.equal(got.values(), want.values())
+
+
+@pytest.mark.parametrize("op", ["Sum", "Average"])
+def test_sparse_allreduce_of_different_tensors(world, op):
+    """Each rank its own entries: the dense form of the result is the
+    dense allreduce (within 1e-6 of the largest value: under Average
+    each value is divided before the sum, in the JAX order)."""
+    n, res = world
+    dense = sum(_sparse(_inputs(r, n)).to_dense() for r in range(n))
+    if op == "Average":
+        dense = dense / n
+    for d in res:
+        assert _rel(d["sp_diff_" + op].to_dense().numpy(),
+                    dense.numpy()) <= 1e-6
+
+
+def test_sparse_allreduce_refuses_a_dense_tensor(world):
+    for d in world[1]:
+        assert "sparse COO" in d["refuse_dense"]
+
+
+@pytest.mark.parametrize("as_dense", [False, True])
+def test_optimizer_sparse_routes(world, as_dense):
+    """A sparse embedding gradient goes through the sparse allreduce and
+    stays sparse, or is densified (`sparse_as_dense`); either way it is
+    the average of the ranks' gradients, and the step leaves the same
+    weights on every rank."""
+    n, res = world
+    want = torch.zeros(10, 3)
+    for r in range(n):
+        for t in _inputs(r, n)["tok"]:
+            want[t] += (r + 1) / n
+    for d in res:
+        g = d[f"emb_grad_{as_dense}"]
+        assert g.is_sparse != as_dense
+        assert _rel(g.to_dense().numpy(), want.numpy()) <= 1e-6
+        assert torch.equal(d[f"emb_weight_{as_dense}"],
+                           res[0][f"emb_weight_{as_dense}"])
+
+
+# ---------------------------------------------------------------------------
 # Process sets
 # ---------------------------------------------------------------------------
 
@@ -432,18 +531,21 @@ def _public_names(path):
 
 
 def test_port_surface_covers_the_jax_shim():
-    """The horovod.torch names of the JAX shim that the port lacks are
-    exactly the ones a later slice ports."""
+    """The port has every horovod.torch name of the JAX shim."""
     jax_names = _public_names("horovod_tpu/torch/__init__.py")
     port_names = _public_names("horovod_tpu_torch/torch/__init__.py")
-    assert jax_names - port_names == {"SyncBatchNorm", "elastic",
-                                      "sparse_allreduce_async"}
+    assert jax_names - port_names == set()
     import horovod_tpu_torch as hvd
 
     for name in ("add_process_set", "remove_process_set", "alltoall",
                  "alltoall_async", "grouped_allgather",
-                 "grouped_allgather_async", "grouped_reducescatter", "join"):
+                 "grouped_allgather_async", "grouped_reducescatter", "join",
+                 "SyncBatchNorm", "sparse_allreduce_async",
+                 "autotune_record_step"):
         assert callable(getattr(hvd, name)) and name in hvd.__all__
+    for name in ("run", "State", "ObjectState", "TorchState",
+                 "ElasticSampler", "notify_hosts_updated"):
+        assert hasattr(hvd.elastic, name), name
 
 
 _READ = re.compile(r"\b(?:getenv|env_bool|env_int)\(\s*\"([A-Z0-9_]+)\"")
