@@ -12,7 +12,9 @@ Phases, each printing its own lines:
 3. kernels       each kernel against its plain PyTorch version on the card,
                  at the main paths' shapes and at others, with the stated
                  tolerance; kernel, plain and library times and the bound.
-                 The Adasum kernels K1, K2 at the fused ResNet-50 delta;
+                 The Adasum kernels K1, K2 at the fused ResNet-50 delta,
+                 and in f32 at the fused VGG-16 (138,357,544) and
+                 Inception V3 (23,834,568) deltas;
                  the flash kernels K4, K5, K6 over causal, non-causal,
                  window, GQA, MQA, segment-id, lse-cotangent cases, D in
                  {32, 40, 64, 128, 256}, f32, bf16 and f16, T up to
@@ -128,7 +130,32 @@ Phases, each printing its own lines:
                  every step each rank flushed the bucket count that the
                  threshold in force gives for ResNet-50's gradients in
                  the order the backward makes them final (recorded here
-                 from a ResNet-50 of its own on the card).
+                 from a ResNet-50 of its own on the card);
+13. train_zoo    main path 5: two ranks share the card over gloo and run
+                 the synthetic benchmark `--model vgg16 --use-adasum` at
+                 full width (138,357,544 params, 224x224, 1000 classes,
+                 batch 32 per rank, bf16) for 3 steps with the checks of
+                 phase 4 (finite losses, one digest per step, K1 and K2
+                 launched on both ranks, rank 0's plain rerun of the
+                 combine within COMBINE_RTOL); then one rank on NCCL runs
+                 `--model inception3` (299x299, 23,834,568 params) and
+                 `--model vgg16` (224x224) under Average with
+                 `--profile 3`: img/sec, peak memory, the profile, and
+                 for VGG-16 the buckets it flushed, which must be in
+                 every step the count of the JAX package's greedy
+                 partition of its gradients (in the order the backward
+                 makes them final, from a VGG-16 of its own on the card)
+                 at the 64 MiB threshold;
+14. mnist        BASELINE config 1: two ranks share the card over gloo and
+                 run `python -m horovod_tpu_torch.torch_mnist` for 2
+                 epochs: finite losses and one digest per step, each
+                 rank's mean loss lower in the second epoch, the
+                 held-out accuracy above MNIST_MIN_ACC;
+15. bench        `python -m horovod_tpu_torch.bench` at one rank on NCCL
+                 (ResNet-50, batch 64) and at two ranks sharing the card
+                 over gloo (batch 32, DDP on gloo): the hvd, plain and
+                 DDP rows' img/sec, vs_baseline and vs_ddp, each row's
+                 +-1.96 sigma and idle share.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -147,7 +174,8 @@ and, with `--profile K`, its PROFILE line (a torch.profiler breakdown
 of K steps: device time, idle share, host time in each `hvd.*` and
 `bench.*` range).
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then one JSON line with every kernel's numbers (K1 and K2 also at the
+zoo deltas, with their launches on main path 5), and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
 with no result line; so does a host without CUDA.  Full logs of the
 training ranks go to chiprun_out/.
@@ -173,6 +201,8 @@ F32_FLOPS = 67e12
 # kernels' work at the main shape (bf16), whatever units compute it.
 HALF_FLOPS = 989e12
 MAIN_N = 25_557_032  # ResNet-50 params: one fused f32 delta
+# The other zoo models' fused f32 deltas: K1 and K2 at these sizes too.
+ZOO_N = {"vgg16": 138_357_544, "inception3": 23_834_568}
 K1_RTOL = 2e-5       # K1 vs plain, relative to sqrt(|a|^2|b|^2), |a|^2, |b|^2
 K2_F32_RTOL = 1e-6   # K2 f32 vs plain, relative to max|plain| (expect 0)
 K2_HALF_ULP = 1      # K2 bf16 and f16 vs plain, in ulps (expect 0)
@@ -239,6 +269,9 @@ AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
                 "HOROVOD_AUTOTUNE_MAX_SAMPLES": "3"}
 ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
+# The MNIST trainer's held-out accuracy after 2 epochs must beat chance
+# (ten classes) by a margin.
+MNIST_MIN_ACC = 0.5
 MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
 WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
 # K4-K6 per step per rank at 8 layers, all on the tensor cores.
@@ -305,6 +338,8 @@ def check_kernels(K):
     # float16 is the wire dtype of Compression.fp16 (--fp16-allreduce).
     cases = [((1, MAIN_N), torch.float32), ((1, MAIN_N), torch.bfloat16),
              ((1, MAIN_N), torch.float16),
+             ((1, ZOO_N["vgg16"]), torch.float32),
+             ((1, ZOO_N["inception3"]), torch.float32),
              ((3, 1000), torch.float32), ((3, 1000), torch.bfloat16),
              ((3, 1000), torch.float16),
              ((2, 7), torch.float32), ((2, 7), torch.bfloat16)]
@@ -345,7 +380,7 @@ def check_kernels(K):
                 f"scaled_err={k1_rel:.3g} (tol {K1_RTOL})"
         line2 = f"fused_scaled_add {label}: {k2_note}"
 
-        if n == MAIN_N:
+        if n == MAIN_N or n in ZOO_N.values():
             es = a.element_size()
             k1_ms = cuda_time_ms(lambda: K.fused_dot_norms(a, b))
             k1_plain = cuda_time_ms(lambda: K.fused_dot_norms_plain(a, b))
@@ -363,7 +398,9 @@ def check_kernels(K):
                       f"library_ms={k1_lib:.4f} bound_ms={k1_bound[0]:.4f}")
             line2 += (f" ms={k2_ms:.4f} plain_ms={k2_plain:.4f} "
                       f"library_ms={k2_lib:.4f} bound_ms={k2_bound[0]:.4f}")
-            results[str(dtype)] = {
+            key = str(dtype) if n == MAIN_N else next(
+                m for m, zn in ZOO_N.items() if zn == n)
+            results[key] = {
                 "fused_dot_norms": dict(max_abs_err=k1_err, ms=k1_ms,
                                         plain_ms=k1_plain, library_ms=k1_lib,
                                         bound_ms=k1_bound[0],
@@ -960,7 +997,7 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
 
 def train_adasum():
     summaries = launch("train_adasum", 2, [
-        "--use-adasum", "--depth", "50", "--num-classes", "1000",
+        "--use-adasum", "--model", "resnet50", "--num-classes", "1000",
         "--image-size", "224", "--batch-size", "32",
         "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
         "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
@@ -976,7 +1013,7 @@ def train_adasum():
 
 def train_average():
     (s,) = launch("train_average", 1, [
-        "--depth", "50", "--num-classes", "1000", "--image-size", "224",
+        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
         "--batch-size", "64", "--num-warmup-batches", "3",
         "--num-batches-per-iter", "5", "--num-iters", "3"], timeout=400)
     require(s["backend"] == "nccl", s)
@@ -1522,46 +1559,46 @@ def train_elastic():
 # Phase 12: the live fusion-threshold tuner at np=2
 # ---------------------------------------------------------------------------
 
-def resnet50_hook_order():
-    """The bytes of ResNet-50's gradients in the order the backward makes
-    them final (post-accumulate-grad hooks of a model of its own: the
-    order does not depend on the image size)."""
+def hook_order(model: str = "resnet50", image_size: int = 64):
+    """The bytes of a zoo model's gradients in the order the backward
+    makes them final (post-accumulate-grad hooks of a model of its own;
+    the order does not depend on the image size, the sizes do for
+    VGG-16's fc1)."""
     import torch
     import torch.nn.functional as F
 
-    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.models import zoo_build
 
-    model = ResNet(50, 1000, compute_dtype=torch.bfloat16).cuda()
+    net = zoo_build(model, 1000, compute_dtype=torch.bfloat16,
+                    image_size=image_size).cuda()
     order = []
-    for p in model.parameters():
+    for p in net.parameters():
         p.register_post_accumulate_grad_hook(
             lambda p: order.append(p.numel() * p.element_size()))
-    x = torch.rand((2, 3, 64, 64), device="cuda")
-    F.cross_entropy(model(x), torch.tensor([1, 2], device="cuda")).backward()
-    del model
+    x = torch.rand((2, 3, image_size, image_size), device="cuda")
+    F.cross_entropy(net(x), torch.tensor([1, 2], device="cuda")).backward()
+    del net
     torch.cuda.empty_cache()
     return order
 
 
 def expected_buckets(sizes, threshold: int) -> int:
-    """The hook path's bucket count: a bucket is dispatched once its
-    bytes reach the threshold, and the rest at synchronize."""
-    count, filled = 0, 0
-    for size in sizes:
-        filled += size
-        if filled >= threshold:
-            count, filled = count + 1, 0
-    return count + (1 if filled else 0)
+    """The hook path's bucket count: the JAX package's greedy partition
+    (`gradient_bucket_partition`, as `parallel/data_parallel.py`
+    `_buckets_by_nbytes` ports it) over the sizes in hook order."""
+    from horovod_tpu_torch.parallel.data_parallel import _buckets_by_nbytes
+
+    return len([b for b in _buckets_by_nbytes(sizes, threshold) if b])
 
 
 def autotune_np2():
-    sizes = resnet50_hook_order()
+    sizes = hook_order()
     logs = [os.path.join(LOG_DIR, f"autotune_rank{r}.csv") for r in (0, 1)]
     for path in logs:
         if os.path.exists(path):
             os.remove(path)
     summaries = launch("autotune_np2", 2, [
-        "--depth", "50", "--num-classes", "1000", "--image-size", "224",
+        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
         "--batch-size", "32", "--num-warmup-batches", "1",
         "--num-batches-per-iter", "4", "--num-iters", "3", "--log-steps"],
         env=AUTOTUNE_ENV, timeout=600,
@@ -1594,6 +1631,108 @@ def autotune_np2():
             "as the threshold in force implies; log rows " + ", ".join(
                 line.split(",")[1] for line in open(logs[s["rank"]])))
     return summaries
+
+
+# ---------------------------------------------------------------------------
+# Phases 13 to 15: the rest of the zoo, the MNIST trainer, the bench
+# ---------------------------------------------------------------------------
+
+MNIST = "horovod_tpu_torch.torch_mnist"
+BENCH = "horovod_tpu_torch.bench"
+FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
+
+
+def train_zoo():
+    """Main path 5 (see the module docstring)."""
+    phase = "train_zoo"
+    summaries = launch(phase, 2, [
+        "--model", "vgg16", "--use-adasum", "--num-classes", "1000",
+        "--image-size", "224", "--batch-size", "32",
+        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+        "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
+        grow=ADASUM_GROW, timeout=900)
+    require(all(s["steps"] == 3 and s["params"] == ZOO_N["vgg16"]
+                for s in summaries), f"vgg16 Adasum: {summaries}")
+    for s in summaries:
+        log(phase, f"vgg16 Adasum rank {s['rank']}: "
+            f"{s['img_sec_per_rank']:.2f} img/sec (3 steps, checks "
+            f"included), backend {s['backend']}, peak memory "
+            f"{s['peak_mem_gb']:.2f} GB, launches {s['launches']}")
+    vgg_sizes = hook_order("vgg16", 224)
+    buckets = expected_buckets(vgg_sizes, FUSION_THRESHOLD)
+    require(sum(vgg_sizes) == 4 * ZOO_N["vgg16"], "vgg16 gradient bytes")
+    singles = {}
+    for model in ("inception3", "vgg16"):
+        (s,) = launch(f"{phase}_{model}", 1, [
+            "--model", model, "--num-classes", "1000", "--batch-size", "32",
+            "--num-warmup-batches", "3", "--num-batches-per-iter", "5",
+            "--num-iters", "3", "--profile", "3"], timeout=600)
+        require(s["backend"] == "nccl" and s["params"] == ZOO_N[model], s)
+        if model == "vgg16":
+            require(s["flushes"] == buckets * s["steps"],
+                    f"vgg16: {s['flushes']} buckets over {s['steps']} steps, "
+                    f"want {buckets} a step (the JAX partition of its "
+                    f"gradients in hook order at {FUSION_THRESHOLD} bytes)")
+        log(phase, f"{model} at {s['image_size']}x{s['image_size']}, one "
+            f"rank on NCCL: {s['img_sec_per_rank']:.2f} img/sec (+- "
+            f"{1.96 * s['img_sec_std']:.2f}), batch 32, buckets flushed "
+            f"{s['flushes']} over {s['steps']} steps "
+            f"({s['flushes'] / s['steps']:g} a step), peak memory "
+            f"{s['peak_mem_gb']:.2f} GB, last loss {s['last_loss']:.4f}")
+        singles[model] = s
+    log(phase, f"vgg16 buckets a step at {FUSION_THRESHOLD} bytes: "
+        f"{buckets} (gradient bytes in hook order: {vgg_sizes[:6]} ...)")
+    return summaries, singles
+
+
+def mnist_np2():
+    """BASELINE config 1's trainer at two ranks on the card over gloo."""
+    summaries = launch("mnist", 2, ["--epochs", "2", "--log-steps"],
+                       module=MNIST, timeout=300)
+    for s in summaries:
+        losses, acc = s["epoch_losses"], s["test_acc"]
+        require(len(losses) == 2 and losses[1] < losses[0],
+                f"rank {s['rank']}: epoch losses {losses} do not fall")
+        require(acc[-1] > MNIST_MIN_ACC, f"rank {s['rank']}: held-out "
+                f"accuracy {acc} not above {MNIST_MIN_ACC}")
+    require(len({s["digest"] for s in summaries}) == 1, "mnist: the ranks' "
+            "final parameters differ")
+    for s in summaries:
+        log("mnist", f"rank {s['rank']}: epoch mean losses "
+            f"{s['epoch_losses']}, held-out accuracy {s['test_acc']}, "
+            f"{s['img_sec_per_rank']:.1f} img/sec, {s['steps']} steps, "
+            f"backend {s['backend']}")
+    return summaries
+
+
+def bench_rows():
+    """`python -m horovod_tpu_torch.bench` at one rank on NCCL (its
+    defaults: ResNet-50, batch 64) and at two ranks sharing the card over
+    gloo (batch 32)."""
+    results = {}
+    for name, nranks, args in (
+            ("bench_np1", 1, []),
+            ("bench_np2", 2, ["--batch-size", "32", "--num-warmup-batches",
+                              "2", "--num-batches-per-iter", "5",
+                              "--num-iters", "3"])):
+        outs = run_ranks(name, nranks, BENCH, args, timeout=600)
+        lines = [l for l in outs[0] if l.startswith("{")]
+        require(len(lines) == 1, f"{name}: {len(lines)} result lines")
+        r = json.loads(lines[0])
+        for key in ("value", "plain", "ddp", "vs_baseline", "vs_ddp"):
+            require(math.isfinite(r[key]) and r[key] > 0, f"{name}: {key}")
+        require(r["size"] == nranks and r["backend"] == (
+            "nccl" if nranks == 1 else "gloo"), f"{name}: {r}")
+        rows = r["rows"]
+        log(name, f"{r['model']} batch {r['batch_size']}/rank, {nranks} "
+            f"rank(s) on {r['backend']}: value {r['value']:.2f} img/sec "
+            f"(hvd), plain {r['plain']:.2f}, ddp {r['ddp']:.2f}, "
+            f"vs_baseline {r['vs_baseline']:.4f}, vs_ddp {r['vs_ddp']:.4f}; "
+            + "; ".join(f"{k} +- {v['ci95']:.2f}, idle {v['idle_share']}"
+                        for k, v in rows.items()))
+        log(name, "RESULT " + json.dumps(r))
+        results[name] = r
+    return results
 
 
 def main() -> int:
@@ -1684,6 +1823,15 @@ def main() -> int:
     t0 = time.perf_counter()
     autotune_np2()
     log("autotune_np2", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zoo_summaries, _ = train_zoo()
+    log("train_zoo", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mnist_np2()
+    log("mnist", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench_rows()
+    log("bench", f"{time.perf_counter() - t0:.1f} s")
 
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")
@@ -1710,6 +1858,13 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if src == "adasum_kernels.cu":
+            # K1 and K2 at the other zoo models' fused deltas (f32), and
+            # their launches on main path 5 (VGG-16 Adasum at np=2).
+            row.update(zoo={m: measured[m][name] for m in ZOO_N},
+                       zoo_launches=zoo_summaries[0]["launches"][name])
+            require(row["zoo_launches"] > 0, f"{name}: no launch on "
+                    "train_zoo")
         if "cuda_core_ms" in m:
             # K4-K6: the tensor-core kernel's launches on the main path
             # (all of them), the CUDA-core kernel's time at this shape,

@@ -16,6 +16,8 @@ exactly:
   batch.
 - `compute_dtype` casts the input and the weight before a conv or a
   dense layer.
+- SAME average pooling divides by the count of unpadded elements
+  (`avg_pool`), as the JAX package's does.
 
 Initializers take an explicit `torch.Generator`; they draw from the same
 distributions as the JAX initializers, not the same numbers.
@@ -93,25 +95,39 @@ class Dense(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """SAME-padded 2-D convolution without bias (JAX `conv2d_apply`)."""
+    """2-D convolution (JAX `conv2d_apply`): `padding` "SAME" (as XLA
+    computes it) or "VALID"; `bias` adds a per-channel bias, zeros at
+    init as `conv2d_init(bias=True)` draws it.  `kernel` is an int or
+    (kh, kw): Inception's 1×7 / 7×1 convs need the rectangular form."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride: int = 1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 padding: str = "SAME", bias: bool = False):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                             f"{padding!r}")
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride = stride
+        self.padding = padding
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(he_normal(
             (out_ch, in_ch, kh, kw), in_ch * kh * kw, generator))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
             w = w.to(self.compute_dtype)
-        x, pad = _pad_same(x, w.shape[2], w.shape[3], self.stride)
-        return F.conv2d(x, w, stride=self.stride, padding=pad)
+        pad = (0, 0)
+        if self.padding == "SAME":
+            x, pad = _pad_same(x, w.shape[2], w.shape[3], self.stride)
+        y = F.conv2d(x, w, stride=self.stride, padding=pad)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).reshape(1, -1, 1, 1)
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -174,6 +190,28 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     if padding == "SAME":
         x, _ = _pad_same(x, window, window, stride, value=-math.inf)
     return F.max_pool2d(x, window, stride)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int,
+             padding: str = "VALID") -> torch.Tensor:
+    """JAX `avg_pool`: VALID divides by the window's size; SAME pads as
+    XLA does and divides each output by the count of the input elements
+    under its window, the padding left out (`count_include_pad=False`,
+    not torch's default)."""
+    if padding == "VALID":
+        return F.avg_pool2d(x, window, stride)
+    ph = same_padding(x.shape[2], window, stride)
+    pw = same_padding(x.shape[3], window, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.avg_pool2d(x, window, stride, padding=(ph[0], pw[0]),
+                            count_include_pad=False)
+    # Asymmetric SAME (stride 2 on an even size): the window sums over
+    # the zero-padded input, divided by the counts of a padded ones map.
+    pad = (pw[0], pw[1], ph[0], ph[1])
+    sums = F.avg_pool2d(F.pad(x, pad), window, stride, divisor_override=1)
+    ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+    counts = F.avg_pool2d(ones, window, stride, divisor_override=1)
+    return sums / counts
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,16 @@
 """Gradient wire compression (counterpart of `horovod_tpu/ops/
 compression.py`; reference: horovod/torch/compression.py).
 
-This slice ports `Compression.none` and `Compression.fp16`; the
-block-scaled wire codecs (`ops/wire.py`, `ops/quantized.py`) come later.
+The whole `hvd.Compression` namespace of the JAX package.  Every
+compressor names its wire format (`wire`, a codec of `ops/wire.py` in
+the JAX package).  `none` passes tensors through; `fp16` and `bf16` cast
+floating tensors to the wire dtype and back.  The cooperative formats
+(`int8`, `int4`, `fp8_e4m3`, `fp8_e5m2`) cannot be a cast before the
+collective: their sums need a ring that accumulates in f32 at every
+hop.  The JAX package runs that ring only on its in-jit gradient path,
+and its eager `compress` raises; the port is eager throughout and has no
+such ring yet, so their `compress` raises here too, and nothing sums in
+a 1-byte dtype.
 """
 
 from __future__ import annotations
@@ -11,6 +19,9 @@ import torch
 
 
 class Compressor:
+    #: Name of the wire format this compressor speaks.
+    wire: str = "none"
+
     @staticmethod
     def compress(tensor: torch.Tensor):
         """Returns (compressed_tensor, context_for_decompress)."""
@@ -22,6 +33,8 @@ class Compressor:
 
 
 class NoneCompressor(Compressor):
+    wire = "none"
+
     @staticmethod
     def compress(tensor):
         return tensor, None
@@ -31,13 +44,15 @@ class NoneCompressor(Compressor):
         return tensor
 
 
-class FP16Compressor(Compressor):
-    """Floating tensors travel as float16; others pass unchanged."""
+class _CastCompressor(Compressor):
+    """Floating tensors travel in `wire_dtype`; others pass unchanged."""
 
-    @staticmethod
-    def compress(tensor):
+    wire_dtype: torch.dtype
+
+    @classmethod
+    def compress(cls, tensor):
         if tensor.is_floating_point():
-            return tensor.to(torch.float16), tensor.dtype
+            return tensor.to(cls.wire_dtype), tensor.dtype
         return tensor, None
 
     @staticmethod
@@ -45,8 +60,70 @@ class FP16Compressor(Compressor):
         return tensor.to(ctx) if ctx is not None else tensor
 
 
+class FP16Compressor(_CastCompressor):
+    wire = "fp16"
+    wire_dtype = torch.float16
+
+
+class BF16Compressor(_CastCompressor):
+    wire = "bf16"
+    wire_dtype = torch.bfloat16
+
+
+class _CooperativeCompressor(Compressor):
+    """A block-scaled low-bit wire: the collective itself must quantize
+    each hop and accumulate in f32, so no eager path can carry it."""
+
+    @classmethod
+    def compress(cls, tensor):
+        raise NotImplementedError(
+            f"Compression.{cls.wire} needs the quantized ring collective "
+            "(f32 accumulation at every hop), which horovod_tpu_torch has "
+            "not ported yet (ROADMAP.md, queue 1 item 4); use "
+            "Compression.fp16 or Compression.bf16")
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        return tensor
+
+
+class FP8E4M3Compressor(_CooperativeCompressor):
+    """1-byte fp8 ring wire (e4m3: 3 mantissa bits, ±448 range)."""
+
+    wire = "fp8_e4m3"
+
+
+class FP8E5M2Compressor(_CooperativeCompressor):
+    """1-byte fp8 ring wire (e5m2: bf16-like range, 2 mantissa bits)."""
+
+    wire = "fp8_e5m2"
+
+
+class Int8Compressor(_CooperativeCompressor):
+    """1-byte int8 ring wire (blockwise max-abs scales)."""
+
+    wire = "int8"
+
+
+class Int4Compressor(_CooperativeCompressor):
+    """Half-byte int4 ring wire (±7 levels per blockwise max-abs scale,
+    two values packed per byte)."""
+
+    wire = "int4"
+
+
+def is_cooperative(compression) -> bool:
+    return isinstance(compression, type) and issubclass(
+        compression, _CooperativeCompressor)
+
+
 class Compression:
     """Namespace matching ``hvd.Compression``."""
 
     none = NoneCompressor
     fp16 = FP16Compressor
+    bf16 = BF16Compressor
+    int8 = Int8Compressor
+    int4 = Int4Compressor
+    fp8_e4m3 = FP8E4M3Compressor
+    fp8_e5m2 = FP8E5M2Compressor

@@ -14,6 +14,7 @@ compressor is ported), `wire_policy_plan` and `fused_pipeline_plan`.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -57,7 +58,11 @@ def _buckets_by_nbytes(nbytes: Sequence[int], threshold_bytes: int,
 
 
 def _wire_nbytes(t: torch.Tensor, compression) -> int:
-    """Bytes of `t` on the wire after `compression`, from metadata."""
+    """Bytes of `t` on the wire after `compression`, from metadata (the
+    optimizer's hooks call this for every gradient: the exact wire needs
+    no compressor call)."""
+    if compression is Compression.none:
+        return math.prod(t.shape) * t.dtype.itemsize
     c = compression.compress(torch.empty(t.shape, dtype=t.dtype,
                                          device="meta"))[0]
     return c.numel() * c.element_size()

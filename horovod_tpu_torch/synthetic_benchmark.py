@@ -1,22 +1,29 @@
-"""ResNet synthetic benchmark on the port (BASELINE config 2; config 4
-with --use-adasum).
+"""Synthetic benchmark of the zoo on the port (BASELINE config 2 with
+ResNet-50; config 4 with --use-adasum).
 
 Counterpart of `examples/synthetic_benchmark.py` and the measured step of
-`bench.py` (`build_step`): synthetic ImageNet-shaped data made from a
-seed per rank, SGD with momentum (lr 0.0125, momentum 0.9), bf16
-compute with f32 weights and batch-norm statistics local to each rank,
-and the horovod.torch loop:
+`bench.py` (`build_step`): `--model` names a zoo model (resnet18..152,
+inception3 at 299×299 by default, vgg16 built for `--image-size`, 224 by
+default), synthetic ImageNet-shaped data made from a seed per rank, SGD
+with momentum (lr 0.0125, momentum 0.9), bf16 compute with f32 weights
+and batch-norm statistics local to each rank, and the horovod.torch
+loop:
 
     hvd.init() → DistributedOptimizer → broadcast_parameters /
     broadcast_optimizer_state → forward, backward, step()
 
-Prints img/sec like the reference's pytorch_synthetic_benchmark.py.
+Prints img/sec like the reference's pytorch_synthetic_benchmark.py, and
+a SUMMARY line (the model, img/sec, buckets flushed, peak memory on the
+card).  `--compression` takes the JAX example's wire names; the
+cooperative ones (int8, fp8_*) raise before the first step, since the
+port has no quantized ring yet.
 `--log-steps` adds one JSON line per step (loss, kernel launch counts,
 SHA-256 of the parameters, the fusion threshold in force and the
 gradient buckets flushed so far) for checks across ranks.  Each step
 feeds the autotuner (`hvd.autotune_record_step`; HOROVOD_AUTOTUNE=1).
 
 Run:  python -m horovod_tpu_torch.synthetic_benchmark --num-iters 3
+      python -m horovod_tpu_torch.synthetic_benchmark --model vgg16
       python -m horovod_tpu_torch.synthetic_benchmark --use-adasum
 Multi-process: set HOROVOD_COORDINATOR_ADDR, HOROVOD_NUM_PROCESSES,
 HOROVOD_PROCESS_ID (and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE) per rank.
@@ -38,7 +45,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch.models import ResNet, num_params
+from horovod_tpu_torch.models import num_params, zoo_build, zoo_models
 from horovod_tpu_torch.ops import adasum, adasum_kernels
 from horovod_tpu_torch.utils.autotune import current_fusion_threshold
 
@@ -145,10 +152,12 @@ def _check_plain_combine(opt) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--depth", type=int, default=50)
+    p.add_argument("--model", default="resnet50", choices=zoo_models())
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="default: 299 for inception3 (its canonical "
+                        "benchmark size), 224 otherwise")
     p.add_argument("--num-warmup-batches", type=int, default=2)
     p.add_argument("--num-batches-per-iter", type=int, default=10)
     p.add_argument("--num-iters", type=int, default=3)
@@ -156,6 +165,10 @@ def main(argv=None) -> int:
                    help="Adasum delta aggregation (reference --use-adasum)")
     p.add_argument("--fp16-allreduce", action="store_true",
                    help="fp16 wire compression (reference --fp16-allreduce)")
+    p.add_argument("--compression", default=None,
+                   choices=["fp16", "bf16", "int8", "fp8_e4m3", "fp8_e5m2"],
+                   help="gradient wire compression; int8 and fp8 need the "
+                        "quantized ring, not ported: they raise")
     p.add_argument("--device", default=None,
                    help="default: the rank's card; 'cpu' runs on the host")
     p.add_argument("--log-steps", action="store_true",
@@ -167,6 +180,13 @@ def main(argv=None) -> int:
                    help="Adasum: on this step, rank 0 reruns the combine "
                         "with the plain versions and prints the difference")
     args = p.parse_args(argv)
+    if args.image_size is None:
+        args.image_size = 299 if args.model == "inception3" else 224
+    if args.compression:
+        compression = getattr(hvd.Compression, args.compression)
+    else:
+        compression = (hvd.Compression.fp16 if args.fp16_allreduce
+                       else hvd.Compression.none)
 
     hvd.init(device=args.device)
     dev = hvd.device()
@@ -174,15 +194,14 @@ def main(argv=None) -> int:
         # f32 convolutions in full precision, as the reference computes.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = ResNet(args.depth, args.num_classes,
-                   compute_dtype=torch.bfloat16,
-                   seed=hvd.rank()).to(dev)
+    model = zoo_build(args.model, args.num_classes,
+                      compute_dtype=torch.bfloat16, seed=hvd.rank(),
+                      image_size=args.image_size).to(dev)
     model.train()
     opt = torch.optim.SGD(model.parameters(), lr=0.0125, momentum=0.9)
     opt = hvd.DistributedOptimizer(
         opt, named_parameters=model.named_parameters(),
-        compression=(hvd.Compression.fp16 if args.fp16_allreduce
-                     else hvd.Compression.none),
+        compression=compression,
         op=hvd.Adasum if args.use_adasum else hvd.Average)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
@@ -218,7 +237,7 @@ def main(argv=None) -> int:
         last_loss = loss.detach()
         if args.log_steps:
             sync()
-            rec = {"step": step_no, "rank": hvd.rank(),
+            rec = {"step": step_no, "rank": hvd.rank(), "model": args.model,
                    "loss": float(last_loss),
                    "launches": adasum_kernels.launch_counts(),
                    "digest": param_digest(model),
@@ -231,10 +250,12 @@ def main(argv=None) -> int:
         step_no += 1
 
     if hvd.rank() == 0:
-        print(f"Model: resnet{args.depth} ({num_params(model)} params), "
+        print(f"Model: {args.model} ({num_params(model)} params), "
               f"batch {args.batch_size}/rank, {hvd.size()} rank(s), "
               f"device {dev}, backend {hvd.backend()}", flush=True)
     adasum_kernels.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(args.num_warmup_batches):
         one_step()
     sync()
@@ -271,11 +292,14 @@ def main(argv=None) -> int:
               flush=True)
 
     mean, std = float(np.mean(img_secs)), float(np.std(img_secs))
-    summary = {"rank": hvd.rank(), "size": hvd.size(),
+    summary = {"rank": hvd.rank(), "size": hvd.size(), "model": args.model,
+               "params": num_params(model), "image_size": args.image_size,
                "img_sec_per_rank": mean, "img_sec_std": std,
                "steps": step_no, "last_loss": float(last_loss),
                "launches": adasum_kernels.launch_counts(),
                "flushes": getattr(opt, "total_flushes", None),
+               "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None),
                "device": str(dev), "backend": hvd.backend()}
     if hvd.rank() == 0:
         print(f"Img/sec per rank: {mean:.1f} +- {1.96 * std:.1f}")

@@ -81,7 +81,7 @@ from ..ops.collectives import (  # noqa: F401
     poll,
     reducescatter_async,
 )
-from ..ops.compression import Compression  # noqa: F401
+from ..ops.compression import Compression, is_cooperative  # noqa: F401
 from ..ops.functions import allgather_object, broadcast_object  # noqa: F401
 from ..ops.join import join_mode  # noqa: F401
 from ..parallel.optimizer import (  # noqa: F401
@@ -89,6 +89,7 @@ from ..parallel.optimizer import (  # noqa: F401
     grad_accum_bytes,
     optimizer_state_bytes,
 )
+from ..parallel.data_parallel import _wire_nbytes
 from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
 from ..utils.autotune import current_fusion_threshold, current_zero_stage
 
@@ -455,7 +456,8 @@ class _DistributedOptimizer:
     each step.  Post-accumulate-grad hooks enqueue each gradient as it
     is final, into size-capped buckets (HOROVOD_FUSION_THRESHOLD, read
     live on every enqueue, so the autotuner's moves take effect at
-    once); a full bucket is dispatched at once as one async grouped
+    once), formed as the JAX package's `gradient_bucket_partition`
+    forms them over the same wire sizes in the same order; a full bucket is dispatched at once as one async grouped
     allreduce, so communication overlaps the rest of backward.  `step()`
     waits for the buckets and copies the results into `p.grad`.  A
     sparse gradient is densified (`sparse_as_dense`) or goes through
@@ -521,9 +523,17 @@ class _DistributedOptimizer:
                                                process_set=self._ps)))
                 return
         self._reduced_ids.add(id(p))
+        # The JAX package's greedy partition (`_buckets_by_nbytes`) over
+        # the gradients in the order they become final: a gradient that
+        # would take the bucket past the threshold starts the next one,
+        # and a bucket at or past it is full (no gradient could join).
+        nbytes = _wire_nbytes(p.grad, self._compression)
+        threshold = _fusion_threshold()
+        if self._bucket and self._bucket_bytes + nbytes > threshold:
+            self._flush()
         self._bucket.append(p)
-        self._bucket_bytes += p.grad.numel() * p.grad.element_size()
-        if self._bucket_bytes >= _fusion_threshold():
+        self._bucket_bytes += nbytes
+        if self._bucket_bytes >= threshold:
             self._flush()
 
     def _hook(self, p: torch.Tensor) -> None:
@@ -716,6 +726,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER)."""
     del num_groups, groups
     _check_names(named_parameters)
+    if is_cooperative(compression):
+        compression.compress(None)  # raises: no eager path carries it
     if zero_stage is None:
         zero_stage = current_zero_stage()
     zero_stage = int(zero_stage)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu.parallel import data_parallel as JD
 from horovod_tpu.utils import autotune as JA
 from horovod_tpu_torch.utils import autotune as TA
 
@@ -200,14 +201,10 @@ hvd.shutdown()
 
 
 def _buckets(sizes, threshold):
-    """The hook path's bucket count: a bucket is dispatched once its
-    bytes reach the threshold, and the rest at synchronize."""
-    count, filled = 0, 0
-    for s in sizes:
-        filled += s
-        if filled >= threshold:
-            count, filled = count + 1, 0
-    return count + (1 if filled else 0)
+    """The hook path's bucket count: that of the JAX package's greedy
+    partition over the gradients' sizes in the order they became
+    final."""
+    return len([b for b in JD._buckets_by_nbytes(sizes, threshold) if b])
 
 
 def test_np2_buckets_follow_the_live_threshold(tmp_path):

@@ -10,7 +10,9 @@ only PyTorch is installed; tests/conftest.py imports JAX, so there run
 
 Tolerances: K1 rtol 2e-5 / atol 1e-4 (f32 sums in another order), K2
 bitwise (no FMA contraction on either side), the tree 1e-5 relative to
-its largest value, the ResNet forward 1e-3 relative with TF32 off; K4-K6
+its largest value, the ResNet forward 1e-3 relative with TF32 off, the
+MNIST net's 1e-4 (f32), the zoo's bf16 forwards within 10% of the f32
+CPU logits' largest value; K4-K6
 1e-4 (f32), 2^-6 (bf16), 2^-9 (f16) of each output's largest value, lse
 1e-5 (f32 sums in another order; p and the outputs rounded to the
 working dtype from values that differ in their last bits); K3 1e-5
@@ -29,7 +31,8 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.exceptions import HorovodTpuError
-from horovod_tpu_torch.models import ResNet, Transformer, TransformerConfig
+from horovod_tpu_torch.models import (MnistNet, ResNet, Transformer,
+                                      TransformerConfig, zoo_build)
 from horovod_tpu_torch.ops import adasum, adasum_kernels as K
 from horovod_tpu_torch.ops import flash_attention as FA
 from horovod_tpu_torch.ops import matmul_kernels as MK
@@ -107,6 +110,50 @@ def test_resnet_forward_on_the_card_matches_the_cpu(cuda):
         got = model.to(cuda)(x.to(cuda)).cpu()
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("name,size", [("resnet50", 64), ("inception3", 75),
+                                       ("vgg16", 64)])
+def test_zoo_bf16_forward_on_the_card_matches_the_f32_cpu(cuda, name, size):
+    """bf16 compute on the card against f32 on the CPU, same weights, eval
+    mode (the initial statistics): within 10% of the largest logit, as
+    the CPU test of the ResNet's bf16 forward."""
+    want_model = zoo_build(name, 10, compute_dtype=None, seed=3,
+                           image_size=size).eval()
+    model = zoo_build(name, 10, compute_dtype=torch.bfloat16, seed=3,
+                      image_size=size).eval().to(cuda)
+    x = torch.rand(4, 3, size, size, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        want = want_model(x)
+        got = model(x.to(cuda)).cpu()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 0.1 * float(want.abs().max())
+
+
+def test_mnist_net_on_the_card_matches_the_cpu(cuda):
+    model = MnistNet(seed=2)
+    x = torch.rand(16, 1, 28, 28, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_match_plain_at_the_vgg16_delta(cuda):
+    """K1 and K2 at VGG-16's fused f32 delta (138,357,544 elements), the
+    largest the zoo makes."""
+    n = 138_357_544
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xs = torch.randn((2, n), generator=g, device=cuda)
+    a, b = xs[0::2], xs[1::2]
+    torch.testing.assert_close(K.fused_dot_norms(a, b),
+                               K.fused_dot_norms_plain(a, b),
+                               rtol=2e-5, atol=1e-4)
+    ca = torch.rand(1, generator=g, device=cuda)
+    cb = torch.rand(1, generator=g, device=cuda)
+    torch.testing.assert_close(K.fused_scaled_add(ca, cb, a, b),
+                               K.fused_scaled_add_plain(ca, cb, a, b),
+                               rtol=0, atol=0)
 
 
 def test_one_rank_job_on_the_card(cuda):

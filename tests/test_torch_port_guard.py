@@ -34,6 +34,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "horovod_tpu_torch._build, horovod_tpu_torch.ops.adasum, "
         "horovod_tpu_torch.ops.functions, horovod_tpu_torch.models.convert, "
         "horovod_tpu_torch.synthetic_benchmark, "
+        "horovod_tpu_torch.torch_mnist, horovod_tpu_torch.bench, "
+        "horovod_tpu_torch.models.inception, horovod_tpu_torch.models.vgg, "
+        "horovod_tpu_torch.models.mnist, "
         "horovod_tpu_torch.ops.flash_attention, "
         "horovod_tpu_torch.parallel.sequence, "
         "horovod_tpu_torch.models.transformer, "
