@@ -155,7 +155,44 @@ Phases, each printing its own lines:
                  (ResNet-50, batch 64) and at two ranks sharing the card
                  over gloo (batch 32, DDP on gloo): the hvd, plain and
                  DDP rows' img/sec, vs_baseline and vs_ddp, each row's
-                 +-1.96 sigma and idle share.
+                 +-1.96 sigma and idle share;
+16. train_wire   the wire layer (ops/wire.py, ops/quantized.py).  (a) The
+                 codecs int8, int4, fp8_e4m3 and fp8_e5m2 encode a seeded
+                 ResNet-50-sized flat gradient (25,557,032 f32, padded to
+                 128; an all-zero block, a NaN block, a +-inf block,
+                 values at the clip, a NaN block of values past 448) on
+                 the card: payload bytes and scales bitwise the CPU
+                 encode of the same input, the decode bitwise the CPU
+                 decode (NaN by position: an fp8 NaN code matches any
+                 other, since inf / inf is x86's negative default NaN
+                 and CUDA's positive one); encode and decode timed
+                 beside their byte bound.  (b) Main path 6: two ranks
+                 share the card over gloo and run the synthetic
+                 benchmark `--model resnet50 --compression int8` at full
+                 width (batch 32 per rank, bf16) for 3 steps and 3
+                 profiled ones: finite losses, one digest per step, every
+                 bucket of every step on the ring, and on step 1 rank 0's
+                 ring results bitwise the plain ring model over both
+                 ranks' inputs and within the model's bound of the exact
+                 mean; then under HOROVOD_WIRE_POLICY=big=int4,small=none,
+                 threshold=1048576 (each bucket's codec, raw and wire
+                 bytes those of `wire_policy_plan` over ResNet-50's
+                 gradients in hook order), and under `--compression
+                 fp8_e4m3`; img/sec and the host ms in `hvd.ring`.
+                 (c) Main path 7: phase 8's stage-3 transformer (8
+                 layers, full width) with HOROVOD_ZERO_GATHER_WIRE=int8
+                 and HOROVOD_WIRE_POLICY=auto: finite losses within
+                 WIRE_LOSS_TOL of phase 8's, one digest per step, K4-K6
+                 n_layers launches per step on the tensor cores, and in
+                 the eval forward exactly phase 8's 64 K3 launches, all
+                 on the vector load path, logits within K3_RTOL of the
+                 plain head on the same decoded weights and within
+                 WIRE_LOGITS_RTOL of the exactly gathered head's.
+                 (d) ZeRO-1's wired allgather: the stage-1 transformer at
+                 2 layers under HOROVOD_SHARD_AG_WIRE=int8 and
+                 HOROVOD_WIRE_POLICY=auto: parameters bitwise equal
+                 across ranks each step, each rank's f32 masters not
+                 equal to its decoded parameters.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -175,7 +212,8 @@ of K steps: device time, idle share, host time in each `hvd.*` and
 `bench.*` range).
 
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
-zoo deltas, with their launches on main path 5), and as the last line
+zoo deltas, with their launches on main path 5; K3 with its launches on
+main path 7 as `wire_launches`), and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
 with no result line; so does a host without CUDA.  Full logs of the
 training ranks go to chiprun_out/.
@@ -278,6 +316,21 @@ WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
 FLASH_GROW = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
               "flash_fwd_sm90": 8, "flash_bwd_dq_sm90": 8,
               "flash_bwd_dkv_sm90": 8}
+
+
+# Phase 16.  The stage-3 transformer with its head gathered over int8 and
+# its big shard groups reduce-scattered over int8 (error feedback on):
+# the forward reads weights that moved by at most half an int8 step of
+# their block (1/254 of the block's largest value), so each step's loss
+# moves from the exact-wire run's (phase 8, the same seeds and data) by
+# far less than the 1e-2 allowed here on a loss of ~10.4; the logits of
+# the eval head move by ~0.4% of a weight's size over d_model = 512
+# products, well inside 2e-2 of the largest logit.
+WIRE_LOSS_TOL = 1e-2
+WIRE_LOGITS_RTOL = 2e-2
+WIRE_ENV = {"HOROVOD_ZERO_GATHER_WIRE": "int8", "HOROVOD_WIRE_POLICY": "auto"}
+WIRE_POLICY_INT4 = "big=int4,small=none,threshold=1048576"
+COOPERATIVE = ("int8", "int4", "fp8_e4m3", "fp8_e5m2")
 
 
 def require(ok: bool, msg) -> None:
@@ -1735,6 +1788,261 @@ def bench_rows():
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the wire layer
+# ---------------------------------------------------------------------------
+
+def wire_mismatch(enc_cpu, enc_card) -> list:
+    """Where an encoding on the card differs from the CPU's, as (part,
+    byte index, cpu byte, card byte), at most 5.  A NaN that a division
+    makes (inf / inf) has the sign of the hardware's default NaN,
+    negative on x86 and positive on CUDA, so an fp8 NaN code matches a
+    NaN code of either sign."""
+    import torch
+
+    out = []
+    for part, (c, g) in enumerate(zip(enc_cpu, enc_card)):
+        a = c.contiguous().view(torch.uint8)
+        b = g.cpu().contiguous().view(torch.uint8)
+        diff = a != b
+        if c.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            low = 0x7F if c.dtype == torch.float8_e4m3fn else 0x7C
+            nan_a = ((a & 0x7F) > low) if low == 0x7C else ((a & 0x7F) == low)
+            nan_b = ((b & 0x7F) > low) if low == 0x7C else ((b & 0x7F) == low)
+            diff &= ~(nan_a & nan_b)
+        for i in torch.nonzero(diff).reshape(-1)[:5].tolist():
+            out.append((part, i, int(a[i]), int(b[i])))
+    return out
+
+
+def _codec_input():
+    """The seeded flat f32 input of the codec checks: ResNet-50's
+    gradient size padded to a block, with an all-zero block, a NaN
+    block, a +-inf block, blocks of values at the int8 and int4 clip
+    and halfway points, and a NaN block of values past e4m3's range."""
+    import torch
+
+    g = torch.Generator().manual_seed(16)
+    n = MAIN_N + (-MAIN_N) % 128
+    scale = torch.tensor([1e-3, 1.0, 30.0])[
+        torch.randint(0, 3, (n,), generator=g)]
+    v = torch.randn(n, generator=g) * scale
+    v[MAIN_N:] = 0.0
+    v[0:128] = 0.0
+    v[128 + 5] = float("nan")
+    v[256 + 7], v[256 + 9] = float("inf"), float("-inf")
+    v[384:512] = torch.arange(-127.0, 1.0)
+    v[512:640] = torch.arange(128.0) - 63.5
+    v[512] = 127.0
+    v[640:768] = torch.arange(-7.0, 8.0, 0.5).repeat(9)[:128]
+    # A NaN block keeps the scale 1: its values past e4m3's 448 and an
+    # inf reach the fp8 cast unnormalised.
+    v[768:896] = torch.linspace(-600.0, 600.0, 128)
+    v[769], v[770] = float("nan"), float("inf")
+    return v
+
+
+def check_codecs() -> dict:
+    """Phase 16 (a): each cooperative codec on the card against its CPU
+    run on the same input, and its encode and decode times."""
+    import torch
+    from horovod_tpu_torch.ops import quantized as Q
+    from horovod_tpu_torch.ops import wire as W
+
+    v = _codec_input()
+    vg = v.cuda()
+    n = v.numel()
+    out = {}
+    for name in COOPERATIVE:
+        codec = W.get_codec(name)
+        enc_c, enc_g = codec.encode(v), codec.encode(vg)
+        bad = wire_mismatch(enc_c, enc_g)
+        require(not bad, f"{name}: the card's payload or scales differ "
+                f"from the CPU encode: {bad}")
+        dec_c, dec_g = codec.decode(enc_c), codec.decode(enc_g).cpu()
+        nan_c, nan_g = torch.isnan(dec_c), torch.isnan(dec_g)
+        require(torch.equal(nan_c, nan_g) and torch.equal(
+            dec_c[~nan_c].view(torch.int32), dec_g[~nan_g].view(torch.int32)),
+            f"{name}: the card's decode differs from the CPU decode")
+        wire_bytes = codec.wire_nbytes(n)
+        enc_ms = cuda_time_ms(lambda: codec.encode(vg))
+        dec_ms = cuda_time_ms(lambda: codec.decode(enc_g))
+        enc_bound = bound_ms(4 * n + wire_bytes, 0)[0]
+        dec_bound = bound_ms(wire_bytes + 4 * n, 0)[0]
+        out[name] = {"encode_ms": enc_ms, "decode_ms": dec_ms,
+                     "encode_bound_ms": enc_bound,
+                     "decode_bound_ms": dec_bound, "wire_bytes": wire_bytes,
+                     "nan_blocks_decoded": int(nan_g.sum())}
+        log("train_wire", f"codec {name}: {n} elements, payload and scales "
+            f"bitwise the CPU encode, decode bitwise the CPU decode; encode "
+            f"ms={enc_ms:.4f} (bound {enc_bound:.4f}, bytes), decode "
+            f"ms={dec_ms:.4f} (bound {dec_bound:.4f}, bytes), {wire_bytes} "
+            "wire bytes")
+    del vg
+    torch.cuda.empty_cache()
+    return out
+
+
+def _policy_plan(spec: str, sizes):
+    """`wire_policy_plan` of ResNet-50's f32 gradients of `sizes` bytes
+    in hook order at the default threshold: [[codec, raw bytes, wire
+    bytes], ...]."""
+    import torch
+    from horovod_tpu_torch.ops import wire as W
+    from horovod_tpu_torch.parallel.data_parallel import wire_policy_plan
+
+    leaves = [torch.empty(b // 4, device="meta") for b in sizes]
+    return [[name, raw, wb] for _, name, raw, wb in wire_policy_plan(
+        leaves, policy=W.parse_wire_policy(spec),
+        fusion_threshold_bytes=FUSION_THRESHOLD, bucket_order="forward")]
+
+
+def _wire_run(phase: str, args, env=None):
+    """Two ranks of the ResNet-50 benchmark on a wire; every bucket of
+    every step on the ring.  Returns the summaries."""
+    summaries = launch(phase, 2, [
+        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
+        "--batch-size", "32", "--num-warmup-batches", "0",
+        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
+        *args], env=env, timeout=600)
+    steps = [_records(open(os.path.join(LOG_DIR, f"{phase}_rank{r}.log"))
+                      .read().splitlines(), "STEP") for r in (0, 1)]
+    for r, recs in enumerate(steps):
+        before = (0, 0)
+        for rec in recs:
+            flushed = rec["flushes"] - before[0]
+            ring = rec["ring_buckets"] - before[1]
+            before = (rec["flushes"], rec["ring_buckets"])
+            require(flushed > 0 and ring == flushed,
+                    f"{phase} rank {r} step {rec['step']}: {ring} of "
+                    f"{flushed} buckets on the ring")
+    return summaries, steps
+
+
+def train_wire(zero3_summaries):
+    """Phase 16 (b)-(d); `zero3_summaries`: phase 8's, the same
+    stage-3 run on the exact wire."""
+    import torch
+
+    results = {}
+    sizes = hook_order()
+    # Under an explicit int8 every bucket rides the ring: the policy plan
+    # with an int8 big codec and no threshold is its partition and wire.
+    int8_plan = _policy_plan("big=int8,threshold=0", sizes)
+    summaries, steps = _wire_run("train_wire_int8", [
+        "--compression", "int8", "--check-wire-step", "1", "--profile",
+        "3"])
+    check = next(rec["wire_check"] for rec in steps[0]
+                 if "wire_check" in rec)
+    require(check["bitwise"] and check["bound_ok"] and
+            check["buckets"] == len(int8_plan),
+            f"train_wire_int8: ring vs its plain model {check}")
+    for s in summaries:
+        require(s["buckets"] == int8_plan, f"int8 buckets {s['buckets']} "
+                f"(want {int8_plan})")
+    profiled = [rec for rec in _records(open(os.path.join(
+        LOG_DIR, "train_wire_int8_rank0.log")).read().splitlines(),
+        "PROFILE")]
+    ring_ms = profiled[0]["ranges_ms_per_step"].get("hvd.ring")
+    results["int8"] = {"img_sec": [s["img_sec_per_rank"] for s in summaries],
+                       "ring_ms": ring_ms, "check": check,
+                       "profile": profiled[0]}
+    log("train_wire", f"ResNet-50 int8 ring, 2 ranks over gloo: "
+        f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec "
+        f"per rank (3 steps and 3 profiled, checks included); buckets "
+        f"{summaries[0]['buckets']}; step 1 rank 0: ring bitwise the plain "
+        f"model over both ranks' inputs in {check['buckets']} buckets, "
+        f"largest distance from the exact mean "
+        f"{check['exact_max_abs_diff']:.4g} (within the model's bound); "
+        f"profiled: wall {profiled[0]['wall_ms_per_step']:.1f} ms a step, "
+        f"hvd.ring host {ring_ms} ms, hvd.synchronize "
+        f"{profiled[0]['ranges_ms_per_step'].get('hvd.synchronize')} ms, "
+        f"idle share {profiled[0]['device_idle_share']}")
+
+    want = _policy_plan(WIRE_POLICY_INT4, sizes)
+    summaries, _ = _wire_run("train_wire_int4", [],
+                             env={"HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4})
+    for s in summaries:
+        require(s["buckets"] == want, f"int4 policy buckets {s['buckets']} "
+                f"(wire_policy_plan: {want})")
+    results["int4"] = {"img_sec": [s["img_sec_per_rank"] for s in summaries],
+                       "buckets": summaries[0]["buckets"]}
+    log("train_wire", f"ResNet-50 under HOROVOD_WIRE_POLICY="
+        f"{WIRE_POLICY_INT4}: buckets {summaries[0]['buckets']} (those of "
+        f"wire_policy_plan), "
+        f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec")
+    summaries, _ = _wire_run("train_wire_fp8", ["--compression",
+                                                "fp8_e4m3"])
+    results["fp8_e4m3"] = {"img_sec": [s["img_sec_per_rank"]
+                                       for s in summaries]}
+    log("train_wire", f"ResNet-50 fp8_e4m3 ring: "
+        f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec, "
+        f"last losses {[round(s['last_loss'], 4) for s in summaries]}")
+
+    # (c) Main path 7: the stage-3 head over an int8 gather.
+    zsum = launch("train_wire_zero3", 2, [
+        "--zero-stage", "3", "--num-warmup-batches", "0",
+        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
+        "--eval-every", "3", "--check-plain-step", "2"],
+        module=TRANSFORMER, timeout=600, env=dict(ZERO3_ENV, **WIRE_ENV),
+        grow=FLASH_GROW)
+    tol = K3_RTOL["torch.float32"]
+    for s, s0 in zip(zsum, zero3_summaries):
+        r = s["rank"]
+        diffs = [abs(a - b) for a, b in zip(s["step_losses"],
+                                            s0["step_losses"])]
+        require(s["n_layers"] == 8 and len(diffs) == 3 and
+                max(diffs) <= WIRE_LOSS_TOL,
+                f"rank {r}: int8-wire losses {s['step_losses']} vs the exact "
+                f"wire's {s0['step_losses']} (tol {WIRE_LOSS_TOL})")
+        (ev,) = s["evals"]
+        (ev0,) = s0["evals"]
+        require(ev["k3_launches"] == ev0["k3_launches"] == 64 and
+                ev["k3_strided_launches"] == 0 and ev["k3_plain_calls"] == 0,
+                f"rank {r}: eval forward launched K3 {ev['k3_launches']} "
+                f"times (phase 8: {ev0['k3_launches']}), "
+                f"{ev['k3_strided_launches']} strided")
+        require(ev["eval_logits_rel"] <= tol and
+                ev["eval_exact_rel"] <= WIRE_LOGITS_RTOL and
+                math.isfinite(ev["eval_loss"]),
+                f"rank {r}: eval logits vs the plain head on the decoded "
+                f"weights {ev['eval_logits_rel']} (tol {tol}), vs the exact "
+                f"head {ev['eval_exact_rel']} (tol {WIRE_LOGITS_RTOL})")
+        log("train_wire", f"stage 3, int8 head gather and auto policy, rank "
+            f"{r}: {s['tok_sec_per_rank']:.1f} tok/sec (phase 8 "
+            f"{s0['tok_sec_per_rank']:.1f}); losses {s['step_losses']} vs "
+            f"exact wire {s0['step_losses']} (max diff {max(diffs):.3g}, tol "
+            f"{WIRE_LOSS_TOL}); eval forward K3 launches "
+            f"{ev['k3_launches']} (strided {ev['k3_strided_launches']}), "
+            f"logits vs plain head on the decoded weights "
+            f"{ev['eval_logits_rel']:.3g} (tol {tol}), vs the exactly "
+            f"gathered head {ev['eval_exact_rel']:.3g} (tol "
+            f"{WIRE_LOGITS_RTOL}), eval loss {ev['eval_loss']:.4f} (exact "
+            f"{ev0['eval_loss']:.4f}); peak memory {s['peak_mem_gb']:.2f} GB")
+    results["zero3"] = zsum
+
+    # (d) ZeRO-1 with the parameter allgather on int8.
+    grow2 = {k: 2 for k in FLASH_GROW}
+    z1 = launch("train_wire_zero1", 2, [
+        "--zero-stage", "1", "--n-layers", "2", "--num-warmup-batches", "0",
+        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps"],
+        module=TRANSFORMER, timeout=600, grow=grow2, env={
+            "HOROVOD_SHARD_AG_WIRE": "int8", "HOROVOD_WIRE_POLICY": "auto"})
+    for r in (0, 1):
+        recs = _records(open(os.path.join(
+            LOG_DIR, f"train_wire_zero1_rank{r}.log")).read().splitlines(),
+            "STEP")
+        diffs = [rec["master_wire_diff"] for rec in recs]
+        require(len(diffs) == 3 and all(d > 0 for d in diffs),
+                f"rank {r}: f32 master vs decoded parameter {diffs}")
+        log("train_wire", f"stage 1, int8 allgather, rank {r}: largest "
+            f"|f32 master - decoded parameter| by step {diffs}; digests "
+            f"equal across ranks each step; "
+            f"{z1[r]['tok_sec_per_rank']:.1f} tok/sec")
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1830,8 +2138,15 @@ def main() -> int:
     mnist_np2()
     log("mnist", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    bench_rows()
+    bench = bench_rows()
     log("bench", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    codecs = check_codecs()
+    wire = train_wire(zero3_summaries)
+    log("train_wire", f"int8 ring {wire['int8']['img_sec']} img/sec per "
+        f"rank beside this call's exact gloo bench_np2 hvd row "
+        f"{bench['bench_np2']['value']:.2f}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
              adasum_summaries[0]["launches"], "adasum_kernels.cu")
@@ -1880,10 +2195,12 @@ def main() -> int:
             # strided load path (train_zero3 and zero3_nccl require 0),
             # and that path's time at the head chunk.
             row.update(strided_launches=zero3_summaries[0]["evals"][0][
-                "k3_strided_launches"], strided_ms=m["strided_ms"])
+                "k3_strided_launches"], strided_ms=m["strided_ms"],
+                wire_launches=wire["zero3"][0]["evals"][0]["k3_launches"])
         kernels.append(row)
         require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+    log("train_wire", "codecs " + json.dumps(codecs))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,9 +63,17 @@ CATALOG: Tuple[EnvVar, ...] = (
        "ZeRO rung 0..3: 1 shards the optimizer state, 2 adds sharded "
        "gradient accumulation, 3 adds parameter sharding through "
        "zero3_placement."),
+    _v("HOROVOD_WIRE_POLICY", "(unset)", "ops",
+       "Per-bucket wire policy of the gradient reductions (the hook "
+       "optimizer, allreduce_gradients, the ZeRO reduce-scatter): auto, "
+       "exact, or big=<codec>,small=<codec>[,threshold=<bytes>]."),
+    _v("HOROVOD_SHARD_AG_WIRE", "(exact)", "ops",
+       "Wire of the sharded optimizer's parameter allgather: any "
+       "registered codec (the f32 master shards stay exact on their "
+       "owner)."),
     _v("HOROVOD_ZERO_GATHER_WIRE", "(exact)", "ops",
-       "Wire of the ZeRO-3 parameter gather: bf16 or fp16 (the "
-       "cooperative codecs are not ported)."),
+       "Wire of the ZeRO-3 parameter gather: any registered codec (the "
+       "rows at rest stay exact; every rank holds the decoded row)."),
     # -- the fused collective pipeline --------------------------------------
     _v("HOROVOD_FUSED_COLLECTIVES", "0", "ops",
        "1 routes the ZeRO scatter and gather through the chunked "
@@ -103,11 +111,11 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Initial value of the tuner's ag_fusion knob (its reader, the "
        "sharded optimizer's fused allgather, is not ported yet)."),
     _v("HOROVOD_WIRE_THRESHOLD", "1048576", "autotune",
-       "Initial value of the tuner's wire_threshold knob (the wire "
-       "policy that reads it is not ported yet)."),
+       "Initial value of the tuner's wire_threshold knob: buckets of at "
+       "least this many raw bytes take the wire policy's big codec."),
     _v("HOROVOD_WIRE_BIG_FORMAT", "int8", "autotune",
-       "Initial value of the tuner's wire_big_format knob (the wire "
-       "policy that reads it is not ported yet)."),
+       "Initial value of the tuner's wire_big_format knob: the codec "
+       "HOROVOD_WIRE_POLICY=auto gives big buckets."),
     _v("HOROVOD_GUARD_GROWTH_INTERVAL", "2000", "autotune",
        "Initial value of the tuner's loss_scale_growth_interval knob "
        "(guard/ is not ported yet)."),

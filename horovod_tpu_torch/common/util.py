@@ -90,6 +90,18 @@ def zero_gather_wire() -> Optional[str]:
     return getenv("ZERO_GATHER_WIRE") or None
 
 
+def wire_policy() -> Optional[str]:
+    """HOROVOD_WIRE_POLICY: the per-bucket wire policy's spec (unset or
+    empty: no policy)."""
+    return getenv("WIRE_POLICY") or None
+
+
+def shard_ag_wire() -> Optional[str]:
+    """HOROVOD_SHARD_AG_WIRE: the sharded optimizer's parameter
+    allgather wire (unset or empty: exact)."""
+    return getenv("SHARD_AG_WIRE") or None
+
+
 def bucket_order() -> str:
     """HOROVOD_BUCKET_ORDER, unvalidated ("reverse" when unset)."""
     return getenv("BUCKET_ORDER") or "reverse"

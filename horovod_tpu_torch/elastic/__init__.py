@@ -36,6 +36,7 @@ from ..common import basics
 from ..common.exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from ..faults import RetryPolicy
 from ..ops import functions as F
+from ..ops import wire as _wire
 
 logger = logging.getLogger("horovod_tpu_torch.elastic")
 
@@ -206,8 +207,12 @@ def _reset() -> None:
     (reference: elastic reset = shutdown + init re-rendezvous): the same
     coordinator, world size, rank and device as the last `init`, under
     `RetryPolicy.from_env("RESET", ...)` (HOROVOD_RESET_RETRY_* tunes
-    it).  `shutdown` waits for the collectives still in flight."""
+    it).  `shutdown` waits for the collectives still in flight.  Every
+    wire error-feedback residual is invalidated first
+    (`wire.reset_error_feedback`): one encoded against the old membership
+    must not reach the first step after the reset."""
     args = basics.init_arguments()
+    _wire.reset_error_feedback()
     basics.shutdown()
     try:
         RetryPolicy.from_env(

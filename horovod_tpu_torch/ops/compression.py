@@ -7,10 +7,10 @@ the JAX package).  `none` passes tensors through; `fp16` and `bf16` cast
 floating tensors to the wire dtype and back.  The cooperative formats
 (`int8`, `int4`, `fp8_e4m3`, `fp8_e5m2`) cannot be a cast before the
 collective: their sums need a ring that accumulates in f32 at every
-hop.  The JAX package runs that ring only on its in-jit gradient path,
-and its eager `compress` raises; the port is eager throughout and has no
-such ring yet, so their `compress` raises here too, and nothing sums in
-a 1-byte dtype.
+hop (`ops/quantized.py`).  The gradient paths route them to the ring
+before any compress (`DistributedOptimizer`, `allreduce_gradients`), so
+their `compress` raises, as the JAX package's does, on any path that
+reaches it; nothing sums in a 1-byte dtype.
 """
 
 from __future__ import annotations
@@ -71,16 +71,18 @@ class BF16Compressor(_CastCompressor):
 
 
 class _CooperativeCompressor(Compressor):
-    """A block-scaled low-bit wire: the collective itself must quantize
-    each hop and accumulate in f32, so no eager path can carry it."""
+    """A block-scaled low-bit wire: the collective itself quantizes each
+    hop and accumulates in f32 (the quantized ring), so the gradient
+    paths take the ring before compress, and compress refuses."""
 
     @classmethod
     def compress(cls, tensor):
         raise NotImplementedError(
-            f"Compression.{cls.wire} needs the quantized ring collective "
-            "(f32 accumulation at every hop), which horovod_tpu_torch has "
-            "not ported yet (ROADMAP.md, queue 1 item 4); use "
-            "Compression.fp16 or Compression.bf16")
+            f"Compression.{cls.wire} is a cooperative wire: its sums need "
+            "the quantized ring (ops/quantized.py), which the gradient "
+            "paths (DistributedOptimizer, allreduce_gradients) route to "
+            "before any compress; a single tensor's compress has no such "
+            "form")
 
     @staticmethod
     def decompress(tensor, ctx):

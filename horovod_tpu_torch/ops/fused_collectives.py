@@ -27,9 +27,16 @@ the fused matmuls, computed), and the works are waited for in order.
 
 Armed by HOROVOD_FUSED_COLLECTIVES=1 (`fused_enabled`), sized by
 HOROVOD_FUSED_CHUNK_BYTES.  A set of one rank exchanges nothing
-(`ProcessSet.comm`): its scatter and gather are one copy each.  A cast wire's cast belongs to the caller, as
-in the JAX package; the cooperative codecs and the quantized ring
-(`pipelined_allreduce_shard`) are not ported yet.
+(`ProcessSet.comm`): its scatter and gather are one copy each.  A cast
+wire's cast belongs to the caller, as in the JAX package.  The
+cooperative codecs ride the quantized ring (`ops/quantized.py`):
+`pipelined_allreduce_shard` runs the ring chunk by chunk (it agrees with
+the unchunked ring to the wire's tolerance: the chunks move the ring's
+block boundaries; no gradient path of the port calls it, since its hops
+block and the chunks could not overlap); `pipelined_allgather_shard(wire=)`
+and `fused_allgather_matmul(wire=)` encode each chunk and gather its
+payload, and their chunks start on block boundaries, so the first is
+bitwise the unchunked `quantized_allgather_shard`.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ..common import util
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from . import collectives as C
+from . import quantized as Q
 from .matmul_kernels import tiled_matmul
 from .wire import _BLOCK, get_codec
 
@@ -186,6 +194,40 @@ def pipelined_psum_scatter(flat: torch.Tensor,
     return out
 
 
+def pipelined_allreduce_shard(flat: torch.Tensor,
+                              process_set: Optional[ProcessSet] = None,
+                              average: bool = False, wire: str = "int8",
+                              error_feedback: Optional[torch.Tensor] = None,
+                              chunk_bytes: Optional[int] = None):
+    """The quantized ring (`quantized_allreduce_shard`) over a flat
+    buffer in `plan_chunks` pieces, each its own encode, hops and decode.
+    Same signature and error-feedback contract; agrees with the
+    unchunked ring to the wire's tolerance (the ring's chunk boundaries
+    move with the chunking; an exact wire takes
+    `pipelined_grouped_allreduce`)."""
+    if flat.dim() != 1:
+        raise HorovodTpuError(
+            f"pipelined_allreduce_shard needs a flat buffer; got shape "
+            f"{tuple(flat.shape)}")
+    outs, resids = [], []
+    for off, w in plan_chunks(flat.numel(), flat.element_size(),
+                              chunk_bytes=chunk_bytes):
+        seg = flat[off:off + w]
+        if error_feedback is not None:
+            red, err = Q.quantized_allreduce_shard(
+                seg, process_set, average=average, wire=wire,
+                error_feedback=error_feedback[off:off + w])
+            outs.append(red)
+            resids.append(err)
+        else:
+            outs.append(Q.quantized_allreduce_shard(
+                seg, process_set, average=average, wire=wire))
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if error_feedback is not None:
+        return out, torch.cat(resids) if len(resids) > 1 else resids[0]
+    return out
+
+
 def pipelined_allgather_shard(shard: torch.Tensor,
                               process_set: Optional[ProcessSet] = None,
                               wire: Optional[str] = None,
@@ -197,10 +239,11 @@ def pipelined_allgather_shard(shard: torch.Tensor,
     once and unpacked in order.  Returns the rank-major flat gather, or
     the (n, shard) stacked view with `stacked=True`; `out` (n·shard
     elements of the shard's dtype, contiguous) receives it when given.
-    Gathers move bytes, so the result is bitwise the unchunked gather.
-    `wire` is resolved (a cooperative codec raises); a cast wire's cast
-    is the caller's."""
-    get_codec(wire)
+    Gathers move bytes, so the result is bitwise the unchunked gather.  A
+    cooperative `wire` encodes each chunk and gathers its payload; the
+    chunks start on block boundaries, so the decoded rows are bitwise
+    `quantized_allgather_shard`'s.  A cast wire's cast is the caller's."""
+    codec = get_codec(wire)
     if shard.dim() != 1:
         raise HorovodTpuError(
             f"pipelined_allgather_shard needs a flat shard; got shape "
@@ -210,6 +253,13 @@ def pipelined_allgather_shard(shard: torch.Tensor,
     s = shard.detach()
     band = (out.view(n, s.numel()) if out is not None else
             torch.empty((n, s.numel()), dtype=s.dtype, device=s.device))
+    if codec.cooperative:
+        started = [(off, w, Q.allgather_start(s[off:off + w], ps, codec))
+                   for off, w in plan_chunks(s.numel(), s.element_size(),
+                                             chunk_bytes=chunk_bytes)]
+        for off, w, wait in started:
+            band[:, off:off + w] = wait()
+        return band if stacked else band.reshape(-1)
     if ps.comm is None:
         band[0].copy_(s)
         return band if stacked else band.reshape(-1)
@@ -287,8 +337,12 @@ def fused_allgather_matmul(x: torch.Tensor, w_shard: torch.Tensor,
     arrived, while the later chunks are still on the wire.
 
     Returns (B, n·S): columns r·S..(r+1)·S hold x @ rank r's rows, in x's
-    dtype; each chunk product is written into its columns in place."""
-    get_codec(wire)
+    dtype; each chunk product is written into its columns in place.  A
+    cooperative `wire` gathers each chunk's rows encoded
+    (`quantized_allgather_shard`; the rows of a 128-multiple width start
+    on block boundaries, so the decoded weight is bitwise the unchunked
+    gather's) and multiplies the decoded rows."""
+    codec = get_codec(wire)
     ps = _resolve(process_set)
     n = ps.size()
     s, k = w_shard.shape
@@ -298,16 +352,21 @@ def fused_allgather_matmul(x: torch.Tensor, w_shard: torch.Tensor,
     for off, w in plan_chunks(s, max(1, k * ws.element_size()),
                               chunk_bytes=chunk_bytes, align=1):
         seg = ws[off:off + w]
-        if ps.comm is None:
+        if codec.cooperative:
+            chunks.append((off, w, Q.allgather_start(seg.reshape(-1), ps,
+                                                     codec), None))
+        elif ps.comm is None:
             chunks.append((off, w, seg.reshape(1, w, k), None))
-            continue
-        got = torch.empty(n * w * k * ws.element_size(), dtype=torch.uint8,
-                          device=ws.device)
-        chunks.append((off, w, got, C._launch(
-            dist.all_gather_into_tensor, got, C._as_bytes(seg),
-            group=ps.comm, async_op=True)))
+        else:
+            got = torch.empty(n * w * k * ws.element_size(),
+                              dtype=torch.uint8, device=ws.device)
+            chunks.append((off, w, got, C._launch(
+                dist.all_gather_into_tensor, got, C._as_bytes(seg),
+                group=ps.comm, async_op=True)))
     for off, w, got, work in chunks:
-        if work is not None:
+        if codec.cooperative:
+            got = got().reshape(n, w, k)
+        elif work is not None:
             _wait([work])
             got = got.view(ws.dtype).view(n, w, k)
         for r in range(n):
@@ -322,6 +381,7 @@ __all__ = [
     "fused_matmul_reduce_scatter",
     "fused_pallas_enabled",
     "pipelined_allgather_shard",
+    "pipelined_allreduce_shard",
     "pipelined_grouped_allreduce",
     "pipelined_psum_scatter",
     "plan_chunks",

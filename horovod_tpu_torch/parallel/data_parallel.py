@@ -1,25 +1,47 @@
-"""Gradient bucketing: the partitions the ZeRO ladder is built on.
+"""Gradient bucketing and the bucket-by-bucket gradient reduction.
 
-Counterpart of the pure functions of `horovod_tpu/parallel/data_parallel.py`:
-`_buckets_by_nbytes` (:70), `gradient_bucket_partition` (:143) and
-`shard_group_partition` (:204).  For the same leaf shapes and dtypes they
-give the same index lists as the JAX package.  Wire sizes are read from
-tensor metadata: each leaf's compressor runs on a `meta` tensor of its
-shape and dtype, so nothing is computed or allocated.
+Counterpart of `horovod_tpu/parallel/data_parallel.py`: the pure
+partition functions `_buckets_by_nbytes` (:70), `gradient_bucket_partition`
+(:143) and `shard_group_partition` (:204), the wire policy's plans
+`active_wire_policy` (:229), `wire_policy_plan` (:248) and
+`fused_pipeline_plan` (:286), and the reduction `reduce_gradient_buckets`
+/ `allreduce_gradients` / `error_feedback_init` (:365, :671, :760),
+eager here.  For the same leaf shapes and dtypes the partitions are the
+JAX package's index lists.  Wire sizes come from tensor metadata: a cast
+compressor runs on a `meta` tensor, and a cooperative wire counts each
+float element at 4 bytes (the ring's f32 staging buffer) while the
+integer leaves form a leading bucket of their own, reduced exactly.
 
-Not ported yet: the straggler-reaction cap on the bucket count, the
-cooperative compressors' integer-leaves-first bucket (no cooperative
-compressor is ported), `wire_policy_plan` and `fused_pipeline_plan`.
+The reduction routes each bucket as the JAX package does (`bucket_codec`,
+the one rule every gradient path of the port applies, and `check_wire`,
+its refusals): a cooperative `compression=` rides the quantized ring
+(`ops/quantized.py`), with sender-side error feedback when a state is
+passed; with `compression` none and HOROVOD_WIRE_POLICY set (on the
+global set), each bucket takes the codec the policy picks for its raw
+bytes and dtype class: exact buckets the grouped allreduce, cast buckets
+the cast, cooperative ones the ring.  The JAX package applies the policy
+on its in-jit path only; the port is eager throughout, so its eager
+reduction applies it.  The ring runs whole even under
+HOROVOD_FUSED_COLLECTIVES=1: the JAX package chunks it there
+(`pipelined_allreduce_shard`) so that XLA overlaps the chunks, but the
+port's hops block, so chunks would only add hops.
+
+Not ported: the straggler-reaction cap on the bucket count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
-from ..ops.compression import Compression
+from ..common.basics import ProcessSet
+from ..ops import collectives as C
+from ..ops import fused_collectives as _fc
+from ..ops import wire as _wire
+from ..ops.compression import Compression, NoneCompressor, is_cooperative
+from ..ops.quantized import quantized_allreduce_shard
 
 
 def _bucket_permutation(n: int, bucket_order) -> List[int]:
@@ -60,9 +82,12 @@ def _buckets_by_nbytes(nbytes: Sequence[int], threshold_bytes: int,
 def _wire_nbytes(t: torch.Tensor, compression) -> int:
     """Bytes of `t` on the wire after `compression`, from metadata (the
     optimizer's hooks call this for every gradient: the exact wire needs
-    no compressor call)."""
+    no compressor call, and a cooperative wire stages each element in an
+    f32 buffer)."""
     if compression is Compression.none:
         return math.prod(t.shape) * t.dtype.itemsize
+    if is_cooperative(compression):
+        return math.prod(t.shape) * 4
     c = compression.compress(torch.empty(t.shape, dtype=t.dtype,
                                          device="meta"))[0]
     return c.numel() * c.element_size()
@@ -74,8 +99,10 @@ def gradient_bucket_partition(leaves: Sequence[torch.Tensor],
                               bucket_order=None) -> List[List[int]]:
     """The bucket partition of `leaves` (tensors, or anything with their
     shape and dtype): a list of original-index lists covering every leaf
-    once, in collective-issue order.  Defaults come from the live
-    tunables (HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER,
+    once, in collective-issue order.  Under a cooperative compressor the
+    integer leaves form a leading bucket and the float leaves are counted
+    at 4 bytes an element.  Defaults come from the live tunables
+    (HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER,
     HOROVOD_MIN_BUCKETS)."""
     from ..utils.autotune import (current_bucket_order,
                                   current_fusion_threshold,
@@ -85,13 +112,26 @@ def gradient_bucket_partition(leaves: Sequence[torch.Tensor],
         fusion_threshold_bytes = current_fusion_threshold()
     if bucket_order is None:
         bucket_order = current_bucket_order()
+
+    def cap(nbytes):
+        m = current_min_buckets()
+        if m > 1 and nbytes:
+            # At least `m` buckets: cap the effective threshold.
+            return min(fusion_threshold_bytes, max(1, -(-sum(nbytes) // m)))
+        return fusion_threshold_bytes
+
+    if is_cooperative(compression):
+        float_idx = [i for i, t in enumerate(leaves)
+                     if t.dtype.is_floating_point]
+        floats = set(float_idx)
+        int_idx = [i for i in range(len(leaves)) if i not in floats]
+        nbytes = [math.prod(leaves[i].shape) * 4 for i in float_idx]
+        buckets = _buckets_by_nbytes(nbytes, cap(nbytes), bucket_order)
+        parts = [[float_idx[j] for j in b] for b in buckets if b]
+        return ([int_idx] if int_idx else []) + parts
     nbytes = [_wire_nbytes(t, compression) for t in leaves]
-    cap = fusion_threshold_bytes
-    m = current_min_buckets()
-    if m > 1 and nbytes:
-        # At least `m` buckets: cap the effective threshold.
-        cap = min(cap, max(1, -(-sum(nbytes) // m)))
-    return [b for b in _buckets_by_nbytes(nbytes, cap, bucket_order) if b]
+    return [b for b in _buckets_by_nbytes(nbytes, cap(nbytes), bucket_order)
+            if b]
 
 
 def shard_group_partition(leaves: Sequence[torch.Tensor],
@@ -113,3 +153,275 @@ def shard_group_partition(leaves: Sequence[torch.Tensor],
             by_dt.setdefault(leaves[i].dtype, []).append(i)
         groups.extend(by_dt.values())
     return groups
+
+
+# ---------------------------------------------------------------------------
+# The wire policy's plans
+# ---------------------------------------------------------------------------
+
+def active_wire_policy(compression=Compression.none,
+                       process_set: Optional[ProcessSet] = None
+                       ) -> Optional[_wire.WirePolicy]:
+    """The per-bucket wire policy a gradient reduction applies, or None:
+    HOROVOD_WIRE_POLICY engages only with compression none on the global
+    set (an explicit `compression=` wins, and the ring spans the whole
+    set, so subsets stay exact), and "exact" switches it off, so that
+    path is bitwise the unset one."""
+    if process_set is not None and process_set.process_set_id != 0:
+        return None
+    if not (isinstance(compression, type)
+            and issubclass(compression, NoneCompressor)):
+        return None
+    policy = _wire.policy_from_env()
+    if policy is None or policy.exact:
+        return None
+    return policy
+
+
+def _numel(t) -> int:
+    return math.prod(t.shape)
+
+
+def wire_policy_plan(leaves: Sequence[torch.Tensor],
+                     policy: Optional[_wire.WirePolicy] = None,
+                     fusion_threshold_bytes: Optional[int] = None,
+                     bucket_order=None) -> list:
+    """The policy's wire for each bucket of `leaves`: a list of
+    `(indices, wire_name, raw_bytes, wire_bytes)` over the partition with
+    compression none.  `policy=None` reads HOROVOD_WIRE_POLICY (unset:
+    every bucket exact).  Metadata only."""
+    if policy is None:
+        policy = _wire.policy_from_env() or _wire.WirePolicy()
+    plan = []
+    for idxs in gradient_bucket_partition(
+            leaves, compression=Compression.none,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order):
+        all_float = all(leaves[i].dtype.is_floating_point for i in idxs)
+        raw = sum(_numel(leaves[i]) * leaves[i].dtype.itemsize
+                  for i in idxs)
+        codec = bucket_codec(Compression.none, policy, raw, all_float)
+        if codec.exact:
+            wire_bytes = raw
+        elif codec.cast_dtype is not None:
+            wire_bytes = sum(_numel(leaves[i]) * codec.cast_dtype.itemsize
+                             for i in idxs)
+        else:
+            wire_bytes = codec.wire_nbytes(sum(_numel(leaves[i])
+                                               for i in idxs))
+        plan.append((idxs, codec.name, raw, wire_bytes))
+    return plan
+
+
+def fused_pipeline_plan(leaves: Sequence[torch.Tensor],
+                        policy: Optional[_wire.WirePolicy] = None,
+                        fusion_threshold_bytes: Optional[int] = None,
+                        bucket_order=None,
+                        chunk_bytes: Optional[int] = None) -> list:
+    """The chunk schedule of the fused pipeline over the
+    `wire_policy_plan` partition: one `(indices, wire_name, n_chunks,
+    chunk_bytes, occupancy)` per bucket, occupancy = 1 - 1/n_chunks (the
+    share of a bucket's wire time that another chunk's stage can hide).
+    Metadata only."""
+    if chunk_bytes is None:
+        from ..utils.autotune import current_fused_chunk_bytes
+        chunk_bytes = current_fused_chunk_bytes()
+    plan = []
+    for idxs, name, _raw, _wb in wire_policy_plan(
+            leaves, policy=policy,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order):
+        nelem = sum(_numel(leaves[i]) for i in idxs)
+        itemsize = max((leaves[i].dtype.itemsize for i in idxs), default=4)
+        k = len(_fc.plan_chunks(nelem, itemsize, chunk_bytes=chunk_bytes))
+        plan.append((idxs, name, k, chunk_bytes, 1.0 - 1.0 / k))
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# The reduction
+# ---------------------------------------------------------------------------
+
+def bucket_codec(compression, policy: Optional[_wire.WirePolicy],
+                 raw_bytes: int, all_float: bool
+                 ) -> Optional[_wire.WireCodec]:
+    """The wire of one gradient bucket: a cooperative `compression=`'s
+    codec (exact for the leading bucket of integer leaves), else the
+    policy's pick for the bucket's raw bytes and dtype class, else None
+    (the bucket rides `compression`'s compress / decompress)."""
+    if is_cooperative(compression):
+        return _wire.get_codec(compression.wire if all_float else "none")
+    if policy is None:
+        return None
+    return _wire.get_codec(policy.codec_for(raw_bytes, all_float))
+
+
+def _may_ring(policy: Optional[_wire.WirePolicy]) -> bool:
+    """Whether the policy can send a bucket to the ring (a `big` read
+    from the live knob can)."""
+    return policy is not None and (
+        policy.big is None or _wire.get_codec(policy.big).cooperative
+        or _wire.get_codec(policy.small).cooperative)
+
+
+def check_wire(compression, op, process_set: Optional[ProcessSet],
+               policy: Optional[_wire.WirePolicy],
+               gradient_predivide_factor: float = 1.0) -> None:
+    """The JAX package's refusals of a gradient reduction's wire: a
+    cooperative `compression=` takes no process-set subset, and both it
+    and a policy take no op but Average and Sum.  A wire that can reach
+    the ring also takes no `gradient_predivide_factor` != 1: the ring
+    divides once, after its last decode, and has no prescaled form."""
+    if is_cooperative(compression):
+        what = f"Compression.{compression.wire}"
+        if process_set is not None and process_set.process_set_id != 0:
+            raise ValueError(
+                f"{what} does not support process_set subsets; use "
+                "fp16/bf16 compression for subset reductions")
+    elif policy is not None:
+        what = "HOROVOD_WIRE_POLICY"
+    else:
+        return
+    if op is not C.Average and op is not C.Sum:
+        raise ValueError(f"{what} supports op=Average or Sum, got {op}")
+    if gradient_predivide_factor != 1.0 and (is_cooperative(compression)
+                                             or _may_ring(policy)):
+        raise ValueError(
+            f"{what} takes no gradient_predivide_factor: the quantized "
+            "ring divides once, after its last decode")
+
+
+def _grouped(group: List[torch.Tensor], op, process_set) -> list:
+    """The exact grouped allreduce of one bucket (chunked under the fused
+    pipeline on the global set, bitwise the same sums)."""
+    if (_fc.fused_enabled() and op in (C.Average, C.Sum)
+            and (process_set is None or process_set.process_set_id == 0)):
+        return _fc.pipelined_grouped_allreduce(group, op=op)
+    return C.grouped_allreduce(group, op=op, process_set=process_set)
+
+
+def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
+                            op=C.Average, compression=Compression.none,
+                            process_set: Optional[ProcessSet] = None,
+                            fusion_threshold_bytes: Optional[int] = None,
+                            bucket_order=None,
+                            error_feedback_leaves=None):
+    """Reduce a flat list of gradients bucket by bucket (the routing of
+    the module docstring).  Returns `(bucket_results, new_ef)`:
+    `(original_indices, reduced_leaves)` per bucket in issue order, and
+    the new residual per float leaf in float-leaf order (None unless
+    `error_feedback_leaves` was passed)."""
+    policy = active_wire_policy(compression, process_set)
+    ef = error_feedback_leaves
+    if ef is not None and not (is_cooperative(compression)
+                               or policy is not None):
+        raise ValueError(
+            "error_feedback_state only applies to the quantized wire "
+            "formats (Compression.int8 / int4 / fp8_*, or a quantizing "
+            "HOROVOD_WIRE_POLICY) — exact and fp16/bf16 wires have no "
+            "compression error to feed back")
+    check_wire(compression, op, process_set, policy)
+    float_ord = {}
+    for i, t in enumerate(leaves):
+        if t.dtype.is_floating_point:
+            float_ord[i] = len(float_ord)
+    if ef is not None and len(ef) != len(float_ord):
+        raise ValueError(
+            f"error_feedback_state has {len(ef)} leaves; expected one per "
+            f"float gradient leaf ({len(float_ord)}) — build it with "
+            "error_feedback_init(grads)")
+    new_ef = list(ef) if ef is not None else None
+    parts = gradient_bucket_partition(
+        leaves, compression=compression,
+        fusion_threshold_bytes=fusion_threshold_bytes,
+        bucket_order=bucket_order)
+    results = []
+    for idxs in parts:
+        group = [leaves[i].detach() for i in idxs]
+        codec = bucket_codec(
+            compression, policy,
+            sum(t.numel() * t.element_size() for t in group),
+            all(i in float_ord for i in idxs))
+        if codec is not None:
+            if codec.cooperative:
+                flat = torch.cat([t.to(torch.float32).reshape(-1)
+                                  for t in group])
+                e = None if ef is None else torch.cat(
+                    [ef[float_ord[i]].reshape(-1) for i in idxs])
+                red = quantized_allreduce_shard(
+                    flat, average=op is C.Average, wire=codec.name,
+                    error_feedback=e)
+                if e is not None:
+                    red, err = red
+                outs, off = [], 0
+                for i, t in zip(idxs, group):
+                    outs.append(red[off:off + t.numel()].reshape(t.shape)
+                                .to(t.dtype))
+                    if e is not None:
+                        new_ef[float_ord[i]] = err[off:off + t.numel()] \
+                            .reshape(t.shape)
+                    off += t.numel()
+            elif codec.cast_dtype is not None:
+                red = _grouped([t.to(codec.cast_dtype) for t in group], op,
+                               process_set)
+                outs = [r.to(t.dtype) for r, t in zip(red, group)]
+            else:
+                outs = list(_grouped(group, op, process_set))
+            results.append((idxs, outs))
+            continue
+        compressed, ctxs = [], []
+        for t in group:
+            c, ctx = compression.compress(t)
+            compressed.append(c)
+            ctxs.append(ctx)
+        red = _grouped(compressed, op, process_set)
+        results.append((idxs, [compression.decompress(r, ctx)
+                               for r, ctx in zip(red, ctxs)]))
+    return results, new_ef
+
+
+def _flatten(tree):
+    if isinstance(tree, dict):
+        keys = list(tree)
+        return [tree[k] for k in keys], lambda vals: dict(zip(keys, vals))
+    if isinstance(tree, (list, tuple)):
+        kind = type(tree)
+        return list(tree), lambda vals: kind(vals)
+    return [tree], lambda vals: vals[0]
+
+
+def allreduce_gradients(grads: Any, op=C.Average,
+                        compression=Compression.none,
+                        process_set: Optional[ProcessSet] = None,
+                        fusion_threshold_bytes: Optional[int] = None,
+                        bucket_order=None,
+                        error_feedback_state: Optional[List[torch.Tensor]]
+                        = None):
+    """Reduce a list, tuple or dict of gradients (or one tensor) across
+    ranks bucket by bucket (`reduce_gradient_buckets`); returns the same
+    structure.  `error_feedback_state` (quantized wires only; build it
+    with `error_feedback_init(grads)`): each rank adds its carried
+    residual before encoding and keeps its new encode errors, so the
+    quantization error telescopes across steps instead of biasing each
+    one; the return value is then `(reduced, new_state)`."""
+    leaves, rebuild = _flatten(grads)
+    results, new_ef = reduce_gradient_buckets(
+        leaves, op=op, compression=compression, process_set=process_set,
+        fusion_threshold_bytes=fusion_threshold_bytes,
+        bucket_order=bucket_order, error_feedback_leaves=error_feedback_state)
+    out: List[Any] = [None] * len(leaves)
+    for idxs, reduced in results:
+        for i, r in zip(idxs, reduced):
+            out[i] = r
+    if error_feedback_state is not None:
+        return rebuild(out), new_ef
+    return rebuild(out)
+
+
+def error_feedback_init(grads: Any) -> List[torch.Tensor]:
+    """Zero residuals for `allreduce_gradients(...,
+    error_feedback_state=...)`: one f32 zero tensor per float leaf, in
+    leaf order (integer leaves ride the exact wire)."""
+    leaves, _ = _flatten(grads)
+    return [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+            for t in leaves if t.dtype.is_floating_point]

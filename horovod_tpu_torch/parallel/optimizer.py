@@ -30,6 +30,30 @@ docstring, :235-276), reached as
   to the placement are views of their group's buffer, and the step
   takes its shard as one slice of it.
 
+The wires, as in the JAX package (:245-290, :598-790):
+
+- An explicit cooperative `compression=` is refused: only the policy
+  path carries the error feedback that keeps a lossy reduce-scatter from
+  biasing every step.
+- Under HOROVOD_WIRE_POLICY (compression none), each shard group's
+  reduce-scatter takes the codec the policy picks for the group's raw
+  bytes and dtype class.  A cast group reduce-scatters in the cast dtype;
+  a cooperative one rides `quantized_reducescatter_shard` with a
+  sender-side error-feedback row per group (this rank's residual over
+  the whole padded group buffer, the JAX `_WireEF`), stamped with
+  `wire.error_feedback_generation()` and zeroed when the generation moves
+  (`wire.reset_error_feedback()`, which the elastic reset calls).
+- `allgather_wire` (HOROVOD_SHARD_AG_WIRE) puts the parameter allgather
+  on a wire while f32 master shards stay exact on their owner: the local
+  optimizer steps the masters (kept between steps, taken from the
+  parameters at the first step), each step gathers wire(master) (a cast
+  wire casts it, a cooperative one encodes it at the gather; every rank,
+  the owner too, reads the decoded values), and the update is
+  reconstructed as wire(master) − param, so the wire's error never
+  accumulates.  `master_wire_diff` is the largest |master − decoded| of
+  this rank's shards after the last step (0-d tensor, None without the
+  wire).
+
 The arithmetic follows the JAX package's order: the mean of K passes is
 taken before the scatter at stage 1 and after it at stage 2; Average
 divides the scattered sum by n.  So integer-valued trajectories are
@@ -48,13 +72,16 @@ from typing import List, Optional
 import torch
 from torch.profiler import record_function
 
-from ..common import basics
+from ..common import basics, util
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
-from ..ops.compression import Compression
-from .data_parallel import shard_group_partition
+from ..ops import quantized as Q
+from ..ops import wire as _wire
+from ..ops.compression import Compression, is_cooperative
+from .data_parallel import (active_wire_policy, bucket_codec,
+                            shard_group_partition)
 from .zero3 import group_buffer, group_slice, shard_groups, unpack
 
 
@@ -109,7 +136,7 @@ class _ShardedOptimizer:
                  backward_passes_per_step: int = 1, op=C.Average,
                  process_set: Optional[ProcessSet] = None,
                  fusion_threshold_bytes: Optional[int] = None,
-                 bucket_order=None):
+                 bucket_order=None, allgather_wire: Optional[str] = None):
         if op is not C.Average and op is not C.Sum:
             raise ValueError(
                 f"zero_stage={zero_stage} supports op=Average/Sum, got {op}: "
@@ -119,6 +146,14 @@ class _ShardedOptimizer:
             raise ValueError(
                 "zero_stage >= 1 requires the global process set: subset "
                 "reduce-scatter would need group-aware shard ownership")
+        if is_cooperative(compression):
+            raise ValueError(
+                f"Compression.{compression.wire} has no reduce-scatter "
+                "form here (only the HOROVOD_WIRE_POLICY path carries "
+                "the sender-side error-feedback residual that keeps "
+                "the lossy ring from biasing every step); use "
+                "Compression.fp16/bf16, or HOROVOD_WIRE_POLICY with "
+                "zero_stage >= 1")
         hypers = [_hyper(g) for g in optimizer.param_groups]
         if any(h != hypers[0] for h in hypers[1:]):
             raise ValueError(
@@ -142,16 +177,37 @@ class _ShardedOptimizer:
             self._params, self.n, compression=compression,
             fusion_threshold_bytes=fusion_threshold_bytes,
             bucket_order=bucket_order)
+        if allgather_wire is None:
+            allgather_wire = util.shard_ag_wire()
+        self._ag_codec = _wire.get_codec(allgather_wire)
+        self.allgather_wire = (None if self._ag_codec.exact
+                               else self._ag_codec.name)
+        self.master_wire_diff: Optional[torch.Tensor] = None
+        policy = active_wire_policy(compression, process_set)
+        self._rs_codecs = [bucket_codec(compression, policy,
+                                        sum(g.sizes) * g.dtype.itemsize,
+                                        g.dtype.is_floating_point)
+                           for g in self._groups]
         dev = self._params[0].device
+        # Sender-side error-feedback rows of the cooperative groups.
+        self._ef_rows = [torch.zeros(g.padded, dtype=torch.float32,
+                                     device=dev)
+                         if c is not None and c.cooperative else None
+                         for g, c in zip(self._groups, self._rs_codecs)]
+        self._ef_gen = _wire.error_feedback_generation()
         # One flat shard per group: the local optimizer's parameters.
         # Each step copies them in from the parameters (`_apply`), so
-        # between steps they hold no storage; their state stays.
-        self._shards = [torch.zeros(g.shard_sz, dtype=g.dtype, device=dev)
-                        for g in self._groups]
+        # between steps they hold no storage; their state stays.  Under
+        # an allgather wire they are the f32 masters and stay.
+        self._shards = [torch.zeros(
+            g.shard_sz, dtype=torch.float32 if self.allgather_wire
+            else g.dtype, device=dev) for g in self._groups]
+        self._masters_ready = False
         self._local = _local_optimizer(optimizer, self._shards)
         self._accum = ([torch.zeros_like(s) for s in self._shards]
                        if zero_stage >= 2 and self._bpps > 1 else None)
-        self._release_shards()
+        if not self.allgather_wire:
+            self._release_shards()
 
     def _release_shards(self) -> None:
         for sh in self._shards:
@@ -172,14 +228,23 @@ class _ShardedOptimizer:
 
     def _scatter(self, scale: Optional[float]) -> List[torch.Tensor]:
         """Reduce-scatter every group's gradients (all in flight before
-        the first is finished); returns this rank's averaged shards.
-        Each group's gradients are packed by one `torch.cat`, the pad
+        the first is finished, the ring groups excepted: a ring runs
+        when it is reached); returns this rank's averaged shards.  Each
+        group's gradients are packed by one `torch.cat`, the pad
         appended."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
         fused = _fc.fused_enabled()
+        if self._ef_gen != _wire.error_feedback_generation():
+            # reset_error_feedback() ran: the residuals belong to
+            # gradients from before it.
+            for row in self._ef_rows:
+                if row is not None:
+                    row.zero_()
+            self._ef_gen = _wire.error_feedback_generation()
+        average = self._op is C.Average
         started = []
-        for g in self._groups:
+        for gi, (g, codec) in enumerate(zip(self._groups, self._rs_codecs)):
             parts = [grads[i].reshape(-1) for i in g.idxs]
             pad = g.padded - sum(g.sizes)
             if pad:
@@ -187,24 +252,46 @@ class _ShardedOptimizer:
             flat = torch.cat(parts)
             if scale is not None:
                 flat = (flat * scale).to(flat.dtype)
-            c, ctx = self._compression.compress(flat)
+            if codec is not None and codec.cooperative:
+                red, self._ef_rows[gi] = Q.quantized_reducescatter_shard(
+                    flat, self._ps, average=average, wire=codec.name,
+                    error_feedback=self._ef_rows[gi])
+                red = red.to(g.dtype)
+                started.append((lambda red=red: red, False,
+                                lambda t: t))
+                continue
+            if codec is not None and codec.cast_dtype is not None:
+                c = flat.to(codec.cast_dtype)
+                back = (lambda t, dt=g.dtype: t.to(dt))
+            else:
+                c, ctx = self._compression.compress(flat)
+                back = (lambda t, ctx=ctx:
+                        self._compression.decompress(t, ctx))
             if fused:
                 red = _fc.pipelined_psum_scatter(c, self._ps)
-                started.append((lambda red=red: red, ctx))
+                started.append((lambda red=red: red, average, back))
             else:
                 h = C._reducescatter_start(c, C.Sum, self._ps)
-                started.append((h.wait, ctx))
+                started.append((h.wait, average, back))
         out = []
-        for wait, ctx in started:
+        for wait, divide, back in started:
             red = wait()
-            if self._op is C.Average:
+            if divide:
                 red = (red.float() / self.n).to(red.dtype)
-            out.append(self._compression.decompress(red, ctx))
+            out.append(back(red))
         return out
 
     def _gather(self, sends: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Allgather one flat shard per group; returns each group's
-        rank-major flat buffer."""
+        """Allgather one flat shard per group on the allgather wire;
+        returns each group's rank-major flat buffer (decoded, in the
+        send's dtype)."""
+        codec = self._ag_codec
+        if codec.cooperative:
+            if _fc.fused_enabled():
+                return [_fc.pipelined_allgather_shard(
+                    s, self._ps, wire=codec.name) for s in sends]
+            started = [Q.allgather_start(s, self._ps, codec) for s in sends]
+            return [wait().reshape(-1) for wait in started]
         if _fc.fused_enabled():
             return [_fc.pipelined_allgather_shard(s, self._ps)
                     for s in sends]
@@ -213,22 +300,29 @@ class _ShardedOptimizer:
 
     def _apply(self, g_shards: List[torch.Tensor]):
         r = self.rank
+        wired = self.allgather_wire is not None
         for g, sh, gs in zip(self._groups, self._shards, g_shards):
             lo, hi = r * g.shard_sz, (r + 1) * g.shard_sz
-            sh.untyped_storage().resize_(sh.numel() * sh.element_size())
-            # Parameters bound to a zero3_placement are views of their
-            # group's buffer: the shard is one slice of it.
-            flat = group_buffer(self._params, g)
-            sh.copy_(flat[lo:hi] if flat is not None else
-                     group_slice(self._params, g.idxs, g.dtype, lo, hi))
+            if not wired or not self._masters_ready:
+                if not wired:
+                    sh.untyped_storage().resize_(
+                        sh.numel() * sh.element_size())
+                # Parameters bound to a zero3_placement are views of
+                # their group's buffer: the shard is one slice of it.
+                flat = group_buffer(self._params, g)
+                sh.copy_(flat[lo:hi] if flat is not None else
+                         group_slice(self._params, g.idxs, g.dtype, lo, hi))
             sh.grad = gs.to(sh.dtype)
+        self._masters_ready = wired
         old = ([sh.clone() for sh in self._shards]
-               if self.zero_stage == 3 else None)
+               if self.zero_stage == 3 and not wired else None)
         self._local.param_groups[0].update(_hyper(self._opt.param_groups[0]))
         with record_function("hvd.zero.local_step"):
             self._local.step()
         for sh in self._shards:
             sh.grad = None
+        if wired:
+            return self._apply_wired()
         if self.zero_stage < 3:
             with record_function("hvd.zero.allgather"):
                 fulls = self._gather(self._shards)
@@ -246,6 +340,31 @@ class _ShardedOptimizer:
             for i, t in unpack(g, full):
                 updates[i] = t.to(self._params[i].dtype)
         return updates
+
+    def _apply_wired(self):
+        """The allgather of wire(master): the parameters take
+        param + (wire(master) - param), the JAX package's update (stage 3
+        returns the updates instead)."""
+        cast = self._ag_codec.cast_dtype
+        sends = [sh.to(cast) if cast is not None else sh
+                 for sh in self._shards]
+        with record_function("hvd.zero.allgather"):
+            fulls = self._gather(sends)
+        r = self.rank
+        self.master_wire_diff = torch.stack([
+            (sh - full[r * g.shard_sz:(r + 1) * g.shard_sz].float())
+            .abs().max() for g, sh, full in zip(self._groups, self._shards,
+                                                fulls)]).max()
+        updates: List[Optional[torch.Tensor]] = [None] * len(self._params)
+        for g, full in zip(self._groups, fulls):
+            for i, t in unpack(g, full):
+                p = self._params[i]
+                updates[i] = t.to(p.dtype) - p
+        if self.zero_stage == 3:
+            return updates
+        for p, u in zip(self._params, updates):
+            p.add_(u)
+        return None
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -31,12 +31,17 @@ last layers, so the forward consumes groups back to front).  Routing
 (`_gather_start`): HOROVOD_FUSED_COLLECTIVES=1 takes
 `pipelined_allgather_shard`; a cast gather wire (bf16 / fp16,
 HOROVOD_ZERO_GATHER_WIRE) gathers in the cast dtype and copies once per
-group; the exact wire gathers the row as it is.  The cooperative wires
-are not ported yet and raise.
+group; the exact wire gathers the row as it is.  A cooperative gather
+wire (int8, int4, fp8_*) is routed as the JAX package routes it
+(zero3.py:255-275): under the fused pipeline
+`pipelined_allgather_shard(wire=)`, else `quantized_allgather_shard`.
+Every rank, the owner included, holds the decoded row, so the gathered
+parameters are bitwise equal across ranks, while the rows at rest stay
+exact.
 
 `gather_matmul` computes `x @ Wᵀ` for a group that holds one 2-D leaf W,
-the gather fused behind the matmul (`fused_allgather_matmul`): the
-transformer's tied head.  Like the JAX kernel path it serves forward
+the gather fused behind the matmul (`fused_allgather_matmul`, on the
+gather wire): the transformer's tied head.  Like the JAX kernel path it serves forward
 products only.  `regroup` (the elastic reshard) is not ported yet.
 """
 
@@ -51,6 +56,7 @@ from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
+from ..ops import quantized as Q
 from ..ops import wire as _wire
 from ..ops.compression import Compression
 from .data_parallel import shard_group_partition
@@ -329,7 +335,18 @@ class ZeroParamPlacement:
         returns a function that waits and gives the rank-major flat
         buffer in the group's dtype: `out` when given (a cast wire lands
         in a buffer of its own and is copied into `out` once)."""
-        cast = self._codec.cast_dtype
+        codec = self._codec
+        if codec.cooperative:
+            send = row.reshape(-1)
+            if _fc.fused_enabled():
+                full = _fc.pipelined_allgather_shard(
+                    send, self.process_set, wire=codec.name, out=out)
+                return lambda: full if out is not None else full.to(g.dtype)
+            wait = Q.allgather_start(send, self.process_set, codec)
+            if out is None:
+                return lambda: wait().reshape(-1).to(g.dtype)
+            return lambda: out.copy_(wait().reshape(-1))
+        cast = codec.cast_dtype
         send = row.reshape(-1)
         send = send.to(cast) if cast is not None else send
         land = out if cast is None else None

@@ -14,12 +14,16 @@ loop:
 
 Prints img/sec like the reference's pytorch_synthetic_benchmark.py, and
 a SUMMARY line (the model, img/sec, buckets flushed, peak memory on the
-card).  `--compression` takes the JAX example's wire names; the
-cooperative ones (int8, fp8_*) raise before the first step, since the
-port has no quantized ring yet.
-`--log-steps` adds one JSON line per step (loss, kernel launch counts,
-SHA-256 of the parameters, the fusion threshold in force and the
-gradient buckets flushed so far) for checks across ranks.  Each step
+card, and each gradient bucket's wire: codec, raw bytes, wire bytes).
+`--compression` takes the JAX example's wire names: fp16 and bf16 cast,
+int8 and fp8_* send every bucket through the quantized ring
+(`ops/quantized.py`); HOROVOD_WIRE_POLICY picks a wire per bucket
+instead.  `--log-steps` adds one JSON line per step (loss, kernel launch
+counts, SHA-256 of the parameters, the fusion threshold in force, the
+gradient buckets flushed so far and those the ring reduced) for checks
+across ranks; `--check-wire-step K` adds to step K's line rank 0's
+comparison of its ring results with the plain ring model over every
+rank's inputs (`quantized.allreduce_model`).  Each step
 feeds the autotuner (`hvd.autotune_record_step`; HOROVOD_AUTOTUNE=1).
 
 Run:  python -m horovod_tpu_torch.synthetic_benchmark --num-iters 3
@@ -47,6 +51,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import num_params, zoo_build, zoo_models
 from horovod_tpu_torch.ops import adasum, adasum_kernels
+from horovod_tpu_torch.ops import quantized
+from horovod_tpu_torch.ops.compression import is_cooperative
 from horovod_tpu_torch.utils.autotune import current_fusion_threshold
 
 
@@ -150,6 +156,46 @@ def _check_plain_combine(opt) -> dict:
     return result
 
 
+def _check_ring(opt) -> dict:
+    """Wrap the optimizer's ring for one step: every rank's flat bucket
+    input is gathered, and rank 0 holds its ring result to the plain ring
+    model over all of them (bitwise) and to the exact mean (within the
+    model's bound of the encodes' error, plus 1e-6 of the largest value
+    for the f32 adds).  Returns, on rank 0, the buckets checked, the
+    largest bitwise mismatch (0 when equal), the largest distance from
+    the exact mean and the largest margin left under the bound."""
+    ring = opt._ring
+    result = {"buckets": 0, "model_max_abs_diff": 0.0,
+              "exact_max_abs_diff": 0.0, "bound_ok": True}
+
+    def checked(flat, wire):
+        out = ring(flat, wire)
+        stack = hvd.allgather(flat[None])
+        if hvd.rank() == 0:
+            average = opt._op is hvd.Average
+            model, _, bound = quantized.allreduce_model(
+                list(stack), average=average, wire=wire)
+            exact = stack.double().sum(0)
+            exact = (exact / stack.shape[0] if average else exact).float()
+            diff = (out - exact).abs()
+            slack = 1e-6 * float(exact.abs().max())
+            result["buckets"] += 1
+            result["bitwise"] = result.get("bitwise", True) and bool(
+                torch.equal(out, model[0]))
+            result["model_max_abs_diff"] = max(
+                result["model_max_abs_diff"],
+                float((out - model[0]).abs().max()))
+            result["exact_max_abs_diff"] = max(
+                result["exact_max_abs_diff"], float(diff.max()))
+            result["bound_ok"] = result["bound_ok"] and bool(
+                (diff <= bound + slack).all())
+            result["wire"] = wire
+        return out
+
+    opt._ring = checked
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="resnet50", choices=zoo_models())
@@ -167,8 +213,8 @@ def main(argv=None) -> int:
                    help="fp16 wire compression (reference --fp16-allreduce)")
     p.add_argument("--compression", default=None,
                    choices=["fp16", "bf16", "int8", "fp8_e4m3", "fp8_e5m2"],
-                   help="gradient wire compression; int8 and fp8 need the "
-                        "quantized ring, not ported: they raise")
+                   help="gradient wire compression; int8/fp8 use the "
+                        "quantized ring collective (ops/quantized.py)")
     p.add_argument("--device", default=None,
                    help="default: the rank's card; 'cpu' runs on the host")
     p.add_argument("--log-steps", action="store_true",
@@ -179,6 +225,9 @@ def main(argv=None) -> int:
     p.add_argument("--check-plain-step", type=int, default=-1,
                    help="Adasum: on this step, rank 0 reruns the combine "
                         "with the plain versions and prints the difference")
+    p.add_argument("--check-wire-step", type=int, default=-1,
+                   help="on this step, rank 0 holds its ring results to "
+                        "the plain ring model over every rank's inputs")
     args = p.parse_args(argv)
     if args.image_size is None:
         args.image_size = 299 if args.model == "inception3" else 224
@@ -187,6 +236,10 @@ def main(argv=None) -> int:
     else:
         compression = (hvd.Compression.fp16 if args.fp16_allreduce
                        else hvd.Compression.none)
+    if args.use_adasum and is_cooperative(compression):
+        p.error("--use-adasum bypasses gradient allreduce (it reduces "
+                "deltas), so 1-byte ring compression does not apply; "
+                "pick one")
 
     hvd.init(device=args.device)
     dev = hvd.device()
@@ -224,6 +277,8 @@ def main(argv=None) -> int:
         check = None
         if args.use_adasum and step_no == args.check_plain_step:
             check = _check_plain_combine(opt)
+        elif step_no == args.check_wire_step:
+            check = _check_ring(opt)
         threshold = current_fusion_threshold()
         opt.zero_grad(set_to_none=True)
         with record_function("bench.forward_backward"):
@@ -233,7 +288,8 @@ def main(argv=None) -> int:
             opt.step()
         hvd.autotune_record_step(args.batch_size)
         if check is not None:
-            opt.__dict__.pop("_reduce_deltas")
+            opt.__dict__.pop("_reduce_deltas" if args.use_adasum
+                             else "_ring")
         last_loss = loss.detach()
         if args.log_steps:
             sync()
@@ -242,7 +298,10 @@ def main(argv=None) -> int:
                    "launches": adasum_kernels.launch_counts(),
                    "digest": param_digest(model),
                    "fusion_threshold": threshold,
-                   "flushes": getattr(opt, "total_flushes", None)}
+                   "flushes": getattr(opt, "total_flushes", None),
+                   "ring_buckets": getattr(opt, "ring_buckets", None)}
+            if check is not None and "bitwise" in check:
+                rec["wire_check"] = check
             if check is not None and "diff" in check:
                 rec["plain_max_abs_diff"] = check["diff"]
                 rec["plain_max_abs"] = check["max_abs"]
@@ -298,6 +357,9 @@ def main(argv=None) -> int:
                "steps": step_no, "last_loss": float(last_loss),
                "launches": adasum_kernels.launch_counts(),
                "flushes": getattr(opt, "total_flushes", None),
+               "ring_buckets": getattr(opt, "ring_buckets", None),
+               "compression": args.compression,
+               "buckets": getattr(opt, "last_buckets", None),
                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                if dev.type == "cuda" else None),
                "device": str(dev), "backend": hvd.backend()}

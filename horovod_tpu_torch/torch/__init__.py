@@ -89,7 +89,10 @@ from ..parallel.optimizer import (  # noqa: F401
     grad_accum_bytes,
     optimizer_state_bytes,
 )
-from ..parallel.data_parallel import _wire_nbytes
+from ..ops import wire as _wire
+from ..ops.quantized import quantized_allreduce_shard
+from ..parallel.data_parallel import (_wire_nbytes, active_wire_policy,
+                                      bucket_codec, check_wire)
 from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
 from ..utils.autotune import current_fusion_threshold, current_zero_stage
 
@@ -451,19 +454,43 @@ def _fusion_threshold() -> int:
     return current_fusion_threshold()
 
 
+_POLICY_COMPRESSORS = {c.wire: c for c in (Compression.none, Compression.fp16,
+                                           Compression.bf16)}
+
+
 class _DistributedOptimizer:
     """Wraps a torch.optim.Optimizer: gradients are allreduced before
     each step.  Post-accumulate-grad hooks enqueue each gradient as it
     is final, into size-capped buckets (HOROVOD_FUSION_THRESHOLD, read
     live on every enqueue, so the autotuner's moves take effect at
     once), formed as the JAX package's `gradient_bucket_partition`
-    forms them over the same wire sizes in the same order; a full bucket is dispatched at once as one async grouped
-    allreduce, so communication overlaps the rest of backward.  `step()`
-    waits for the buckets and copies the results into `p.grad`.  A
-    sparse gradient is densified (`sparse_as_dense`) or goes through
-    `sparse_allreduce_async` and is replaced by its result.
-    `backward_passes_per_step` accumulates locally and reduces every Nth
-    pass."""
+    forms them over the same wire sizes in the same order (a cooperative
+    wire counts 4 bytes an element, its f32 staging buffer).  A full
+    bucket is dispatched at once as one async grouped allreduce, so
+    communication overlaps the rest of backward.  `step()` waits for the
+    buckets and copies the results into `p.grad`.  A sparse gradient is
+    densified (`sparse_as_dense`) or goes through `sparse_allreduce_async`
+    and is replaced by its result.  `backward_passes_per_step`
+    accumulates locally and reduces every Nth pass.
+
+    The wire of a bucket: with a cooperative `compression=` (int8, int4,
+    fp8_*) every bucket is packed as one flat f32 buffer and reduced by
+    the quantized ring (`ops/quantized.py`); with compression none and
+    HOROVOD_WIRE_POLICY set (on the global set) each bucket takes the
+    codec `WirePolicy.codec_for(raw_bytes, all_float)` picks: an exact
+    bucket the grouped allreduce above (so "exact" is bitwise the unset
+    policy), a cast bucket the cast, a cooperative one the ring.  A ring
+    is a sequence of point-to-point hops, not one async handle, so the
+    ring buckets run at `synchronize()`, in bucket order on every rank.
+    The bucket's wire is `data_parallel.bucket_codec` and the refusals
+    are `data_parallel.check_wire`: as in the JAX package, a cooperative
+    wire refuses a process-set subset, and it and the policy any op but
+    Average and Sum; a wire that can reach the ring also refuses
+    `gradient_predivide_factor` != 1 (at construction), which has no
+    ring form there.  The
+    replicated path carries no error feedback (the JAX
+    `DistributedOptimizer`'s update carries none either);
+    `allreduce_gradients(error_feedback_state=)` does."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[Iterable[Tuple[str, Any]]] = None,
@@ -473,6 +500,9 @@ class _DistributedOptimizer:
                  sparse_as_dense: bool = False,
                  gradient_predivide_factor: float = 1.0,
                  process_set: Optional[ProcessSet] = None):
+        self._policy = active_wire_policy(compression, process_set)
+        check_wire(compression, op, process_set, self._policy,
+                   gradient_predivide_factor)
         self._opt = optimizer
         self._compression = compression
         self._op = op
@@ -485,6 +515,9 @@ class _DistributedOptimizer:
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
         self.total_flushes = 0  # observable: fused buckets dispatched
+        self.ring_buckets = 0  # observable: buckets reduced by the ring
+        # (wire, raw bytes, wire bytes) of each bucket of the last step.
+        self.last_buckets: List[Tuple[str, int, int]] = []
         self.reset_step_state()
         for p in self._params:
             if p.requires_grad:
@@ -505,6 +538,7 @@ class _DistributedOptimizer:
         self._sparse_in_flight: list = []
         self._reduced_ids: set = set()
         self._synchronized = False
+        self._step_buckets: List[Tuple[str, int, int]] = []
         self._pass_count -= self._pass_count % self._bpps
 
     def _enqueue(self, p: torch.Tensor) -> None:
@@ -542,15 +576,31 @@ class _DistributedOptimizer:
         self._enqueue(p)
 
     def _flush(self) -> None:
-        """Dispatch the current bucket as one grouped allreduce."""
+        """Dispatch the current bucket: one grouped allreduce, or (a ring
+        bucket) a place in the queue that `synchronize` reduces."""
         if not self._bucket:
             return
         params, self._bucket, self._bucket_bytes = self._bucket, [], 0
+        raw = sum(p.grad.numel() * p.grad.element_size() for p in params)
+        codec = bucket_codec(self._compression, self._policy, raw,
+                             all(p.grad.is_floating_point() for p in params))
+        self.total_flushes += 1
+        if codec is not None and codec.cooperative:
+            self._step_buckets.append((codec.name, raw, codec.wire_nbytes(
+                sum(p.grad.numel() for p in params))))
+            self._in_flight.append((None, params, codec.name))
+            return
+        # The policy's exact and cast wires are those compressors' casts.
+        comp = (self._compression if codec is None
+                else _POLICY_COMPRESSORS[codec.name])
         compressed, ctxs = [], []
         for p in params:
-            c, ctx = self._compression.compress(p.grad)
+            c, ctx = comp.compress(p.grad)
             compressed.append(c)
             ctxs.append(ctx)
+        self._step_buckets.append(
+            (_wire.compressor_wire(comp), raw,
+             sum(c.numel() * c.element_size() for c in compressed)))
         wire_op, pre, post = self._op, 1.0, 1.0
         if self._predivide != 1.0:
             # Reference: averaging split around the Sum wire.
@@ -561,16 +611,33 @@ class _DistributedOptimizer:
                                     prescale_factor=pre,
                                     postscale_factor=post,
                                     process_set=self._ps)
-        self._in_flight.append((h, params, ctxs))
-        self.total_flushes += 1
+        self._in_flight.append((h, params, (ctxs, comp)))
+
+    def _ring(self, flat: torch.Tensor, wire: str) -> torch.Tensor:
+        """One bucket's flat f32 gradients through the quantized ring."""
+        return quantized_allreduce_shard(flat, average=self._op is Average,
+                                         wire=wire)
 
     def synchronize(self) -> None:
         self._flush()
         with torch.no_grad(), record_function("hvd.synchronize"):
-            for h, params, ctxs in self._in_flight:
+            for h, params, ctx in self._in_flight:
+                if h is None:
+                    with record_function("hvd.ring"):
+                        grads = [p.grad for p in params]
+                        red = self._ring(torch.cat(
+                            [g.reshape(-1).to(torch.float32)
+                             for g in grads]), ctx)
+                        off = 0
+                        for g in grads:
+                            g.copy_(red[off:off + g.numel()].reshape(g.shape))
+                            off += g.numel()
+                    self.ring_buckets += 1
+                    continue
+                ctxs, comp = ctx
                 outs = C.synchronize(h)
-                for p, o, ctx in zip(params, outs, ctxs):
-                    p.grad.copy_(self._compression.decompress(o, ctx))
+                for p, o, c in zip(params, outs, ctxs):
+                    p.grad.copy_(comp.decompress(o, c))
             for p, h in self._sparse_in_flight:
                 # Replaced, not copied into: the reduced gradient has
                 # other entries than the local one.
@@ -578,6 +645,7 @@ class _DistributedOptimizer:
         self._in_flight = []
         self._sparse_in_flight = []
         self._synchronized = True
+        self.last_buckets, self._step_buckets = self._step_buckets, []
 
     def step(self, closure=None):
         self._pass_count += 1
@@ -706,7 +774,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          zero_stage: Optional[int] = None,
                          shard_optimizer_states: Optional[bool] = None,
                          fusion_threshold_bytes: Optional[int] = None,
-                         bucket_order=None):
+                         bucket_order=None,
+                         allgather_wire: Optional[str] = None):
     """op=Adasum returns the delta-semantics `_DistributedAdasumOptimizer`
     (reference: optimizer.py routes op=Adasum there); any other op the
     hook-bucketed `_DistributedOptimizer`.  `gradient_predivide_factor`
@@ -723,11 +792,22 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     `zero3_placement`, and `step()` returns the updates for
     `placement.apply_updates` (parallel/optimizer.py).
     `fusion_threshold_bytes` and `bucket_order` set the shard groups
-    (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER)."""
+    (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER).
+    `allgather_wire` (env HOROVOD_SHARD_AG_WIRE) is the wire of the
+    sharded path's parameter allgather, with f32 masters on the owner;
+    it needs zero_stage >= 1.
+
+    `compression` may be a cooperative wire (Compression.int8, int4,
+    fp8_*): at stage 0 each bucket rides the quantized ring (see
+    `_DistributedOptimizer`); Adasum and the sharded path refuse it, as
+    the JAX package does.  HOROVOD_WIRE_POLICY picks a wire per bucket
+    at stage 0 and per shard group at stages 1-3."""
     del num_groups, groups
     _check_names(named_parameters)
-    if is_cooperative(compression):
-        compression.compress(None)  # raises: no eager path carries it
+    if is_cooperative(compression) and op is Adasum:
+        raise ValueError(
+            f"Compression.{compression.wire} has no Adasum form: Adasum "
+            "combines whole deltas, the quantized ring sums chunks")
     if zero_stage is None:
         zero_stage = current_zero_stage()
     zero_stage = int(zero_stage)
@@ -745,6 +825,11 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         zero_stage = 1
     if gradient_predivide_factor != 1.0 and op is not Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
+    if not zero_stage and not _wire.get_codec(
+            allgather_wire or util.shard_ag_wire()).exact:
+        raise ValueError(
+            "allgather_wire requires zero_stage >= 1 (it is the wire of "
+            "the sharded parameter allgather)")
     if zero_stage:
         if gradient_predivide_factor != 1.0:
             raise ValueError(f"zero_stage={zero_stage} takes no "
@@ -754,7 +839,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
             backward_passes_per_step=backward_passes_per_step, op=op,
             process_set=process_set,
             fusion_threshold_bytes=fusion_threshold_bytes,
-            bucket_order=bucket_order)
+            bucket_order=bucket_order, allgather_wire=allgather_wire)
     if op is Adasum:
         return _DistributedAdasumOptimizer(
             optimizer, named_parameters=named_parameters,

@@ -34,7 +34,13 @@ version, on the CPU; `k3_strided_launches` the launches that took its
 strided load path).  At stage 3 the eval head is `placement.gather_matmul`,
 which runs K3 under HOROVOD_FUSED_PALLAS=1 (the ZeRO-3 configuration
 also sets HOROVOD_FUSED_COLLECTIVES=1 and HOROVOD_FUSION_THRESHOLD=
-33554432, where the embedding is a shard group of its own).
+33554432, where the embedding is a shard group of its own).  The wires
+come from the environment (HOROVOD_WIRE_POLICY, HOROVOD_SHARD_AG_WIRE,
+HOROVOD_ZERO_GATHER_WIRE): under a gather wire the check step's EVAL line
+also gives the logits' largest difference from those of the exactly
+gathered head (`eval_exact_rel`), and under an allgather wire each STEP
+line gives the largest |f32 master − decoded parameter| of this rank's
+shards (`master_wire_diff`).
 
 Run:  python -m horovod_tpu_torch.transformer_benchmark --num-iters 3
 CPU:  python -m horovod_tpu_torch.transformer_benchmark --device cpu \\
@@ -234,6 +240,13 @@ def main(argv=None) -> int:
                 ref = mk.tiled_matmul_plain(flat, model.embed.detach().t())
                 rec["eval_logits_rel"] = float(
                     (logits - ref).abs().max() / ref.abs().max())
+                if placement is not None and placement.gather_wire:
+                    # The head gathered exactly, from the same rows.
+                    w = hvd.allgather(rows[gi_embed].reshape(-1))
+                    ref = mk.tiled_matmul_plain(
+                        flat, w.reshape(model.embed.shape).t())
+                    rec["eval_exact_rel"] = float(
+                        (logits - ref).abs().max() / ref.abs().max())
                 del ref
             del logits
             release_params()
@@ -296,6 +309,9 @@ def main(argv=None) -> int:
             rec = {"step": step_no, "rank": hvd.rank(),
                    "loss": float(last_loss), "launches": launch_counts(),
                    "digest": digest(), "mem_peak_gb": mem, **check}
+            diff = getattr(opt, "master_wire_diff", None)
+            if diff is not None:
+                rec["master_wire_diff"] = float(diff)
             print("STEP " + json.dumps(rec), flush=True)
         if args.eval_every and (step_no + 1) % args.eval_every == 0:
             sync()

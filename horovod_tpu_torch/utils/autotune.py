@@ -437,7 +437,9 @@ def shutdown_manager() -> None:
 _BUCKET_ORDERS = ("forward", "reverse")
 
 # Big-bucket codecs of the wire-format knob (the knob's value is the
-# index); read by the wire policy, which is not ported yet.
+# index): the cooperative block-scaled formats and the cast wires, all
+# that compress; "none" stays reachable through HOROVOD_WIRE_POLICY=exact.
+# The wire policy reads it (`current_wire_big_format`).
 _WIRE_BIG_FORMATS = ("int8", "int4", "fp8_e4m3", "fp8_e5m2", "bf16",
                      "fp16")
 
@@ -524,3 +526,27 @@ def current_fused_chunk_bytes() -> int:
     """The live chunk size of the fused pipeline:
     HOROVOD_FUSED_CHUNK_BYTES (1 MiB by default), or the tuner's."""
     return tuned_fused_chunk_bytes(util.fused_chunk_bytes())
+
+
+def tuned_wire_threshold(default: int) -> int:
+    v = _tuned("wire_threshold")
+    return default if v is None else int(v)
+
+
+def current_wire_threshold() -> int:
+    """The live wire-policy threshold in bytes: HOROVOD_WIRE_THRESHOLD (1
+    MiB by default; buckets at or above it take the policy's big codec),
+    or the tuner's.  Read only when the HOROVOD_WIRE_POLICY spec gives no
+    threshold=."""
+    return tuned_wire_threshold(util.env_int("WIRE_THRESHOLD", 1 << 20))
+
+
+def tuned_wire_big_format(default: str) -> str:
+    v = _tuned("wire_big_format")
+    return default if v is None else _WIRE_BIG_FORMATS[int(v)]
+
+
+def current_wire_big_format() -> str:
+    """The live big-bucket codec of HOROVOD_WIRE_POLICY=auto:
+    HOROVOD_WIRE_BIG_FORMAT (int8 by default), or the tuner's."""
+    return tuned_wire_big_format(_env_wire_big_format())

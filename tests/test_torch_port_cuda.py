@@ -18,6 +18,10 @@ CPU logits' largest value; K4-K6
 working dtype from values that differ in their last bits); K3 1e-5
 (f32), 2^-7 (bf16), 2^-10 (f16) of the largest value (f32 sums in
 another order inside each K tile, then one rounding of the output).
+The wire codecs on the card are bitwise their CPU runs (a decoded NaN
+any NaN, and an fp8 NaN code of either sign: a NaN made by inf / inf
+has the hardware's sign), and the quantized ring over
+gloo on CUDA tensors bitwise its plain model run on the card.
 """
 
 import json
@@ -495,6 +499,11 @@ flat = torch.arange(2 * 640, dtype=torch.float32, device=dev) * (r + 1)
 res["reducescatter"] = hvd.reducescatter(flat, op=hvd.Sum)
 res["reducescatter_bf16"] = hvd.reducescatter(flat.bfloat16(), op=hvd.Average)
 res["psum_scatter"] = F.pipelined_psum_scatter(flat, chunk_bytes=1024)
+from horovod_tpu_torch.ops import quantized as Q
+for w in ("int8", "int4", "fp8_e4m3", "fp8_e5m2"):
+    res["ring_" + w] = Q.quantized_allreduce_shard(x.to(dev), average=True,
+                                                   wire=w)
+    res["rs_" + w] = Q.quantized_reducescatter_shard(x.to(dev), wire=w)
 res["on_card"] = all(t.is_cuda for v in res.values()
                      for t in (v if isinstance(v, list) else [v])
                      if isinstance(t, torch.Tensor) and t is not x)
@@ -554,6 +563,20 @@ def test_gloo_on_card_moves_the_right_values(gloo_on_card, key):
             "broadcast": x1, "broadcast_": torch.arange(5) * 2}[key]
     for d in gloo_on_card:
         assert torch.equal(d[key], want)
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4", "fp8_e4m3", "fp8_e5m2"])
+def test_gloo_on_card_ring_is_bitwise_its_model(gloo_on_card, wire):
+    """The ring's hops over gloo stage through host memory; its encodes,
+    decodes and adds run on the card, bitwise the plain model's on the
+    card."""
+    from horovod_tpu_torch.ops import quantized as Q
+    xs = [d["x"].cuda() for d in gloo_on_card]
+    outs, _, _ = Q.allreduce_model(xs, average=True, wire=wire)
+    segs, _, _ = Q.reducescatter_model(xs, wire=wire)
+    for r, d in enumerate(gloo_on_card):
+        assert torch.equal(d["ring_" + wire], outs[0].cpu())
+        assert torch.equal(d["rs_" + wire], segs[r].cpu())
 
 
 def test_gloo_on_card_reducescatter(gloo_on_card):
@@ -737,3 +760,38 @@ def test_elastic_reset_of_an_nccl_group_with_buckets_in_flight(cuda):
     assert out["in_flight_handles"] >= 1
     assert out["after_reset"] == [0, 0]
     assert out["allreduce"] == 2.0 and out["finite"]
+
+
+@pytest.mark.parametrize("wire", ["int8", "int4", "fp8_e4m3", "fp8_e5m2",
+                                  "bf16", "fp16"])
+def test_codecs_on_card_are_bitwise_the_cpu(cuda, wire):
+    from horovod_tpu_torch.ops import wire as W
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    g = torch.Generator().manual_seed(9)
+    v = torch.randn(128 * 300, generator=g) * torch.tensor(
+        [1e-3, 1.0, 30.0])[torch.randint(0, 3, (128 * 300,), generator=g)]
+    v[:128] = 0.0
+    v[130], v[260], v[261] = float("nan"), float("inf"), float("-inf")
+    v[384:512] = torch.arange(-127.0, 1.0)
+    v[512:640] = torch.arange(-7.0, 8.0, 0.5).repeat(9)[:128]
+    # A NaN block keeps the scale 1: its values past e4m3's 448 and an
+    # inf reach the cast unnormalised (both saturate there).
+    v[640:768] = torch.linspace(-600.0, 600.0, 128)
+    v[641], v[642] = float("nan"), float("inf")
+    codec = W.get_codec(wire)
+    if codec.cast_dtype is not None:
+        # A cast's NaN code is the backend's own.
+        v = torch.where(torch.isfinite(v), v, torch.ones_like(v))
+    enc_c, enc_g = codec.encode(v), codec.encode(v.to(cuda))
+    # (part, byte, cpu, card); an fp8 NaN code of either sign matches one
+    # (inf / inf is x86's negative default NaN, CUDA's positive one).
+    assert not chip_smoke.wire_mismatch(enc_c, enc_g)
+    dec_c, dec_g = codec.decode(enc_c), codec.decode(enc_g).cpu()
+    nan = torch.isnan(dec_c)
+    assert torch.equal(nan, torch.isnan(dec_g))
+    bad = torch.nonzero((dec_c.view(torch.int32) != dec_g.view(torch.int32))
+                        & ~nan).reshape(-1)[:5]
+    assert not bad.numel(), (f"decode differs at {bad.tolist()}: cpu "
+                             f"{dec_c[bad].tolist()}, card "
+                             f"{dec_g[bad].tolist()}")

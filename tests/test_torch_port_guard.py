@@ -43,6 +43,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "horovod_tpu_torch.transformer_benchmark, "
         "horovod_tpu_torch.ops.fused_collectives, "
         "horovod_tpu_torch.ops.matmul_kernels, horovod_tpu_torch.ops.wire, "
+        "horovod_tpu_torch.ops.quantized, "
         "horovod_tpu_torch.parallel.optimizer, "
         "horovod_tpu_torch.parallel.zero3, "
         "horovod_tpu_torch.parallel.data_parallel, "

@@ -198,10 +198,20 @@ def test_converter_round_trips_every_weight(resnet50_pair):
 
 def test_bf16_forward_is_finite_and_close():
     """bf16 compute against f32 compute on the same weights: within 10%
-    of the logits' range (bf16 keeps ~3 significant digits per layer)."""
+    of the logits' range (bf16 keeps ~3 significant digits per layer).
+
+    At 64x64 the last stage's maps are 2x2, so train-mode batch norm
+    normalises over 32 values a channel.  At 32x32 (1x1 maps, 8 values)
+    it magnifies the bf16 rounding: over 40 inputs the port's deviation
+    reached 0.10 on weights converted from the JAX package's init, where
+    the JAX package's own bf16 ResNet-18 against its f32 one reached
+    0.085 on the same inputs (means 0.063 both), and 0.165 on this
+    test's weights; at 64x64 it stays under 0.07 for all 40.  The input
+    comes from a generator of its own, so it does not depend on which
+    tests ran before in the process."""
     model = ResNet(18, 10, compute_dtype=torch.bfloat16, seed=1)
     ref = ResNet(18, 10, compute_dtype=None, seed=1)
-    x = torch.rand(8, 3, 32, 32)
+    x = torch.rand(8, 3, 64, 64, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         y, y32 = model(x), ref(x)
     assert y.dtype == torch.float32 and torch.isfinite(y).all()

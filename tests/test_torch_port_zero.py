@@ -158,15 +158,24 @@ def test_port_transformer_embedding_is_a_group_of_its_own(one_rank):
 @pytest.mark.parametrize("name", ["int8", "int4", "fp8_e4m3", "fp8_e5m2",
                                   "bogus"])
 def test_cooperative_or_unknown_wire_raises(name):
-    with pytest.raises(HorovodTpuError, match="not ported|unknown"):
-        wire.get_codec(name)
+    """An unknown name raises wherever it is resolved; a cooperative one
+    resolves, and the one consumer that refuses it, as in the JAX
+    package, is the host codec of a reshard chunk."""
+    if name == "bogus":
+        with pytest.raises(HorovodTpuError, match="unknown"):
+            wire.get_codec(name)
+        return
+    assert wire.get_codec(name).cooperative
+    with pytest.raises(HorovodTpuError, match="cooperative"):
+        wire.host_encode(np.ones(4, np.float32), name)
 
 
 def test_cast_wires_resolve():
     assert wire.get_codec(None).exact and wire.get_codec("none").exact
     assert wire.get_codec("bf16").cast_dtype == torch.bfloat16
     assert wire.get_codec("fp16").cast_dtype == torch.float16
-    assert wire.wire_names() == ("bf16", "fp16", "none")
+    assert wire.wire_names() == ("bf16", "fp16", "fp8_e4m3", "fp8_e5m2",
+                                 "int4", "int8", "none")
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +289,7 @@ pad = hvd.zero3_placement(odd)
 res["refuse_pad"] = refusal(lambda: pad.gather_matmul(
     torch.ones(3, 5), pad.shard(odd), 0))
 res["refuse_wire"] = refusal(lambda: hvd.zero3_placement(params,
-                                                         gather_wire="int8"))
+                                                         gather_wire="int9"))
 torch.save(res, f"{out_dir}/rank{r}.pt")
 hvd.shutdown()
 '''
@@ -485,7 +494,8 @@ def test_gather_matmul_matches_jax(world, fused_pallas):
 
 @pytest.mark.parametrize("key,match", [
     ("refuse_grad", "forward-only"), ("refuse_multi", "single-2D-leaf"),
-    ("refuse_pad", "divide the rank count"), ("refuse_wire", "not ported")])
+    ("refuse_pad", "divide the rank count"),
+    ("refuse_wire", "unknown wire format")])
 def test_refusals(world, key, match):
     _, res = world
     for d in res:

@@ -326,14 +326,17 @@ def test_bf16_compression_round_trips(dtype):
 
 @pytest.mark.parametrize("name", ["int8", "int4", "fp8_e4m3", "fp8_e5m2"])
 def test_cooperative_compressors_raise_as_jax_eager(name):
+    """A single tensor's compress raises, as the JAX package's does: the
+    gradient paths route these wires to the quantized ring first.  The
+    optimizer takes them, except with Adasum (which combines deltas)."""
     with pytest.raises(NotImplementedError):
         getattr(JC.Compression, name).compress(jnp.ones(4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="quantized ring"):
         getattr(TC.Compression, name).compress(torch.ones(4))
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(ValueError, match=name):
         hvd.DistributedOptimizer(
             torch.optim.SGD(torch.nn.Linear(2, 2).parameters(), lr=0.1),
-            compression=getattr(hvd.Compression, name))
+            compression=getattr(hvd.Compression, name), op=hvd.Adasum)
 
 
 # ---------------------------------------------------------------------------
@@ -408,14 +411,18 @@ def test_synthetic_benchmark_takes_a_step_of_each_model(name):
     assert summary["flushes"] >= 1 and summary["peak_mem_gb"] is None
 
 
-def test_synthetic_benchmark_refuses_int8_before_the_first_step():
+def test_synthetic_benchmark_refuses_int8_before_the_first_step(capsys):
+    """int8 with --use-adasum is the JAX example's argument error: Adasum
+    reduces deltas, the ring gradients."""
     out = io.StringIO()
-    with contextlib.redirect_stdout(out), pytest.raises(
-            NotImplementedError, match="int8"):
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as e:
         try:
             synthetic_benchmark.main(["--device", "cpu", "--model",
                                       "resnet18", "--image-size", "32",
-                                      "--compression", "int8"])
+                                      "--compression", "int8",
+                                      "--use-adasum"])
         finally:
             hvd.shutdown()
+    assert e.value.code == 2
+    assert "1-byte ring compression" in capsys.readouterr().err
     assert "STEP" not in out.getvalue() and "Iter" not in out.getvalue()
