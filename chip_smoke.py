@@ -26,9 +26,11 @@ Phases, each printing its own lines:
                  by row; then forward and backward timed at the
                  transformer's shape (1, 16384, 8, 64) and at the same
                  width in 128-wide heads (1, 16384, 4, 128), bf16
-                 causal, beside F.scaled_dot_product_attention and the
-                 CUDA-core K4, K5 and K6 at the same shapes (each must
-                 be the slower); the tiled matmul K3 in f32, bf16 and f16
+                 causal, and at the sp=2 ring's pair shape (1, 8192, 8,
+                 64) non-causal (checked against the plain versions
+                 first), beside F.scaled_dot_product_attention (with
+                 the same is_causal) and the CUDA-core K4, K5 and K6 at
+                 the same shapes (each must be the slower); the tiled matmul K3 in f32, bf16 and f16
                  at the ZeRO-3 head's chunk shapes
                  (16384, 512) @ (512, 512 / 256 / 128) and at unaligned
                  ones (M, N, K off multiples of 128 and of K3's 32-deep
@@ -43,8 +45,14 @@ Phases, each printing its own lines:
                  224x224, 1000 classes, batch 32 per rank, bf16), 3 steps
                  after broadcast_parameters; every step's loss must be
                  finite, both ranks must have launched both kernels, and
-                 the parameters' SHA-256 must agree across ranks; on one
-                 step rank 0 reruns the combine with the plain versions;
+                 the parameters' SHA-256 must agree across ranks.  The
+                 combine is the XOR ladder (`adasum_in_axis`: one
+                 point-to-point hop a level, staged through host memory
+                 over gloo); on one step rank 0 gathers the deltas and
+                 reruns the tree on the stack with the plain versions
+                 (within COMBINE_RTOL) and with the kernels (the ladder
+                 must be bitwise that), the wall ms of the ladder, the
+                 allgather and the tree printed side by side;
 5. train_average one rank on NCCL, op=Average, batch 64: img/sec and the
                  number of fused buckets flushed;
 6. train_transformer  main path 2: two ranks share the card over gloo and
@@ -194,6 +202,31 @@ Phases, each printing its own lines:
                  across ranks each step, each rank's f32 masters not
                  equal to its decoded parameters.
 
+17. train_mesh  main path 8: the transformer over a mesh through
+                 `make_train_step` (`python -m
+                 horovod_tpu_torch.transformer_benchmark --sp 2` etc.),
+                 two ranks sharing the card over gloo, the default
+                 TransformerConfig (vocab 32000, d_model 512, 8 x 64
+                 heads, d_ff 2048, 8 layers) at T = 16384, AdamW, under
+                 HOROVOD_FLASH_ATTENTION=1, 3 steps and one profiled:
+                 (b) sp=2 ring attention (T_local = 8192 on the flash
+                 ring: causal diagonal pairs, non-causal past pairs,
+                 skipped future pairs whose K/V hops still happen),
+                 batch 1; (c) sp=2 Ulysses (flash at T = 16384 on 4
+                 heads a rank); (d) tp=2; (e) ep=2 with moe_every=2 and
+                 8 experts, batch 2 (one row a rank); (f) pp=2 with 2
+                 microbatches, batch 2.  Each: finite losses, one
+                 SHA-256 of the full parameters (gathered from the
+                 shards) per step across ranks, step 0's loss within
+                 LOSS_TOL of rank 0's one-rank `reference_loss` on the
+                 same weights and tokens (the dense layers; under ep the
+                 MoE layers route each shard's rows on their own, as the
+                 mesh does), and on every step every K4-K6 launch on the
+                 tensor cores, as many per rank as `expected_flash`
+                 says; tok/sec per rank, idle share and host ms in the
+                 mesh ranges (hvd.sp.hop, hvd.sp.a2a, hvd.tp.psum,
+                 hvd.ep.a2a, hvd.pp.hop, ...).
+
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
 the main shape (logits within HEAD_RTOL, both gradients equal, the
@@ -212,8 +245,13 @@ of K steps: device time, idle share, host time in each `hvd.*` and
 `bench.*` range).
 
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
-zoo deltas, with their launches on main path 5; K3 with its launches on
-main path 7 as `wire_launches`), and as the last line
+zoo deltas, with their launches on main path 5, and their launches on
+main path 1 net of the ladder check's tree; K3 with its launches on
+main path 7 as `wire_launches`; K4-K6 with their times at the ring's
+pair shape as `ring_pair`, their errors at the ring's causal diagonal
+pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
+per rank on each run of main path 8 as `mesh_launches`), and as the
+last line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
 with no result line; so does a host without CUDA.  Full logs of the
 training ranks go to chiprun_out/.
@@ -312,6 +350,8 @@ ADASUM_GROW = {"fused_dot_norms": None, "fused_scaled_add": None}
 MNIST_MIN_ACC = 0.5
 MAIN_ATTN = (1, 16384, 8, 64)  # the transformer's [B, T, H, D] per layer
 WIDE_ATTN = (1, 16384, 4, 128)  # the same width in 128-wide heads
+RING_PAIR = (1, 8192, 8, 64)  # one pair of the sp=2 ring (main path 8)
+HALF_HEADS = (1, 16384, 4, 64)  # a rank's heads under Ulysses or tp=2
 # K4-K6 per step per rank at 8 layers, all on the tensor cores.
 FLASH_GROW = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
               "flash_fwd_sm90": 8, "flash_bwd_dq_sm90": 8,
@@ -584,67 +624,70 @@ def _check_flash_autograd(FA, gen, dev) -> None:
         + f" (tol {tol:.0e})")
 
 
-def _flash_work(shape, element_size):
-    """(bytes, operations) of K4, K5, K6 at a causal [B, T, H, D]: each
-    input read once and each output written once; 4, 6 and 8 D
-    operations per unmasked (query, key) pair."""
+def _flash_work(shape, element_size, causal=True):
+    """(bytes, operations) of K4, K5, K6 at a [B, T, H, D]: each input
+    read once and each output written once; 4, 6 and 8 D operations per
+    unmasked (query, key) pair (all T² of them when not causal)."""
     B, T, H, D = shape
     n = B * T * H * D * element_size
     rows = B * T * H * 4
-    pairs = B * H * T * (T + 1) // 2
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     return {"flash_fwd": (4 * n + rows, 4 * D * pairs),
             "flash_bwd_dq": (5 * n + 2 * rows, 6 * D * pairs),
             "flash_bwd_dkv": (6 * n + 2 * rows, 8 * D * pairs)}
 
 
-def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
-    """K4, K5, K6 at a bf16 causal [B, T, H, D], each timed alone (10
-    launches after 2), on both routes; one PyTorch call of the
-    same function (F.scaled_dot_product_attention forward, and its
-    backward for dq, dk and dv at once); the plain versions (3 calls
-    after 1) where `with_plain`; the bound."""
+def _time_flash(FA, shape, gen, dev, with_plain: bool,
+                causal: bool = True) -> dict:
+    """K4, K5, K6 at a bf16 [B, T, H, D], each timed alone (10 launches
+    after 2), on both routes; one PyTorch call of the same function
+    (F.scaled_dot_product_attention forward, and its backward for dq,
+    dk and dv at once, with the same `causal`); the plain versions (3
+    calls after 1) where `with_plain`; the bound."""
     import torch
     import torch.nn.functional as F
 
     B, T, H, D = shape
+    c = causal
     q, k, v, do, _ = _flash_case_inputs(
-        (B, T, H, H, D, torch.bfloat16, True, None, 0), gen, dev)
-    o, lse = FA.flash_fwd(q, k, v, True)
+        (B, T, H, H, D, torch.bfloat16, c, None, 0), gen, dev)
+    o, lse = FA.flash_fwd(q, k, v, c)
     delta = (do.float() * o.float()).sum(-1)
     runs = {
         "flash_fwd": (
-            lambda: FA.flash_fwd(q, k, v, True),
-            lambda: FA.flash_fwd(q, k, v, True, sm90=False),
-            lambda: FA.flash_fwd_plain(q, k, v, True)),
+            lambda: FA.flash_fwd(q, k, v, c),
+            lambda: FA.flash_fwd(q, k, v, c, sm90=False),
+            lambda: FA.flash_fwd_plain(q, k, v, c)),
         "flash_bwd_dq": (
-            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True),
-            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, True,
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, c),
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, c,
                                     sm90=False),
-            lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, True)),
+            lambda: FA.flash_bwd_dq_plain(q, k, v, do, lse, delta, c)),
         "flash_bwd_dkv": (
-            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, True,
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, c),
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, c,
                                      sm90=False),
-            lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True)),
+            lambda: FA.flash_bwd_dkv_plain(q, k, v, do, lse, delta, c)),
     }
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=c)
     dot = do.transpose(1, 2)
     lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=10)
+        qt, kt, vt, is_causal=c), iters=10)
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
     library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
                "flash_bwd_dkv": lib_bwd}
-    work = _flash_work(shape, q.element_size())
+    work = _flash_work(shape, q.element_size(), c)
+    mode = "causal" if c else "non-causal"
     results = {}
     for name, (kernel, cuda_core, plain) in runs.items():
         bound = bound_ms(*work[name], peak=HALF_FLOPS)
         r = dict(ms=cuda_time_ms(kernel, iters=10, warmup=2),
                  library_ms=library[name], bound_ms=bound[0],
                  bound_by=bound[1])
-        line = (f"{name} {shape} bf16 causal: ms={r['ms']:.4f} "
+        line = (f"{name} {shape} bf16 {mode}: ms={r['ms']:.4f} "
                 f"library_ms={library[name]:.4f} bound_ms={bound[0]:.4f} "
                 f"({bound[1]}, {bound[0] / r['ms']:.1%} of it)")
         if with_plain:
@@ -665,7 +708,8 @@ def _time_flash(FA, shape, gen, dev, with_plain: bool) -> dict:
     # The library's backward computes dq, dk and dv in one call: both
     # backward rows carry its time, which covers the two kernels' work.
     bwd = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
-    log("kernels", f"flash backward {shape}, flash_bwd_dq + flash_bwd_dkv:"
+    log("kernels", f"flash backward {shape} {mode}, flash_bwd_dq + "
+        f"flash_bwd_dkv:"
         f" ms={bwd:.4f} against one library backward (dq, dk, dv) "
         f"library_ms={lib_bwd:.4f}: {bwd / lib_bwd:.1f}x")
     del q, k, v, do, o, lse, delta, qt, kt, vt, ot, dot
@@ -710,11 +754,28 @@ def check_flash(FA):
 
     errs = both_routes(MAIN_ATTN)
     both_routes(WIDE_ATTN)
+    # Main path 8's other shapes: the ring's past pairs (the first main
+    # path to run the kernels non-causally) and its diagonal pair, and
+    # the 4 heads a rank that Ulysses and tp=2 run at the full T (ep and
+    # pp run MAIN_ATTN, held above).
+    B, T, H, D = RING_PAIR
+    ring_errs = _check_flash_case(FA, (B, T, H, H, D, bf16, False, None, 0),
+                                  gen, dev)
+    diag_errs = _check_flash_case(FA, (B, T, H, H, D, bf16, True, None, 0),
+                                  gen, dev)
+    B, T, H, D = HALF_HEADS
+    half_errs = _check_flash_case(FA, (B, T, H, H, D, bf16, True, None, 0),
+                                  gen, dev)
     results = _time_flash(FA, MAIN_ATTN, gen, dev, with_plain=True)
     wide = _time_flash(FA, WIDE_ATTN, gen, dev, with_plain=False)
+    ring = _time_flash(FA, RING_PAIR, gen, dev, with_plain=True,
+                       causal=False)
     for name, r in results.items():
         r["max_abs_err"] = errs[name]
         r["d128"] = wide[name]
+        r["ring_pair"] = dict(ring[name], max_abs_err=ring_errs[name])
+        r["ring_diag_max_abs_err"] = diag_errs[name]
+        r["half_heads_max_abs_err"] = half_errs[name]
     return results
 
 
@@ -983,7 +1044,13 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     for lines, s, recs, ev in zip(outs, summaries, steps, evals):
         require(math.isfinite(s["last_loss"]), f"non-finite loss {s}")
         s["step_losses"] = [rec["loss"] for rec in recs]
+        s["step_launches"] = [rec["launches"] for rec in recs]
         s["evals"] = ev
+        # Launches of a check's comparison (not of the main path).
+        s["check_launches"] = {}
+        for rec in recs:
+            for k, n in rec.get("check_launches", {}).items():
+                s["check_launches"][k] = s["check_launches"].get(k, 0) + n
         for tag in ("SUMMARY", "PROFILE", "EVAL"):
             for rec in _records(lines, tag):
                 log(phase, f"{tag} {json.dumps(rec)}")
@@ -1018,6 +1085,21 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
             require(diff <= tol, f"combine: kernels vs plain {diff} > {tol}")
             line += f"; rank 0 combine, kernels vs plain max_abs_diff=" \
                     f"{diff:.3g} (tol {tol:.3g})"
+            lc = recs[0]["ladder_check"]
+            require(lc["tree_bitwise"], "the XOR ladder's result is not "
+                    "bitwise the allgather-then-tree's on the same deltas")
+            line += (f"; the ladder bitwise the allgather + tree: ladder "
+                     f"{lc['ladder_ms']:.2f} ms, allgather "
+                     f"{lc['allgather_ms']:.2f} + tree {lc['tree_ms']:.2f} "
+                     f"ms (wall, between syncs)")
+            checked = True
+        if "dense_loss" in recs[0]:
+            rec = recs[0]
+            diff = abs(rec["dense_loss"] - rec["loss"])
+            require(diff <= LOSS_TOL, f"loss: mesh {rec['loss']} vs one "
+                    f"rank {rec['dense_loss']} (tol {LOSS_TOL})")
+            line += (f"; rank 0's one-rank loss {rec['dense_loss']:.6f}, "
+                     f"diff {diff:.3g} (tol {LOSS_TOL})")
             checked = True
         if "plain_loss" in recs[0]:
             rec = recs[0]
@@ -1041,6 +1123,8 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
                      f"{abs(rec['faulted_loss'] - rec['loss']):.3g}")
             checked = True
         log(phase, line)
+    if "--check-dense-step" in args:
+        require(checked, "no step compared the mesh's loss with one rank's")
     if "--check-plain-step" in args and (module == TRANSFORMER or
                                          "--use-adasum" in args):
         require(checked, "no step compared the kernels with the plain "
@@ -2043,6 +2127,86 @@ def train_wire(zero3_summaries):
     return results
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 17: the transformer over a mesh (main path 8)
+# ---------------------------------------------------------------------------
+
+MESH_ENV = {"HOROVOD_FLASH_ATTENTION": "1"}  # flash at T_local = 8192 too
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# name, mesh flags, other flags, layers
+MESH_RUNS = [
+    ("ring", ["--sp", "2"], [], 8),
+    ("ulysses", ["--sp", "2", "--attn", "ulysses"], [], 8),
+    ("tp", ["--tp", "2"], [], 8),
+    ("ep", ["--ep", "2", "--moe-every", "2", "--n-experts", "8"], [], 8),
+    ("pp", ["--pp", "2"], ["--batch-size", "2"], 8),
+]
+
+
+def expected_flash(name: str, s: dict) -> int:
+    """K4 (and K5, K6) launches per step on one rank of a mesh run: a
+    layer's attention once per layer; on the causal ring, rank i runs
+    the pairs with blocks i, ..., 0 (the future pairs are skipped); under
+    GPipe each stage runs its layers on every tick (M + pp - 1 of them,
+    M = pp microbatches), bubbles included."""
+    layers = s["n_layers"]
+    if name == "ring":
+        return layers * (s["coords"]["sp"] + 1)
+    if name == "pp":
+        pp = s["mesh"]["pp"]
+        return layers // pp * (2 * pp - 1)
+    return layers
+
+
+def train_mesh():
+    """Phase 17 (b)-(f): the default TransformerConfig at T = 16384 over
+    two gloo ranks on one card, through `make_train_step`: finite losses,
+    one digest of the full parameters per step, step 0's loss within
+    LOSS_TOL of rank 0's one-rank `reference_loss` on the same weights
+    and tokens, every K4-K6 launch on the tensor cores and as many per
+    rank and step as `expected_flash` says (the reference's launches
+    left out); tok/sec per rank, with and without the checks' wall time,
+    idle share and the mesh ranges' host ms from one profiled step
+    (whose `bench.check.digest` range gives the digest's share)."""
+    common = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+              "--num-iters", "3", "--log-steps", "--check-dense-step", "0",
+              "--profile", "1"]
+    out = {}
+    for name, mesh, extra, layers in MESH_RUNS:
+        t0 = time.perf_counter()
+        summaries = launch(f"mesh_{name}", 2, mesh + extra + common + [
+            "--n-layers", str(layers)], module=TRANSFORMER, env=MESH_ENV,
+            timeout=400, grow={n: None for n in FLASH_NAMES})
+        for s in summaries:
+            want = expected_flash(name, s)
+            per_step = []
+            before = dict.fromkeys(s["launches"], 0)
+            for i, cum in enumerate(s["step_launches"]):
+                got = {k: cum[k] - before[k] for k in cum}
+                if i == 0:
+                    got = {k: n - s["check_launches"].get(k, 0)
+                           for k, n in got.items()}
+                before = cum
+                per_step.append(got["flash_fwd"])
+                for n in FLASH_NAMES:
+                    require(got[n] == want and got[n + "_sm90"] == want,
+                            f"mesh_{name} rank {s['rank']} step {i}: {n} "
+                            f"{got[n]} launches, {got[n + '_sm90']} on the "
+                            f"tensor cores (want {want})")
+            log(f"mesh_{name}", f"rank {s['rank']} {s['coords']}: "
+                f"{s['tok_sec_per_rank']:.1f} tok/sec per rank (3 checked "
+                f"steps), {s['tok_sec_per_rank_net']:.1f} without the "
+                f"checks (their ms per step {s['check_ms_per_step']}), "
+                f"idle {s['device_idle_share']}, K4-K6 launches "
+                f"per step {per_step} (all tensor cores), host ms per step "
+                f"{s['ranges_ms_per_step']}, peak {s['peak_mem_gb']:.2f} "
+                f"GB, {layers} layers")
+        log(f"mesh_{name}", f"{time.perf_counter() - t0:.1f} s")
+        out[name] = summaries
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2147,10 +2311,15 @@ def main() -> int:
         f"rank beside this call's exact gloo bench_np2 hvd row "
         f"{bench['bench_np2']['value']:.2f}; "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = train_mesh()
+    log("train_mesh", f"{time.perf_counter() - t0:.1f} s")
 
+    # K1 and K2 on main path 1 (the ladder), net of the check's tree.
+    ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
+              for n, c in adasum_summaries[0]["launches"].items()}
     rows = [(fn.__name__, measured[str(torch.float32)][fn.__name__],
-             adasum_summaries[0]["launches"], "adasum_kernels.cu")
-            for fn in K.KERNELS]
+             ladder, "adasum_kernels.cu") for fn in K.KERNELS]
     # The main path's bf16 flash kernels at D = 64 are the tensor-core
     # ones (each row below requires all its launches there).
     rows += [(fn.__name__, flash[fn.__name__],
@@ -2184,9 +2353,20 @@ def main() -> int:
             # K4-K6: the tensor-core kernel's launches on the main path
             # (all of them), the CUDA-core kernel's time at this shape,
             # and both routes' times at WIDE_ATTN.
+            # Main path 8: each mesh run's launches per rank (net of the
+            # one-rank reference), the kernels at the ring's pair shape,
+            # non-causal, and their errors at the path's other shapes.
             row.update(cores="tensor (wgmma, sm90)",
                        sm90_launches=launches[name + "_sm90"],
-                       cuda_core_ms=m["cuda_core_ms"], d128=m["d128"])
+                       cuda_core_ms=m["cuda_core_ms"], d128=m["d128"],
+                       ring_pair=m["ring_pair"],
+                       ring_diag_max_abs_err=m["ring_diag_max_abs_err"],
+                       half_heads_max_abs_err=m["half_heads_max_abs_err"],
+                       mesh_launches={
+                           run: [s["launches"][name]
+                                 - s["check_launches"].get(name, 0)
+                                 for s in sums]
+                           for run, sums in mesh.items()})
             require(launches[name + "_sm90"] == launches[name],
                     f"{name}: {launches[name + '_sm90']} of "
                     f"{launches[name]} launches on the tensor cores")

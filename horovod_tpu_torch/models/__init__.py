@@ -12,11 +12,21 @@ from .resnet import STAGE_SIZES, ResNet, num_params  # noqa: F401
 from .inception import Inception3  # noqa: F401
 from .vgg import VGG16  # noqa: F401
 from .mnist import MnistNet, nll_loss  # noqa: F401
-from .transformer import Transformer, TransformerConfig, lm_loss  # noqa: F401
+from .transformer import (  # noqa: F401
+    Transformer,
+    TransformerConfig,
+    lm_loss,
+    make_train_step,
+    stack_for_pipeline,
+    transformer_init,
+    transformer_params,
+    transformer_pspecs,
+)
 from .convert import (  # noqa: F401
     inception_from_jax,
     mnist_from_jax,
     resnet_from_jax,
+    shard_from_jax,
     transformer_from_jax,
     vgg_from_jax,
     zoo_from_jax,

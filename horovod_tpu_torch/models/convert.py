@@ -168,11 +168,16 @@ def transformer_from_jax(params: Dict[str, Any],
                          cfg: TransformerConfig) -> Transformer:
     """params: {"embed", "final_norm": {"scale"}, "blocks": {"ln1":
     {"scale"}, "ln2": {"scale"}, "wq", "wk", "wv", "wo", "wi", "wg",
-    "wd"}} with a leading [n_layers] axis on every block leaf."""
-    if "moe" in params:
-        raise NotImplementedError("MoE parameters are not ported yet")
+    "wd"}} with a leading [n_layers] axis on every block leaf, and with
+    MoE layers "moe": {"gate": {"kernel"} [n_moe, D, E], "wi" [n_moe, E,
+    D, F], "wo" [n_moe, E, F, D]} (numpy or torch arrays)."""
     model = Transformer(cfg)
     blocks = params["blocks"]
+    moes = [b.moe for b in model.blocks if b.moe is not None]
+    if bool(moes) != ("moe" in params):
+        raise ValueError(f"{len(moes)} MoE layers in the config, "
+                         f"{'some' if 'moe' in params else 'none'} in the "
+                         "parameters")
     with torch.no_grad():
         model.embed.copy_(_tensor(params["embed"]))
         model.final_norm.copy_(_tensor(params["final_norm"]["scale"]))
@@ -182,7 +187,26 @@ def transformer_from_jax(params: Dict[str, Any],
             for name in ("wq", "wk", "wv", "wo", "wi", "wg", "wd"):
                 getattr(block, name).copy_(
                     _tensor(np.asarray(blocks[name])[i]))
+        for i, moe in enumerate(moes):
+            moe.gate.copy_(_tensor(np.asarray(
+                params["moe"]["gate"]["kernel"])[i]))
+            moe.wi.copy_(_tensor(np.asarray(params["moe"]["wi"])[i]))
+            moe.wo.copy_(_tensor(np.asarray(params["moe"]["wo"])[i]))
     return model
+
+
+def shard_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
+                   mesh) -> Dict[str, Any]:
+    """This rank's shards of the JAX parameters (the `transformer_init`
+    tree, not yet stacked for the pipeline), as numpy f32 arrays: the
+    tree stacked by `stack_for_pipeline` when pp > 1 and sliced by
+    `transformer_pspecs` at the rank's mesh coordinate, the
+    counterpart of the JAX `shard_state`'s placement."""
+    from .transformer import shard_params, tree_map
+
+    return tree_map(lambda a: np.ascontiguousarray(a),
+                    shard_params(tree_map(lambda a: np.asarray(
+                        a, np.float32), params), cfg, mesh))
 
 
 def zero_rows_from_jax(placement, rows) -> tuple:

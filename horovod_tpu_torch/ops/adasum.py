@@ -10,11 +10,16 @@ n = 2^k + r first folds the r residual entries into the leading ones
 with one pair combine each (unbalanced leaves), then runs the balanced
 tree; `adasum_reference` (numpy f64) defines the semantics for every n.
 
-Eager semantics are the JAX eager path's: allgather every rank's buffer
-into an (n, N) stack, then run `adasum_tree_reduce` locally on each rank.
-Every level's combine runs through the two CUDA kernels of
-`adasum_kernels` (the plain versions for tensors on the CPU), and every
-rank computes the same bits from the same stack.
+`adasum_allreduce` runs the JAX package's on-device route,
+`adasum_in_axis`: the XOR ladder over point-to-point hops.  At level d
+rank r exchanges its vector with rank r ^ d and combines, the lower
+index as `a`; a rank receives log2(n)·N elements where an allgather
+receives (n−1)·N.  `adasum_tree_reduce` on an allgathered (n, N) stack
+(the JAX eager path) is the plain route that the tests and the card
+check hold the ladder to: both pair the same vectors in the same
+order, so they agree bitwise.  Every level's combine runs through the
+two CUDA kernels of `adasum_kernels` (the plain versions for tensors on
+the CPU).
 """
 
 from __future__ import annotations
@@ -83,19 +88,58 @@ def adasum_tree_reduce(xs: torch.Tensor, plain: bool = False
     return xs[0]
 
 
+def adasum_in_axis(x: torch.Tensor,
+                   process_set: Optional[ProcessSet] = None
+                   ) -> torch.Tensor:
+    """Adasum over the set by the pairing ladder (JAX `adasum_in_axis`).
+
+    Level d = 1, 2, 4, ...: rank r exchanges its current vector with
+    rank r ^ d (one `isend`/`irecv` pair, posted together) and combines,
+    the lower index as `a`.  After log2(n) levels every rank holds what
+    `adasum_tree_reduce` computes on the stacked vectors.  For n = 2^k +
+    r, ranks k..n-1 first send their vectors to ranks 0..r-1, which
+    combine once more (the unbalanced leaves of the tree), sit out the
+    ladder, and receive the result with one last hop."""
+    from . import collectives as C
+
+    ps = C._resolve_set(process_set)
+    n, idx = ps.size(), ps.rank()
+    v = x.detach()
+    k = _pow2_floor(n)
+    r = n - k
+    if r and (idx >= k or idx < r):
+        w = torch.empty_like(v) if idx < r else None
+        C.sendrecv(ps, v if idx >= k else None, idx - k, w, k + idx)
+        if idx < r:
+            v = _pair_combine(v, w)
+    d = 1
+    while d < k:
+        if idx < k:
+            w = torch.empty_like(v)
+            C.sendrecv(ps, v, idx ^ d, w, idx ^ d)
+            v = _pair_combine(v, w) if idx & d == 0 else _pair_combine(w, v)
+        d *= 2
+    if r and (idx >= k or idx < r):
+        w = torch.empty_like(v) if idx >= k else None
+        C.sendrecv(ps, v if idx < r else None, k + idx, w, idx - k)
+        if idx >= k:
+            v = w
+    return v
+
+
 def adasum_allreduce(tensor: torch.Tensor,
                      process_set: Optional[ProcessSet] = None
                      ) -> torch.Tensor:
-    """Eager entry used by `allreduce(op=Adasum)`: allgather into an
-    (n, *shape) stack, then reduce it locally."""
+    """Eager entry used by `allreduce(op=Adasum)`: the ladder
+    (`adasum_in_axis`) when the set has more than one rank, else a copy
+    of the tensor (allreduce returns a new tensor)."""
     from . import collectives as C
 
-    with record_function("hvd.adasum.allgather"):
-        # Every rank's buffer has the same shape: no size exchange.
-        xs = C._allgather_start(tensor.detach().unsqueeze(0),
-                                C._resolve_set(process_set)).wait()
-    with record_function("hvd.adasum.tree"):
-        return adasum_tree_reduce(xs)
+    ps = C._resolve_set(process_set)
+    if ps.size() == 1:
+        return tensor.detach().clone()
+    with record_function("hvd.adasum.ladder"):
+        return adasum_in_axis(tensor, ps)
 
 
 def adasum_reference(arrays):

@@ -42,7 +42,9 @@ uses (torch 2.11 on an H100: tests/test_torch_port_cuda.py and
 chip_smoke.py phase `surface_np2` run these collectives on the card
 over gloo), so every backend gets the tensors where they lie.
 Allgather, broadcast and alltoall move raw bytes (a uint8 view), so
-every dtype takes the same path.
+every dtype takes the same path.  Gloo's send and receive take host
+buffers only: `sendrecv` stages a CUDA tensor through host memory
+there.
 """
 
 from __future__ import annotations
@@ -591,6 +593,43 @@ def join(process_set: Optional[ProcessSet] = None) -> int:
     from now on this rank contributes zeros to every collective of the
     others until all ranks have joined; returns the last rank to join."""
     return _join.join(process_set)
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point (the quantized ring's hops, the Adasum ladder, ppermute)
+# ---------------------------------------------------------------------------
+
+def _staged(ps: ProcessSet, t: torch.Tensor) -> bool:
+    """Whether a point-to-point op of `t` goes through host memory: gloo
+    sends and receives host buffers only."""
+    return t.is_cuda and dist.get_backend(ps.comm) == "gloo"
+
+
+def sendrecv(ps: ProcessSet, send: Optional[torch.Tensor],
+             dst: Optional[int], recv: Optional[torch.Tensor],
+             src: Optional[int]) -> None:
+    """Send `send` to set rank `dst` and receive into `recv` from set
+    rank `src`, both posted together (`batch_isend_irecv`), then wait.
+    Either side may be None.  Nothing to do on a set of one rank."""
+    if ps.comm is None:
+        if send is not None and recv is not None:
+            recv.copy_(send)
+        return
+    ops, host = [], None
+    if send is not None and dst is not None:
+        s = send.cpu() if _staged(ps, send) else send.contiguous()
+        ops.append(dist.P2POp(dist.isend, s, ps.ranks[dst], group=ps.comm))
+    if recv is not None and src is not None:
+        host = (torch.empty_like(recv, device="cpu")
+                if _staged(ps, recv) else None)
+        ops.append(dist.P2POp(dist.irecv, recv if host is None else host,
+                              ps.ranks[src], group=ps.comm))
+    if not ops:
+        return
+    works = _launch(dist.batch_isend_irecv, ops)
+    _Pending(works, lambda: None).wait()
+    if host is not None:
+        recv.copy_(host)
 
 
 # ---------------------------------------------------------------------------

@@ -82,26 +82,11 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]
     return tuple(out)
 
 
-def _staged(ps: ProcessSet, t: torch.Tensor) -> bool:
-    """Whether a point-to-point op of `t` goes through host memory: gloo
-    sends and receives host buffers only."""
-    return t.is_cuda and dist.get_backend(ps.comm) == "gloo"
-
-
 def _hop(ps: ProcessSet, send: torch.Tensor, recv: torch.Tensor) -> None:
     """One ring hop: send `send` to the next rank of the set and receive
     `recv` from the previous one, both posted together."""
     n, i = ps.size(), ps.rank()
-    dst, src = ps.ranks[(i + 1) % n], ps.ranks[(i - 1) % n]
-    stage = _staged(ps, send)
-    s = send.cpu() if stage else send
-    r = torch.empty_like(recv, device="cpu") if stage else recv
-    works = C._launch(dist.batch_isend_irecv, [
-        dist.P2POp(dist.isend, s, dst, group=ps.comm),
-        dist.P2POp(dist.irecv, r, src, group=ps.comm)])
-    C._Pending(works, lambda: None).wait()
-    if stage:
-        recv.copy_(r)
+    C.sendrecv(ps, send, (i + 1) % n, recv, (i - 1) % n)
 
 
 def _gather_start(ps: ProcessSet, buf: torch.Tensor

@@ -131,29 +131,53 @@ def profile_summary(trace: dict, wall_s: float, steps: int, on_card: bool,
 
 
 def _check_plain_combine(opt) -> dict:
-    """Wrap the Adasum optimizer's delta reduction for one step: gather
-    the fused delta buffer (in the wire dtype of the optimizer's
-    compression), rerun the tree with the plain versions of the kernels,
-    and return the largest difference from the kernels' result (on
-    rank 0; nothing elsewhere)."""
+    """Wrap the Adasum optimizer's delta reduction (the XOR ladder) for
+    one step: gather the fused delta buffer (in the wire dtype of the
+    optimizer's compression), and on rank 0 rerun the tree on the stack
+    with the plain versions of the kernels (the largest difference from
+    the ladder's result) and with the kernels (`tree_bitwise`: the
+    ladder must equal it bit for bit).  Also the wall ms of the ladder,
+    of the allgather and of the kernel tree (each between syncs), and
+    `check_launches`, the launches of that comparison tree."""
     reduce = opt._reduce_deltas
     result = {}
 
+    def timed(fn):
+        _sync_all()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_all()
+        return out, (time.perf_counter() - t0) * 1e3
+
     def checked(deltas):
-        out = reduce(deltas)
+        out, result["ladder_ms"] = timed(lambda: reduce(deltas))
         fused, ctx = opt._compression.compress(
             torch.cat([d.reshape(-1) for d in deltas]))
-        stack = hvd.allgather(fused[None])
+        stack, result["allgather_ms"] = timed(
+            lambda: hvd.allgather(fused[None]))
         if hvd.rank() == 0:
+            got = torch.cat([o.reshape(-1) for o in out])
+            before = adasum_kernels.launch_counts()
+            tree, result["tree_ms"] = timed(
+                lambda: adasum.adasum_tree_reduce(stack))
+            after = adasum_kernels.launch_counts()
+            result["check_launches"] = {k: after[k] - before[k]
+                                        for k in after}
+            result["tree_bitwise"] = bool(torch.equal(
+                opt._compression.decompress(tree, ctx), got))
             plain = opt._compression.decompress(
                 adasum.adasum_tree_reduce(stack, plain=True), ctx)
-            got = torch.cat([o.reshape(-1) for o in out])
             result["diff"] = float((got - plain).abs().max())
             result["max_abs"] = float(plain.abs().max())
         return out
 
     opt._reduce_deltas = checked
     return result
+
+
+def _sync_all() -> None:
+    if torch.cuda.is_available() and hvd.device().type == "cuda":
+        torch.cuda.synchronize(hvd.device())
 
 
 def _check_ring(opt) -> dict:
@@ -224,7 +248,9 @@ def main(argv=None) -> int:
                         "a PROFILE line (per-step breakdown)")
     p.add_argument("--check-plain-step", type=int, default=-1,
                    help="Adasum: on this step, rank 0 reruns the combine "
-                        "with the plain versions and prints the difference")
+                        "on the gathered stack with the plain versions and "
+                        "with the kernels (bitwise the ladder), timing both "
+                        "routes")
     p.add_argument("--check-wire-step", type=int, default=-1,
                    help="on this step, rank 0 holds its ring results to "
                         "the plain ring model over every rank's inputs")
@@ -305,6 +331,9 @@ def main(argv=None) -> int:
             if check is not None and "diff" in check:
                 rec["plain_max_abs_diff"] = check["diff"]
                 rec["plain_max_abs"] = check["max_abs"]
+                rec["ladder_check"] = {k: check[k] for k in (
+                    "tree_bitwise", "ladder_ms", "allgather_ms", "tree_ms")}
+                rec["check_launches"] = check["check_launches"]
             print("STEP " + json.dumps(rec), flush=True)
         step_no += 1
 

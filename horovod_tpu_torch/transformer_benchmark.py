@@ -42,10 +42,34 @@ gathered head (`eval_exact_rel`), and under an allgather wire each STEP
 line gives the largest |f32 master − decoded parameter| of this rank's
 shards (`master_wire_diff`).
 
+The mesh (`--tp --pp --ep --sp`, and `--dp`, by default the rest of
+the world size; `--attn ring|ulysses`, `--moe-every`, `--n-experts`,
+`--n-kv-heads`, `--attn-window`: examples/transformer_lm.py's flags):
+whenever tp, pp, ep or sp is above 1, the step is
+`models.transformer.make_train_step` over `create_hybrid_mesh` (GPipe
+with pp microbatches): each rank holds its shards of one seeded model
+and AdamW over them; the global
+batch is `--batch-size` rows per data shard (dp·ep of them) of seeded
+tokens, the same on every rank, and each rank takes its block.  STEP
+lines carry the loss (the global one, the same on every rank), the
+launch counts and the SHA-256 of the full parameters gathered from the
+shards (the same on every rank); `--check-dense-step S` adds to step
+S's line rank 0's `reference_loss` (the dense layers on one rank, the
+MoE layers routing per shard as the mesh does) on the same parameters
+and tokens.  SUMMARY adds the mesh, tok/sec per rank (the global
+batch's tokens over the world size), the same rate without the checks
+(`tok_sec_per_rank_net`: the reference and the digests run in the
+ranges `bench.check.reference` and `bench.check.digest`, timed between
+syncs, and `check_ms_per_step` gives their wall ms per step of each
+iteration) and, with `--profile`, the host ms per step in the mesh's
+ranges (`hvd.sp.hop`, `hvd.sp.a2a`, `hvd.tp.psum`, `hvd.ep.a2a`,
+`hvd.pp.hop`, ...) and the idle share.
+
 Run:  python -m horovod_tpu_torch.transformer_benchmark --num-iters 3
 CPU:  python -m horovod_tpu_torch.transformer_benchmark --device cpu \\
           --vocab-size 256 --d-model 64 --n-heads 2 --d-head 32 \\
           --d-ff 128 --n-layers 2 --seq-len 128 --log-steps
+      (add --sp 2 under two ranks for the ring over the sequence)
 Multi-process: HOROVOD_COORDINATOR_ADDR, HOROVOD_NUM_PROCESSES,
 HOROVOD_PROCESS_ID (and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE) per rank.
 """
@@ -53,6 +77,7 @@ HOROVOD_PROCESS_ID (and HOROVOD_LOCAL_RANK / HOROVOD_LOCAL_SIZE) per rank.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -66,6 +91,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import Transformer, TransformerConfig, \
     lm_loss, num_params
+from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
 from horovod_tpu_torch.ops import matmul_kernels as mk
 from horovod_tpu_torch.synthetic_benchmark import param_digest, \
@@ -140,6 +167,153 @@ def _check_plain_attention(model, x, y, logits) -> dict:
     return rec
 
 
+def _profiled(one_step, steps: int, dev, sync) -> dict:
+    """Profile `steps` calls of `one_step`: profile_summary's record."""
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        sync()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return profile_summary(trace, wall, steps, on_card=dev.type == "cuda")
+
+
+def run_mesh(args, cfg: TransformerConfig, dev) -> int:
+    """The trainer over a hybrid mesh (see the module docstring)."""
+    mesh = create_hybrid_mesh(dp=args.dp, pp=args.pp, ep=args.ep,
+                              tp=args.tp, sp=args.sp)
+    shape = {a: n for a, n in mesh.shape.items() if n > 1}
+    opt_fn = functools.partial(torch.optim.AdamW, lr=3e-4,
+                               betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=1e-4)
+    step, shard_state, shard_batch = T.make_train_step(mesh, cfg, opt_fn)
+    params = T.transformer_init(0, cfg)
+    n_params = sum(a.numel() for _, a in T.tree_leaves(params))
+    shards, opt = shard_state(params)
+    del params
+    rows = args.batch_size * mesh.size("dp") * mesh.size("ep")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (rows, args.seq_len + 1)))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    batch = shard_batch((x, y))
+    pp = mesh.size("pp")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def full_params():
+        full = T.unshard(shards, cfg, mesh)
+        return T.unstack_pipeline(full) if pp > 1 else full
+
+    step_no = 0
+    last_loss = float("nan")
+    check_s = 0.0
+
+    def checked(name, fn):
+        """Run a check in its own range, between syncs and followed by a
+        barrier (so that a rank waiting for rank 0's reference waits
+        here), and add its wall time to `check_s`."""
+        nonlocal check_s
+        sync()
+        t0 = time.perf_counter()
+        with record_function(name):
+            out = fn()
+            sync()
+            hvd.barrier()
+        check_s += time.perf_counter() - t0
+        return out
+
+    def dense_check() -> dict:
+        full = full_params()
+        if hvd.rank() != 0:
+            return {}
+        before = launch_counts()
+        loss = T.reference_loss(full, x.to(dev), y.to(dev), cfg,
+                                dp=mesh.size("dp"), ep=mesh.size("ep"),
+                                pp=pp)
+        after = launch_counts()
+        return {"dense_loss": loss,
+                "check_launches": {k: after[k] - before[k] for k in after}}
+
+    def one_step():
+        nonlocal step_no, last_loss
+        check = {}
+        if step_no == args.check_dense_step:
+            check = checked("bench.check.reference", dense_check)
+        _, _, loss = step(shards, opt, batch)
+        last_loss = loss
+        if args.log_steps:
+            sync()
+            rec = {"step": step_no, "rank": hvd.rank(),
+                   "loss": float(loss), "launches": launch_counts(),
+                   "digest": checked("bench.check.digest", lambda:
+                                     T.tree_digest(full_params())),
+                   **check}
+            print("STEP " + json.dumps(rec), flush=True)
+        step_no += 1
+
+    if hvd.rank() == 0:
+        print(f"Model: transformer ({n_params} params, {cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, moe_every {cfg.moe_every}), "
+              f"seq {args.seq_len}, global batch {rows}, mesh {shape}, "
+              f"attn {cfg.attn_impl}, device {dev}, backend "
+              f"{hvd.backend()}", flush=True)
+    reset_launch_counts()
+    for _ in range(args.num_warmup_batches):
+        one_step()
+    sync()
+    tok_secs, net_tok_secs, checks_ms = [], [], []
+    tokens_per_iter = rows * args.seq_len * args.num_batches_per_iter
+    for i in range(args.num_iters):
+        check_s = 0.0
+        t0 = time.perf_counter()
+        for _ in range(args.num_batches_per_iter):
+            one_step()
+        sync()
+        dt = time.perf_counter() - t0
+        tok_sec = tokens_per_iter / dt / hvd.size()
+        if hvd.rank() == 0:
+            print(f"Iter #{i}: {tok_sec:.1f} tok/sec per rank", flush=True)
+        tok_secs.append(tok_sec)
+        net_tok_secs.append(tokens_per_iter / (dt - check_s) / hvd.size())
+        checks_ms.append(check_s * 1e3 / args.num_batches_per_iter)
+    profiled = None
+    if args.profile:
+        profiled = _profiled(one_step, args.profile, dev, sync)
+        print("PROFILE " + json.dumps(dict(profiled, rank=hvd.rank())),
+              flush=True)
+    summary = {"rank": hvd.rank(), "size": hvd.size(), "mesh": shape,
+               "coords": {a: mesh.index(a) for a in shape},
+               "attn": cfg.attn_impl, "moe_every": cfg.moe_every,
+               "tok_sec_per_rank": float(np.mean(tok_secs)),
+               "tok_sec_std": float(np.std(tok_secs)),
+               # The same iterations without the checks' wall time (the
+               # dense reference, the digests), and that time per step
+               # in each iteration.
+               "tok_sec_per_rank_net": float(np.mean(net_tok_secs)),
+               "check_ms_per_step": checks_ms,
+               "steps": step_no, "last_loss": float(last_loss),
+               "launches": launch_counts(), "n_layers": cfg.n_layers,
+               "ranges_ms_per_step": (profiled or {}).get(
+                   "ranges_ms_per_step"),
+               "device_idle_share": (profiled or {}).get(
+                   "device_idle_share"),
+               "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None),
+               "device": str(dev), "backend": hvd.backend()}
+    print("SUMMARY " + json.dumps(summary), flush=True)
+    hvd.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--vocab-size", type=int, default=32000)
@@ -170,6 +344,20 @@ def main(argv=None) -> int:
                         "parameters in a zero3_placement")
     p.add_argument("--eval-every", type=int, default=0,
                    help="a held-out forward every N steps (EVAL line)")
+    for axis in ("tp", "pp", "ep", "sp"):
+        p.add_argument(f"--{axis}", type=int, default=1,
+                       help=f"mesh axis {axis} (make_train_step when > 1)")
+    p.add_argument("--dp", type=int, default=-1,
+                   help="mesh axis dp (default: the rest of the world)")
+    p.add_argument("--attn", default="ring", choices=("ring", "ulysses"),
+                   help="sequence parallelism over sp")
+    p.add_argument("--moe-every", type=int, default=0)
+    p.add_argument("--n-experts", type=int, default=8)
+    p.add_argument("--n-kv-heads", type=int, default=0)
+    p.add_argument("--attn-window", type=int, default=0)
+    p.add_argument("--check-dense-step", type=int, default=-1,
+                   help="mesh: on this step rank 0 computes the loss on "
+                        "one rank (reference_loss)")
     args = p.parse_args(argv)
 
     hvd.init(device=args.device)
@@ -179,7 +367,12 @@ def main(argv=None) -> int:
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_heads=args.n_heads, d_head=args.d_head, d_ff=args.d_ff,
-        n_layers=args.n_layers, compute_dtype=torch.bfloat16)
+        n_layers=args.n_layers, compute_dtype=torch.bfloat16,
+        moe_every=args.moe_every, n_experts=args.n_experts,
+        attn_impl=args.attn, n_kv_heads=args.n_kv_heads,
+        attn_window=args.attn_window)
+    if max(args.tp, args.pp, args.ep, args.sp) > 1:
+        return run_mesh(args, cfg, dev)
     model = Transformer(cfg, seed=hvd.rank()).to(dev)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
                             betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
@@ -351,21 +544,7 @@ def main(argv=None) -> int:
         tok_secs.append(tok_sec)
 
     if args.profile:
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.profile):
-                one_step()
-            sync()
-            wall = time.perf_counter() - t0
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                trace = json.load(f)
-        profiled = profile_summary(trace, wall, args.profile,
-                                   on_card=dev.type == "cuda")
+        profiled = _profiled(one_step, args.profile, dev, sync)
         print("PROFILE " + json.dumps(dict(profiled, rank=hvd.rank())),
               flush=True)
 

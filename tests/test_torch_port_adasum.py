@@ -4,6 +4,14 @@ and without) and against the f64 `adasum_reference` model.
 
 Tolerance: f32 rtol 1e-5 / atol 1e-6 against JAX (the dot and norm sums
 are f32 in another order), 1e-4 relative against the f64 model.
+
+The XOR ladder (`adasum_in_axis`, the route of `allreduce(op=Adasum)`)
+runs at n = 2, 3, 4 and 5 gloo ranks on the CPU: on every rank it is
+bitwise `adasum_tree_reduce` of the gathered stack (the same pairs in
+the same order; K1's plain per-row sums do not depend on how many rows
+a call holds), in f32, bf16 and f16 and with a zero-norm rank, and in
+f32 within 1e-5 of the largest value of the f64 `adasum_reference`.
+On one rank, Adasum's allreduce returns a new tensor equal to its input.
 """
 
 import jax.numpy as jnp
@@ -11,8 +19,31 @@ import numpy as np
 import pytest
 import torch
 
+import horovod_tpu_torch as hvd
 from horovod_tpu.ops import adasum as JA
 from horovod_tpu_torch.ops import adasum as TA
+from test_torch_port_collectives import no_launcher_env, run_world  # noqa: F401
+
+LADDER_WORKER = r'''
+import sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import adasum as A
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r, device="cpu")
+xs = torch.load(f"{out_dir}/inputs.pt", weights_only=False)
+res = {}
+for key, stack in xs.items():
+    x = torch.from_numpy(stack[r])
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        res[(key, str(dt), "ladder")] = A.adasum_in_axis(x.to(dt))
+        res[(key, str(dt), "stack")] = hvd.allgather(x.to(dt)[None])
+    res[(key, "allreduce")] = hvd.allreduce(x, op=hvd.Adasum)
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
 
 
 def _stack(n, shape=(4, 64), seed=0, zero_rank=None):
@@ -105,3 +136,57 @@ def test_plain_flag_matches_kernel_path_on_cpu(n):
     xs = torch.from_numpy(_stack(n, seed=40))
     assert torch.equal(TA.adasum_tree_reduce(xs),
                        TA.adasum_tree_reduce(xs, plain=True))
+
+
+@pytest.fixture(scope="module", params=[2, 3, 4, 5], ids=lambda n: f"np{n}")
+def ladder_world(request, tmp_path_factory):
+    n = request.param
+    tmp = tmp_path_factory.mktemp(f"ladder{n}")
+    xs = {"dense": _stack(n, (3, 50), seed=n),
+          "zero": _stack(n, (130,), seed=10 + n, zero_rank=n - 1)}
+    torch.save(xs, tmp / "inputs.pt")
+    return n, xs, run_world(tmp, n, LADDER_WORKER)
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16",
+                                   "torch.float16"])
+@pytest.mark.parametrize("key", ["dense", "zero"])
+def test_ladder_is_bitwise_the_tree_on_the_gathered_stack(ladder_world, key,
+                                                          dtype):
+    n, _, res = ladder_world
+    want = TA.adasum_tree_reduce(res[0][(key, dtype, "stack")])
+    for d in res:
+        assert torch.equal(d[(key, dtype, "stack")],
+                           res[0][(key, dtype, "stack")])
+        assert d[(key, dtype, "ladder")].dtype == want.dtype
+        assert torch.equal(d[(key, dtype, "ladder")], want), n
+
+
+@pytest.mark.parametrize("key", ["dense", "zero"])
+def test_ladder_matches_f64_reference(ladder_world, key):
+    n, xs, res = ladder_world
+    want = TA.adasum_reference(list(xs[key]))
+    for d in res:
+        for got in (d[(key, "torch.float32", "ladder")],
+                    d[(key, "allreduce")]):
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        assert torch.equal(d[(key, "allreduce")],
+                           d[(key, "torch.float32", "ladder")])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_rank_allreduce_returns_a_new_tensor(dtype):
+    """On a set of one rank the ladder has no level: Adasum's allreduce
+    returns a copy equal to its input, not the input's storage."""
+    hvd.init(device="cpu")
+    try:
+        x = torch.randn(4, 33, generator=torch.Generator().manual_seed(0)
+                        ).to(dtype)
+        out = hvd.allreduce(x, op=hvd.Adasum)
+        assert torch.equal(out, x) and out.dtype == dtype
+        assert out.data_ptr() != x.data_ptr()
+        out.add_(1)
+        assert not torch.equal(out, x)
+    finally:
+        hvd.shutdown()

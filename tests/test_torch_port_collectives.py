@@ -26,6 +26,24 @@ from horovod_tpu.ops import collectives as JC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# What a launcher puts in the environment.  Another test of the same
+# process may have left it there (horovod_tpu.ray's worker actor sets it
+# in os.environ): `hvd.init()` in this process would then wait for a
+# coordinator that is gone, and a world's ranks would read another local
+# rank.
+LAUNCHER_ENV = ("HOROVOD_COORDINATOR_ADDR", "HOROVOD_NUM_PROCESSES",
+                "HOROVOD_PROCESS_ID", "HOROVOD_LOCAL_RANK",
+                "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK",
+                "HOROVOD_CROSS_SIZE")
+
+
+@pytest.fixture(autouse=True)
+def no_launcher_env(monkeypatch):
+    """Every test starts without LAUNCHER_ENV (the port's test modules
+    that start ranks or call `hvd.init()` import this fixture)."""
+    for k in LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+
 # Inputs per rank r: the worker and the tests both build them from seeds.
 WORKER = r'''
 import sys
@@ -122,9 +140,7 @@ def run_world(tmp_path, n: int, source: str, timeout: float = 240):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
         OMP_NUM_THREADS="1")
-    for k in ("HOROVOD_COORDINATOR_ADDR", "HOROVOD_NUM_PROCESSES",
-              "HOROVOD_PROCESS_ID", "HOROVOD_LOCAL_RANK",
-              "HOROVOD_LOCAL_SIZE"):
+    for k in LAUNCHER_ENV:
         env.pop(k, None)
     procs = [subprocess.Popen(
         [sys.executable, "-c", source, str(tmp_path), str(n), str(r), url],

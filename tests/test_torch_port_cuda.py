@@ -795,3 +795,110 @@ def test_codecs_on_card_are_bitwise_the_cpu(cuda, wire):
     assert not bad.numel(), (f"decode differs at {bad.tolist()}: cpu "
                              f"{dec_c[bad].tolist()}, card "
                              f"{dec_g[bad].tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# The mesh on the card: the Adasum ladder and the flash ring over gloo
+# ---------------------------------------------------------------------------
+
+MESH_WORKER = r'''
+import os, sys
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import adasum
+from horovod_tpu_torch.ops import flash_attention as FA
+from horovod_tpu_torch.parallel import sequence as S
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r)
+dev = hvd.device()
+res = {}
+x = torch.randn(70001, generator=torch.Generator().manual_seed(r))
+for dt in (torch.float32, torch.bfloat16, torch.float16):
+    res[f"ladder_{dt}"] = adasum.adasum_in_axis(x.to(dev, dt)).cpu()
+    res[f"stack_{dt}"] = hvd.allgather(x.to(dev, dt)[None]).cpu()
+ps = hvd.global_process_set()
+for name, (H, Hkv, causal, dt) in {
+        "bf16_causal": (4, 4, True, torch.bfloat16),
+        "bf16_dense": (4, 4, False, torch.bfloat16),
+        "bf16_gqa": (4, 2, True, torch.bfloat16),
+        "f32_causal": (2, 2, True, torch.float32)}.items():
+    g = torch.Generator().manual_seed(100 + r)
+    base = [torch.randn(1, 128, h, 64, generator=g) for h in (H, Hkv, Hkv, H)]
+    for where, flash in (("card", "1"), ("cpu", "1"), ("blockwise", "0")):
+        os.environ["HOROVOD_FLASH_ATTENTION"] = flash
+        d = "cpu" if where == "cpu" else dev
+        q, k, v, c = (t.to(d, dt if i < 3 else torch.float32).detach()
+                      .requires_grad_(i < 3) for i, t in enumerate(base))
+        before = FA.sm90_launch_counts()
+        out = S.ring_attention_shard(q, k, v, ps, causal=causal)
+        (out.float() * c).sum().backward()
+        after = FA.sm90_launch_counts()
+        res[(name, where)] = [t.detach().float().cpu()
+                              for t in (out, q.grad, k.grad, v.grad)]
+        res[(name, where, "sm90")] = after["flash_fwd"] - before["flash_fwd"]
+res["launches"] = FA.launch_counts()
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
+
+
+@pytest.fixture(scope="module")
+def mesh_on_card(tmp_path_factory):
+    """Three ranks on card 0 over gloo: the Adasum ladder (a residual
+    fold, one level, the result back) and the sp=3 flash ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp = tmp_path_factory.mktemp("mesh_card")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    url = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER, str(tmp), "3", str(r), url],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(3)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_ladder_on_card_is_bitwise_the_kernel_tree(mesh_on_card, dtype):
+    """The ladder pairs the same vectors in the same order as the tree on
+    the gathered stack, through the same kernels: bitwise."""
+    stack = mesh_on_card[0][f"stack_{dtype}"].cuda()
+    want = adasum.adasum_tree_reduce(stack).cpu()
+    for d in mesh_on_card:
+        assert torch.equal(d[f"ladder_{dtype}"], want)
+
+
+@pytest.mark.parametrize("name", ["bf16_causal", "bf16_dense", "bf16_gqa",
+                                  "f32_causal"])
+def test_flash_ring_on_card_matches_its_plain_engine(mesh_on_card, name):
+    """The sp=3 flash ring on the card (bf16 on the tensor-core K4-K6,
+    f32 on the CUDA cores; causal diagonal pairs, non-causal past pairs,
+    skipped future pairs) against the same ring on the CPU (the kernels'
+    plain versions) and against the blockwise ring on the card: output
+    and input gradients within the dtype's flash tolerance (2^-6 bf16,
+    1e-4 f32) of their largest value."""
+    tol = 2 ** -6 if name.startswith("bf16") else 1e-4
+    for r, d in enumerate(mesh_on_card):
+        want_launches = (r + 1) if name != "bf16_dense" else 3
+        assert d[(name, "card", "sm90")] == (
+            want_launches if name.startswith("bf16") else 0)
+        for other in ("cpu", "blockwise"):
+            for got, want in zip(d[(name, "card")], d[(name, other)]):
+                err = float((got - want).abs().max())
+                assert err <= tol * float(want.abs().max()), (name, other,
+                                                              err)

@@ -19,6 +19,8 @@ from horovod_tpu_torch.common.exceptions import HorovodTpuError
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch import torch as hvd_torch
 
+from test_torch_port_collectives import no_launcher_env  # noqa: F401 (autouse)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "horovod_tpu_torch"
 
@@ -47,6 +49,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "horovod_tpu_torch.parallel.optimizer, "
         "horovod_tpu_torch.parallel.zero3, "
         "horovod_tpu_torch.parallel.data_parallel, "
+        "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.moe, "
+        "horovod_tpu_torch.parallel.pipeline, "
+        "horovod_tpu_torch.parallel._collectives, "
         "horovod_tpu_torch.utils.autotune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"

@@ -23,6 +23,7 @@ import torch
 from horovod_tpu import models as JM
 from horovod_tpu_torch import models as TM
 
+from test_torch_port_collectives import no_launcher_env  # noqa: F401 (autouse)
 from test_torch_port_zoo import _assert_rel, _host, _nchw, _to_jax_kernel
 
 

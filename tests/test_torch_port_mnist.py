@@ -30,6 +30,7 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch import models as TM
 from horovod_tpu_torch import torch_mnist
 
+from test_torch_port_collectives import no_launcher_env  # noqa: F401 (autouse)
 from test_torch_port_trainer import run_world
 
 

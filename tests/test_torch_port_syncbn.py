@@ -24,7 +24,7 @@ from horovod_tpu.models import layers as JL
 from horovod_tpu.models import resnet as JR
 from horovod_tpu_torch.models.convert import resnet_from_jax
 
-from test_torch_port_collectives import run_world
+from test_torch_port_collectives import no_launcher_env, run_world  # noqa: F401
 
 C, N, HW = 6, 3, 5          # channels, batch per rank, spatial size
 RES_BATCH, RES_CLASSES = 4, 10

@@ -32,6 +32,8 @@ import torch
 from horovod_tpu.ops import adasum as JA
 from horovod_tpu.ops import collectives as JC
 
+from test_torch_port_collectives import LAUNCHER_ENV
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NP = 2
 
@@ -153,9 +155,7 @@ def run_world(tmp_path, n: int, source: str, timeout: float = 300):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
         OMP_NUM_THREADS="1")
-    for k in ("HOROVOD_COORDINATOR_ADDR", "HOROVOD_NUM_PROCESSES",
-              "HOROVOD_PROCESS_ID", "HOROVOD_LOCAL_RANK",
-              "HOROVOD_LOCAL_SIZE", "HOROVOD_FUSION_THRESHOLD"):
+    for k in LAUNCHER_ENV + ("HOROVOD_FUSION_THRESHOLD",):
         env.pop(k, None)
     procs = [subprocess.Popen(
         [sys.executable, "-c", source, str(tmp_path), str(n), str(r), url],

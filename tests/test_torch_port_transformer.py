@@ -27,6 +27,7 @@ from horovod_tpu.models import transformer as JT
 from horovod_tpu.parallel import sequence as JS
 from horovod_tpu_torch.models import Transformer, TransformerConfig, \
     transformer_from_jax
+from horovod_tpu_torch.models.transformer import transformer_params
 from horovod_tpu_torch.ops import flash_attention as FA
 from horovod_tpu_torch.parallel import sequence as TS
 
@@ -156,8 +157,15 @@ def test_config_validation_and_moe_refusal():
         TransformerConfig(n_heads=8, n_kv_heads=3)
     assert TransformerConfig(n_kv_heads=2).kv_heads == 2
     assert TransformerConfig().kv_heads == 8
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Transformer(TransformerConfig(**SMALL, moe_every=2))
+    # MoE layers are ported: every moe_every-th layer holds one, and the
+    # converter refuses a tree whose MoE leaves do not match the config.
+    cfg = TransformerConfig(**SMALL, moe_every=2)
+    model = Transformer(cfg)
+    assert [b.moe is not None for b in model.blocks] == [
+        (i + 1) % 2 == 0 for i in range(cfg.n_layers)]
+    dense = transformer_params(Transformer(TransformerConfig(**SMALL)))
+    with pytest.raises(ValueError, match="MoE"):
+        transformer_from_jax(dense, cfg)
 
 
 # ---------------------------------------------------------------------------

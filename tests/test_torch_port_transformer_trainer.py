@@ -4,7 +4,8 @@
   rendezvous under tmp), each rank on half the batch, against one
   single-process step on the whole batch; the tied embedding's hook;
   `broadcast_optimizer_state` on AdamW's state.
-- `python -m horovod_tpu_torch.transformer_benchmark` on two CPU ranks.
+- `python -m horovod_tpu_torch.transformer_benchmark` on two CPU ranks,
+  data parallel and over sp=2.
 
 Tolerances are stated at each test.
 """
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_collectives import no_launcher_env  # noqa: F401 (autouse)
 from test_torch_port_trainer import REPO, run_world
 
 
@@ -131,12 +133,10 @@ def test_broadcast_optimizer_state_carries_adamw_state(adamw_world):
         assert torch.equal(m0, m1) and torch.equal(v0, v1)
 
 
-def test_the_trainer_on_two_cpu_ranks(tmp_path):
-    """`python -m horovod_tpu_torch.transformer_benchmark` at a small
-    size on two gloo ranks, the flash path's plain versions forced on:
-    finite losses, one parameter digest per step, and rank 0's logits
-    and loss with K4's plain version equal to the trained ones (the same
-    function on the CPU), while the non-causal fault moves the logits."""
+def _run_trainer(tmp_path, extra):
+    """`python -m horovod_tpu_torch.transformer_benchmark` at a small size
+    on two gloo ranks, the flash path's plain versions forced on; each
+    rank's lines."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
         OMP_NUM_THREADS="1", HOROVOD_FLASH_ATTENTION="1",
@@ -145,9 +145,9 @@ def test_the_trainer_on_two_cpu_ranks(tmp_path):
     args = [sys.executable, "-m", "horovod_tpu_torch.transformer_benchmark",
             "--device", "cpu", "--vocab-size", "256", "--d-model", "64",
             "--n-heads", "2", "--d-head", "32", "--d-ff", "128",
-            "--n-layers", "2", "--seq-len", "128", "--num-warmup-batches",
-            "0", "--num-batches-per-iter", "1", "--num-iters", "2",
-            "--log-steps", "--check-plain-step", "1"]
+            "--n-layers", "2", "--num-warmup-batches", "0",
+            "--num-batches-per-iter", "1", "--num-iters", "2",
+            "--log-steps"] + extra
     procs = [subprocess.Popen(args, cwd=REPO, env=dict(
         env, HOROVOD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
@@ -157,11 +157,24 @@ def test_the_trainer_on_two_cpu_ranks(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    steps = []
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
-        steps.append([json.loads(line[5:]) for line in log.splitlines()
-                      if line.startswith("STEP ")])
+    return [log.splitlines() for log in logs]
+
+
+def _records(lines, kind):
+    return [json.loads(line[len(kind) + 1:]) for line in lines
+            if line.startswith(kind + " ")]
+
+
+def test_the_trainer_on_two_cpu_ranks(tmp_path):
+    """The dp trainer: finite losses, one parameter digest per step, and
+    rank 0's logits and loss with K4's plain version equal to the trained
+    ones (the same function on the CPU), while the non-causal fault moves
+    the logits."""
+    logs = _run_trainer(tmp_path, ["--seq-len", "128",
+                                   "--check-plain-step", "1"])
+    steps = [_records(lines, "STEP") for lines in logs]
     assert [len(s) for s in steps] == [2, 2]
     for r0, r1 in zip(*steps):
         assert np.isfinite(r0["loss"]) and np.isfinite(r1["loss"])
@@ -180,3 +193,31 @@ def test_the_trainer_on_two_cpu_ranks(tmp_path):
     # The non-causal fault reads 1.32 here (seed 0, this size).
     assert check["faulted_logits_rel"] > 0.5
     assert steps[0][1]["loss"] < steps[0][0]["loss"]
+
+
+def test_the_mesh_trainer_on_two_cpu_ranks(tmp_path):
+    """The trainer over sp=2 (ring attention): one loss and one parameter
+    digest across the ranks each step; step 0's loss within 2e-3 of rank
+    0's one-rank `reference_loss` (bf16 compute, chip_smoke's LOSS_TOL);
+    the checks run in their own ranges and the rate without them is the
+    higher one."""
+    logs = _run_trainer(tmp_path, ["--seq-len", "256", "--sp", "2",
+                                   "--check-dense-step", "0",
+                                   "--profile", "1"])
+    steps = [_records(lines, "STEP") for lines in logs]
+    assert [len(s) for s in steps] == [3, 3]
+    for r0, r1 in zip(*steps):
+        assert np.isfinite(r0["loss"]) and r0["loss"] == r1["loss"]
+        assert r0["digest"] == r1["digest"]
+    first = steps[0][0]
+    assert abs(first["dense_loss"] - first["loss"]) <= 2e-3 * first["loss"]
+    assert "dense_loss" not in steps[1][0]
+    assert steps[0][2]["loss"] < first["loss"]
+    for lines in logs:
+        (s,) = _records(lines, "SUMMARY")
+        assert s["mesh"] == {"sp": 2} and s["steps"] == 3
+        assert len(s["check_ms_per_step"]) == 2
+        assert all(ms > 0 for ms in s["check_ms_per_step"])
+        assert s["tok_sec_per_rank_net"] > s["tok_sec_per_rank"]
+        assert {"hvd.sp.hop", "bench.check.digest"} <= set(
+            s["ranges_ms_per_step"])

@@ -45,7 +45,8 @@ from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.parallel import data_parallel as DP
 from horovod_tpu_torch.transformer_benchmark import embed_group
 
-from test_torch_port_collectives import REPO, run_world
+from test_torch_port_collectives import (  # noqa: F401
+    REPO, no_launcher_env, run_world)
 
 F32 = np.float32
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,

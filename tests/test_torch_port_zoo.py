@@ -35,6 +35,8 @@ from horovod_tpu_torch import synthetic_benchmark
 from horovod_tpu_torch.models import layers as TL
 from horovod_tpu_torch.ops import compression as TC
 
+from test_torch_port_collectives import no_launcher_env  # noqa: F401 (autouse)
+
 ZOO_PARAMS = {"inception3": 23_834_568, "vgg16": 138_357_544}
 
 
