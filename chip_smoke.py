@@ -207,8 +207,9 @@ Phases, each printing its own lines:
                  horovod_tpu_torch.transformer_benchmark --sp 2` etc.),
                  two ranks sharing the card over gloo, the default
                  TransformerConfig (vocab 32000, d_model 512, 8 x 64
-                 heads, d_ff 2048, 8 layers) at T = 16384, AdamW, under
-                 HOROVOD_FLASH_ATTENTION=1, 3 steps and one profiled:
+                 heads, d_ff 2048; 4 of its 8 layers) at T = 16384,
+                 AdamW, under HOROVOD_FLASH_ATTENTION=1, 3 steps and
+                 one profiled:
                  (b) sp=2 ring attention (T_local = 8192 on the flash
                  ring: causal diagonal pairs, non-causal past pairs,
                  skipped future pairs whose K/V hops still happen),
@@ -226,6 +227,37 @@ Phases, each printing its own lines:
                  says; tok/sec per rank, idle share and host ms in the
                  mesh ranges (hvd.sp.hop, hvd.sp.a2a, hvd.tp.psum,
                  hvd.ep.a2a, hvd.pp.hop, ...).
+18. serve        main path 9: decode and the continuous-batching server
+                 on the default TransformerConfig at full width, bf16,
+                 seeded random weights, one process (after the kernels
+                 phase has timed dense against flash attention at (1, T,
+                 8, 64) bf16 causal, T in 512..16384, forward and forward
+                 + backward, the table that sets the port's default
+                 HOROVOD_FLASH_ATTENTION_MIN_T, and K4 at the prefill
+                 shape (2, T0, 8, 64)).  (a) `transformer_generate`
+                 greedy on 2 prompts of T0 = max(2048, MIN_T) tokens, 32
+                 new, plain, int8 cache, n_kv_heads=2 and attn_window
+                 512: K4 launched n_layers times per call, all on the
+                 tensor cores, none in the decode steps; the prefill
+                 logits within SERVE_RTOL of the dense prefill's
+                 largest (and a prefill with one head dropped above
+                 it); every generated token held to the dense-
+                 prefill chain fed the same tokens (`teacher_forced`:
+                 equal up to the first near-tie, SERVE_TIE, and within
+                 SERVE_TIE of the best after it).  (b) InferenceServer at
+                 max_batch 8 over a seeded make_trace of 24 requests
+                 (serve_benchmark's FULL_TRACE, decode_bench.py's mix)
+                 plus one of T0 prompt tokens, under fifo, static and
+                 speculation (a 2-layer draft, gamma from the knob):
+                 every request's tokens held to its own batch-1 chain,
+                 no page leaked, K4 launched once a layer for each
+                 prompt that routes to flash; tok/sec, request, TTFT and
+                 per-token p50 / p99, occupancy and pool peak.  (c) Two
+                 ranks share the card over gloo (`python -m chip_smoke
+                 --decode-rank`): `make_decode_step` at tp=2, prefill and
+                 8 steps within SERVE_RTOL of the one-rank chain (and
+                 the chain with layer 0's attention sum dropped above
+                 it).  The phase must end within SERVE_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -236,6 +268,8 @@ parameter's storage must be 0 bytes between steps, the measured
 resident bytes at most full / n plus one pad element per group, and
 train_zero3's peak memory at most train_transformer's, rank by rank.
 
+`python3 chip_smoke.py --serve` runs only the MIN_T table, K4 at the
+prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -250,8 +284,10 @@ main path 1 net of the ladder check's tree; K3 with its launches on
 main path 7 as `wire_launches`; K4-K6 with their times at the ring's
 pair shape as `ring_pair`, their errors at the ring's causal diagonal
 pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
-per rank on each run of main path 8 as `mesh_launches`), and as the
-last line
+per rank on each run of main path 8 as `mesh_launches`, and K4-K6's
+launches on main path 9 as `serve_launches`, K4 with its prefill-shape
+times as `prefill` and the MIN_T table as `min_t`), and as the last
+line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
 with no result line; so does a host without CUDA.  Full logs of the
 training ranks go to chiprun_out/.
@@ -1919,8 +1955,9 @@ def _codec_input():
     v[512:640] = torch.arange(128.0) - 63.5
     v[512] = 127.0
     v[640:768] = torch.arange(-7.0, 8.0, 0.5).repeat(9)[:128]
-    # A NaN block keeps the scale 1: its values past e4m3's 448 and an
-    # inf reach the fp8 cast unnormalised.
+    # A NaN block keeps the scale 1: its values past e4m3's 464 and an
+    # inf reach the fp8 cast unnormalised, and e4m3 writes NaN there, as
+    # XLA's convert does.
     v[768:896] = torch.linspace(-600.0, 600.0, 128)
     v[769], v[770] = float("nan"), float("inf")
     return v
@@ -1948,6 +1985,12 @@ def check_codecs() -> dict:
         require(torch.equal(nan_c, nan_g) and torch.equal(
             dec_c[~nan_c].view(torch.int32), dec_g[~nan_g].view(torch.int32)),
             f"{name}: the card's decode differs from the CPU decode")
+        if name == "fp8_e4m3":
+            past = v[768:896].abs() > 464.0
+            require(bool(past.any()) and bool(
+                torch.isnan(dec_g[768:896][past]).all()),
+                "fp8_e4m3: a NaN block's values past 464 must decode as "
+                "NaN, as XLA writes them")
         wire_bytes = codec.wire_nbytes(n)
         enc_ms = cuda_time_ms(lambda: codec.encode(vg))
         dec_ms = cuda_time_ms(lambda: codec.decode(enc_g))
@@ -2135,12 +2178,14 @@ def train_wire(zero3_summaries):
 MESH_ENV = {"HOROVOD_FLASH_ATTENTION": "1"}  # flash at T_local = 8192 too
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # name, mesh flags, other flags, layers
+# Depth 4 (of the config's 8): every layer kind and every mesh hop runs
+# at full width, in half the script's time for this phase.
 MESH_RUNS = [
-    ("ring", ["--sp", "2"], [], 8),
-    ("ulysses", ["--sp", "2", "--attn", "ulysses"], [], 8),
-    ("tp", ["--tp", "2"], [], 8),
-    ("ep", ["--ep", "2", "--moe-every", "2", "--n-experts", "8"], [], 8),
-    ("pp", ["--pp", "2"], ["--batch-size", "2"], 8),
+    ("ring", ["--sp", "2"], [], 4),
+    ("ulysses", ["--sp", "2", "--attn", "ulysses"], [], 4),
+    ("tp", ["--tp", "2"], [], 4),
+    ("ep", ["--ep", "2", "--moe-every", "2", "--n-experts", "8"], [], 4),
+    ("pp", ["--pp", "2"], ["--batch-size", "2"], 4),
 ]
 
 
@@ -2207,6 +2252,545 @@ def train_mesh():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The flash threshold, and phase 18: decode and the server (main path 9)
+# ---------------------------------------------------------------------------
+
+MIN_T_SWEEP = (512, 1024, 2048, 4096, 8192, 16384)
+SERVE_BUDGET_S = 240  # phase 18's share of the script's time limit
+SERVE_NEW = 32        # new tokens per decode check
+SERVE_WINDOW = 512    # attn_window of the windowed decode check
+# A near-tie of greedy decoding: the reference chain's top-2 logits less
+# than this apart (logit units).  The full-width model's logits reach
+# ~4; its prefill logits through flash and through dense attention part
+# by up to 1.4-1.9% of the largest (H100, PERF.md §6), ~0.07, and a bf16
+# rounding of the last hidden state (2^-9 of its size) moves a logit by
+# ~0.01.  Tokens are compared exactly up to the first near-tie of each
+# row; after it each must stay within SERVE_TIE of the reference's best
+# (`teacher_forced`).
+SERVE_TIE = 0.1
+# Phase 18's logits, relative to the largest: the flash prefill against
+# the dense one, and make_decode_step at tp=2 against one rank.  Each
+# run also reads a fault the tolerance must tell apart: the prefill
+# with head 0 of every layer's attention zeroed (a kernel that skips a
+# head), and the tp=2 chain with layer 0's attention sum over tp
+# dropped.  On an H100 80GB HBM3 at 700 W (PERF.md §6) the sound
+# readings were 0.0139-0.0196 and the faults 0.734-1.11: the tolerance
+# sits 2.5x above the one and 14x below the other.
+SERVE_RTOL = 5e-2
+
+
+def min_t_table(FA) -> dict:
+    """Dense attention (`dense_attention_oracle`, the path `full_attention`
+    takes below HOROVOD_FLASH_ATTENTION_MIN_T) against the flash kernels
+    at (1, T, 8, 64) bf16 causal, for each T of MIN_T_SWEEP: the forward
+    alone (prefill: K4) and forward plus backward (training: K4, K5,
+    K6).  The threshold the rule picks is the smallest T at which flash
+    is no slower in both.  A dense run that does not fit in the card's
+    memory is recorded as such (flash then wins)."""
+    import torch
+    from horovod_tpu_torch.parallel import sequence as S
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    rows = []
+    for T in MIN_T_SWEEP:
+        q, k, v, do = (torch.randn((1, T, 8, 64), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        iters = 10 if T <= 4096 else 3
+
+        def flash_fwd():
+            with torch.no_grad():
+                FA.flash_attention(q, k, v, causal=True)
+
+        def flash_both():
+            o = FA.flash_attention(*leaves, causal=True)
+            torch.autograd.backward(o, do)
+
+        def dense_fwd():
+            with torch.no_grad():
+                S.dense_attention_oracle(q, k, v, causal=True)
+
+        def dense_both():
+            o = S.dense_attention_oracle(*leaves, causal=True)
+            torch.autograd.backward(o, do)
+
+        row = {"T": T, "flash_fwd_ms": cuda_time_ms(flash_fwd, iters=iters),
+               "flash_fwd_bwd_ms": cuda_time_ms(flash_both, iters=iters)}
+        for key, fn in (("dense_fwd_ms", dense_fwd),
+                        ("dense_fwd_bwd_ms", dense_both)):
+            try:
+                row[key] = cuda_time_ms(fn, iters=iters, warmup=1)
+            except torch.cuda.OutOfMemoryError:
+                row[key] = None        # does not fit: flash wins
+            torch.cuda.empty_cache()
+        row["flash_no_slower"] = all(
+            row[d] is None or row[f] <= row[d]
+            for f, d in (("flash_fwd_ms", "dense_fwd_ms"),
+                         ("flash_fwd_bwd_ms", "dense_fwd_bwd_ms")))
+        log("kernels", "MIN_T (1, {T}, 8, 64) bf16 causal: forward flash "
+            "{flash_fwd_ms:.4f} dense {dense_fwd_ms} ms; forward+backward "
+            "flash {flash_fwd_bwd_ms:.4f} dense {dense_fwd_bwd_ms} ms; "
+            "flash no slower in both: {flash_no_slower}".format(**row))
+        rows.append(row)
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+    pick = next((r["T"] for r in rows if r["flash_no_slower"]), None)
+    log("kernels", f"MIN_T: the smallest T at which flash is no slower in "
+        f"both: {pick}; the port's default HOROVOD_FLASH_ATTENTION_MIN_T "
+        f"is {FA.MIN_T_DEFAULT}")
+    return {"rows": rows, "pick": pick, "default": FA.MIN_T_DEFAULT}
+
+
+def serve_prompt_len(FA) -> int:
+    """T0 of the prompts that take K4: a multiple of 128, at least the
+    MIN_T in force (HOROVOD_FLASH_ATTENTION_MIN_T, else the port's
+    default) and at least 2048."""
+    from horovod_tpu_torch.common import util
+
+    min_t = util.env_int("FLASH_ATTENTION_MIN_T", FA.MIN_T_DEFAULT)
+    return max(2048, -(-min_t // 128) * 128)
+
+
+def prefill_logits(D, params, cfg, prompt, quantize=None):
+    """The last position's logits of `transformer_prefill` on a fresh
+    cache."""
+    cache = D.init_decode_cache(cfg, prompt.shape[0], prompt.shape[1],
+                                quantize=quantize, device=prompt.device)
+    return D.transformer_prefill(params, cache, prompt, cfg)[0]
+
+
+def teacher_forced(D, params, cfg, prompt, served, quantize=None):
+    """Every served token against the reference chain fed the served
+    tokens themselves (prefill, then a decode step per token): at each
+    position the token's reference logit must be within SERVE_TIE of
+    the largest, and where no other logit is that close it must be the
+    argmax.  So the served tokens equal the reference's greedy chain up
+    to its first near-tie, and after one each is still a greedy choice
+    of the reference model given the served prefix.  Returns (positions
+    held, positions that were a near-tie, positions before each row's
+    first near-tie)."""
+    import torch
+
+    served = torch.as_tensor(served).reshape(prompt.shape[0], -1)
+    B, n = served.shape
+    cache = D.init_decode_cache(cfg, B, prompt.shape[1] + n,
+                                quantize=quantize, device=prompt.device)
+    lg, cache = D.transformer_prefill(params, cache, prompt, cfg)
+    ties = 0
+    untied = torch.ones(B, dtype=torch.bool)
+    before_tie = 0
+    for i in range(n):
+        tok = served[:, i].to(prompt.device)
+        top2 = torch.topk(lg, 2, dim=-1).values
+        picked = torch.gather(lg, -1, tok[:, None])[:, 0]
+        gap = (top2[:, 0] - picked).cpu()
+        tie = (top2[:, 0] - top2[:, 1]).cpu() < SERVE_TIE
+        require(bool((gap <= SERVE_TIE).all()) and bool(
+            (gap[~tie] == 0).all()), f"position {i}: served tokens "
+            f"{tok.tolist()} are {gap.tolist()} below the reference's "
+            f"largest logit (near-ties {tie.tolist()}, tol {SERVE_TIE})")
+        ties += int(tie.sum())
+        untied &= ~tie
+        before_tie += int(untied.sum())
+        if i + 1 < n:
+            lg, cache = D.transformer_decode_step(params, cache, tok, cfg)
+    return B * n, ties, before_tie
+
+
+def _with_env(env, fn):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+DENSE = {"HOROVOD_FLASH_ATTENTION": "0"}
+
+
+def _with_attr(obj, name, value, fn):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(obj, name, old)
+
+
+def _head0_dropped(attn):
+    """`attn` with head 0 of its output zeroed: phase 18 (a)'s fault."""
+    def faulted(*args, **kwargs):
+        o = attn(*args, **kwargs).clone()
+        o[:, :, 0] = 0
+        return o
+    return faulted
+
+
+def serve_decode(FA, D, T, launches) -> dict:
+    """Phase 18 (a): `transformer_generate` greedy on 2 prompts of T0
+    tokens at full width (main path 9, its K4 launches counted into
+    `launches`), against the same chain with dense prefill attention."""
+    import torch
+    from horovod_tpu_torch.parallel import sequence as S
+
+    dev = torch.device("cuda", 0)
+    T0 = serve_prompt_len(FA)
+    variants = [("mha", {}, None), ("int8", {}, "int8"),
+                ("gqa", {"n_kv_heads": 2}, None),
+                ("window", {"attn_window": SERVE_WINDOW}, None)]
+    out = {}
+    for name, fields, quantize in variants:
+        cfg = T.TransformerConfig(**fields)
+        params = D.decode_params(T.tree_map(
+            lambda a: a.to(dev), T.transformer_init(0, cfg)), cfg)
+        g = torch.Generator().manual_seed(18)
+        prompt = torch.randint(0, cfg.vocab_size, (2, T0), generator=g).to(dev)
+        FA.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _ = D.transformer_generate(params, cfg, prompt, SERVE_NEW,
+                                         quantize=quantize)
+        toks = toks.cpu()
+        gen_s = time.perf_counter() - t0
+        counts, sm90 = FA.launch_counts(), FA.sm90_launch_counts()
+        require(counts == {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}
+                and sm90["flash_fwd"] == cfg.n_layers,
+                f"serve {name}: K4 launches {counts} ({sm90} on the tensor "
+                f"cores); want {cfg.n_layers} (one per layer, in the "
+                "prefill only)")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+            launches[k + "_sm90"] = launches.get(k + "_sm90", 0) + sm90[k]
+        # Against the same model with dense prefill attention.
+        flash_lg = prefill_logits(D, params, cfg, prompt, quantize)
+        dense_lg = _with_env(DENSE, lambda: prefill_logits(
+            D, params, cfg, prompt, quantize))
+        rel = _rel_err(flash_lg, dense_lg)
+        bad = _rel_err(_with_attr(S, "full_attention", _head0_dropped(
+            S.full_attention), lambda: prefill_logits(
+                D, params, cfg, prompt, quantize)), dense_lg)
+        log("serve", f"decode {name}: prefill logits flash vs dense {rel:.4g}"
+            f", with head 0 dropped {bad:.4g} (tol {SERVE_RTOL})")
+        require(rel <= SERVE_RTOL, f"serve {name}: prefill logits flash vs "
+                f"dense {rel} > {SERVE_RTOL}")
+        require(bad > SERVE_RTOL, f"serve {name}: the prefill with head 0 "
+                f"dropped reads {bad}, within {SERVE_RTOL}")
+        held, ties, compared = _with_env(DENSE, lambda: teacher_forced(
+            D, params, cfg, prompt, toks, quantize))
+        out[name] = {"T0": T0, "prefill_logits_rel": rel,
+                     "fault_logits_rel": bad,
+                     "tokens_to_first_tie": compared,
+                     "tokens_held": held, "near_ties": ties,
+                     "tokens": 2 * SERVE_NEW, "generate_s": gen_s,
+                     "k4_launches": counts["flash_fwd"]}
+        log("serve", f"decode {name} (2 x {T0} prompt, {SERVE_NEW} new, "
+            f"{cfg.n_layers} layers, quantize={quantize}, {fields}): K4 "
+            f"launches {counts['flash_fwd']} (all tensor cores, prefill "
+            f"only); prefill logits flash vs dense {rel:.3g} (tol "
+            f"{SERVE_RTOL}; the fault {bad:.3g}); greedy tokens equal the dense-prefill chain's "
+            f"on {compared} of {held} (to the first near-tie, margin < "
+            f"{SERVE_TIE}), every one held to that chain fed them ({ties} "
+            f"near-ties); generate {gen_s:.3f} s")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_server(FA, D, T, launches, smi: str) -> dict:
+    """Phase 18 (b): InferenceServer at max_batch 8 over a seeded
+    make_trace of 24 requests plus one whose prompt takes K4, under fifo
+    then static, and the speculative server (a 2-layer draft at full
+    width, gamma from the knob): every request's tokens held to its own
+    batch-1 greedy chain (`teacher_forced`: equal up to the first
+    near-tie), no page leaks."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.serve import InferenceServer
+    from horovod_tpu_torch.serve.loadgen import make_trace, run_trace
+    from horovod_tpu_torch.serve_benchmark import FULL_TRACE
+    from horovod_tpu_torch.utils import autotune
+
+    dev = torch.device("cuda", 0)
+    cfg = T.TransformerConfig()
+    params = T.tree_map(lambda a: a.to(dev), T.transformer_init(0, cfg))
+    dp = D.decode_params(params, cfg)
+    T0 = serve_prompt_len(FA)
+    trace = make_trace(18, 24, cfg.vocab_size, **FULL_TRACE)
+    long_prompt = np.random.RandomState(18).randint(
+        0, cfg.vocab_size, T0).astype(np.int32)
+    trace.append((4, long_prompt, SERVE_NEW))
+    max_seq = max(T0 + SERVE_NEW, max(len(p) + mn for _, p, mn in trace))
+    prompts = [torch.from_numpy(p[None].astype(np.int64)).to(dev)
+               for _, p, _ in trace]
+    draft_cfg = T.TransformerConfig(n_layers=2)
+    draft = T.tree_map(lambda a: a.to(dev), T.transformer_init(1, draft_cfg))
+    gamma = autotune.current_serve_spec_gamma()
+    out, checked = {}, {}
+    for run, kw in (("fifo", dict(policy="fifo")),
+                    ("static", dict(policy="static")),
+                    ("spec", dict(policy="fifo", draft_params=draft,
+                                  draft_cfg=draft_cfg, force_spec=True))):
+        srv = InferenceServer(params, cfg, max_seq_tokens=max_seq,
+                              max_batch=8, device=dev, **kw)
+        finished, step = [], srv.step
+
+        def record(step=step, finished=finished):
+            out = step()
+            finished.extend(out)
+            return out
+
+        srv.step = record
+        FA.reset_launch_counts()
+        stats = run_trace(srv, trace)
+        counts, sm90 = FA.launch_counts(), FA.sm90_launch_counts()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+            launches[k + "_sm90"] = launches.get(k + "_sm90", 0) + sm90[k]
+        # One launch a layer for each prompt whose prefill routes to
+        # flash (`full_attention`: T0 >= MIN_T and a multiple of 128):
+        # the target's layers, and under speculation the draft's too.
+        flash_prompts = sum(FA.flash_routed(len(p), dev) and len(p) % 128 == 0
+                            for _, p, _ in trace)
+        want_k4 = flash_prompts * (cfg.n_layers + (
+            draft_cfg.n_layers if run == "spec" else 0))
+        require(flash_prompts >= 1 and counts["flash_fwd"] == want_k4
+                == sm90["flash_fwd"]
+                and counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0,
+                f"serve {run}: K4 launches {counts} ({sm90} on the tensor "
+                f"cores); want {want_k4}: {flash_prompts} prompts take K4")
+        require(srv.pool.pages_free() == srv.pool.total_pages,
+                f"serve {run}: {srv.pool.total_pages - srv.pool.pages_free()}"
+                " pages leaked")
+        if srv.dpool is not None:
+            require(srv.dpool.pages_free() == srv.dpool.total_pages,
+                    f"serve {run}: draft pages leaked")
+        # run_trace submits in arrival order (a stable sort of the
+        # trace): request id j is trace entry order[j].
+        order = sorted(range(len(trace)), key=lambda i: trace[i][0])
+        by_id = {seq.req.req_id: seq.generated for seq in finished}
+        require(sorted(by_id) == list(range(len(trace))),
+                f"serve {run}: finished {sorted(by_id)}")
+        compared = held = ties = 0
+        for j, i in enumerate(order):
+            # A sequence another run served identically is held once.
+            key = (i, tuple(by_id[j]))
+            if key not in checked:
+                checked[key] = teacher_forced(D, dp, cfg, prompts[i],
+                                              by_id[j])
+            h, t, c = checked[key]
+            held, ties, compared = held + h, ties + t, compared + c
+        require(held == stats["tokens_out"], f"serve {run}: held {held} of "
+                f"{stats['tokens_out']} tokens")
+        stats.pop("slo_decisions")
+        stats.update(tokens_to_first_tie=compared, tokens_held=held,
+                     near_ties=ties,
+                     gamma=gamma if run == "spec" else None,
+                     k4_launches=counts["flash_fwd"],
+                     k4_prompts=flash_prompts)
+        out[run] = stats
+        log("serve", f"server {run} ({smi}): {stats['tokens_out']} tokens, "
+            f"{stats['tokens_per_sec_per_chip']:.1f} tok/sec, request "
+            f"p50/p99 {stats['request_p50_ms']:.1f}/"
+            f"{stats['request_p99_ms']:.1f} ms, TTFT p50/p99 "
+            f"{stats['ttft_list_p50_ms']:.1f}/{stats['ttft_list_p99_ms']:.1f}"
+            f" ms, per-token p50/p99 {stats['token_p50_ms']:.2f}/"
+            f"{stats['token_p99_ms']:.2f} ms, occupancy "
+            f"{stats['batch_occupancy_mean']:.3f}, pool peak "
+            f"{stats['kv_pool_peak_utilization']:.3f}, {stats['device_steps']}"
+            f" steps ({stats['spec_steps']} speculative, gamma {gamma}); "
+            f"tokens equal their chains on {compared} of "
+            f"{stats['tokens_out']} (to the first near-tie), all held to "
+            f"their chains fed them ({ties} near-ties); K4 launches "
+            f"{counts['flash_fwd']} ({flash_prompts} prompts of {len(trace)} "
+            f"take it); no page leaked")
+        del srv
+        torch.cuda.empty_cache()
+    return out
+
+
+
+def time_prefill_k4(FA) -> dict:
+    """K4 at the decode prefill's shape (2, T0, 8, 64) bf16 causal: held
+    to its plain version (with K5 and K6 at that shape), then timed
+    beside F.scaled_dot_product_attention's forward and the plain
+    version, with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    shape = (2, serve_prompt_len(FA), 8, 64)
+    B, T0, H, D = shape
+    errs = _check_flash_case(FA, (B, T0, H, H, D, torch.bfloat16, True,
+                                  None, 0), gen, dev)
+    q, k, v, _, _ = _flash_case_inputs((B, T0, H, H, D, torch.bfloat16,
+                                        True, None, 0), gen, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound = bound_ms(*_flash_work(shape, 2)["flash_fwd"], peak=HALF_FLOPS)
+    r = {"shape": list(shape), "max_abs_err": errs["flash_fwd"],
+         "ms": cuda_time_ms(lambda: FA.flash_fwd(q, k, v, True), iters=10),
+         "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True), iters=10),
+         "plain_ms": cuda_time_ms(lambda: FA.flash_fwd_plain(q, k, v, True),
+                                  iters=3, warmup=1),
+         "bound_ms": bound[0], "bound_by": bound[1]}
+    log("kernels", f"flash_fwd at the prefill shape {tuple(shape)} bf16 "
+        f"causal: ms={r['ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} bound_ms={bound[0]:.4f} ({bound[1]}, "
+        f"{bound[0] / r['ms']:.1%} of it), max_abs_err "
+        f"{r['max_abs_err']:.3g}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
+
+
+SERVE_TP_STEPS = 8
+
+
+def decode_rank() -> int:
+    """One rank of phase 18 (c) (run by `serve_tp2` through run_ranks):
+    the one-rank greedy chain (prefill and SERVE_TP_STEPS steps) on the
+    full parameters, then `make_decode_step` at tp=2 fed the same tokens;
+    each call's logits relative to the one-rank chain's largest.  Saved
+    to LOG_DIR/decode_rank<r>.pt."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+
+    hvd.init()
+    r, dev = hvd.rank(), hvd.device()
+    require(dev.type == "cuda", f"rank {r} runs on {dev}")
+    cfg = T.TransformerConfig()
+    full = T.transformer_init(0, cfg)
+    T0 = serve_prompt_len(FA)
+    prompt = torch.randint(0, cfg.vocab_size, (2, T0),
+                           generator=torch.Generator().manual_seed(19))
+    params = D.decode_params(T.tree_map(lambda a: a.to(dev), full), cfg)
+    cache = D.init_decode_cache(cfg, 2, T0 + SERVE_TP_STEPS, device=dev)
+    lg, cache = D.transformer_prefill(params, cache, prompt.to(dev), cfg)
+    ref, feed = [lg], []
+    for _ in range(SERVE_TP_STEPS):
+        feed.append(torch.argmax(lg, -1))
+        lg, cache = D.transformer_decode_step(params, cache, feed[-1], cfg)
+        ref.append(lg)
+    del params, cache
+    mesh = create_hybrid_mesh(tp=2)
+    b = D.make_decode_step(mesh, cfg)
+    sp = D.decode_params(b.shard_params(full), cfg)
+    sc = b.shard_cache(D.init_decode_cache(cfg, 2, T0 + SERVE_TP_STEPS,
+                                           device="cpu"))
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, sc = b.prefill(sp, sc, b.shard_tokens(prompt))
+    got = [lg]
+    for tok in feed:
+        lg, sc = b.step(sp, sc, b.shard_tokens(tok.cpu()))
+        got.append(lg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rels = [_rel_err(g, w) for g, w in zip(got, ref)]
+    res = {"rank": r, "backend": hvd.backend(), "rels": rels,
+           "launches": FA.launch_counts(), "sm90": FA.sm90_launch_counts(),
+           "wall_s": wall, "heads": int(sp["blocks"]["wq"].shape[2])}
+    # The fault: the same chain with layer 0's attention sum over tp
+    # dropped (each rank keeps its own heads' share of wo's product).
+    # Both ranks drop the same call, so the collectives still pair.
+    calls, reduce_from = [0], D.pc.reduce_from
+
+    def dropped(x, ps, *args, **kwargs):
+        calls[0] += 1
+        if (calls[0] - 1) % (2 * cfg.n_layers) == 0:   # the first a pass
+            return x
+        return reduce_from(x, ps, *args, **kwargs)
+
+    def faulted_chain():
+        c = b.shard_cache(D.init_decode_cache(cfg, 2, T0 + SERVE_TP_STEPS,
+                                              device="cpu"))
+        lg, c = b.prefill(sp, c, b.shard_tokens(prompt))
+        out = [lg]
+        for tok in feed:
+            lg, c = b.step(sp, c, b.shard_tokens(tok.cpu()))
+            out.append(lg)
+        return out
+
+    bad = _with_attr(D.pc, "reduce_from", dropped, faulted_chain)
+    res["fault_rels"] = [_rel_err(g, w) for g, w in zip(bad, ref)]
+    torch.save(res, os.path.join(LOG_DIR, f"decode_rank{r}.pt"))
+    print("DECODE " + json.dumps(res), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def serve_tp2(launches) -> dict:
+    """Phase 18 (c): two ranks share the card over gloo and run
+    `make_decode_step` at tp=2 (`python -m chip_smoke --decode-rank`):
+    the prefill (K4 on each rank's 4 heads, n_layers launches a rank)
+    and SERVE_TP_STEPS decode steps, each within SERVE_RTOL of the
+    one-rank chain's largest logit."""
+    import torch
+
+    n = 2
+    run_ranks("serve_tp2", n, "chip_smoke", ["--decode-rank"], 400)
+    res = [torch.load(os.path.join(LOG_DIR, f"decode_rank{r}.pt"),
+                      weights_only=False) for r in range(n)]
+    layers = 8
+    for d in res:
+        require(d["backend"] == "gloo" and d["heads"] == 4,
+                f"serve_tp2 rank {d['rank']}: {d['backend']}, "
+                f"{d['heads']} heads")
+        log("serve", f"tp2 rank {d['rank']}: logits off the one-rank chain "
+            f"{max(d['rels']):.4g}, with layer 0's sum dropped "
+            f"{min(d['fault_rels']):.4g}..{max(d['fault_rels']):.4g} (tol "
+            f"{SERVE_RTOL})")
+        require(max(d["rels"]) <= SERVE_RTOL, f"serve_tp2 rank "
+                f"{d['rank']}: logits off the one-rank chain {d['rels']}")
+        require(min(d["fault_rels"]) > SERVE_RTOL, f"serve_tp2 rank "
+                f"{d['rank']}: the chain with layer 0's sum dropped reads "
+                f"{d['fault_rels']}, within {SERVE_RTOL}")
+        require(d["launches"]["flash_fwd"] == layers == d["sm90"]["flash_fwd"]
+                and d["launches"]["flash_bwd_dq"] == 0,
+                f"serve_tp2 rank {d['rank']}: K4 launches {d['launches']}")
+        for k, c in d["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+            launches[k + "_sm90"] = launches.get(k + "_sm90", 0) + \
+                d["sm90"][k]
+        log("serve", f"tp2 rank {d['rank']} ({d['backend']}, {d['heads']} "
+            f"heads): prefill and {SERVE_TP_STEPS} steps, logits off the "
+            f"one-rank chain by {max(d['rels']):.3g} of the largest at most "
+            f"(tol {SERVE_RTOL}; the fault {min(d['fault_rels']):.3g} at "
+            f"least); K4 launches {d['launches']['flash_fwd']} "
+            f"(tensor cores); {d['wall_s']:.3f} s")
+    return {"max_rel": max(max(d["rels"]) for d in res),
+            "fault_min_rel": min(min(d["fault_rels"]) for d in res),
+            "wall_s": [d["wall_s"] for d in res]}
+
+
+def serve_phase(FA, smi: str) -> dict:
+    """Phase 18 (main path 9): (a) decode, (b) the server, (c) the
+    sharded decode.  Returns the results and K4's launches on the path."""
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+
+    launches = {}
+    out = {"decode": serve_decode(FA, D, T, launches),
+           "server": serve_server(FA, D, T, launches, smi),
+           "tp2": serve_tp2(launches)}
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2221,6 +2805,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--surface-rank"]:
         return surface_rank()
+    if sys.argv[1:2] == ["--decode-rank"]:
+        return decode_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -2239,6 +2825,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if sys.argv[1:2] == ["--serve"]:
+        # The flash threshold's table and phase 18 alone.
+        _build.build(["flash_attention_sm90", "flash_attention"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        table = min_t_table(FA)
+        prefill = time_prefill_k4(FA)
+        t0 = time.perf_counter()
+        serve = serve_phase(FA, smi)
+        log("serve", f"{time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"min_t": table, "prefill": prefill,
+                          "serve": serve}), flush=True)
+        return 0
     log("env", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices "
         f"{torch.cuda.device_count()}")
@@ -2258,6 +2856,8 @@ def main() -> int:
     flash = check_flash(FA)
     k3 = check_k3(MK)
     check_head()
+    min_t = min_t_table(FA)
+    prefill = time_prefill_k4(FA)
     log("kernels", "port kernels: " + ", ".join(
         f"{fn.__name__} (comparison launches {fn.launches})"
         for fn in K.KERNELS + FA.KERNELS + MK.KERNELS)
@@ -2314,6 +2914,12 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = train_mesh()
     log("train_mesh", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve = serve_phase(FA, smi)
+    log("serve", f"{time.perf_counter() - t0:.1f} s (budget {SERVE_BUDGET_S}"
+        " s)")
+    require(time.perf_counter() - t0 <= SERVE_BUDGET_S,
+            f"serve: over its budget of {SERVE_BUDGET_S} s")
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -2366,7 +2972,17 @@ def main() -> int:
                            run: [s["launches"][name]
                                  - s["check_launches"].get(name, 0)
                                  for s in sums]
-                           for run, sums in mesh.items()})
+                           for run, sums in mesh.items()},
+                       serve_launches=serve["launches"][name],
+                       serve_sm90_launches=serve["launches"][name + "_sm90"])
+            if name == "flash_fwd":
+                # Main path 9: K4 at the decode prefill's shape, and the
+                # dense-against-flash table that sets MIN_T.
+                row.update(prefill=prefill, min_t=min_t)
+                require(row["serve_launches"] > 0 and row[
+                    "serve_sm90_launches"] == row["serve_launches"],
+                    "flash_fwd: no launch on main path 9, or one off the "
+                    "tensor cores")
             require(launches[name + "_sm90"] == launches[name],
                     f"{name}: {launches[name + '_sm90']} of "
                     f"{launches[name]} launches on the tensor cores")

@@ -87,9 +87,11 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_FLASH_ATTENTION", "auto", "ops",
        "1 forces the flash-attention kernels, 0 the dense attention; "
        "unset: flash on the card from HOROVOD_FLASH_ATTENTION_MIN_T."),
-    _v("HOROVOD_FLASH_ATTENTION_MIN_T", "16384", "ops",
+    _v("HOROVOD_FLASH_ATTENTION_MIN_T", "512", "ops",
        "Sequence length from which attention routes to flash when "
-       "HOROVOD_FLASH_ATTENTION is unset."),
+       "HOROVOD_FLASH_ATTENTION is unset: 512, the smallest length at "
+       "which the flash kernels beat dense attention forward and "
+       "backward on an H100 (the JAX package's TPU default is 16384)."),
     _v("HOROVOD_JOIN_MODE", "0", "ops",
        "1 arms join mode: joined ranks contribute masked zeros to every "
        "collective."),
@@ -123,17 +125,18 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Initial value of the tuner's guard_digest_interval knob (guard/ "
        "is not ported yet)."),
     _v("HOROVOD_SERVE_PAGE_TOKENS", "16", "autotune",
-       "Initial value of the tuner's serve_page_tokens knob (serve/ is "
-       "not ported yet)."),
+       "KV-cache pool page size in tokens (the tuner's serve_page_tokens "
+       "knob; read when an InferenceServer is built)."),
     _v("HOROVOD_SERVE_MAX_BATCH", "8", "autotune",
-       "Initial value of the tuner's serve_max_batch knob (serve/ is not "
-       "ported yet)."),
+       "Row count of the continuous-batching decode step (the tuner's "
+       "serve_max_batch knob)."),
     _v("HOROVOD_SERVE_SPEC_GAMMA", "4", "autotune",
-       "Initial value of the tuner's serve_spec_gamma knob (serve/ is "
-       "not ported yet)."),
+       "Speculative draft length per serving round (the tuner's "
+       "serve_spec_gamma knob; the verify chunk's width)."),
     _v("HOROVOD_SERVE_FLIGHTREC_DEPTH", "512", "autotune",
-       "Initial value of the tuner's serve_flightrec_depth knob (serve/ "
-       "is not ported yet)."),
+       "Flight-recorder ring depth in events (the tuner's "
+       "serve_flightrec_depth knob, host only); <= 0 turns the recorder "
+       "off."),
     _v("HOROVOD_RESHARD_CHUNK_BYTES", "0 (4 MiB)", "autotune",
        "Initial value of the tuner's reshard_chunk_bytes knob "
        "(parallel/reshard.py is not ported yet)."),
@@ -143,6 +146,42 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_AUTOSCALE_DWELL", "8", "autotune",
        "Initial value of the tuner's autoscale_dwell knob (serve/ is not "
        "ported yet)."),
+    # -- serving (serve/) -----------------------------------------------------
+    _v("HOROVOD_SERVE_POOL_PAGES", "0", "serve",
+       "KV pool size in pages; 0 = max_batch full-length sequences."),
+    _v("HOROVOD_SERVE_SLO_MS", "(unset)", "serve",
+       "Per-token p99 latency SLO in ms; when the observed p99 exceeds it "
+       "the server turns speculative decoding on (unset or 0: the "
+       "controller is off)."),
+    _v("HOROVOD_SERVE_METRICS_INTERVAL", "16", "serve",
+       "Steps between serving-gauge samples (queue depth, occupancy, "
+       "pool pages, p99); one flush runs at drain and at exit."),
+    _v("HOROVOD_SERVE_FLIGHTREC_DIR", "$TMPDIR/horovod_flightrec", "serve",
+       "Directory of the flight recorder's dumps (crash, pool "
+       "exhaustion, SLO breach, an injected exit)."),
+    _v("HOROVOD_SERVE_REPLICA_ID", "(unset)", "serve",
+       "Replica index a flight-recorder dump records (set by the JAX "
+       "package's replica manager; the port's is not ported yet)."),
+    # -- metrics and the timeline (metrics/, utils/timeline.py) ---------------
+    _v("HOROVOD_METRICS_DISABLE", "0", "metrics",
+       "1 disables all metric recording."),
+    _v("HOROVOD_SLO_BUDGET_TARGET", "0.99", "metrics",
+       "Target of an SLO error budget: 0.99 lets 1% of events be bad "
+       "before the budget is spent."),
+    _v("HOROVOD_SLO_BUDGET_WINDOW", "3600", "metrics",
+       "Seconds of history one error budget is computed over."),
+    _v("HOROVOD_SLO_BUDGET_FAST", "60", "metrics",
+       "Fast burn-rate window in seconds (a breach needs fast and slow "
+       "over the threshold)."),
+    _v("HOROVOD_SLO_BUDGET_SLOW", "600", "metrics",
+       "Slow burn-rate window in seconds."),
+    _v("HOROVOD_TIMELINE", "(unset)", "timeline",
+       "Path of the Chrome-trace timeline file; `init_from_env` starts "
+       "the timeline when it is set (the serving benchmark calls it)."),
+    _v("HOROVOD_TIMELINE_ALL_RANKS", "0", "timeline",
+       "1 records a timeline on every rank instead of rank 0 only."),
+    _v("HOROVOD_TIMELINE_MARK_CYCLES", "0", "timeline",
+       "1 marks step/cycle boundaries in the timeline."),
     # -- fault injection and retries (faults/) -------------------------------
     _v("HOROVOD_FAULT_SPEC", "(unset)", "faults",
        "Fault schedule, point[@N]:mode[:arg] entries separated by commas "

@@ -28,3 +28,12 @@ class HostsUpdatedInterrupt(HorovodTpuError):
     def __init__(self, skip_sync: bool = False):
         super().__init__()
         self.skip_sync = skip_sync
+
+
+class InvalidRequestError(HorovodTpuError, ValueError):
+    """A caller handed the decode/serve stack an impossible request:
+    non-positive batch, max_len shorter than the prompt, a prompt
+    longer than the cache window, or a non-positive token budget.
+    Doubly inherits ValueError so callers catching ValueError keep
+    working while the serving layer can catch the whole framework
+    family via HorovodTpuError."""

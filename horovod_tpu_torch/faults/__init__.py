@@ -13,7 +13,8 @@ its eager collectives (`ops/collectives.py`) and `state.commit` in
 `elastic.State.commit`.  `CATALOG` is the JAX package's whole catalog,
 so a spec valid there is valid here; the points of modules not ported
 yet (rendezvous, the elastic driver, checkpoints, guard, serving,
-resharding) never fire.  The JAX package counts injections into its
+resharding) never fire.  An ``exit`` fault runs the hooks of
+`register_exit_hook` first (the serving flight recorder's dump).  The JAX package counts injections into its
 metrics registry, which is not ported; here `injections()` counts them.
 """
 
@@ -33,6 +34,8 @@ from .spec import (  # noqa: F401  (re-export)
     FaultSchedule,
     parse_duration,
     parse_spec,
+    register_exit_hook,
+    unregister_exit_hook,
 )
 
 logger = logging.getLogger("horovod_tpu_torch.faults")
@@ -40,7 +43,7 @@ logger = logging.getLogger("horovod_tpu_torch.faults")
 __all__ = [
     "CATALOG", "FaultInjected", "FaultSchedule", "RetryPolicy",
     "active", "clear", "injections", "install", "parse_spec", "point",
-    "points_hit",
+    "points_hit", "register_exit_hook", "unregister_exit_hook",
 ]
 
 # The JAX package's catalog (horovod_tpu/faults/__init__.py), copied whole.

@@ -29,7 +29,7 @@ import random
 import re
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..common.exceptions import HorovodTpuError
 
@@ -182,5 +182,33 @@ class FaultSchedule:
         if act.mode in ("delay", "hang"):
             _sleep(act.duration)
         elif act.mode == "exit":
+            # os._exit skips atexit, so what must flush on an injected
+            # death (the serving flight recorder) hooks in here.
+            _run_exit_hooks(f"fault_exit:{point}")
             os._exit(act.exit_code)
         return act
+
+
+# Pre-exit hooks: run (best effort) before an `exit`-mode fault's os._exit.
+_exit_hooks: List[Callable[[str], None]] = []
+
+
+def register_exit_hook(fn: Callable[[str], None]) -> None:
+    """Register `fn(reason)` to run before an exit-mode fault point ends
+    the process.  Idempotent per function object."""
+    if fn not in _exit_hooks:
+        _exit_hooks.append(fn)
+
+
+def unregister_exit_hook(fn: Callable[[str], None]) -> None:
+    if fn in _exit_hooks:
+        _exit_hooks.remove(fn)
+
+
+def _run_exit_hooks(reason: str) -> None:
+    for fn in list(_exit_hooks):
+        # The process is exiting: a failed hook must not mask the exit.
+        try:
+            fn(reason)
+        except Exception:  # noqa: BLE001
+            logger.exception("fault exit hook failed")

@@ -109,6 +109,17 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+def head_logits(h: torch.Tensor, embed: torch.Tensor, dt) -> torch.Tensor:
+    """The tied head's forward (`TiedHead`), with no autograd: h [B, T,
+    D] against embed [V, D], both rounded to `dt`, logits [B, T, V] f32."""
+    hc, ec = h.to(dt), embed.to(dt)
+    if hc.is_cuda and dt in (torch.bfloat16, torch.float16):
+        b, t, d = hc.shape
+        return torch.mm(hc.reshape(b * t, d), ec.t(),
+                        out_dtype=torch.float32).reshape(b, t, -1)
+    return torch.einsum("btd,vd->btv", hc.float(), ec.float())
+
+
 class TiedHead(torch.autograd.Function):
     """The tied head's logits: h [B, T, D] against the embedding [V, D],
     both rounded to `dt` (compute_dtype), products summed in f32, logits
@@ -131,11 +142,7 @@ class TiedHead(torch.autograd.Function):
         hc, ec = h.to(dt), embed.to(dt)
         ctx.save_for_backward(hc, ec)
         ctx.dtypes = (h.dtype, embed.dtype, dt)
-        if hc.is_cuda and dt in (torch.bfloat16, torch.float16):
-            b, t, d = hc.shape
-            return torch.mm(hc.reshape(b * t, d), ec.t(),
-                            out_dtype=torch.float32).reshape(b, t, -1)
-        return torch.einsum("btd,vd->btv", hc.float(), ec.float())
+        return head_logits(hc, ec, dt)
 
     @staticmethod
     def backward(ctx, g):

@@ -115,21 +115,30 @@ def _lib_sm90() -> ctypes.CDLL:
     return lib
 
 
+# The default of HOROVOD_FLASH_ATTENTION_MIN_T (see `flash_routed`): the
+# smallest T of {512, 1024, ..., 16384} at which the flash kernels are no
+# slower than the dense attention both forward (prefill) and forward +
+# backward (training), at (1, T, 8, 64) bf16 causal on an H100 80GB HBM3
+# at 700 W (`chip_smoke.py` kernels phase, `min_t_table`; the table is
+# in PERF.md §6: at T = 512 the forward takes 0.0405 ms against 0.1900,
+# forward + backward 0.5277 against 1.1080).  The JAX package keeps the
+# TPU's 16384.  Below 512 nothing was measured.
+MIN_T_DEFAULT = 512
+
+
 def flash_routed(seq_len: int, device) -> bool:
     """Should attention at `seq_len` on `device` run the flash kernels?
 
     Forced by HOROVOD_FLASH_ATTENTION=1/0 when set; an empty value counts
     as unset.  Otherwise on for a CUDA device at seq_len >=
-    HOROVOD_FLASH_ATTENTION_MIN_T (default 16384, the JAX package's
-    value, kept for parity until H100 runs set the port's own), where
-    the dense [T, T] scores of every layer no longer fit; off on the
+    HOROVOD_FLASH_ATTENTION_MIN_T (default `MIN_T_DEFAULT`); off on the
     CPU."""
     forced = util.getenv("FLASH_ATTENTION")
     if forced is not None and forced.strip() != "":
         return util.env_bool("FLASH_ATTENTION", False)
     if torch.device(device).type != "cuda":
         return False
-    return seq_len >= util.env_int("FLASH_ATTENTION_MIN_T", 16384)
+    return seq_len >= util.env_int("FLASH_ATTENTION_MIN_T", MIN_T_DEFAULT)
 
 
 def validate_window(window, causal) -> None:

@@ -26,10 +26,12 @@ and XLA convert alike, and made to agree where the values would differ:
 a NaN that the int8 / int4 cast meets becomes 0 (a C cast of NaN is
 undefined), and a subnormal block scale is flushed as XLA flushes it.
 A NaN is left with the code torch writes: the fp8 payload and the
-decoded f32 NaN may carry other sign and payload bits than XLA's, and in
-a block that holds a NaN e4m3 saturates at ±448 where XLA writes NaN.
-(XLA's CPU also reads subnormal inputs as zero; a block that mixes them
-with a normal maximum may differ.)
+decoded f32 NaN may carry other sign and payload bits than XLA's.  In a
+block that holds a NaN the values reach the e4m3 cast unnormalised;
+torch's cast saturates those past 464 (and ±inf) at ±448 where XLA's
+writes NaN, so the encode writes NaN there first.  (XLA's CPU also reads
+subnormal inputs as zero; a block that mixes them with a normal maximum
+may differ.)
 
 Also here: the per-bucket `WirePolicy` (HOROVOD_WIRE_POLICY: "exact",
 "auto", or ``big=int4,small=none,threshold=1048576``), the host codec of
@@ -118,11 +120,18 @@ def _fp8_encode(v: torch.Tensor, dt: torch.dtype):
     """Block-normalised fp8: each block divided by its max-abs, so the
     payload lies in [-1, 1] and a later hop's partial sum, encoded with
     its own scale, never overflows e4m3's ±448.  (A block holding a NaN
-    keeps the scale 1, so its other values reach the cast unnormalised:
-    e4m3 saturates them at ±448, where XLA writes NaN past 464.)"""
+    keeps the scale 1, so its other values reach the cast unnormalised.
+    torch's e4m3 cast saturates those past 464 and ±inf at ±448, where
+    XLA's convert writes NaN: they are made NaN before the cast.  Only
+    such a block can hold them, since every other block is normalised
+    into [-1, 1] or is all zero.)"""
     blocks = v.reshape(-1, _BLOCK)
     scale = _block_scale(blocks, 1.0)
-    return (blocks / scale[:, None]).reshape(-1).to(dt), scale
+    x = (blocks / scale[:, None]).reshape(-1)
+    if dt == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > 464.0,
+                        torch.full((), float("nan"), device=x.device), x)
+    return x.to(dt), scale
 
 
 # ---------------------------------------------------------------------------

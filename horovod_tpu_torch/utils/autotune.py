@@ -14,13 +14,16 @@ Progress is appended to HOROVOD_AUTOTUNE_LOG as CSV.
 
 The `current_*` readers are live: each returns the tuner's value while
 one is active, else its env value (HOROVOD_*), validated as the JAX
-readers validate it.  The port reads five knobs: `fusion_threshold` on
-every gradient enqueue of `DistributedOptimizer`, `fused_chunk_bytes`
-on every chunk plan, and `bucket_order`, `min_buckets` and
-`zero_stage` where a sharded optimizer or a placement is built.  The
-other knobs stay registered for the search space; their readers come
-with the modules that read them (serving, guard, resharding,
-autoscaling, the wire codecs).
+readers validate it.  The port reads `fusion_threshold` on every
+gradient enqueue of `DistributedOptimizer`, `fused_chunk_bytes` on
+every chunk plan, `bucket_order`, `min_buckets` and `zero_stage` where
+a sharded optimizer or a placement is built, the wire policy's
+`wire_threshold` and `wire_big_format`, and `serve_page_tokens`,
+`serve_max_batch`, `serve_spec_gamma` and `serve_flightrec_depth` where
+an `InferenceServer` is built (with the plain env read
+`current_serve_pool_pages`).  The other knobs stay registered for the
+search space; their readers come with the modules that read them
+(guard, resharding, autoscaling).
 
 Ranks: every rank runs the same manager from the same seed.  With more
 than one rank, rank 0's measured rate is broadcast when a sample closes
@@ -550,3 +553,63 @@ def current_wire_big_format() -> str:
     """The live big-bucket codec of HOROVOD_WIRE_POLICY=auto:
     HOROVOD_WIRE_BIG_FORMAT (int8 by default), or the tuner's."""
     return tuned_wire_big_format(_env_wire_big_format())
+
+
+def tuned_serve_page_tokens(default: int) -> int:
+    v = _tuned("serve_page_tokens")
+    return default if v is None else max(1, int(v))
+
+
+def current_serve_page_tokens() -> int:
+    """The live KV-pool page size in tokens: HOROVOD_SERVE_PAGE_TOKENS
+    (16), or the tuner's.  Shape-changing: read once when a server is
+    built."""
+    return tuned_serve_page_tokens(
+        max(1, util.env_int("SERVE_PAGE_TOKENS", 16)))
+
+
+def tuned_serve_max_batch(default: int) -> int:
+    v = _tuned("serve_max_batch")
+    return default if v is None else max(1, int(v))
+
+
+def current_serve_max_batch() -> int:
+    """The live row count of the serving decode step:
+    HOROVOD_SERVE_MAX_BATCH (8), or the tuner's.  Read once when a server
+    is built."""
+    return tuned_serve_max_batch(max(1, util.env_int("SERVE_MAX_BATCH", 8)))
+
+
+def tuned_serve_spec_gamma(default: int) -> int:
+    v = _tuned("serve_spec_gamma")
+    return default if v is None else max(1, int(v))
+
+
+def current_serve_spec_gamma() -> int:
+    """The live speculative draft length: HOROVOD_SERVE_SPEC_GAMMA (4), or
+    the tuner's.  Read once when a server is built (it is the verify
+    chunk's width)."""
+    return tuned_serve_spec_gamma(
+        max(1, util.env_int("SERVE_SPEC_GAMMA", 4)))
+
+
+def tuned_serve_flightrec_depth(default: int) -> int:
+    v = _tuned("serve_flightrec_depth")
+    return default if v is None else max(1, int(v))
+
+
+def current_serve_flightrec_depth() -> int:
+    """The live flight-recorder ring depth: HOROVOD_SERVE_FLIGHTREC_DEPTH
+    (512 events; <= 0 turns the recorder off, whatever the tuner says),
+    or the tuner's."""
+    env = util.env_int("SERVE_FLIGHTREC_DEPTH", 512)
+    if env <= 0:
+        return 0
+    return tuned_serve_flightrec_depth(env)
+
+
+def current_serve_pool_pages() -> int:
+    """KV-pool size in pages: HOROVOD_SERVE_POOL_PAGES (0 = the server
+    sizes the pool to max_batch full-length sequences).  Not a tuner
+    knob: the pool's size is a capacity decision."""
+    return max(0, util.env_int("SERVE_POOL_PAGES", 0))

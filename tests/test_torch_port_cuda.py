@@ -775,8 +775,8 @@ def test_codecs_on_card_are_bitwise_the_cpu(cuda, wire):
     v[130], v[260], v[261] = float("nan"), float("inf"), float("-inf")
     v[384:512] = torch.arange(-127.0, 1.0)
     v[512:640] = torch.arange(-7.0, 8.0, 0.5).repeat(9)[:128]
-    # A NaN block keeps the scale 1: its values past e4m3's 448 and an
-    # inf reach the cast unnormalised (both saturate there).
+    # A NaN block keeps the scale 1: its values past e4m3's 464 and an
+    # inf reach the cast unnormalised (e4m3 writes NaN there, as XLA).
     v[640:768] = torch.linspace(-600.0, 600.0, 128)
     v[641], v[642] = float("nan"), float("inf")
     codec = W.get_codec(wire)
@@ -902,3 +902,108 @@ def test_flash_ring_on_card_matches_its_plain_engine(mesh_on_card, name):
                 err = float((got - want).abs().max())
                 assert err <= tol * float(want.abs().max()), (name, other,
                                                               err)
+
+
+# ---------------------------------------------------------------------------
+# Decode and serving on the card
+# ---------------------------------------------------------------------------
+
+def test_flash_attention_without_autograd_launches_k4_alone(cuda):
+    """Inference (no_grad, or inputs that need no gradient) runs K4 only,
+    with nothing saved for a backward, and gives the autograd path's
+    output."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((2, 512, 8, 64), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    FA.reset_launch_counts()
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v)
+    assert FA.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
+    assert o.grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o2 = FA.flash_attention(*leaves)
+    assert o2.grad_fn is not None and torch.equal(o, o2.detach())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_decode_on_the_card_matches_the_cpu(cuda, quantize, monkeypatch):
+    """A 2-layer bf16 model at d_head 64: the prefill at T0 = 256 takes
+    K4 once per layer on the tensor cores (HOROVOD_FLASH_ATTENTION=1),
+    the decode steps none; the card's greedy tokens follow the CPU
+    chain's (plain attention) up to the first near-tie (0.05), the
+    prefill logits within 5e-2 of the CPU's largest."""
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+
+    monkeypatch.setenv("HOROVOD_FLASH_ATTENTION", "1")
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            d_head=64, d_ff=256, n_layers=2)
+    params = T.transformer_init(0, cfg)
+    prompt = torch.randint(0, 512, (2, 256),
+                           generator=torch.Generator().manual_seed(1))
+    FA.reset_launch_counts()
+    toks, _ = D.transformer_generate(T.tree_map(lambda a: a.to(cuda),
+                                                params), cfg,
+                                     prompt.to(cuda), 8, quantize=quantize)
+    assert FA.launch_counts()["flash_fwd"] == 2
+    assert FA.sm90_launch_counts()["flash_fwd"] == 2
+    cache = D.init_decode_cache(cfg, 2, 264, quantize=quantize,
+                                device="cpu")
+    lg, cache = D.transformer_prefill(D.decode_params(params, cfg), cache,
+                                      prompt, cfg)
+    dp = D.decode_params(params, cfg)
+    cache_c = D.init_decode_cache(cfg, 2, 264, quantize=quantize,
+                                  device=cuda)
+    lg_c, _ = D.transformer_prefill(T.tree_map(lambda a: a.to(cuda), dp),
+                                    cache_c, prompt.to(cuda), cfg)
+    assert float((lg_c.cpu() - lg).abs().max()) <= \
+        5e-2 * float(lg.abs().max())
+    want, margins = [], []
+    for _ in range(8):
+        top2 = torch.topk(lg, 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        want.append(torch.argmax(lg, -1))
+        lg, cache = D.transformer_decode_step(dp, cache, want[-1], cfg)
+    want, margins = torch.stack(want, 1), torch.stack(margins, 1)
+    for b in range(2):
+        ties = (margins[b] < 0.05).nonzero()
+        upto = int(ties[0]) if len(ties) else 8
+        assert toks[b, :upto].cpu().tolist() == want[b, :upto].tolist()
+
+
+def test_server_on_the_card_matches_generate(cuda):
+    """f32, int8 cache: each request's tokens follow its own batch-1
+    chain up to the first near-tie (1e-3: the server's rows and the
+    chain's one row may take cuBLAS kernels that sum in another order)."""
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serve import InferenceServer
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            d_head=64, d_ff=256, n_layers=2,
+                            compute_dtype=torch.float32)
+    params = T.tree_map(lambda a: a.to(cuda), T.transformer_init(0, cfg))
+    srv = InferenceServer(params, cfg, max_seq_tokens=40, max_batch=3,
+                          page_tokens=8, quantize="int8")
+    rng = np.random.RandomState(2)
+    reqs = [(srv.submit(p, 6), p) for p in
+            (rng.randint(0, 512, size=int(rng.choice([5, 9])))
+             for _ in range(5))]
+    by_id = {s.req.req_id: s.generated for s in srv.run()}
+    assert srv.pool.pages_free() == srv.pool.total_pages
+    dp = D.decode_params(params, cfg)
+    for rid, p in reqs:
+        cache = D.init_decode_cache(cfg, 1, len(p) + 6, quantize="int8",
+                                    device=cuda)
+        lg, cache = D.transformer_prefill(dp, cache, torch.from_numpy(
+            p[None]).to(cuda), cfg)
+        want = []
+        for _ in range(6):
+            top2 = torch.topk(lg[0], 2).values
+            if float(top2[0] - top2[1]) < 1e-3:
+                break
+            want.append(int(torch.argmax(lg[0])))
+            lg, cache = D.transformer_decode_step(
+                dp, cache, torch.tensor([want[-1]], device=cuda), cfg)
+        assert by_id[rid][:len(want)] == want

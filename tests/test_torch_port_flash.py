@@ -239,13 +239,15 @@ def test_argument_errors_match_the_jax_module(name):
 @pytest.mark.parametrize("env,device,seq_len,want", [
     ({}, "cpu", 16384, False),
     ({}, "cuda", 16384, True),
-    ({}, "cuda", 8192, False),
+    ({"HOROVOD_FLASH_ATTENTION_MIN_T": "16384"}, "cuda", 8192, False),
     ({"HOROVOD_FLASH_ATTENTION_MIN_T": "4096"}, "cuda", 8192, True),
     ({"HOROVOD_FLASH_ATTENTION": "1"}, "cpu", 128, True),
     ({"HOROVOD_FLASH_ATTENTION": "0"}, "cuda", 65536, False),
     ({"HOROVOD_FLASH_ATTENTION": ""}, "cuda", 16384, True),
     ({"HOROVOD_FLASH_ATTENTION": " "}, "cpu", 16384, False),
     ({"HVD_TPU_FLASH_ATTENTION": "yes"}, "cpu", 128, True),
+    ({}, "cuda", FA.MIN_T_DEFAULT, True),
+    ({}, "cuda", FA.MIN_T_DEFAULT - 128, False),
 ])
 def test_flash_routed(monkeypatch, env, device, seq_len, want):
     for k in ("HOROVOD_FLASH_ATTENTION", "HVD_TPU_FLASH_ATTENTION",

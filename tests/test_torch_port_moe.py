@@ -21,9 +21,11 @@ Four CPU ranks over gloo:
   summed objectives (sum(out · c) + aux) within 1e-4 of their largest
   value of JAX's, the replicated gate's summed over the ranks as
   shard_map's transpose sums it;
-- `make_train_step` at dp=2 x ep=2 and at ep=4 (moe_every=2, 4 experts,
-  B = 4, T = 16): the loss within 1e-4 and every reassembled gradient
-  within 1e-3 of JAX's ep step (sgd(1.0): minus its update).  Not of
+- `make_train_step` at dp=2 x ep=2, at ep=4, and with ep beside the
+  other axes: ep=2 x sp=2 (ring attention and Ulysses), ep=2 x tp=2 and
+  pp=2 x ep=2 (moe_every=2, 4 experts, B = 4, T = 16): the loss within
+  1e-4 and every reassembled gradient within 1e-3 of its largest value
+  of JAX's step on the same mesh (sgd(1.0): minus its update).  Not of
   the dense model: capacity is counted per shard from local tokens, so
   tokens drop differently than over the whole batch (ROADMAP,
   "Reference behaviours").
@@ -49,7 +51,11 @@ N = 4
 D, F, E = 16, 32, 8
 CF = 1.25
 MOE = dict(moe_every=2, n_experts=4)
-STEPS = [("dp2_ep2", dict(dp=2, ep=2)), ("ep4", dict(ep=4))]
+STEPS = [("dp2_ep2", dict(dp=2, ep=2), {}), ("ep4", dict(ep=4), {}),
+         ("ep2_sp2_ring", dict(ep=2, sp=2), {}),
+         ("ep2_sp2_ulysses", dict(ep=2, sp=2), dict(attn_impl="ulysses")),
+         ("ep2_tp2", dict(ep=2, tp=2), {}),
+         ("pp2_ep2", dict(pp=2, ep=2), {})]
 
 WORKER = r'''
 import functools, sys
@@ -82,8 +88,8 @@ for ep in (2, 4):
     res[ep] = (out.detach(), float(aux["aux_loss"]), x.grad,
                *[t.grad for t in leaves])
 
-for name, kw in data["steps"]:
-    cfg = T.TransformerConfig(**data["cfg"], **data["moe_cfg"],
+for name, kw, extra in data["steps"]:
+    cfg = T.TransformerConfig(**data["cfg"], **data["moe_cfg"], **extra,
                               compute_dtype=torch.float32)
     mesh = create_hybrid_mesh(**kw)
     step, shard_state, shard_batch = T.make_train_step(
@@ -223,12 +229,13 @@ def test_moe_apply_shard_matches_jax_with_gradients(world, ep):
         assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), name
 
 
-@pytest.mark.parametrize("name,mesh_kw", STEPS, ids=[s[0] for s in STEPS])
-def test_ep_train_step_matches_the_jax_ep_step(world, name, mesh_kw):
+@pytest.mark.parametrize("name,mesh_kw,extra", STEPS,
+                         ids=[s[0] for s in STEPS])
+def test_ep_train_step_matches_the_jax_ep_step(world, name, mesh_kw, extra):
     params, res = world
     tokens, targets = _data(4)
-    want_loss, want_grads = jax_step(mesh_kw, params, _jcfg(**MOE), tokens,
-                                     targets)
+    want_loss, want_grads = jax_step(mesh_kw, params,
+                                     _jcfg(**MOE, **extra), tokens, targets)
     for d in res:
         assert abs(d[name]["loss"] - want_loss) < 1e-4, (
             d[name]["loss"], want_loss)

@@ -548,14 +548,15 @@ def test_port_surface_covers_the_jax_shim():
         assert hasattr(hvd.elastic, name), name
 
 
-_READ = re.compile(r"\b(?:getenv|env_bool|env_int)\(\s*\"([A-Z0-9_]+)\"")
+_READ = re.compile(
+    r"\b(?:getenv|env_bool|env_int|env_float)\(\s*\"([A-Z0-9_]+)\"")
 
 
 def test_env_catalog_names_every_variable_the_port_reads():
-    """Every `util.getenv` / `env_bool` / `env_int` name in the port's
-    sources (read as HOROVOD_<NAME>), and every literal HOROVOD_*
-    lookup in `os.environ`, is in the port's catalog, and the catalog
-    names nothing else."""
+    """Every `util.getenv` / `env_bool` / `env_int` / `env_float` name in
+    the port's sources (read as HOROVOD_<NAME>), and every literal
+    HOROVOD_* lookup in `os.environ`, is in the port's catalog, and the
+    catalog names nothing else."""
     from horovod_tpu_torch.common.env_catalog import BY_NAME
 
     read = set()
