@@ -258,6 +258,37 @@ Phases, each printing its own lines:
                  8 steps within SERVE_RTOL of the one-rank chain (and
                  the chain with layer 0's attention sum dropped above
                  it).  The phase must end within SERVE_BUDGET_S.
+19. train_guard  main path 10: the training-health guard (guard/) and the
+                 checkpoint manager (utils/checkpoint.py).  (a) The
+                 synthetic benchmark on ResNet-50 at one rank on NCCL
+                 (batch 32, bf16), unguarded and under
+                 HOROVOD_GUARD=1 at the static scale: the final
+                 parameters' SHA-256 equal, img/sec of both.  (b) Two
+                 ranks share the card over gloo (`python -m chip_smoke
+                 --guard-rank`) and run the default TransformerConfig at
+                 T = 16384, batch 1 a rank, DistributedOptimizer(AdamW,
+                 guard=DynamicLossScale(1024)) at stage 0 under a
+                 TrainingGuard (tests/data/guard_main.py's recipe: digest
+                 every 4 steps, the checkpoint at step 4, rank 1 alone
+                 poisoning its batch's loss weight at step 3 and flipping
+                 a parameter bit at step 6, 12 steps): the per-step trace
+                 (flag, scale, consecutive flags) the same on both ranks,
+                 only step 3 flagged, the scale 1024 -> 512 there,
+                 AdamW's step count and exp_avg after step 3 those after
+                 step 2, a rollback at step 8 naming one bucket on both
+                 ranks to step 4 (generation 1), the restore on the card,
+                 the final parameters finite and one SHA-256, K4-K6 on
+                 the tensor cores; the checkpoint's save and restore
+                 times.  Then steps 0-4 again on the int8 ring with
+                 rank 1's NaN at step 3 and `crossrank_or` made the
+                 identity: the ranks' SHA-256 must differ.  (c) The same
+                 model at stage 3 (ZERO3_ENV), rank 1's NaN at step 2:
+                 both ranks flag it, the updates are zero, the shard
+                 optimizer state and the rows unchanged; then one
+                 held-out forward through `gather_matmul`, 64 K3
+                 launches a rank on the vector path, the logits finite
+                 and the same on both ranks.  The phase must end within
+                 GUARD_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -270,6 +301,8 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 
 `python3 chip_smoke.py --serve` runs only the MIN_T table, K4 at the
 prefill shape and phase 18 (with their own builds of the flash sources).
+`python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
+sources it runs).
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -285,7 +318,9 @@ main path 7 as `wire_launches`; K4-K6 with their times at the ring's
 pair shape as `ring_pair`, their errors at the ring's causal diagonal
 pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
 per rank on each run of main path 8 as `mesh_launches`, and K4-K6's
-launches on main path 9 as `serve_launches`, K4 with its prefill-shape
+launches on main path 9 as `serve_launches` and on main path 10 per
+rank as `guard_launches` (the ladder) and `guard_zero3_launches`, K3's
+on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
@@ -2791,6 +2826,432 @@ def serve_phase(FA, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the training-health guard and the checkpoint manager
+# ---------------------------------------------------------------------------
+
+GUARD_BUDGET_S = 150   # phase 19's share of the script's time limit
+GUARD_STEPS = 12       # tests/data/guard_main.py's recipe: 12 steps,
+GUARD_NAN_STEP = 3     # rank 1 alone poisons its batch at step 3,
+GUARD_FLIP_STEP = 6    # flips a parameter bit at step 6,
+GUARD_CKPT_STEP = 4    # the digest-verified checkpoint is step 4's,
+GUARD_DIGEST = 4       # and the digest check runs every 4 steps
+GUARD_SCALE = 1024.0
+GUARD_TEETH_STEPS = 5  # steps 0-4 of the run without the cross-rank OR
+GUARD_Z3_STEPS = 3     # stage 3: rank 1's NaN at step 2
+GUARD_Z3_NAN = 2
+GUARD_RESNET_ARGS = ["--model", "resnet50", "--batch-size", "32",
+                     "--num-warmup-batches", "2", "--num-batches-per-iter",
+                     "5", "--num-iters", "3",
+                     "--profile", "2"]
+
+
+def _sha(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def guard_rank(cfg=None, seq_len: int = 16384, device=None,
+               zero3_env=None) -> int:
+    """The ranks of phase 19 (b) and (c) (run by `train_guard` through
+    run_ranks as `python -m chip_smoke --guard-rank`; `cfg`, `seq_len`,
+    `device` and `zero3_env` shrink it for a rehearsal on the CPU).  Each step's
+    batch is {"tokens", "weight"}: the token ids and a per-token f32 loss
+    weight of ones (a batch of ids alone has no float leaf for
+    `guard.nan_grad` to poison), the loss their weighted mean.
+
+    (b) The ladder: DistributedOptimizer(AdamW, guard=DynamicLossScale(
+    1024)) at stage 0, TrainingGuard(digest_interval=4), the checkpoint at
+    step 4, rank 1 alone armed with `guard.nan_grad` at step 3 and
+    `guard.param_bitflip` at step 6, 12 steps.  Then steps 0-4 again on
+    the int8 ring with rank 1's NaN at step 3 and `crossrank_or` made the
+    identity: the check's teeth.  (On the exact wire every rank's reduced
+    gradient carries the NaN, so each rank flags on its own scan; the
+    ring's integer cast launders it, and only rank 1's input flag sees
+    it.)  (c) Stage 3 under ZERO3_ENV with rank 1's NaN at step 2, then
+    one held-out forward through `gather_matmul` (K3).  Saved to
+    LOG_DIR/guard_rank<r>.pt."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.guard import sentinel
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import matmul_kernels as MK
+    from horovod_tpu_torch.synthetic_benchmark import param_digest
+    from horovod_tpu_torch.transformer_benchmark import (
+        embed_group, launch_counts, reset_launch_counts)
+
+    hvd.init(device=device)
+    r, dev = hvd.rank(), hvd.device()
+    cfg = cfg or TransformerConfig(compute_dtype=torch.bfloat16)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(r)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (1, seq_len + 1))).to(dev)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    clean = {"tokens": x,
+             "weight": torch.ones((1, seq_len), dtype=torch.float32,
+                                  device=dev)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def build(scaler, zero_stage=0, compression=None):
+        model = Transformer(cfg, seed=r).to(dev)
+        inner = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(),
+            zero_stage=zero_stage, guard=scaler,
+            compression=compression or hvd.Compression.none)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        return model, opt
+
+    def weighted_loss(model, batch):
+        logits = model(batch["tokens"])
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, y[..., None])[..., 0]
+        w = batch["weight"]
+        return ((lse - picked) * w).sum() / w.sum()
+
+    def backward(model, opt, scaler, batch):
+        opt.zero_grad(set_to_none=True)
+        loss = weighted_loss(model, batch)
+        scaler.scale_loss(opt.guard_state, loss).backward()
+        return loss.detach()
+
+    def injected(guard, t, nan_step, flip_step=None, params=None):
+        """This step's batch (and parameters), rank 1 alone armed."""
+        if r == 1 and t == nan_step:
+            faults.install("guard.nan_grad@1:err")
+        if r == 1 and t == flip_step:
+            faults.install("guard.param_bitflip@1:err")
+        batch, _ = guard.maybe_inject(clean, params)
+        faults.clear()
+        return batch
+
+    def adam_state(opt):
+        st = [opt.state[p] for p in opt.param_groups[0]["params"]]
+        return {"step": [float(s["step"]) for s in st],
+                "exp_avg": _sha(s["exp_avg"] for s in st)}
+
+    res = {"rank": r, "backend": hvd.backend(), "device": str(dev)}
+    t_phase = time.perf_counter()
+    ckpt_dir = hvd.broadcast_object(
+        tempfile.mkdtemp(prefix="chip_smoke_guard_") if r == 0 else None)
+
+    # (b) the ladder at stage 0 on the exact wire.
+    scaler = hvd.DynamicLossScale(init_scale=GUARD_SCALE,
+                                  growth_interval=1000)
+    model, opt = build(scaler)
+    guard = hvd.TrainingGuard(scaler=scaler, checkpoint_dir=ckpt_dir,
+                              digest_interval=GUARD_DIGEST, max_nonfinite=3)
+    trace, adam, times = [], {}, {}
+    res["rollback"] = None
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    for t in range(1, GUARD_STEPS + 1):
+        batch = injected(guard, t, GUARD_NAN_STEP, GUARD_FLIP_STEP, model)
+        loss = backward(model, opt, scaler, batch)
+        opt.step()
+        if t in (GUARD_NAN_STEP - 1, GUARD_NAN_STEP):
+            adam[t] = adam_state(opt)
+        v = guard.observe(opt, model, t)
+        trace.append({"step": t, "flagged": v.flagged,
+                      "scale": v.loss_scale, "nonfinite": v.nonfinite_steps,
+                      "loss": float(loss)})
+        if v.rollback:
+            sync()
+            tr = time.perf_counter()
+            restored = guard.rollback({"model": model.state_dict(),
+                                       "opt": opt.state_dict()})
+            sync()
+            times["restore_s"] = time.perf_counter() - tr
+            require(restored is not None, f"rank {r}: nothing restored")
+            model.load_state_dict(restored["model"])
+            opt.load_state_dict(restored["opt"])
+            guard.reset_guard_state(opt, scaler)
+            res["rollback"] = {"step": t, "bucket": v.mismatch_bucket}
+            res["restored_on"] = sorted({str(v_.device) for v_ in
+                                         restored["model"].values()})
+            del restored
+        elif t == GUARD_CKPT_STEP:
+            sync()
+            ts = time.perf_counter()
+            res["checkpointed"] = guard.checkpoint(
+                t, {"model": model.state_dict(), "opt": opt.state_dict()})
+            times["save_s"] = time.perf_counter() - ts
+    sync()
+    times["drill_s"] = time.perf_counter() - t0
+    res.update(trace=trace, adam=adam, generation=guard.generation,
+               last_verified_step=guard.last_verified_step,
+               launches=launch_counts(), digest=param_digest(model),
+               finite=all(bool(torch.isfinite(p).all())
+                          for p in model.parameters()),
+               state_bytes=sum(t_.numel() * t_.element_size() for t_ in
+                               list(model.state_dict().values()) + [
+                                   v_ for s_ in opt.state.values()
+                                   for v_ in s_.values()
+                                   if isinstance(v_, torch.Tensor)]))
+    del model, opt, guard
+    if r == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # The teeth: the same NaN without the cross-rank OR, on the int8 ring.
+    scaler = hvd.DynamicLossScale(init_scale=GUARD_SCALE,
+                                  growth_interval=1000)
+    model, opt = build(scaler, compression=hvd.Compression.int8)
+    guard = hvd.TrainingGuard(scaler=scaler, digest_interval=0)
+
+    def teeth():
+        flags = []
+        for t in range(GUARD_TEETH_STEPS):
+            batch = injected(guard, t, GUARD_NAN_STEP)
+            backward(model, opt, scaler, batch)
+            opt.step()
+            flags.append(float(opt.guard_state.bucket_flags.max()))
+        return flags
+
+    sync()
+    t0 = time.perf_counter()
+    res["teeth_flags"] = _with_attr(sentinel, "crossrank_or",
+                                    lambda flags, process_set=None: flags,
+                                    teeth)
+    res["teeth_digest"] = param_digest(model)
+    times["teeth_s"] = time.perf_counter() - t0
+    del model, opt, guard
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) stage 3: the skip in lockstep, then the held-out forward on K3.
+    def zero3():
+        scaler = hvd.DynamicLossScale(init_scale=GUARD_SCALE,
+                                      growth_interval=1000)
+        model, opt = build(scaler, zero_stage=3)
+        guard = hvd.TrainingGuard(scaler=scaler, digest_interval=0)
+        params = list(model.parameters())
+        placement = hvd.zero3_placement(params)
+        gi = embed_group(placement, model)
+        rows = placement.shard(params)
+        placement.bind(params)
+        steps = []
+        for t in range(GUARD_Z3_STEPS):
+            batch = injected(guard, t, GUARD_Z3_NAN)
+            local = opt._local
+            before = (_sha(v_ for s_ in local.state.values()
+                           for v_ in s_.values()), [rw.clone() for rw in rows])
+            with torch.no_grad():
+                placement.gather(rows)
+            backward(model, opt, scaler, batch)
+            updates = opt.step()
+            rows_new = placement.apply_updates(rows, updates)
+            placement.release()
+            rec = {"step": t,
+                   "flagged": float(opt.guard_state.bucket_flags.max()) > 0,
+                   "scale": float(opt.guard_state.loss_scale),
+                   "zero_updates": all(float(u.abs().max()) == 0
+                                       for u in updates),
+                   "state_unchanged": _sha(
+                       v_ for s_ in local.state.values()
+                       for v_ in s_.values()) == before[0],
+                   "rows_unchanged": all(torch.equal(a, b) for a, b in
+                                         zip(rows_new, before[1]))}
+            rows = rows_new
+            steps.append(rec)
+            del updates, before
+        ev = np.random.RandomState(12345).randint(
+            0, cfg.vocab_size, (1, seq_len))
+        k3 = MK.tiled_matmul
+        n0 = (k3.launches, k3.strided_launches, k3.plain_calls)
+        with torch.no_grad():
+            placement.gather(rows)
+            h = model.hidden(torch.from_numpy(ev).to(dev))
+            logits = placement.gather_matmul(
+                h.reshape(-1, cfg.d_model).float(), rows, gi)
+            placement.release()
+        return {"steps": steps,
+                "k3_launches": k3.launches - n0[0],
+                "k3_strided_launches": k3.strided_launches - n0[1],
+                "k3_plain_calls": k3.plain_calls - n0[2],
+                "logits_finite": bool(torch.isfinite(logits).all()),
+                "logits_sha": _sha([logits]),
+                "logits_shape": list(logits.shape)}
+
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res["zero3"] = _with_env(zero3_env or ZERO3_ENV, zero3)
+    res["zero3"]["launches"] = launch_counts()
+    sync()
+    times["zero3_s"] = time.perf_counter() - t0
+    times["rank_s"] = time.perf_counter() - t_phase
+    res["times"] = times
+    os.makedirs(LOG_DIR, exist_ok=True)
+    torch.save(res, os.path.join(LOG_DIR, f"guard_rank{r}.pt"))
+    print("GUARD " + json.dumps(res), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def train_guard() -> dict:
+    """Phase 19 (main path 10): (a) the guard's cost on ResNet-50 at one
+    rank, (b) the ladder and its teeth, (c) stage 3; see the module
+    docstring."""
+    import torch
+
+    t_start = time.perf_counter()
+    resnet = {}
+    for name, env in (("off", {}), ("on", {"HOROVOD_GUARD": "1"})):
+        (s,) = launch(f"guard_resnet_{name}", 1, GUARD_RESNET_ARGS, env=env,
+                      timeout=300)
+        require(s["backend"] == "nccl" and s["device"].startswith("cuda")
+                and s["guarded"] == (name == "on"),
+                f"guard_resnet_{name}: {s}")
+        resnet[name] = s
+    require(resnet["on"]["digest"] == resnet["off"]["digest"],
+            "ResNet-50 under HOROVOD_GUARD=1 (static scale) ends in other "
+            f"parameters: {resnet['on']['digest'][:16]} vs "
+            f"{resnet['off']['digest'][:16]}")
+    log("train_guard", "(a) ResNet-50, one rank, batch 32, bf16: unguarded "
+        f"{resnet['off']['img_sec_per_rank']:.2f} +- "
+        f"{resnet['off']['img_sec_std']:.2f} img/sec, HOROVOD_GUARD=1 "
+        f"{resnet['on']['img_sec_per_rank']:.2f} +- "
+        f"{resnet['on']['img_sec_std']:.2f} img/sec; final parameters' "
+        f"SHA-256 equal ({resnet['on']['digest'][:16]})")
+
+    n = 2
+    run_ranks("train_guard", n, "chip_smoke", ["--guard-rank"], 400)
+    res = [torch.load(os.path.join(LOG_DIR, f"guard_rank{r}.pt"),
+                      weights_only=False) for r in range(n)]
+    out = check_guard(res, on_card=True)
+    out["resnet"] = {k: {f: s[f] for f in ("img_sec_per_rank", "img_sec_std",
+                                           "digest", "steps")}
+                     for k, s in resnet.items()}
+    out["phase_s"] = time.perf_counter() - t_start
+    log("train_guard", f"{out['phase_s']:.1f} s (budget {GUARD_BUDGET_S} s)")
+    require(out["phase_s"] <= GUARD_BUDGET_S,
+            f"train_guard: over its budget of {GUARD_BUDGET_S} s")
+    return out
+
+
+def check_guard(res, on_card: bool) -> dict:
+    """Phase 19 (b) and (c)'s checks over the ranks' results."""
+    for d in res:
+        require(d["backend"] == "gloo" and (d["device"].startswith("cuda")
+                                             or not on_card),
+                f"guard rank {d['rank']}: {d['backend']} on {d['device']}")
+    key = [[{k: t[k] for k in ("step", "flagged", "scale", "nonfinite")}
+            for t in d["trace"]] for d in res]
+    require(all(k == key[0] for k in key), f"guard: the per-step traces "
+            f"differ across ranks {key}")
+    by_step = {t["step"]: t for t in key[0]}
+    flagged = [t["step"] for t in key[0] if t["flagged"]]
+    require(flagged == [GUARD_NAN_STEP], f"guard: flagged steps {flagged}")
+    require(by_step[GUARD_NAN_STEP - 1]["scale"] == GUARD_SCALE and
+            by_step[GUARD_NAN_STEP]["scale"] == GUARD_SCALE / 2 and
+            by_step[GUARD_NAN_STEP]["nonfinite"] == 1,
+            f"guard: scale {by_step[GUARD_NAN_STEP - 1]} -> "
+            f"{by_step[GUARD_NAN_STEP]}")
+    buckets = {d["rollback"]["bucket"] if d["rollback"] else None
+               for d in res}
+    for d in res:
+        a = d["adam"]
+        require(a[GUARD_NAN_STEP] == a[GUARD_NAN_STEP - 1],
+                f"guard rank {d['rank']}: AdamW's state moved on the "
+                f"flagged step {a}")
+        require(d["rollback"] is not None and d["rollback"]["step"] == 8
+                and d["generation"] == 1 and d["last_verified_step"] ==
+                GUARD_CKPT_STEP, f"guard rank {d['rank']}: rollback "
+                f"{d['rollback']}, generation {d['generation']}, last "
+                f"verified {d['last_verified_step']}")
+        require(d["finite"], f"guard rank {d['rank']}: non-finite params")
+        require(not on_card or d["restored_on"] == ["cuda:0"],
+                f"guard rank {d['rank']}: restored onto {d['restored_on']}")
+        if on_card:
+            for k in FLASH_NAMES:
+                require(d["launches"][k] > 0 and d["launches"][k] ==
+                        d["launches"][k + "_sm90"],
+                        f"guard rank {d['rank']}: {k} launches "
+                        f"{d['launches']}")
+    require(len(buckets) == 1 and None not in buckets,
+            f"guard: mismatch buckets {buckets}")
+    digests = {d["digest"] for d in res}
+    require(len(digests) == 1, f"guard: final parameters differ {digests}")
+    teeth = {d["teeth_digest"] for d in res}
+    require(len(teeth) == len(res) and
+            res[1]["teeth_flags"][GUARD_NAN_STEP] == 1 and
+            res[0]["teeth_flags"][GUARD_NAN_STEP] == 0,
+            f"guard: without the cross-rank OR the ranks still agree "
+            f"({teeth}, flags {[d['teeth_flags'] for d in res]})")
+    z3 = [d["zero3"] for d in res]
+    for d, z in zip(res, z3):
+        st = z["steps"][GUARD_Z3_NAN]
+        require(st["flagged"] and st["zero_updates"] and
+                st["state_unchanged"] and st["rows_unchanged"],
+                f"guard rank {d['rank']}: stage 3 step {st}")
+        require(not any(s["flagged"] for s in z["steps"]
+                        if s["step"] != GUARD_Z3_NAN),
+                f"guard rank {d['rank']}: stage 3 flags {z['steps']}")
+        require(z["logits_finite"], f"guard rank {d['rank']}: stage 3 "
+                "eval logits not finite")
+        if on_card:
+            require(z["k3_launches"] == 64 and z["k3_strided_launches"] == 0
+                    and z["k3_plain_calls"] == 0,
+                    f"guard rank {d['rank']}: K3 launches {z}")
+    require(len({z["logits_sha"] for z in z3}) == 1,
+            f"guard: stage-3 eval logits differ across ranks")
+    times = [d["times"] for d in res]
+    for d in res:
+        log("train_guard", f"(b) rank {d['rank']}: trace "
+            + ", ".join(f"{t['step']}:{'F' if t['flagged'] else '.'}"
+                        f"{t['scale']:g}/{t['nonfinite']}" for t in d["trace"])
+            + f"; AdamW after step {GUARD_NAN_STEP} = after step "
+            f"{GUARD_NAN_STEP - 1} (steps {d['adam'][GUARD_NAN_STEP]['step'][0]:g}, "
+            f"exp_avg {d['adam'][GUARD_NAN_STEP]['exp_avg'][:16]}); rollback "
+            f"at step {d['rollback']['step']} (bucket "
+            f"{d['rollback']['bucket']}) to step {d['last_verified_step']}, "
+            f"generation {d['generation']}; final SHA-256 "
+            f"{d['digest'][:16]}; K4-K6 launches "
+            f"{[d['launches'][k] for k in FLASH_NAMES]} (tensor cores "
+            f"{[d['launches'][k + '_sm90'] for k in FLASH_NAMES]}); "
+            f"checkpoint of {d['state_bytes']} bytes: save "
+            f"{d['times'].get('save_s', 0):.3f} s (rank 0 writes), restore "
+            f"and broadcast {d['times']['restore_s']:.3f} s; drill "
+            f"{d['times']['drill_s']:.1f} s")
+        log("train_guard", f"(b) teeth, rank {d['rank']}: int8 ring, "
+            f"crossrank_or the identity: flags {d['teeth_flags']}, final "
+            f"SHA-256 {d['teeth_digest'][:16]} ({d['times']['teeth_s']:.1f} "
+            "s)")
+        z = d["zero3"]
+        log("train_guard", f"(c) rank {d['rank']}: stage 3 steps "
+            f"{z['steps']}; eval: K3 launches {z['k3_launches']} (strided "
+            f"{z['k3_strided_launches']}), logits {z['logits_shape']} finite, "
+            f"SHA-256 {z['logits_sha'][:16]}; K4-K6 "
+            f"{[z['launches'][k] for k in FLASH_NAMES]} "
+            f"({d['times']['zero3_s']:.1f} s)")
+    log("train_guard", "teeth: the ranks' SHA-256 differ without the "
+        f"cross-rank OR ({sorted(x[:16] for x in teeth)})")
+    return {"launches": [d["launches"] for d in res],
+            "zero3_launches": [d["zero3"]["launches"] for d in res],
+            "k3_launches": [z["k3_launches"] for z in z3],
+            "times": times, "state_bytes": res[0]["state_bytes"],
+            "trace": key[0]}
+
+
+
 def main() -> int:
     import torch
 
@@ -2807,6 +3268,8 @@ def main() -> int:
         return surface_rank()
     if sys.argv[1:2] == ["--decode-rank"]:
         return decode_rank()
+    if sys.argv[1:2] == ["--guard-rank"]:
+        return guard_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -2825,6 +3288,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if sys.argv[1:2] == ["--guard"]:
+        # Phase 19 alone (with the builds of the sources it runs).
+        _build.build(["flash_attention_sm90", "flash_attention",
+                      "tiled_matmul"])
+        guard = train_guard()
+        print(json.dumps({"guard": guard}), flush=True)
+        return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
         _build.build(["flash_attention_sm90", "flash_attention"])
@@ -2920,6 +3390,7 @@ def main() -> int:
         " s)")
     require(time.perf_counter() - t0 <= SERVE_BUDGET_S,
             f"serve: over its budget of {SERVE_BUDGET_S} s")
+    guard = train_guard()
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -2986,13 +3457,19 @@ def main() -> int:
             require(launches[name + "_sm90"] == launches[name],
                     f"{name}: {launches[name + '_sm90']} of "
                     f"{launches[name]} launches on the tensor cores")
+            # Main path 10: the guard's ladder (b) and stage 3 (c), per
+            # rank.
+            row.update(guard_launches=[g[name] for g in guard["launches"]],
+                       guard_zero3_launches=[
+                           g[name] for g in guard["zero3_launches"]])
         if name == "tiled_matmul":
             # The launches of the main path's eval forward that took the
             # strided load path (train_zero3 and zero3_nccl require 0),
             # and that path's time at the head chunk.
             row.update(strided_launches=zero3_summaries[0]["evals"][0][
                 "k3_strided_launches"], strided_ms=m["strided_ms"],
-                wire_launches=wire["zero3"][0]["evals"][0]["k3_launches"])
+                wire_launches=wire["zero3"][0]["evals"][0]["k3_launches"],
+                guard_launches=guard["k3_launches"])
         kernels.append(row)
         require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")

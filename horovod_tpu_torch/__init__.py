@@ -16,3 +16,7 @@ package's Pallas kernels are CUDA kernels written for Hopper
 
 from .torch import *  # noqa: F401,F403
 from .torch import __all__  # noqa: F401
+
+# The training-health guard (horovod_tpu/__init__.py:196-203).
+from . import guard  # noqa: F401,E402
+from .guard import DynamicLossScale, GuardState, TrainingGuard  # noqa: F401,E402

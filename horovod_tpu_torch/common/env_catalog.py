@@ -118,12 +118,6 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_WIRE_BIG_FORMAT", "int8", "autotune",
        "Initial value of the tuner's wire_big_format knob: the codec "
        "HOROVOD_WIRE_POLICY=auto gives big buckets."),
-    _v("HOROVOD_GUARD_GROWTH_INTERVAL", "2000", "autotune",
-       "Initial value of the tuner's loss_scale_growth_interval knob "
-       "(guard/ is not ported yet)."),
-    _v("HOROVOD_GUARD_DIGEST_INTERVAL", "100", "autotune",
-       "Initial value of the tuner's guard_digest_interval knob (guard/ "
-       "is not ported yet)."),
     _v("HOROVOD_SERVE_PAGE_TOKENS", "16", "autotune",
        "KV-cache pool page size in tokens (the tuner's serve_page_tokens "
        "knob; read when an InferenceServer is built)."),
@@ -147,6 +141,26 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Initial value of the tuner's autoscale_dwell knob (serve/ is not "
        "ported yet)."),
     # -- serving (serve/) -----------------------------------------------------
+    # -- training-health guard (guard/, utils/checkpoint.py) -----------
+    _v("HOROVOD_GUARD", "0", "guard",
+       "1 arms the training-health guard in DistributedOptimizer: the "
+       "per-bucket non-finite sentinel plus the coordinated skip-step."),
+    _v("HOROVOD_GUARD_LOSS_SCALE", "(unset)", "guard",
+       "Initial dynamic loss scale (e.g. 65536).  Unset keeps a static "
+       "scale of 1.0: skip-step only, clean steps bitwise the unguarded "
+       "ones."),
+    _v("HOROVOD_GUARD_GROWTH_INTERVAL", "2000", "guard",
+       "Clean steps before the dynamic loss scale doubles; the tuner's "
+       "loss_scale_growth_interval knob."),
+    _v("HOROVOD_GUARD_DIGEST_INTERVAL", "100", "guard",
+       "Steps between TrainingGuard's cross-replica parameter-digest "
+       "checks (0 disables); the tuner's guard_digest_interval knob."),
+    _v("HOROVOD_GUARD_MAX_NONFINITE", "3", "guard",
+       "Consecutive flagged steps TrainingGuard tolerates before it "
+       "rolls back to the last digest-verified checkpoint."),
+    _v("HOROVOD_CKPT_QUARANTINE_KEEP", "3", "guard",
+       "Corrupt checkpoints (step_N.corrupt) CheckpointManager keeps for "
+       "forensics; older ones are pruned."),
     _v("HOROVOD_SERVE_POOL_PAGES", "0", "serve",
        "KV pool size in pages; 0 = max_batch full-length sequences."),
     _v("HOROVOD_SERVE_SLO_MS", "(unset)", "serve",

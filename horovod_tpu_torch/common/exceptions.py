@@ -8,6 +8,13 @@ class HorovodTpuError(Exception):
     """Base class for all framework errors."""
 
 
+class CheckpointCorruptError(HorovodTpuError):
+    """A persisted checkpoint failed its integrity check (sha256
+    mismatch, truncated or unreadable payload).  Restore treats the step
+    as unusable and rolls back to the previous good one rather than
+    ending the job."""
+
+
 class HorovodInternalError(HorovodTpuError):
     """A collective failed mid-flight; elastic training treats this as a
     signal to restore state and re-initialize (reference:

@@ -9,10 +9,13 @@ process, so a failure sequence replays exactly from (spec, seed):
     HOROVOD_FAULT_HOSTS=hostB       # arm only where HOROVOD_HOSTNAME is listed
 
 The port fires the `collective.*` points and `chaos.straggler_delay` in
-its eager collectives (`ops/collectives.py`) and `state.commit` in
-`elastic.State.commit`.  `CATALOG` is the JAX package's whole catalog,
-so a spec valid there is valid here; the points of modules not ported
-yet (rendezvous, the elastic driver, checkpoints, guard, serving,
+its eager collectives (`ops/collectives.py`), `state.commit` in
+`elastic.State.commit`, `checkpoint.save` and `checkpoint.restore` in
+`utils/checkpoint.py`, and `guard.nan_grad` and `guard.param_bitflip` in
+`guard.TrainingGuard.maybe_inject` (which turns their `err` into a NaN
+batch or a flipped parameter bit).  `CATALOG` is the JAX package's whole
+catalog, so a spec valid there is valid here; the points of modules not
+ported yet (rendezvous, the elastic driver, serving replicas,
 resharding) never fire.  An ``exit`` fault runs the hooks of
 `register_exit_hook` first (the serving flight recorder's dump).  The JAX package counts injections into its
 metrics registry, which is not ported; here `injections()` counts them.

@@ -300,17 +300,56 @@ def _grouped(group: List[torch.Tensor], op, process_set) -> list:
     return C.grouped_allreduce(group, op=op, process_set=process_set)
 
 
+def _sentinel_flags(leaves: Sequence[torch.Tensor], results,
+                    process_set: Optional[ProcessSet],
+                    input_buckets=()) -> torch.Tensor:
+    """The sentinel of the eager reduction: per-bucket 0/1 flags over the
+    reduced output leaves, OR-ed across ranks with one Max allreduce, so
+    every rank gates on the same f32[B] vector.
+
+    The outputs are replicated, so each rank scans its 1/n slice of them
+    (`sliced_nonfinite`; the OR restores full coverage).  Exact and cast
+    wires carry a non-finite value into the output (NaN + x is NaN, an
+    f16 overflow is Inf), so the output check is complete for them.  A
+    quantizing codec's integer cast can launder a NaN: the buckets on
+    one are listed in `input_buckets` (positions, or True for all) and
+    also get the full check of their input leaves.  (The JAX package
+    adds a sliced scan of the other buckets' inputs too, which flags
+    nothing more; it is there for XLA's scheduling.)"""
+    from ..guard import sentinel as _sent
+    from ..utils import timeline as _tl
+    ps = C._resolve_set(process_set)
+    tl = _tl.get_timeline()
+    flags = []
+    for k, (idxs, outs) in enumerate(results):
+        f = _sent.sliced_nonfinite(outs, ps)
+        if input_buckets is True or k in input_buckets:
+            f = torch.maximum(
+                f, _sent.local_nonfinite([leaves[i] for i in idxs]))
+        flags.append(f)
+        if tl is not None:
+            tl.instant(f"guard_bucket_{k}", category="guard",
+                       args={"bucket": k, "leaves": len(idxs)})
+    vec = (torch.stack(flags) if flags else
+           torch.zeros((1,), dtype=torch.float32,
+                       device=leaves[0].device if leaves else None))
+    return _sent.crossrank_or(vec, process_set=process_set)
+
+
 def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
                             op=C.Average, compression=Compression.none,
                             process_set: Optional[ProcessSet] = None,
                             fusion_threshold_bytes: Optional[int] = None,
                             bucket_order=None,
-                            error_feedback_leaves=None):
+                            error_feedback_leaves=None,
+                            sentinel: bool = False):
     """Reduce a flat list of gradients bucket by bucket (the routing of
     the module docstring).  Returns `(bucket_results, new_ef)`:
     `(original_indices, reduced_leaves)` per bucket in issue order, and
     the new residual per float leaf in float-leaf order (None unless
-    `error_feedback_leaves` was passed)."""
+    `error_feedback_leaves` was passed).  `sentinel=True` appends a third
+    element: the cross-rank f32[B] per-bucket non-finite flags
+    (`_sentinel_flags`)."""
     policy = active_wire_policy(compression, process_set)
     ef = error_feedback_leaves
     if ef is not None and not (is_cooperative(compression)
@@ -336,7 +375,8 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
         fusion_threshold_bytes=fusion_threshold_bytes,
         bucket_order=bucket_order)
     results = []
-    for idxs in parts:
+    launder = set()  # buckets on a quantizing codec
+    for k, idxs in enumerate(parts):
         group = [leaves[i].detach() for i in idxs]
         codec = bucket_codec(
             compression, policy,
@@ -344,6 +384,7 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
             all(i in float_ord for i in idxs))
         if codec is not None:
             if codec.cooperative:
+                launder.add(k)
                 flat = torch.cat([t.to(torch.float32).reshape(-1)
                                   for t in group])
                 e = None if ef is None else torch.cat(
@@ -377,6 +418,12 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
         red = _grouped(compressed, op, process_set)
         results.append((idxs, [compression.decompress(r, ctx)
                                for r, ctx in zip(red, ctxs)]))
+    if sentinel:
+        # Under a cooperative compression= every bucket's inputs are
+        # checked, its exact integer bucket too (the JAX package's rule).
+        return results, new_ef, _sentinel_flags(
+            leaves, results, process_set,
+            input_buckets=True if is_cooperative(compression) else launder)
     return results, new_ef
 
 
@@ -396,26 +443,33 @@ def allreduce_gradients(grads: Any, op=C.Average,
                         fusion_threshold_bytes: Optional[int] = None,
                         bucket_order=None,
                         error_feedback_state: Optional[List[torch.Tensor]]
-                        = None):
+                        = None, sentinel: bool = False):
     """Reduce a list, tuple or dict of gradients (or one tensor) across
     ranks bucket by bucket (`reduce_gradient_buckets`); returns the same
     structure.  `error_feedback_state` (quantized wires only; build it
     with `error_feedback_init(grads)`): each rank adds its carried
     residual before encoding and keeps its new encode errors, so the
     quantization error telescopes across steps instead of biasing each
-    one; the return value is then `(reduced, new_state)`."""
+    one; the return value is then `(reduced, new_state)`.  `sentinel=True`
+    appends the cross-rank f32[B] per-bucket non-finite flags as the last
+    element: `(reduced, flags)` or `(reduced, new_state, flags)`."""
     leaves, rebuild = _flatten(grads)
-    results, new_ef = reduce_gradient_buckets(
+    red = reduce_gradient_buckets(
         leaves, op=op, compression=compression, process_set=process_set,
         fusion_threshold_bytes=fusion_threshold_bytes,
-        bucket_order=bucket_order, error_feedback_leaves=error_feedback_state)
+        bucket_order=bucket_order, error_feedback_leaves=error_feedback_state,
+        sentinel=sentinel)
+    results, new_ef = red[0], red[1]
     out: List[Any] = [None] * len(leaves)
     for idxs, reduced in results:
         for i, r in zip(idxs, reduced):
             out[i] = r
+    ret = [rebuild(out)]
     if error_feedback_state is not None:
-        return rebuild(out), new_ef
-    return rebuild(out)
+        ret.append(new_ef)
+    if sentinel:
+        ret.append(red[2])
+    return tuple(ret) if len(ret) > 1 else ret[0]
 
 
 def error_feedback_init(grads: Any) -> List[torch.Tensor]:

@@ -75,6 +75,8 @@ from torch.profiler import record_function
 from ..common import basics, util
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
+from ..guard import sentinel as _sentinel
+from ..guard.loss_scale import unscale_
 from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
 from ..ops import quantized as Q
@@ -136,7 +138,8 @@ class _ShardedOptimizer:
                  backward_passes_per_step: int = 1, op=C.Average,
                  process_set: Optional[ProcessSet] = None,
                  fusion_threshold_bytes: Optional[int] = None,
-                 bucket_order=None, allgather_wire: Optional[str] = None):
+                 bucket_order=None, allgather_wire: Optional[str] = None,
+                 guard=None):
         if op is not C.Average and op is not C.Sum:
             raise ValueError(
                 f"zero_stage={zero_stage} supports op=Average/Sum, got {op}: "
@@ -208,6 +211,9 @@ class _ShardedOptimizer:
                        if zero_stage >= 2 and self._bpps > 1 else None)
         if not self.allgather_wire:
             self._release_shards()
+        self._scaler = guard
+        self.guard_state = (guard.init(len(self._groups), device=dev)
+                            if guard is not None else None)
 
     def _release_shards(self) -> None:
         for sh in self._shards:
@@ -231,7 +237,10 @@ class _ShardedOptimizer:
         the first is finished, the ring groups excepted: a ring runs
         when it is reached); returns this rank's averaged shards.  Each
         group's gradients are packed by one `torch.cat`, the pad
-        appended."""
+        appended.  Under the guard, `self._in_flags` gets each group's
+        input flag (None unless its wire is a quantizing one, whose
+        integer cast can launder a NaN; the other wires carry it into
+        some rank's shard)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
         fused = _fc.fused_enabled()
@@ -244,6 +253,7 @@ class _ShardedOptimizer:
             self._ef_gen = _wire.error_feedback_generation()
         average = self._op is C.Average
         started = []
+        self._in_flags = []
         for gi, (g, codec) in enumerate(zip(self._groups, self._rs_codecs)):
             parts = [grads[i].reshape(-1) for i in g.idxs]
             pad = g.padded - sum(g.sizes)
@@ -252,7 +262,11 @@ class _ShardedOptimizer:
             flat = torch.cat(parts)
             if scale is not None:
                 flat = (flat * scale).to(flat.dtype)
-            if codec is not None and codec.cooperative:
+            coop = codec is not None and codec.cooperative
+            self._in_flags.append(_sentinel.local_nonfinite([flat])
+                                  if self._scaler is not None and coop
+                                  else None)
+            if coop:
                 red, self._ef_rows[gi] = Q.quantized_reducescatter_shard(
                     flat, self._ps, average=average, wire=codec.name,
                     error_feedback=self._ef_rows[gi])
@@ -366,6 +380,47 @@ class _ShardedOptimizer:
             p.add_(u)
         return None
 
+    # -- the guard (the JAX package's `_gate`, :965-990) ----------------
+
+    def _group_flags(self, g_shards: List[torch.Tensor],
+                     in_flags) -> torch.Tensor:
+        """Each group's flag, OR-ed across ranks (one Max allreduce): its
+        scattered shard (each rank scans its own) and its input flag."""
+        flags = []
+        for gs, fin in zip(g_shards, in_flags):
+            f = _sentinel.local_nonfinite([gs])
+            flags.append(f if fin is None else torch.maximum(f, fin))
+        return _sentinel.crossrank_or(torch.stack(flags), self._ps)
+
+    def _gate(self, g_shards: List[torch.Tensor], in_flags) -> bool:
+        """Flag, unscale (in place), advance the schedule; on a flagged step zero the error-feedback rows (a
+        residual can carry the very non-finites the sentinel caught).
+        Returns whether the local step runs (one host read)."""
+        gs = self.guard_state
+        flags = self._group_flags(g_shards, in_flags)
+        bad = bool(torch.maximum(flags.max(), gs.pending_flag) > 0)
+        unscale_(self._scaler, gs, g_shards)
+        self.guard_state = self._scaler.update(gs, flags)
+        if bad:
+            for row in self._ef_rows:
+                if row is not None:
+                    row.zero_()
+        return not bad
+
+    def _skipped(self):
+        """A flagged step's result: the parameters stay; stage 3 returns
+        zero updates (views of one zero buffer per group, as `_apply`'s
+        are)."""
+        if self.zero_stage < 3:
+            return None
+        updates: List[Optional[torch.Tensor]] = [None] * len(self._params)
+        for g in self._groups:
+            full = torch.zeros(g.padded, dtype=g.dtype,
+                               device=self._shards[0].device)
+            for i, t in unpack(g, full):
+                updates[i] = t.to(self._params[i].dtype)
+        return updates
+
     @torch.no_grad()
     def step(self, closure=None):
         """One pass.  On every `backward_passes_per_step`-th pass the
@@ -383,6 +438,13 @@ class _ShardedOptimizer:
             # the local shard, release the full-size gradients.
             with record_function("hvd.zero.reduce_scatter"):
                 shards = self._scatter(None)
+            if self._scaler is not None:
+                # Each pass's flags fold into pending_flag now (a
+                # poisoned pass is already in the accumulator) and gate
+                # the Kth pass's step.
+                self.guard_state = self._scaler.accumulate(
+                    self.guard_state,
+                    self._group_flags(shards, self._in_flags))
             for a, s in zip(self._accum, shards):
                 a.add_(s)
             for p in self._params:
@@ -393,16 +455,20 @@ class _ShardedOptimizer:
             g_shards = [(a * scale).to(a.dtype) for a in self._accum]
             for a in self._accum:
                 a.zero_()
+            in_flags = [None] * len(g_shards)
         else:
             if not sync:
                 return None  # gradients accumulate in p.grad
             with record_function("hvd.zero.reduce_scatter"):
                 g_shards = self._scatter(
                     1.0 / self._bpps if self._bpps > 1 else None)
+            in_flags = self._in_flags
             if self.zero_stage == 3:
                 # Scattered: only the shards of the gradients stay.
                 for p in self._params:
                     p.grad = None
+        if self._scaler is not None and not self._gate(g_shards, in_flags):
+            return self._skipped()  # flagged: skipped on every rank alike
         return self._apply(g_shards)
 
     def zero_grad(self, *a, **kw):

@@ -15,8 +15,8 @@ leaves the previous dump or nothing, never a truncated file):
   - crash            any exception escaping ``InferenceServer.step()``
   - pool_exhausted   ``PoolExhaustedError`` specifically
   - slo_breach       the SLO controller flips speculation ON
-  - guard_escalation a TrainingGuard rollback in the same process (once
-                     guard/ is ported: `dump_all` is its hook)
+  - guard_escalation a TrainingGuard rollback in the same process
+                     (`guard/controller.py` calls `dump_all`)
   - fault_exit       an ``exit``-mode fault point (``os._exit`` skips
                      atexit, so faults.register_exit_hook runs us first)
 

@@ -391,7 +391,9 @@ def main(argv=None) -> int:
                "buckets": getattr(opt, "last_buckets", None),
                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                if dev.type == "cuda" else None),
-               "device": str(dev), "backend": hvd.backend()}
+               "device": str(dev), "backend": hvd.backend(),
+               "digest": param_digest(model),
+               "guarded": getattr(opt, "guard_state", None) is not None}
     if hvd.rank() == 0:
         print(f"Img/sec per rank: {mean:.1f} +- {1.96 * std:.1f}")
         print(f"Total img/sec on {hvd.size()} rank(s): "

@@ -91,6 +91,8 @@ from ..parallel.optimizer import (  # noqa: F401
 )
 from ..ops import wire as _wire
 from ..ops.quantized import quantized_allreduce_shard
+from ..guard import sentinel as _sentinel
+from ..guard.loss_scale import DynamicLossScale, unscale_
 from ..parallel.data_parallel import (_wire_nbytes, active_wire_policy,
                                       bucket_codec, check_wire)
 from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
@@ -499,7 +501,8 @@ class _DistributedOptimizer:
                  op=Average,
                  sparse_as_dense: bool = False,
                  gradient_predivide_factor: float = 1.0,
-                 process_set: Optional[ProcessSet] = None):
+                 process_set: Optional[ProcessSet] = None,
+                 guard=None):
         self._policy = active_wire_policy(compression, process_set)
         check_wire(compression, op, process_set, self._policy,
                    gradient_predivide_factor)
@@ -518,6 +521,12 @@ class _DistributedOptimizer:
         self.ring_buckets = 0  # observable: buckets reduced by the ring
         # (wire, raw bytes, wire bytes) of each bucket of the last step.
         self.last_buckets: List[Tuple[str, int, int]] = []
+        self._scaler = guard
+        self.guard_state = None
+        if guard is not None:
+            # One flag a hook bucket; `_gate` sets the vector's length to
+            # the step's bucket count, which is known only once it runs.
+            self.guard_state = guard.init(1, device=self._params[0].device)
         self.reset_step_state()
         for p in self._params:
             if p.requires_grad:
@@ -539,6 +548,7 @@ class _DistributedOptimizer:
         self._reduced_ids: set = set()
         self._synchronized = False
         self._step_buckets: List[Tuple[str, int, int]] = []
+        self._flags: List[torch.Tensor] = []  # per bucket, flush order
         self._pass_count -= self._pass_count % self._bpps
 
     def _enqueue(self, p: torch.Tensor) -> None:
@@ -618,6 +628,18 @@ class _DistributedOptimizer:
         return quantized_allreduce_shard(flat, average=self._op is Average,
                                          wire=wire)
 
+    def _flag(self, grads: List[torch.Tensor],
+              inputs: Optional[torch.Tensor] = None) -> None:
+        """The guard's flag of one finished bucket: its reduced gradients
+        (replicated: this rank scans its slice), and a ring bucket's
+        inputs (a quantizing codec can launder a NaN)."""
+        if self._scaler is None:
+            return
+        f = _sentinel.sliced_nonfinite(grads, C._resolve_set(self._ps))
+        if inputs is not None:
+            f = torch.maximum(f, inputs)
+        self._flags.append(f)
+
     def synchronize(self) -> None:
         self._flush()
         with torch.no_grad(), record_function("hvd.synchronize"):
@@ -625,6 +647,8 @@ class _DistributedOptimizer:
                 if h is None:
                     with record_function("hvd.ring"):
                         grads = [p.grad for p in params]
+                        in_flag = (_sentinel.local_nonfinite(grads)
+                                   if self._scaler is not None else None)
                         red = self._ring(torch.cat(
                             [g.reshape(-1).to(torch.float32)
                              for g in grads]), ctx)
@@ -632,16 +656,21 @@ class _DistributedOptimizer:
                         for g in grads:
                             g.copy_(red[off:off + g.numel()].reshape(g.shape))
                             off += g.numel()
+                    self._flag(grads, in_flag)
                     self.ring_buckets += 1
                     continue
                 ctxs, comp = ctx
                 outs = C.synchronize(h)
                 for p, o, c in zip(params, outs, ctxs):
                     p.grad.copy_(comp.decompress(o, c))
+                self._flag([p.grad for p in params])
             for p, h in self._sparse_in_flight:
                 # Replaced, not copied into: the reduced gradient has
                 # other entries than the local one.
                 p.grad = synchronize(h)
+                if self._scaler is not None:
+                    self._flags.append(_sentinel.local_nonfinite(
+                        [p.grad.coalesce().values()]))
         self._in_flight = []
         self._sparse_in_flight = []
         self._synchronized = True
@@ -666,13 +695,54 @@ class _DistributedOptimizer:
                 for p in self._params:
                     if p.grad is not None:
                         p.grad.div_(self._bpps)
+        if self._scaler is not None and not self._gate():
+            return None  # flagged: skipped on every rank alike
         return self._opt.step(closure)
+
+    @torch.no_grad()
+    def _gate(self) -> bool:
+        """The guard's coordinated skip-step (the JAX package's `_gate`):
+        OR the buckets' flags across ranks (one Max allreduce), unscale
+        the gradients, advance the schedule on the device, and read the
+        verdict once on the host.  Returns whether the inner step
+        runs."""
+        gs = self.guard_state
+        vec = (torch.stack(self._flags) if self._flags else
+               torch.zeros((1,), dtype=torch.float32,
+                           device=gs.loss_scale.device))
+        self._flags = []
+        flags = _sentinel.crossrank_or(vec, process_set=self._ps)
+        bad = torch.maximum(flags.max(), gs.pending_flag) > 0
+        unscale_(self._scaler, gs,
+                 [p.grad for p in self._params if p.grad is not None])
+        self.guard_state = self._scaler.update(gs, flags)
+        return not bool(bad)
 
     def zero_grad(self, *a, **kw):
         return self._opt.zero_grad(*a, **kw)
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+
+def _guard_scaler(guard, op):
+    """The guard's schedule from `DistributedOptimizer(guard=)` and
+    HOROVOD_GUARD, with the JAX package's refusals; None when off."""
+    if guard is None:
+        guard = util.env_bool("GUARD", False)
+    if guard is False:
+        return None
+    scaler = DynamicLossScale.from_env() if guard is True else guard
+    if not isinstance(scaler, DynamicLossScale):
+        raise ValueError(
+            f"guard= takes True/False or a guard.DynamicLossScale, "
+            f"got {guard!r}")
+    if op is Adasum:
+        raise ValueError(
+            "guard= is incompatible with op=Adasum: Adasum combines "
+            "post-update deltas, so there is no per-bucket "
+            "reduction result for the non-finite sentinel to flag")
+    return scaler
 
 
 class _DistributedAdasumOptimizer:
@@ -775,7 +845,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          shard_optimizer_states: Optional[bool] = None,
                          fusion_threshold_bytes: Optional[int] = None,
                          bucket_order=None,
-                         allgather_wire: Optional[str] = None):
+                         allgather_wire: Optional[str] = None,
+                         guard=None):
     """op=Adasum returns the delta-semantics `_DistributedAdasumOptimizer`
     (reference: optimizer.py routes op=Adasum there); any other op the
     hook-bucketed `_DistributedOptimizer`.  `gradient_predivide_factor`
@@ -801,9 +872,20 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     fp8_*): at stage 0 each bucket rides the quantized ring (see
     `_DistributedOptimizer`); Adasum and the sharded path refuse it, as
     the JAX package does.  HOROVOD_WIRE_POLICY picks a wire per bucket
-    at stage 0 and per shard group at stages 1-3."""
+    at stage 0 and per shard group at stages 1-3.
+
+    `guard` (env HOROVOD_GUARD) arms the training-health guard: True
+    reads the schedule from the env (`DynamicLossScale.from_env`), or
+    pass a `DynamicLossScale`.  Each bucket (each shard group at stages
+    1-3) gets a non-finite flag as its reduction finishes, the flags are
+    OR-ed across ranks, the gradients are multiplied by 1/scale, and on
+    a flagged step every rank skips the inner step (the parameters and
+    the optimizer state stay as they were) while the scale decays.  The
+    state is the optimizer's `guard_state` (a `GuardState`).  Refused
+    with op=Adasum."""
     del num_groups, groups
     _check_names(named_parameters)
+    scaler = _guard_scaler(guard, op)
     if is_cooperative(compression) and op is Adasum:
         raise ValueError(
             f"Compression.{compression.wire} has no Adasum form: Adasum "
@@ -839,7 +921,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
             backward_passes_per_step=backward_passes_per_step, op=op,
             process_set=process_set,
             fusion_threshold_bytes=fusion_threshold_bytes,
-            bucket_order=bucket_order, allgather_wire=allgather_wire)
+            bucket_order=bucket_order, allgather_wire=allgather_wire,
+            guard=scaler)
     if op is Adasum:
         return _DistributedAdasumOptimizer(
             optimizer, named_parameters=named_parameters,
@@ -851,7 +934,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         backward_passes_per_step=backward_passes_per_step, op=op,
         sparse_as_dense=sparse_as_dense,
         gradient_predivide_factor=gradient_predivide_factor,
-        process_set=process_set)
+        process_set=process_set, guard=scaler)
 
 
 class SyncBatchNorm(torch.nn.modules.batchnorm._BatchNorm):

@@ -555,6 +555,38 @@ def current_wire_big_format() -> str:
     return tuned_wire_big_format(_env_wire_big_format())
 
 
+def tuned_guard_growth_interval(default: int) -> int:
+    """The loss-scale growth interval, the tuner's while it is active
+    (read by guard.DynamicLossScale)."""
+    v = _tuned("loss_scale_growth_interval")
+    return default if v is None else max(1, int(v))
+
+
+def current_guard_growth_interval() -> int:
+    """The live loss-scale growth interval: HOROVOD_GUARD_GROWTH_INTERVAL
+    (2000 clean steps, GradScaler's default), overridden by the tuner
+    when it is active.  Read at every schedule update."""
+    return tuned_guard_growth_interval(
+        max(1, util.env_int("GUARD_GROWTH_INTERVAL", 2000)))
+
+
+def tuned_guard_digest_interval(default: int) -> int:
+    """The cross-replica digest interval, the tuner's while it is active
+    (read by guard.TrainingGuard)."""
+    v = _tuned("guard_digest_interval")
+    return default if v is None else max(1, int(v))
+
+
+def current_guard_digest_interval() -> int:
+    """The live digest-check cadence: HOROVOD_GUARD_DIGEST_INTERVAL
+    (every 100 steps; 0 disables), overridden by the tuner when it is
+    active.  Read on the host at every step."""
+    env = util.env_int("GUARD_DIGEST_INTERVAL", 100)
+    if env <= 0:
+        return 0
+    return tuned_guard_digest_interval(env)
+
+
 def tuned_serve_page_tokens(default: int) -> int:
     v = _tuned("serve_page_tokens")
     return default if v is None else max(1, int(v))

@@ -1007,3 +1007,68 @@ def test_server_on_the_card_matches_generate(cuda):
             lg, cache = D.transformer_decode_step(
                 dp, cache, torch.tensor([want[-1]], device=cuda), cfg)
         assert by_id[rid][:len(want)] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_sentinel_flags_on_card_equal_the_cpu(cuda, dtype):
+    """The guard's sentinel on CUDA buckets with NaN, +Inf and -Inf at
+    seeded positions: the flags are the CPU's, bit for bit, and stay on
+    the card."""
+    from horovod_tpu_torch.guard import bucket_flags_local, local_nonfinite
+
+    rng = np.random.RandomState(7)
+    leaves = [torch.from_numpy(rng.randn(n).astype(np.float32)).to(dtype)
+              for n in (1000, 37, 4096, 5, 513, 2048)]
+    for i, v in ((1, float("nan")), (2, float("inf")), (4, float("-inf"))):
+        leaves[i][rng.randint(leaves[i].numel())] = v
+    leaves.append(torch.arange(6))  # an integer leaf gives no flag
+    parts = [[0, 6], [1], [2, 3], [4, 5]]
+    want = bucket_flags_local(leaves, parts)
+    got = bucket_flags_local([l.to(cuda) for l in leaves], parts)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert want.tolist() == [0.0, 1.0, 1.0, 1.0]
+    for l in leaves:
+        f = local_nonfinite([l.to(cuda)])
+        assert f.is_cuda and torch.equal(f.cpu(), local_nonfinite([l]))
+
+
+@pytest.mark.parametrize("zero_stage", [0, 1])
+def test_guard_at_static_scale_on_card_is_bitwise_unguarded(cuda,
+                                                            zero_stage):
+    """One rank on the card: AdamW over a small transformer (bf16
+    compute) for 4 steps, with guard=True at the static scale (no
+    HOROVOD_GUARD_LOSS_SCALE) and without the guard: the same bits, the
+    guard state on the card."""
+    os.environ.pop("HOROVOD_GUARD_LOSS_SCALE", None)
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            d_head=64, d_ff=256, n_layers=2,
+                            compute_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 512, (2, 65))).to(cuda)
+
+    def run(guard):
+        model = Transformer(cfg, seed=0).to(cuda)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3),
+            named_parameters=model.named_parameters(),
+            zero_stage=zero_stage, guard=guard)
+        for _ in range(4):
+            opt.zero_grad(set_to_none=True)
+            logits = model(tokens[:, :-1])
+            torch.nn.functional.cross_entropy(
+                logits.reshape(-1, 512).float(),
+                tokens[:, 1:].reshape(-1)).backward()
+            opt.step()
+        if guard:
+            assert opt.guard_state.loss_scale.is_cuda
+            assert float(opt.guard_state.loss_scale) == 1.0
+        return [p.detach().cpu() for p in model.parameters()]
+
+    hvd.init()
+    try:
+        off, on = run(False), run(True)
+    finally:
+        hvd.shutdown()
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(off, on))

@@ -55,7 +55,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "horovod_tpu_torch.utils.autotune, horovod_tpu_torch.models.decode, "
         "horovod_tpu_torch.serve, horovod_tpu_torch.serve.loadgen, "
         "horovod_tpu_torch.metrics, horovod_tpu_torch.utils.timeline, "
-        "horovod_tpu_torch.serve_benchmark\n"
+        "horovod_tpu_torch.serve_benchmark, horovod_tpu_torch.guard, "
+        "horovod_tpu_torch.guard.controller, horovod_tpu_torch.guard.digest, "
+        "horovod_tpu_torch.guard.loss_scale, "
+        "horovod_tpu_torch.guard.sentinel, "
+        "horovod_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)")
