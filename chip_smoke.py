@@ -208,7 +208,7 @@ Phases, each printing its own lines:
                  two ranks sharing the card over gloo, the default
                  TransformerConfig (vocab 32000, d_model 512, 8 x 64
                  heads, d_ff 2048; 4 of its 8 layers) at T = 16384,
-                 AdamW, under HOROVOD_FLASH_ATTENTION=1, 3 steps and
+                 AdamW, under HOROVOD_FLASH_ATTENTION=1, 2 steps and
                  one profiled:
                  (b) sp=2 ring attention (T_local = 8192 on the flash
                  ring: causal diagonal pairs, non-causal past pairs,
@@ -289,6 +289,33 @@ Phases, each printing its own lines:
                  launches a rank on the vector path, the logits finite
                  and the same on both ranks.  The phase must end within
                  GUARD_BUDGET_S.
+20. train_hier   main path 11: the hierarchical (dcn x ici) data plane
+                 (parallel/hierarchical.py).  Four ranks share the card
+                 over gloo as `create_hierarchical_mesh(dcn=2, ici=2)`
+                 (`--dcn 2`) and run the default TransformerConfig at
+                 T = 16384, batch 1 a rank, bf16, AdamW, two passes a
+                 step (`--backward-passes-per-step 2`).  (a) Stage 0
+                 under HOROVOD_HIERARCHICAL_ALLREDUCE=1 with
+                 `--fused-apply --early-reduction --guard` (the static
+                 scale, no poison), 3 steps and one profiled: finite
+                 losses, no flagged step, one SHA-256 across the four
+                 ranks every step, K4-K6 n_layers launches a pass on
+                 every rank, all on the tensor cores; on step 1 rank 0's
+                 hierarchically reduced gradients within HIER_RTOL of a
+                 flat allreduce of the same local gradients over the
+                 global set, and the same gradients through
+                 `hierarchical_allreduce(dcn_wire="int8")` off the
+                 exact leg by more than 0 and at most two int8 encodes.
+                 (b) ZeRO-3 over the pair (ZERO3_ENV plus
+                 HOROVOD_SHARD_AG_FUSION=1), 2 steps and one held-out
+                 forward whose head gathers its group (`gather_matmul`
+                 refuses the pair, so no K3): step 0's losses within
+                 LOSS_TOL of (a)'s (same seeds and data), one SHA-256 a
+                 step, K4-K6 as in (a), a finite eval loss.  Per-rank
+                 tok/sec, peak GB beside the card's total and host ms in
+                 `hvd.synchronize` and the `hvd.hier.*` legs (four
+                 ranks on one card over gloo: correctness, not
+                 scaling).  The phase must end within HIER_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -302,7 +329,7 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 `python3 chip_smoke.py --serve` runs only the MIN_T table, K4 at the
 prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
-sources it runs).
+sources it runs); `--hier` only phase 20.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -319,7 +346,8 @@ pair shape as `ring_pair`, their errors at the ring's causal diagonal
 pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
 per rank on each run of main path 8 as `mesh_launches`, and K4-K6's
 launches on main path 9 as `serve_launches` and on main path 10 per
-rank as `guard_launches` (the ladder) and `guard_zero3_launches`, K3's
+rank as `guard_launches` (the ladder) and `guard_zero3_launches`, and on
+main path 11 per rank as `hier_launches` and `hier_zero3_launches`, K3's
 on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
@@ -2215,6 +2243,10 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # name, mesh flags, other flags, layers
 # Depth 4 (of the config's 8): every layer kind and every mesh hop runs
 # at full width, in half the script's time for this phase.
+# Checked steps of each train_mesh run (then one profiled): two, so that
+# phase 20 fits the script's time limit (a checked step at 4 layers
+# takes about 2.5 s on the H100, and the phase runs five such runs).
+MESH_CHECKED_STEPS = 2
 MESH_RUNS = [
     ("ring", ["--sp", "2"], [], 4),
     ("ulysses", ["--sp", "2", "--attn", "ulysses"], [], 4),
@@ -2250,8 +2282,8 @@ def train_mesh():
     idle share and the mesh ranges' host ms from one profiled step
     (whose `bench.check.digest` range gives the digest's share)."""
     common = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
-              "--num-iters", "3", "--log-steps", "--check-dense-step", "0",
-              "--profile", "1"]
+              "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
+              "--check-dense-step", "0", "--profile", "1"]
     out = {}
     for name, mesh, extra, layers in MESH_RUNS:
         t0 = time.perf_counter()
@@ -2275,8 +2307,9 @@ def train_mesh():
                             f"{got[n]} launches, {got[n + '_sm90']} on the "
                             f"tensor cores (want {want})")
             log(f"mesh_{name}", f"rank {s['rank']} {s['coords']}: "
-                f"{s['tok_sec_per_rank']:.1f} tok/sec per rank (3 checked "
-                f"steps), {s['tok_sec_per_rank_net']:.1f} without the "
+                f"{s['tok_sec_per_rank']:.1f} tok/sec per rank "
+                f"({MESH_CHECKED_STEPS} checked steps), "
+                f"{s['tok_sec_per_rank_net']:.1f} without the "
                 f"checks (their ms per step {s['check_ms_per_step']}), "
                 f"idle {s['device_idle_share']}, K4-K6 launches "
                 f"per step {per_step} (all tensor cores), host ms per step "
@@ -3252,6 +3285,108 @@ def check_guard(res, on_card: bool) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the hierarchical data plane (main path 11)
+# ---------------------------------------------------------------------------
+
+HIER_BUDGET_S = 150   # phase 20's share of the script's time limit
+HIER_RANKS = 4        # create_hierarchical_mesh(dcn=2, ici=2)
+HIER_PASSES = 2       # backward_passes_per_step
+HIER_ENV = {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"}
+# The hierarchical reduction against the flat allreduce of the same
+# local gradients: f32 sums of the four ranks' values in another order
+# ((a + b) + (c + d) against gloo's), a few ulps of the largest value
+# (the CPU tests' tolerance: tests/test_torch_port_hierarchical.py).
+HIER_RTOL = 1e-6
+HIER_ARGS = ["--dcn", "2", "--backward-passes-per-step", str(HIER_PASSES),
+             "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+             "--log-steps"]
+HIER_GROW = {k: n * HIER_PASSES for k, n in FLASH_GROW.items()}
+
+
+def train_hier() -> dict:
+    """Phase 20 (main path 11): four ranks share the card over gloo as
+    `create_hierarchical_mesh(dcn=2, ici=2)`; (a) stage 0 under
+    HOROVOD_HIERARCHICAL_ALLREDUCE with fused_apply, early_reduction, K =
+    2 and the guard, (b) ZeRO-3 over the pair with the fused parameter
+    allgather; see the module docstring."""
+    import torch
+
+    t_start = time.perf_counter()
+    phase = "train_hier"
+    a = launch(f"{phase}_stage0", HIER_RANKS, HIER_ARGS + [
+        "--num-iters", "3", "--fused-apply", "--early-reduction", "--guard",
+        "--check-hier-step", "1", "--profile", "1"], module=TRANSFORMER,
+        grow=HIER_GROW, timeout=HIER_BUDGET_S, env=HIER_ENV)
+    profiles = []
+    for r in range(HIER_RANKS):
+        with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank{r}.log")) as f:
+            profiles.append(_records(f.read().splitlines(), "PROFILE")[-1])
+    steps = []
+    with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank0.log")) as f:
+        steps = _records(f.read().splitlines(), "STEP")
+    for s in a:
+        require(s["passes_per_step"] == HIER_PASSES and s["dcn"] == 2
+                and s["size"] == HIER_RANKS, f"{phase}: {s}")
+    for r in range(HIER_RANKS):
+        with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank{r}.log")) as f:
+            recs = _records(f.read().splitlines(), "STEP")
+        require(all(rec["guard_flag"] == 0.0 for rec in recs),
+                f"{phase}: rank {r} flagged a step: "
+                f"{[rec['guard_flag'] for rec in recs]}")
+    chk = [rec for rec in steps if "hier_rel" in rec]
+    require(len(chk) == 1, f"{phase}: {len(chk)} checked steps")
+    chk = chk[0]
+    require(chk["hier_rel"] <= HIER_RTOL,
+            f"{phase}: hierarchical vs flat allreduce {chk['hier_rel']} "
+            f"> {HIER_RTOL}")
+    require(0 < chk["int8_err"] <= chk["int8_bound"],
+            f"{phase}: the int8 dcn leg {chk['int8_err']} off the exact one "
+            f"(bound {chk['int8_bound']}; 0 means the wire did not engage)")
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for s, p in zip(a, profiles):
+        ranges = {k: round(v, 1) for k, v in p["ranges_ms_per_step"].items()
+                  if k.startswith(("hvd.synchronize", "hvd.hier."))}
+        log(phase, f"(a) rank {s['rank']}: {s['tok_sec_per_rank']:.1f} "
+            f"tok/sec per rank ({HIER_PASSES} passes a step, the checks "
+            f"included; four ranks share one card over gloo: correctness, "
+            f"not scaling), peak {s['peak_mem_gb']:.2f} GB of the card's "
+            f"{total_gb:.1f}, host ms per step {ranges}, idle "
+            f"{p['device_idle_share']}")
+    log(phase, f"(a) step 1, rank 0: hierarchical vs flat allreduce "
+        f"{chk['hier_rel']:.3g} of the largest gradient "
+        f"{chk['grad_top']:.3g} (tol {HIER_RTOL}); int8 dcn wire "
+        f"{chk['int8_err']:.3g} off the exact leg (bound "
+        f"{chk['int8_bound']:.3g})")
+
+    env = dict(ZERO3_ENV, HOROVOD_SHARD_AG_FUSION="1")
+    b = launch(f"{phase}_zero3", HIER_RANKS, HIER_ARGS + [
+        "--num-iters", "2", "--zero-stage", "3", "--eval-every", "2"],
+        module=TRANSFORMER, grow=HIER_GROW, timeout=HIER_BUDGET_S, env=env)
+    for sa, sb in zip(a, b):
+        require(sb["zero_stage"] == 3, f"{phase}: {sb}")
+        diff = abs(sb["step_losses"][0] - sa["step_losses"][0])
+        require(diff <= LOSS_TOL, f"{phase}: stage 3 step 0 loss "
+                f"{sb['step_losses'][0]} vs stage 0's {sa['step_losses'][0]}")
+        ev = sb["evals"]
+        require(len(ev) == 1 and math.isfinite(ev[0]["eval_loss"])
+                and ev[0]["k3_launches"] == 0,
+                f"{phase}: rank {sb['rank']} eval {ev}")
+        log(phase, f"(b) rank {sb['rank']}: stage 3 over the pair, "
+            f"{sb['tok_sec_per_rank']:.1f} tok/sec per rank, step 0 loss "
+            f"{sb['step_losses'][0]:.6f} vs (a)'s {sa['step_losses'][0]:.6f} "
+            f"(diff {diff:.3g}, tol {LOSS_TOL}), eval loss "
+            f"{ev[0]['eval_loss']:.4f} (the head gathers its group: K3 "
+            f"launches 0), peak {sb['peak_mem_gb']:.2f} GB")
+    out = {"launches": [s["launches"] for s in a],
+           "zero3_launches": [s["launches"] for s in b],
+           "check": chk, "phase_s": time.perf_counter() - t_start}
+    log(phase, f"{out['phase_s']:.1f} s (budget {HIER_BUDGET_S} s)")
+    require(out["phase_s"] <= HIER_BUDGET_S,
+            f"{phase}: over its budget of {HIER_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3294,6 +3429,12 @@ def main() -> int:
                       "tiled_matmul"])
         guard = train_guard()
         print(json.dumps({"guard": guard}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--hier"]:
+        # Phase 20 alone (with the builds of the sources it runs).
+        _build.build(["flash_attention_sm90", "flash_attention"])
+        hier = train_hier()
+        print(json.dumps({"hier": hier}), flush=True)
         return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
@@ -3391,6 +3532,7 @@ def main() -> int:
     require(time.perf_counter() - t0 <= SERVE_BUDGET_S,
             f"serve: over its budget of {SERVE_BUDGET_S} s")
     guard = train_guard()
+    hier = train_hier()
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -3462,6 +3604,16 @@ def main() -> int:
             row.update(guard_launches=[g[name] for g in guard["launches"]],
                        guard_zero3_launches=[
                            g[name] for g in guard["zero3_launches"]])
+            # Main path 11: the hierarchical data plane, (a) stage 0 and
+            # (b) stage 3 over the pair, per rank (all on the tensor
+            # cores: `launch` requires each step's K4-K6 there).
+            row.update(hier_launches=[h[name] for h in hier["launches"]],
+                       hier_zero3_launches=[
+                           h[name] for h in hier["zero3_launches"]])
+            require(all(h[name + "_sm90"] == h[name] > 0
+                        for h in hier["launches"] + hier["zero3_launches"]),
+                    f"{name}: main path 11 off the tensor cores or not "
+                    "launched")
         if name == "tiled_matmul":
             # The launches of the main path's eval forward that took the
             # strided load path (train_zero3 and zero3_nccl require 0),

@@ -20,3 +20,12 @@ from .torch import __all__  # noqa: F401
 # The training-health guard (horovod_tpu/__init__.py:196-203).
 from . import guard  # noqa: F401,E402
 from .guard import DynamicLossScale, GuardState, TrainingGuard  # noqa: F401,E402
+
+# The hierarchical data plane (horovod_tpu/__init__.py:186-192).
+from .parallel.hierarchical import (  # noqa: F401,E402
+    dcn_shard_size,
+    hierarchical_all_gather,
+    hierarchical_allreduce,
+    hierarchical_error_feedback_init,
+    hierarchical_reduce_scatter,
+)

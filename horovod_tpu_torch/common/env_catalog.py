@@ -71,6 +71,14 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Wire of the sharded optimizer's parameter allgather: any "
        "registered codec (the f32 master shards stay exact on their "
        "owner)."),
+    _v("HOROVOD_HIERARCHICAL_ALLREDUCE", "0", "ops",
+       "1 routes the gradient reductions over a create_hierarchical_mesh "
+       "(axis_name=) through the ici reduce-scatter -> dcn allreduce -> "
+       "ici allgather (reference knob name)."),
+    _v("HOROVOD_HIERARCHICAL_DCN_WIRE", "(exact)", "ops",
+       "Wire of the dcn leg of the hierarchical allreduce, float leaves "
+       "under Average: any registered codec (none/fp16/bf16/int8/int4/"
+       "fp8_*)."),
     _v("HOROVOD_ZERO_GATHER_WIRE", "(exact)", "ops",
        "Wire of the ZeRO-3 parameter gather: any registered codec (the "
        "rows at rest stay exact; every rank holds the decoded row)."),
@@ -110,8 +118,9 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_AUTOTUNE_MAX_SAMPLES", "40", "autotune",
        "Samples after which the tuner freezes at the best seen."),
     _v("HOROVOD_SHARD_AG_FUSION", "0", "autotune",
-       "Initial value of the tuner's ag_fusion knob (its reader, the "
-       "sharded optimizer's fused allgather, is not ported yet)."),
+       "1 gathers the sharded optimizer's new shards in one allgather "
+       "per dtype (current_ag_fusion); also the initial value of the "
+       "tuner's ag_fusion knob."),
     _v("HOROVOD_WIRE_THRESHOLD", "1048576", "autotune",
        "Initial value of the tuner's wire_threshold knob: buckets of at "
        "least this many raw bytes take the wire policy's big codec."),

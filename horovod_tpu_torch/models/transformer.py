@@ -727,17 +727,20 @@ def make_train_step(mesh: Mesh, cfg: TransformerConfig,
     `functools.partial(torch.optim.AdamW, lr=3e-4)`) over them.
 
     shard_lm_batch((tokens, targets)) -> this rank's block of the global
-    [B, T] batch: B over (dp, ep), T over sp, replicated over tp and pp.
+    [B, T] batch: B over (dp, ep), T over sp, replicated over dcn, tp and
+    pp.
 
     train_step(shards, opt, batch) -> (shards, opt, loss): forward and
     backward of this rank's objective (`_loss_shard`), the gradients
     summed over the axes along which each leaf is replicated
     (`_reduce_grads`; each leaf's `.grad` is then the dense gradient's
     shard), one optimizer step.  `loss` is the global loss, the same on
-    every rank.  Collective over the mesh."""
-    if mesh.size("dcn") > 1:
-        raise NotImplementedError(
-            "a dcn axis needs parallel/hierarchical.py, not ported yet")
+    every rank.  Collective over the mesh.
+
+    A dcn axis replicates the batch, as JAX's step does (its data spec
+    is over (dp, ep) alone): every dcn replica takes the same block,
+    computes the same loss and gradients, and takes the same step, and
+    no gradient is summed over dcn."""
     pp = mesh.size("pp")
     M = n_microbatches or max(1, pp)
     dev = basics.device()

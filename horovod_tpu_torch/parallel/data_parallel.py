@@ -26,6 +26,17 @@ HOROVOD_FUSED_COLLECTIVES=1: the JAX package chunks it there
 (`pipelined_allreduce_shard`) so that XLA overlaps the chunks, but the
 port's hops block, so chunks would only add hops.
 
+`axis_name=` takes a `create_hierarchical_mesh` (the port's stand-in
+for the JAX package's ("dcn", "hvd") axis pair; `check_axis` holds its
+refusals).  With HOROVOD_HIERARCHICAL_ALLREDUCE=1 and op Average or Sum,
+each exact or cast bucket is reduced hierarchically
+(`hierarchical.grouped_start`: a buffer a dtype through the ici
+reduce-scatter, the dcn allreduce on HOROVOD_HIERARCHICAL_DCN_WIRE, the
+ici allgather), as the JAX package's `grouped_allreduce` routes a bucket
+on the pair (ops/collectives.py:667-676); a cooperative bucket rides the
+ring over the pair's ranks, which is the global set.  Without the flag
+the pair reduces flat.
+
 Not ported: the straggler-reaction cap on the bucket count.
 """
 
@@ -36,12 +47,16 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from ..common import basics
 from ..common.basics import ProcessSet
+from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
 from ..ops import wire as _wire
 from ..ops.compression import Compression, NoneCompressor, is_cooperative
 from ..ops.quantized import quantized_allreduce_shard
+from . import hierarchical as _hier
+from .mesh import is_hierarchical
 
 
 def _bucket_permutation(n: int, bucket_order) -> List[int]:
@@ -291,9 +306,48 @@ def check_wire(compression, op, process_set: Optional[ProcessSet],
             "ring divides once, after its last decode")
 
 
-def _grouped(group: List[torch.Tensor], op, process_set) -> list:
+def check_axis(axis_name, process_set: Optional[ProcessSet] = None):
+    """The refusals of `axis_name=`: only a hierarchical mesh (the
+    ("dcn", "hvd") pair), over every rank of the job, and no process-set
+    subset with it, since its "hvd" axis is slice-local (the JAX
+    package's message).  Returns the mesh, or None."""
+    if axis_name is None:
+        return None
+    if not is_hierarchical(axis_name):
+        raise ValueError(
+            "axis_name takes a create_hierarchical_mesh (the ('dcn', "
+            f"'hvd') axis pair); got {axis_name!r} — the flat path runs "
+            "over process_set")
+    if axis_name.ranks != tuple(range(basics.size())):
+        raise ValueError(
+            f"the hierarchical mesh spans ranks {axis_name.ranks}; the "
+            f"gradient paths need all {basics.size()}")
+    if process_set is not None and process_set.process_set_id != 0:
+        raise HorovodTpuError(
+            f"process_set with a hierarchical axis_name requires the "
+            f"'hvd' axis to span all {basics.size()} ranks; this mesh's "
+            f"spans {axis_name.size('hvd')} (hierarchical sub-axis?) — "
+            "use the flat path (no axis_name) instead")
+    return axis_name
+
+
+def hier_route(axis_name, op, process_set: Optional[ProcessSet] = None):
+    """The mesh a bucket's exact or cast wire reduces over
+    hierarchically, or None (the flat path): the JAX package's rule (a
+    pair, the flag, Average or Sum, no explicit process set)."""
+    mesh = check_axis(axis_name, process_set)
+    if mesh is not None and process_set is None and _hier.routes(mesh, op):
+        return mesh
+    return None
+
+
+def _grouped(group: List[torch.Tensor], op, process_set,
+             hier_mesh=None) -> list:
     """The exact grouped allreduce of one bucket (chunked under the fused
-    pipeline on the global set, bitwise the same sums)."""
+    pipeline on the global set, bitwise the same sums), or its
+    hierarchical form on `hier_mesh`."""
+    if hier_mesh is not None:
+        return _hier.grouped_start(group, hier_mesh, op is C.Average)()
     if (_fc.fused_enabled() and op in (C.Average, C.Sum)
             and (process_set is None or process_set.process_set_id == 0)):
         return _fc.pipelined_grouped_allreduce(group, op=op)
@@ -342,15 +396,16 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
                             fusion_threshold_bytes: Optional[int] = None,
                             bucket_order=None,
                             error_feedback_leaves=None,
-                            sentinel: bool = False):
+                            sentinel: bool = False, axis_name=None):
     """Reduce a flat list of gradients bucket by bucket (the routing of
-    the module docstring).  Returns `(bucket_results, new_ef)`:
+    the module docstring; `axis_name` a hierarchical mesh or None).  Returns `(bucket_results, new_ef)`:
     `(original_indices, reduced_leaves)` per bucket in issue order, and
     the new residual per float leaf in float-leaf order (None unless
     `error_feedback_leaves` was passed).  `sentinel=True` appends a third
     element: the cross-rank f32[B] per-bucket non-finite flags
     (`_sentinel_flags`)."""
     policy = active_wire_policy(compression, process_set)
+    hier_mesh = hier_route(axis_name, op, process_set)
     ef = error_feedback_leaves
     if ef is not None and not (is_cooperative(compression)
                                or policy is not None):
@@ -404,10 +459,10 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
                     off += t.numel()
             elif codec.cast_dtype is not None:
                 red = _grouped([t.to(codec.cast_dtype) for t in group], op,
-                               process_set)
+                               process_set, hier_mesh)
                 outs = [r.to(t.dtype) for r, t in zip(red, group)]
             else:
-                outs = list(_grouped(group, op, process_set))
+                outs = list(_grouped(group, op, process_set, hier_mesh))
             results.append((idxs, outs))
             continue
         compressed, ctxs = [], []
@@ -415,7 +470,7 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
             c, ctx = compression.compress(t)
             compressed.append(c)
             ctxs.append(ctx)
-        red = _grouped(compressed, op, process_set)
+        red = _grouped(compressed, op, process_set, hier_mesh)
         results.append((idxs, [compression.decompress(r, ctx)
                                for r, ctx in zip(red, ctxs)]))
     if sentinel:
@@ -443,10 +498,10 @@ def allreduce_gradients(grads: Any, op=C.Average,
                         fusion_threshold_bytes: Optional[int] = None,
                         bucket_order=None,
                         error_feedback_state: Optional[List[torch.Tensor]]
-                        = None, sentinel: bool = False):
+                        = None, sentinel: bool = False, axis_name=None):
     """Reduce a list, tuple or dict of gradients (or one tensor) across
-    ranks bucket by bucket (`reduce_gradient_buckets`); returns the same
-    structure.  `error_feedback_state` (quantized wires only; build it
+    ranks bucket by bucket (`reduce_gradient_buckets`, `axis_name` a
+    hierarchical mesh or None); returns the same structure.  `error_feedback_state` (quantized wires only; build it
     with `error_feedback_init(grads)`): each rank adds its carried
     residual before encoding and keeps its new encode errors, so the
     quantization error telescopes across steps instead of biasing each
@@ -458,7 +513,7 @@ def allreduce_gradients(grads: Any, op=C.Average,
         leaves, op=op, compression=compression, process_set=process_set,
         fusion_threshold_bytes=fusion_threshold_bytes,
         bucket_order=bucket_order, error_feedback_leaves=error_feedback_state,
-        sentinel=sentinel)
+        sentinel=sentinel, axis_name=axis_name)
     results, new_ef = red[0], red[1]
     out: List[Any] = [None] * len(leaves)
     for idxs, reduced in results:

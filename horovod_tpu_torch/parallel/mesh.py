@@ -14,9 +14,16 @@ shards.
     mesh = create_hybrid_mesh(dp=-1, sp=2)     # every rank calls it
     mesh.shape["sp"], mesh.index("sp"), mesh.sets["sp"]
 
-Axis conventions as in the JAX module: dcn (cross-slice data parallel;
-its hierarchical reduction waits for `parallel/hierarchical.py`), dp,
-pp (pipeline stages), ep (experts), tp (tensor parallel), sp (sequence).
+Axis conventions as in the JAX module: dcn (cross-slice data parallel:
+in `make_train_step` it replicates the batch, as JAX's data spec leaves
+it out), dp, pp (pipeline stages), ep (experts), tp (tensor parallel),
+sp (sequence).
+
+`create_hierarchical_mesh(dcn, ici)` is the two-tier data-parallel mesh
+("dcn", "hvd") of `parallel/hierarchical.py`: pass it where the JAX
+package passes the axis pair `("dcn", "hvd")` (`axis_name=` of
+`DistributedOptimizer`, `reduce_gradient_buckets`,
+`allreduce_gradients`, `zero3_placement`).
 """
 
 from __future__ import annotations
@@ -142,6 +149,49 @@ def create_hybrid_mesh(dp: int = 1, pp: int = 1, ep: int = 1, tp: int = 1,
             sets[axis] = mine
     return Mesh(shape=dict(zip(AXIS_ORDER, shape)), coords=coords,
                 sets=sets, ranks=ranks)
+
+
+HIER_AXES = ("dcn", "hvd")
+
+
+def create_hierarchical_mesh(dcn: int, ici: Optional[int] = None,
+                             ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """Two-tier data-parallel mesh ("dcn", "hvd"): `dcn` slices, `ici`
+    ranks a slice (JAX `create_hierarchical_mesh`, parallel/mesh.py:107).
+    A row-major reshape of `ranks` (default every rank of the job), so
+    rank `d*ici + i` sits at (dcn=d, hvd=i) and the dcn-major linear
+    index of a rank is its position in `ranks`.  Each axis gets one
+    ProcessSet: "hvd" the ranks of this rank's slice, "dcn" the ranks
+    with this rank's in-slice index.  Collective, as
+    `create_hybrid_mesh`."""
+    ranks = tuple(range(basics.size())) if ranks is None else tuple(ranks)
+    n = len(ranks)
+    if n % dcn:
+        raise HorovodTpuError(f"{n} devices not divisible into {dcn} slices")
+    ici = ici or n // dcn
+    if dcn * ici != n:
+        raise HorovodTpuError(f"dcn={dcn} x ici={ici} != {n} devices")
+    me = basics.rank()
+    coords, sets = {}, {}
+    for d in range(dcn):
+        ps = _axis_set([ranks[d * ici + i] for i in range(ici)], ici)
+        if me in ranks and ranks.index(me) // ici == d:
+            sets["hvd"] = ps
+    for i in range(ici):
+        ps = _axis_set([ranks[d * ici + i] for d in range(dcn)], dcn)
+        if me in ranks and ranks.index(me) % ici == i:
+            sets["dcn"] = ps
+    if me in ranks:
+        pos = ranks.index(me)
+        coords = {"dcn": pos // ici, "hvd": pos % ici}
+    return Mesh(shape={"dcn": dcn, "hvd": ici}, coords=coords, sets=sets,
+                ranks=ranks, axis_names=HIER_AXES)
+
+
+def is_hierarchical(axis_name) -> bool:
+    """Whether `axis_name` is a hierarchical mesh (the port's stand-in
+    for JAX's ("dcn", "hvd") axis pair)."""
+    return isinstance(axis_name, Mesh) and axis_name.axis_names == HIER_AXES
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:

@@ -54,6 +54,28 @@ The wires, as in the JAX package (:245-290, :598-790):
   this rank's shards after the last step (0-d tensor, None without the
   wire).
 
+The hierarchical pair (JAX :584-595, :699-700, :807-830, :1046-1091):
+with `axis_name=` a `create_hierarchical_mesh`, each group's
+reduce-scatter is `hierarchical_reduce_scatter` (the ici leg at full
+width, the dcn leg on `compression`'s cast wire) and the allgather
+`hierarchical_all_gather`, whatever HOROVOD_HIERARCHICAL_ALLREDUCE says.
+Ownership is dcn-major, and rank (d, i) of the mesh is global rank
+d*n_ici + i, so each rank still owns its rank's shard.  No wire policy
+and no chunked pipeline on the pair, and a cooperative allgather wire
+is refused (the ring spans one set).
+
+`early_reduction` with `backward_passes_per_step` K > 1 at stage 1
+(JAX's `_no_rs` branch, :493): every pass's gradients are allreduced
+(`reduce_gradient_buckets`, hierarchical under the pair and the flag)
+and accumulated, and the Kth pass steps on its slice of their mean,
+with no reduce-scatter.  Stages 2 and 3 scatter every pass anyway.
+
+HOROVOD_SHARD_AG_FUSION (the tuner's `ag_fusion` knob,
+`current_ag_fusion`; JAX :609, :807-830): every group's new shard is
+gathered in one allgather per dtype, then split; gathers move bytes, so
+the parameters are bitwise those of the per-group gathers (on a
+cooperative wire the blocks then span the groups' shards).
+
 The arithmetic follows the JAX package's order: the mean of K passes is
 taken before the scatter at stage 1 and after it at stage 2; Average
 divides the scattered sum by n.  So integer-valued trajectories are
@@ -82,8 +104,10 @@ from ..ops import fused_collectives as _fc
 from ..ops import quantized as Q
 from ..ops import wire as _wire
 from ..ops.compression import Compression, is_cooperative
-from .data_parallel import (active_wire_policy, bucket_codec,
-                            shard_group_partition)
+from ..utils.autotune import current_ag_fusion
+from . import hierarchical as _hier
+from .data_parallel import (active_wire_policy, bucket_codec, check_axis,
+                            reduce_gradient_buckets, shard_group_partition)
 from .zero3 import group_buffer, group_slice, shard_groups, unpack
 
 
@@ -139,7 +163,7 @@ class _ShardedOptimizer:
                  process_set: Optional[ProcessSet] = None,
                  fusion_threshold_bytes: Optional[int] = None,
                  bucket_order=None, allgather_wire: Optional[str] = None,
-                 guard=None):
+                 guard=None, axis_name=None, early_reduction: bool = False):
         if op is not C.Average and op is not C.Sum:
             raise ValueError(
                 f"zero_stage={zero_stage} supports op=Average/Sum, got {op}: "
@@ -163,11 +187,17 @@ class _ShardedOptimizer:
                 "zero_stage >= 1 steps one local optimizer over flat "
                 "shards, so every param group must carry the same "
                 f"hyperparameters; got {hypers}")
+        self._mesh = check_axis(axis_name, process_set)
         self._opt = optimizer
         self.zero_stage = zero_stage
         self._compression = compression
         self._op = op
         self._bpps = max(1, backward_passes_per_step)
+        # Stage 1 under early reduction allreduces every pass and never
+        # reduce-scatters (JAX `_no_rs`).
+        self._no_rs = (early_reduction and self._bpps > 1
+                       and zero_stage < 2)
+        self._er_accum: Optional[List[torch.Tensor]] = None
         self._pass_count = 0
         self._fusion_threshold_bytes = fusion_threshold_bytes
         self._bucket_order = bucket_order
@@ -183,10 +213,21 @@ class _ShardedOptimizer:
         if allgather_wire is None:
             allgather_wire = util.shard_ag_wire()
         self._ag_codec = _wire.get_codec(allgather_wire)
+        if self._ag_codec.cooperative and self._mesh is not None:
+            raise ValueError(
+                f"allgather_wire={self._ag_codec.name!r} rides the ring "
+                "payload gather, which spans ONE named axis — with a "
+                "hierarchical 2-tuple axis_name use a cast wire "
+                f"({', '.join(_wire.cast_wire_names())}) instead")
         self.allgather_wire = (None if self._ag_codec.exact
                                else self._ag_codec.name)
         self.master_wire_diff: Optional[torch.Tensor] = None
-        policy = active_wire_policy(compression, process_set)
+        # The hierarchical scatter's dcn wire: the compressor's cast.
+        rs = _wire.get_codec(_wire.compressor_wire(compression))
+        self._rs_wire = None if rs.exact else rs.name
+        # The policy engages only on a flat reduce-scatter that runs.
+        policy = (None if self._mesh is not None or self._no_rs
+                  else active_wire_policy(compression, process_set))
         self._rs_codecs = [bucket_codec(compression, policy,
                                         sum(g.sizes) * g.dtype.itemsize,
                                         g.dtype.is_floating_point)
@@ -243,7 +284,7 @@ class _ShardedOptimizer:
         some rank's shard)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._params]
-        fused = _fc.fused_enabled()
+        fused = _fc.fused_enabled() and self._mesh is None
         if self._ef_gen != _wire.error_feedback_generation():
             # reset_error_feedback() ran: the residuals belong to
             # gradients from before it.
@@ -266,6 +307,11 @@ class _ShardedOptimizer:
             self._in_flags.append(_sentinel.local_nonfinite([flat])
                                   if self._scaler is not None and coop
                                   else None)
+            if self._mesh is not None:
+                started.append((_hier.reduce_scatter_start(
+                    flat, self._mesh, dcn_wire=self._rs_wire), average,
+                    lambda t: t))
+                continue
             if coop:
                 red, self._ef_rows[gi] = Q.quantized_reducescatter_shard(
                     flat, self._ps, average=average, wire=codec.name,
@@ -298,8 +344,31 @@ class _ShardedOptimizer:
     def _gather(self, sends: List[torch.Tensor]) -> List[torch.Tensor]:
         """Allgather one flat shard per group on the allgather wire;
         returns each group's rank-major flat buffer (decoded, in the
-        send's dtype)."""
+        send's dtype).  Under the tuner's `ag_fusion` knob, one gather a
+        send dtype of the groups' shards concatenated, each group's
+        buffer its column band of the (n, total) result."""
+        if not current_ag_fusion():
+            return self._gather_each(sends)
+        out: List[Optional[torch.Tensor]] = [None] * len(sends)
+        by_dt: dict = {}
+        for k, sh in enumerate(sends):
+            by_dt.setdefault(sh.dtype, []).append(k)
+        for ks in by_dt.values():
+            cat = torch.cat([sends[k].reshape(-1) for k in ks])
+            (full,) = self._gather_each([cat])
+            stacked = full.reshape(self.n, cat.numel())
+            off = 0
+            for k in ks:
+                w = sends[k].numel()
+                out[k] = stacked[:, off:off + w].reshape(-1)
+                off += w
+        return out
+
+    def _gather_each(self, sends: List[torch.Tensor]) -> List[torch.Tensor]:
         codec = self._ag_codec
+        if self._mesh is not None:
+            started = [_hier.all_gather_start(s, self._mesh) for s in sends]
+            return [finish() for finish in started]
         if codec.cooperative:
             if _fc.fused_enabled():
                 return [_fc.pipelined_allgather_shard(
@@ -380,6 +449,39 @@ class _ShardedOptimizer:
             p.add_(u)
         return None
 
+    def _early_pass(self, sync: bool) -> Optional[List[torch.Tensor]]:
+        """Early reduction at stage 1: allreduce this pass's gradients
+        (their flags, under the guard, fold into `pending_flag`), add
+        them into the full-size accumulator and release `p.grad`.  On
+        the Kth pass returns this rank's slice of each group's mean
+        (accumulator times 1/K), else None."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params]
+        with record_function("hvd.zero.early_reduce"):
+            red = reduce_gradient_buckets(
+                grads, op=self._op, compression=self._compression,
+                fusion_threshold_bytes=self._fusion_threshold_bytes,
+                bucket_order=self._bucket_order,
+                sentinel=self._scaler is not None, axis_name=self._mesh)
+        if self._scaler is not None:
+            self.guard_state = self._scaler.accumulate(self.guard_state,
+                                                       red[2])
+        if self._er_accum is None:
+            self._er_accum = [torch.zeros_like(g) for g in grads]
+        for idxs, outs in red[0]:
+            for i, o in zip(idxs, outs):
+                self._er_accum[i].add_(o)
+        for p in self._params:
+            p.grad = None
+        if not sync:
+            return None
+        means = [(a * (1.0 / self._bpps)).to(a.dtype)
+                 for a in self._er_accum]
+        self._er_accum = None
+        lo = self.rank
+        return [group_slice(means, g.idxs, g.dtype, lo * g.shard_sz,
+                            (lo + 1) * g.shard_sz) for g in self._groups]
+
     # -- the guard (the JAX package's `_gate`, :965-990) ----------------
 
     def _group_flags(self, g_shards: List[torch.Tensor],
@@ -433,7 +535,12 @@ class _ShardedOptimizer:
         self._pass_count += 1
         sync = self._pass_count % self._bpps == 0
         self._check_drift()
-        if self._accum is not None:
+        if self._no_rs:
+            g_shards = self._early_pass(sync)
+            if g_shards is None:
+                return None
+            in_flags = [None] * len(g_shards)
+        elif self._accum is not None:
             # Stage 2/3 accumulation: scatter this pass now, keep only
             # the local shard, release the full-size gradients.
             with record_function("hvd.zero.reduce_scatter"):

@@ -42,7 +42,14 @@ exact.
 `gather_matmul` computes `x @ Wᵀ` for a group that holds one 2-D leaf W,
 the gather fused behind the matmul (`fused_allgather_matmul`, on the
 gather wire): the transformer's tied head.  Like the JAX kernel path it serves forward
-products only.  `regroup` (the elastic reshard) is not ported yet.
+products only.  `regroup(n_new)` re-cuts the placement for another world
+size (the elastic reshard's companion, JAX :224-240).
+
+`axis_name=` a `create_hierarchical_mesh` (JAX :94-99, :255-259, :287):
+every group's gather is `hierarchical_all_gather` (ici, then dcn; a cast
+gather wire casts the row first), the dcn-major owner of a row being
+the rank itself.  A cooperative gather wire and `gather_matmul` refuse
+the pair, as in the JAX package: the ring spans one set.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ from ..ops import fused_collectives as _fc
 from ..ops import quantized as Q
 from ..ops import wire as _wire
 from ..ops.compression import Compression
-from .data_parallel import shard_group_partition
+from . import hierarchical as _hier
+from .data_parallel import check_axis, shard_group_partition
 
 
 class _GroupMeta(NamedTuple):
@@ -190,12 +198,20 @@ class ZeroParamPlacement:
     def __init__(self, params, process_set: Optional[ProcessSet] = None,
                  compression=Compression.none,
                  fusion_threshold_bytes: Optional[int] = None,
-                 bucket_order=None, gather_wire: Optional[str] = None):
+                 bucket_order=None, gather_wire: Optional[str] = None,
+                 axis_name=None):
         if gather_wire is None:
             gather_wire = util.zero_gather_wire()
         codec = _wire.get_codec(gather_wire)
         self._codec = codec
         self.gather_wire = None if codec.exact else codec.name
+        self._mesh = check_axis(axis_name, process_set)
+        if codec.cooperative and self._mesh is not None:
+            raise ValueError(
+                f"gather_wire={codec.name!r} rides the ring payload "
+                "gather, which spans ONE named axis — with a "
+                "hierarchical 2-tuple axis_name use a cast wire "
+                f"({', '.join(_wire.cast_wire_names())}) instead")
         if process_set is not None and process_set.process_set_id != 0:
             raise ValueError(
                 "zero3_placement requires the global process set: subset "
@@ -336,6 +352,14 @@ class ZeroParamPlacement:
         buffer in the group's dtype: `out` when given (a cast wire lands
         in a buffer of its own and is copied into `out` once)."""
         codec = self._codec
+        if self._mesh is not None:
+            send = row.reshape(-1)
+            if codec.cast_dtype is not None:
+                send = send.to(codec.cast_dtype)
+            finish = _hier.all_gather_start(send, self._mesh)
+            if out is None:
+                return lambda: finish().to(g.dtype)
+            return lambda: out.copy_(finish())
         if codec.cooperative:
             send = row.reshape(-1)
             if _fc.fused_enabled():
@@ -411,6 +435,10 @@ class ZeroParamPlacement:
                 f"gather_matmul needs the leaf's rows to divide the rank "
                 f"count evenly (got ({rdim}, {k}) over n={self.n} with "
                 "padding) — gather() the group instead")
+        if self._mesh is not None:
+            raise ValueError(
+                "gather_matmul spans ONE named axis (the fused gather "
+                "rides the flat ring) — gather() the group instead")
         if x.requires_grad or rows[gi].requires_grad:
             raise HorovodTpuError(
                 "gather_matmul is forward-only, as in the JAX package (its "
@@ -424,6 +452,26 @@ class ZeroParamPlacement:
         w_shard = rows[gi].reshape(rdim // self.n, k)
         return _fc.fused_allgather_matmul(x, w_shard, self.process_set,
                                           wire=self.gather_wire)
+
+    def regroup(self, n_new: int) -> "ZeroParamPlacement":
+        """The same placement re-cut for a world of `n_new` ranks (the
+        companion object after an elastic shrink or grow, or a
+        checkpoint load on another mesh): the leaves, tunables and
+        shard-group partition carry over (the partition does not depend
+        on the world size); each group's padded length and shard size
+        are recomputed.  The copy is unbound and holds no rows."""
+        if n_new < 1:
+            raise ValueError(f"regroup needs n_new >= 1, got {n_new}")
+        clone = object.__new__(ZeroParamPlacement)
+        clone.__dict__.update(self.__dict__)
+        clone.n = int(n_new)
+        clone.groups = tuple(
+            g._replace(padded=sum(g.sizes) + (-sum(g.sizes)) % clone.n,
+                       shard_sz=(sum(g.sizes) + (-sum(g.sizes)) % clone.n)
+                       // clone.n)
+            for g in self.groups)
+        clone._rows, clone._bound, clone._flats = (), None, []
+        return clone
 
     # -- update ------------------------------------------------------------
 
@@ -449,17 +497,19 @@ def zero3_placement(params, process_set: Optional[ProcessSet] = None,
                     compression=Compression.none,
                     fusion_threshold_bytes: Optional[int] = None,
                     bucket_order=None,
-                    gather_wire: Optional[str] = None
-                    ) -> ZeroParamPlacement:
+                    gather_wire: Optional[str] = None,
+                    axis_name=None) -> ZeroParamPlacement:
     """Build the ZeRO-3 parameter placement over `params` (env:
     HOROVOD_ZERO_GATHER_WIRE for the gather wire).  Pass the same
     `compression` / `fusion_threshold_bytes` / `bucket_order` as the
     companion `DistributedOptimizer(zero_stage=3)`, so that both bake
-    the same shard-group partition."""
+    the same shard-group partition, and the same `axis_name` (a
+    `create_hierarchical_mesh`)."""
     return ZeroParamPlacement(
         params, process_set=process_set, compression=compression,
         fusion_threshold_bytes=fusion_threshold_bytes,
-        bucket_order=bucket_order, gather_wire=gather_wire)
+        bucket_order=bucket_order, gather_wire=gather_wire,
+        axis_name=axis_name)
 
 
 __all__ = ["ZeroParamPlacement", "group_buffer", "zero3_placement"]

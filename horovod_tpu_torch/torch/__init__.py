@@ -17,6 +17,7 @@ namespace (`hvd.elastic.run`, `TorchState`, `ElasticSampler`).
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -56,6 +57,7 @@ from ..common.basics import (  # noqa: F401
     xla_built,
 )
 from ..common.exceptions import HorovodInternalError  # noqa: F401
+from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
 from ..ops.collectives import (  # noqa: F401
     Adasum,
@@ -93,8 +95,10 @@ from ..ops import wire as _wire
 from ..ops.quantized import quantized_allreduce_shard
 from ..guard import sentinel as _sentinel
 from ..guard.loss_scale import DynamicLossScale, unscale_
+from ..parallel import hierarchical as _hier
 from ..parallel.data_parallel import (_wire_nbytes, active_wire_policy,
-                                      bucket_codec, check_wire)
+                                      bucket_codec, check_axis, check_wire,
+                                      gradient_bucket_partition, hier_route)
 from ..parallel.zero3 import ZeroParamPlacement, zero3_placement  # noqa: F401
 from ..utils.autotune import current_fusion_threshold, current_zero_stage
 
@@ -492,7 +496,34 @@ class _DistributedOptimizer:
     ring form there.  The
     replicated path carries no error feedback (the JAX
     `DistributedOptimizer`'s update carries none either);
-    `allreduce_gradients(error_feedback_state=)` does."""
+    `allreduce_gradients(error_feedback_state=)` does.
+
+    `axis_name` (a `create_hierarchical_mesh`) with
+    HOROVOD_HIERARCHICAL_ALLREDUCE=1 (read at construction) and op
+    Average or Sum reduces every exact or cast bucket hierarchically: the
+    hook dispatches the ici reduce-scatter, and `synchronize()` runs the
+    dcn allreduce (on HOROVOD_HIERARCHICAL_DCN_WIRE) and the ici
+    allgather (`hierarchical.grouped_start`).
+
+    `fused_apply` (JAX `_fused_update`, parallel/optimizer.py:873): the
+    parameters are split by `gradient_bucket_partition` at construction,
+    each bucket has a local optimizer of the wrapped class and defaults
+    (its param groups the wrapped ones' hyperparameters, its state the
+    wrapped optimizer's `state` dict), a bucket is dispatched once all
+    its gradients are final, and on the sync pass each bucket steps
+    against its own reduced gradients as its reduction completes.  Under
+    the guard every bucket waits for the one Max allreduce of the
+    flags, so a flagged step applies no bucket.  The inner optimizer
+    must be elementwise (SGD, Adam, ...).  A step whose partition moved
+    (the tuner's threshold or order) raises.
+
+    `early_reduction` (JAX `update_fn`, :1191-1230) with
+    `backward_passes_per_step` K > 1: every pass's buckets are reduced
+    from the hooks, each pass's reduced gradients are added into an
+    accumulator and released, and the Kth pass applies the accumulator
+    times 1/K with no further collective; under the guard each pass's
+    flags fold into `pending_flag` and the Kth pass gates on them.
+    Under either, a sparse gradient is densified."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[Iterable[Tuple[str, Any]]] = None,
@@ -502,17 +533,25 @@ class _DistributedOptimizer:
                  sparse_as_dense: bool = False,
                  gradient_predivide_factor: float = 1.0,
                  process_set: Optional[ProcessSet] = None,
-                 guard=None):
+                 guard=None, axis_name=None, fused_apply: bool = False,
+                 early_reduction: bool = False,
+                 fusion_threshold_bytes: Optional[int] = None,
+                 bucket_order=None):
         self._policy = active_wire_policy(compression, process_set)
         check_wire(compression, op, process_set, self._policy,
                    gradient_predivide_factor)
+        self._hier_mesh = hier_route(axis_name, op, process_set)
         self._opt = optimizer
         self._compression = compression
         self._op = op
-        self._sparse_as_dense = sparse_as_dense
         self._predivide = gradient_predivide_factor
         self._ps = process_set
         self._bpps = max(1, backward_passes_per_step)
+        self._early = early_reduction and self._bpps > 1
+        self._sparse_as_dense = (sparse_as_dense or fused_apply
+                                 or self._early)
+        self._fusion_threshold_bytes = fusion_threshold_bytes
+        self._bucket_order = bucket_order
         self._pass_count = 0
         _check_names(named_parameters)
         self._params = [p for g in optimizer.param_groups
@@ -521,6 +560,18 @@ class _DistributedOptimizer:
         self.ring_buckets = 0  # observable: buckets reduced by the ring
         # (wire, raw bytes, wire bytes) of each bucket of the last step.
         self.last_buckets: List[Tuple[str, int, int]] = []
+        self._parts: Optional[List[List[int]]] = None
+        if fused_apply:
+            self._parts = self._partition()
+            self._bucket_of = {id(self._params[i]): b
+                               for b, idxs in enumerate(self._parts)
+                               for i in idxs}
+            # Each bucket's local optimizer, and for each of its param
+            # groups the index of the wrapped group it mirrors.
+            self.bucket_optimizers, self._bucket_groups = zip(*(
+                _bucket_optimizer(optimizer, [self._params[i] for i in idxs])
+                for idxs in self._parts))
+        self._accum: Dict[int, torch.Tensor] = {}
         self._scaler = guard
         self.guard_state = None
         if guard is not None:
@@ -532,29 +583,41 @@ class _DistributedOptimizer:
             if p.requires_grad:
                 p.register_post_accumulate_grad_hook(self._hook)
 
+    def _partition(self) -> List[List[int]]:
+        return [list(b) for b in gradient_bucket_partition(
+            self._params, compression=self._compression,
+            fusion_threshold_bytes=self._fusion_threshold_bytes,
+            bucket_order=self._bucket_order)]
+
     def reset_step_state(self) -> None:
         """Drop the state of the step in progress: the open bucket, the
         handles in flight, the gradients already enqueued, and a partial
-        accumulation of `backward_passes_per_step`.  Elastic recovery
-        (`TorchState.on_reset`) calls it after a failed step: that state
-        belongs to the step the restore rolled back.  (The JAX shim has
-        no such state to drop: its work in flight is XLA programs.)"""
+        accumulation of `backward_passes_per_step` (early reduction's
+        accumulator too).  Elastic recovery (`TorchState.on_reset`)
+        calls it after a failed step: that state belongs to the step the
+        restore rolled back.  (The JAX shim has no such state to drop:
+        its work in flight is XLA programs.)"""
         self._bucket: List[torch.Tensor] = []
         self._bucket_bytes = 0
-        # (handle, params, ctxs) per dispatched bucket.
+        # fused_apply: the gradients of each bucket that are final.
+        self._ready: Dict[int, List[torch.Tensor]] = {}
+        # (kind, handle, params, ctx, bucket) per dispatched bucket.
         self._in_flight: list = []
         # (param, handle) per sparse gradient in flight.
         self._sparse_in_flight: list = []
         self._reduced_ids: set = set()
         self._synchronized = False
+        self._finished: list = []  # (bucket, params), this pass
         self._step_buckets: List[Tuple[str, int, int]] = []
         self._flags: List[torch.Tensor] = []  # per bucket, flush order
+        self._accum = {}
         self._pass_count -= self._pass_count % self._bpps
 
     def _enqueue(self, p: torch.Tensor) -> None:
         """Add a gradient to the current bucket once per step; a full
         bucket is dispatched.  Sparse gradients never share a bucket with
-        dense ones (JAX shim :543-554)."""
+        dense ones (JAX shim :543-554).  Under fused_apply the buckets
+        are the baked partition's, each dispatched once complete."""
         if id(p) in self._reduced_ids:
             return
         if p.grad.is_sparse:
@@ -567,12 +630,19 @@ class _DistributedOptimizer:
                                                process_set=self._ps)))
                 return
         self._reduced_ids.add(id(p))
+        if self._parts is not None:
+            b = self._bucket_of[id(p)]
+            ready = self._ready.setdefault(b, [])
+            ready.append(p)
+            if len(ready) == len(self._parts[b]):
+                self._dispatch(self._ready.pop(b), b)
+            return
         # The JAX package's greedy partition (`_buckets_by_nbytes`) over
         # the gradients in the order they become final: a gradient that
         # would take the bucket past the threshold starts the next one,
         # and a bucket at or past it is full (no gradient could join).
         nbytes = _wire_nbytes(p.grad, self._compression)
-        threshold = _fusion_threshold()
+        threshold = self._fusion_threshold_bytes or _fusion_threshold()
         if self._bucket and self._bucket_bytes + nbytes > threshold:
             self._flush()
         self._bucket.append(p)
@@ -581,16 +651,28 @@ class _DistributedOptimizer:
             self._flush()
 
     def _hook(self, p: torch.Tensor) -> None:
-        if self._pass_count % self._bpps != self._bpps - 1:
+        if (not self._early
+                and self._pass_count % self._bpps != self._bpps - 1):
             return
         self._enqueue(p)
 
     def _flush(self) -> None:
-        """Dispatch the current bucket: one grouped allreduce, or (a ring
-        bucket) a place in the queue that `synchronize` reduces."""
+        """Dispatch the current bucket (under fused_apply: every bucket
+        with final gradients not yet dispatched, in partition order)."""
+        if self._parts is not None:
+            for b in sorted(self._ready):
+                self._dispatch(self._ready.pop(b), b)
+            return
         if not self._bucket:
             return
         params, self._bucket, self._bucket_bytes = self._bucket, [], 0
+        self._dispatch(params, None)
+
+    def _dispatch(self, params: List[torch.Tensor],
+                  b: Optional[int]) -> None:
+        """One bucket: one grouped allreduce (or its hierarchical first
+        leg), or (a ring bucket) a place in the queue that `synchronize`
+        reduces."""
         raw = sum(p.grad.numel() * p.grad.element_size() for p in params)
         codec = bucket_codec(self._compression, self._policy, raw,
                              all(p.grad.is_floating_point() for p in params))
@@ -598,7 +680,7 @@ class _DistributedOptimizer:
         if codec is not None and codec.cooperative:
             self._step_buckets.append((codec.name, raw, codec.wire_nbytes(
                 sum(p.grad.numel() for p in params))))
-            self._in_flight.append((None, params, codec.name))
+            self._in_flight.append(("ring", None, params, codec.name, b))
             return
         # The policy's exact and cast wires are those compressors' casts.
         comp = (self._compression if codec is None
@@ -617,11 +699,18 @@ class _DistributedOptimizer:
             n = self._ps.size() if self._ps is not None else size()
             wire_op, pre = Sum, 1.0 / self._predivide
             post = self._predivide / n
+        if self._hier_mesh is not None:
+            finish = _hier.grouped_start(
+                [C._scale(c, pre) for c in compressed], self._hier_mesh,
+                wire_op is Average)
+            self._in_flight.append(("hier", finish, params,
+                                    (ctxs, comp, post), b))
+            return
         h = grouped_allreduce_async(compressed, op=wire_op,
                                     prescale_factor=pre,
                                     postscale_factor=post,
                                     process_set=self._ps)
-        self._in_flight.append((h, params, (ctxs, comp)))
+        self._in_flight.append(("flat", h, params, (ctxs, comp, 1.0), b))
 
     def _ring(self, flat: torch.Tensor, wire: str) -> torch.Tensor:
         """One bucket's flat f32 gradients through the quantized ring."""
@@ -640,46 +729,125 @@ class _DistributedOptimizer:
             f = torch.maximum(f, inputs)
         self._flags.append(f)
 
+    def _finish(self, kind, h, params, ctx) -> None:
+        """Wait for one bucket and write its reduced gradients into
+        `p.grad`."""
+        if kind == "ring":
+            with record_function("hvd.ring"):
+                grads = [p.grad for p in params]
+                in_flag = (_sentinel.local_nonfinite(grads)
+                           if self._scaler is not None else None)
+                red = self._ring(torch.cat(
+                    [g.reshape(-1).to(torch.float32) for g in grads]), ctx)
+                off = 0
+                for g in grads:
+                    g.copy_(red[off:off + g.numel()].reshape(g.shape))
+                    off += g.numel()
+            self._flag(grads, in_flag)
+            self.ring_buckets += 1
+            return
+        ctxs, comp, post = ctx
+        outs = h() if kind == "hier" else C.synchronize(h)
+        for p, o, c in zip(params, outs, ctxs):
+            if post != 1.0:
+                o = C._scale(o, post)
+            p.grad.copy_(comp.decompress(o, c))
+        self._flag([p.grad for p in params])
+
     def synchronize(self) -> None:
+        self._sync(None)
+
+    def _sync(self, on_bucket) -> None:
+        """Finish every bucket in dispatch order (calling
+        `on_bucket(bucket, params)` after each), then the sparse ones."""
         self._flush()
         with torch.no_grad(), record_function("hvd.synchronize"):
-            for h, params, ctx in self._in_flight:
-                if h is None:
-                    with record_function("hvd.ring"):
-                        grads = [p.grad for p in params]
-                        in_flag = (_sentinel.local_nonfinite(grads)
-                                   if self._scaler is not None else None)
-                        red = self._ring(torch.cat(
-                            [g.reshape(-1).to(torch.float32)
-                             for g in grads]), ctx)
-                        off = 0
-                        for g in grads:
-                            g.copy_(red[off:off + g.numel()].reshape(g.shape))
-                            off += g.numel()
-                    self._flag(grads, in_flag)
-                    self.ring_buckets += 1
-                    continue
-                ctxs, comp = ctx
-                outs = C.synchronize(h)
-                for p, o, c in zip(params, outs, ctxs):
-                    p.grad.copy_(comp.decompress(o, c))
-                self._flag([p.grad for p in params])
+            for kind, h, params, ctx, b in self._in_flight:
+                self._finish(kind, h, params, ctx)
+                self._finished.append((b, params))
+                if on_bucket is not None:
+                    on_bucket(b, params)
             for p, h in self._sparse_in_flight:
                 # Replaced, not copied into: the reduced gradient has
                 # other entries than the local one.
                 p.grad = synchronize(h)
+                self._finished.append((None, [p]))
                 if self._scaler is not None:
                     self._flags.append(_sentinel.local_nonfinite(
                         [p.grad.coalesce().values()]))
+                if on_bucket is not None:
+                    on_bucket(None, [p])
         self._in_flight = []
         self._sparse_in_flight = []
         self._synchronized = True
         self.last_buckets, self._step_buckets = self._step_buckets, []
 
+    @torch.no_grad()
+    def _fold(self, params: List[torch.Tensor], last: bool) -> None:
+        """This pass's reduced gradients of `params` into what the step
+        applies: under early reduction added into the accumulator (from
+        zeros, as the JAX package's), released on an accumulation pass
+        and replaced by accumulator times 1/K on the last; else divided
+        by K once the Kth pass is reduced."""
+        for p in params:
+            if p.grad is None:
+                continue
+            if not self._early:
+                if self._bpps > 1:
+                    p.grad.div_(self._bpps)
+                continue
+            acc = self._accum.get(id(p))
+            if acc is None:
+                acc = self._accum[id(p)] = torch.zeros_like(p.grad)
+            acc.add_(p.grad)
+            if last:
+                p.grad = (acc * (1.0 / self._bpps)).to(acc.dtype)
+                del self._accum[id(p)]
+            else:
+                p.grad = None
+
+    def _check_partition(self) -> None:
+        live = self._partition()
+        if live != self._parts:
+            raise ValueError(
+                f"fused_apply bucket partition changed since init "
+                f"({len(self._parts)} -> {len(live)} buckets): the "
+                "fusion threshold / bucket order moved under the state "
+                "(autotuner proposal?) — re-init the optimizer state "
+                "after tunables change")
+
+    def _apply_bucket(self, b: int) -> None:
+        """Bucket b's local step, with the wrapped optimizer's state and
+        its param groups' hyperparameters as they are now."""
+        local = self.bucket_optimizers[b]
+        local.state = self._opt.state
+        for lg, gi in zip(local.param_groups, self._bucket_groups[b]):
+            lg.update(_hyper(self._opt.param_groups[gi]))
+        with record_function("hvd.fused_apply"):
+            local.step()
+
     def step(self, closure=None):
         self._pass_count += 1
-        if self._pass_count % self._bpps != 0:
+        last = self._pass_count % self._bpps == 0
+        if not last and not self._early:
             return None  # accumulation pass: no sync, no step
+        if self._parts is not None:
+            if closure is not None:
+                raise HorovodTpuError(
+                    "fused_apply takes no closure: run forward and "
+                    "backward before step()")
+            self._check_partition()
+        # Without the guard each bucket of the sync pass steps as its
+        # reduction completes; the guard's verdict needs every bucket.
+        stream = self._parts is not None and last and self._scaler is None
+        applied = set()
+
+        def settle(b, params):
+            self._fold(params, last)
+            if stream and b is not None:
+                self._apply_bucket(b)
+                applied.add(b)
+
         if not self._synchronized:
             # Gradients produced outside autograd never fired a hook:
             # reduce the stragglers now (_enqueue skips those already
@@ -687,31 +855,60 @@ class _DistributedOptimizer:
             for p in self._params:
                 if p.grad is not None:
                     self._enqueue(p)
-            self.synchronize()
+            self._sync(settle)
+        else:  # synchronize() ran already
+            for b, params in self._finished:
+                settle(b, params)
+        finished, self._finished = self._finished, []
         self._synchronized = False
         self._reduced_ids = set()
-        if self._bpps > 1:
-            with torch.no_grad():
-                for p in self._params:
-                    if p.grad is not None:
-                        p.grad.div_(self._bpps)
-        if self._scaler is not None and not self._gate():
-            return None  # flagged: skipped on every rank alike
-        return self._opt.step(closure)
+        if not last:
+            if self._scaler is not None:
+                # This pass's flags fold into pending_flag now (the
+                # poisoned pass is already in the accumulator).
+                self.guard_state = self._scaler.accumulate(
+                    self.guard_state, self._pass_flags())
+            return None
+        if self._scaler is not None:
+            flags = None
+            if self._early:
+                self.guard_state = self._scaler.accumulate(
+                    self.guard_state, self._pass_flags())
+                # The applied gradients are rank-identical: local flags
+                # (the JAX package's `bucket_flags_local`).
+                flags = torch.stack([
+                    _sentinel.local_nonfinite(
+                        [p.grad for p in params if p.grad is not None])
+                    for _, params in finished]) if finished else None
+            if not self._gate(flags):
+                return None  # flagged: skipped on every rank alike
+        if self._parts is None:
+            return self._opt.step(closure)
+        for b in range(len(self._parts)):
+            if b not in applied:
+                self._apply_bucket(b)
+        return None
 
-    @torch.no_grad()
-    def _gate(self) -> bool:
-        """The guard's coordinated skip-step (the JAX package's `_gate`):
-        OR the buckets' flags across ranks (one Max allreduce), unscale
-        the gradients, advance the schedule on the device, and read the
-        verdict once on the host.  Returns whether the inner step
-        runs."""
-        gs = self.guard_state
+    def _pass_flags(self) -> torch.Tensor:
+        """The cross-rank OR of this pass's bucket flags (one Max
+        allreduce)."""
         vec = (torch.stack(self._flags) if self._flags else
                torch.zeros((1,), dtype=torch.float32,
-                           device=gs.loss_scale.device))
+                           device=self.guard_state.loss_scale.device))
         self._flags = []
-        flags = _sentinel.crossrank_or(vec, process_set=self._ps)
+        return _sentinel.crossrank_or(vec, process_set=self._ps)
+
+    @torch.no_grad()
+    def _gate(self, flags: Optional[torch.Tensor] = None) -> bool:
+        """The guard's coordinated skip-step (the JAX package's `_gate`):
+        OR the buckets' flags across ranks (one Max allreduce; `flags`
+        when given), unscale the gradients, advance the schedule on the
+        device, and read the verdict once on the host.  Returns whether
+        the inner step runs."""
+        gs = self.guard_state
+        if flags is None:
+            flags = self._pass_flags()
+        self._flags = []
         bad = torch.maximum(flags.max(), gs.pending_flag) > 0
         unscale_(self._scaler, gs,
                  [p.grad for p in self._params if p.grad is not None])
@@ -723,6 +920,33 @@ class _DistributedOptimizer:
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+
+def _hyper(group: dict) -> dict:
+    return {k: v for k, v in group.items() if k != "params"}
+
+
+def _bucket_optimizer(optimizer: torch.optim.Optimizer,
+                      params: List[torch.Tensor]):
+    """fused_apply's local optimizer of one bucket: the wrapped one's
+    class and constructor defaults over `params`, one param group per
+    wrapped group they belong to, with its hyperparameters, and the
+    wrapped optimizer's `state` dict, so that its `state_dict()` covers
+    every bucket.  Returns (optimizer, the wrapped group index of each
+    of its param groups)."""
+    ids = {id(p) for p in params}
+    groups, index = [], []
+    for gi, g in enumerate(optimizer.param_groups):
+        mine = [p for p in g["params"] if id(p) in ids]
+        if mine:
+            groups.append(dict(_hyper(g), params=mine))
+            index.append(gi)
+    cls = type(optimizer)
+    sig = inspect.signature(cls.__init__).parameters
+    local = cls(groups, **{k: v for k, v in optimizer.defaults.items()
+                           if k in sig})
+    local.state = optimizer.state
+    return local, index
 
 
 def _guard_scaler(guard, op):
@@ -846,7 +1070,9 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          fusion_threshold_bytes: Optional[int] = None,
                          bucket_order=None,
                          allgather_wire: Optional[str] = None,
-                         guard=None):
+                         guard=None, axis_name=None,
+                         fused_apply: bool = False,
+                         early_reduction: bool = False):
     """op=Adasum returns the delta-semantics `_DistributedAdasumOptimizer`
     (reference: optimizer.py routes op=Adasum there); any other op the
     hook-bucketed `_DistributedOptimizer`.  `gradient_predivide_factor`
@@ -862,8 +1088,10 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     2 adds sharded gradient accumulation; 3 leaves the parameters to
     `zero3_placement`, and `step()` returns the updates for
     `placement.apply_updates` (parallel/optimizer.py).
-    `fusion_threshold_bytes` and `bucket_order` set the shard groups
-    (defaults: HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER).
+    `fusion_threshold_bytes` and `bucket_order` set the shard groups,
+    and at stage 0 the buckets (the hooks' threshold; fused_apply's
+    partition) (defaults: HOROVOD_FUSION_THRESHOLD,
+    HOROVOD_BUCKET_ORDER).
     `allgather_wire` (env HOROVOD_SHARD_AG_WIRE) is the wire of the
     sharded path's parameter allgather, with f32 masters on the owner;
     it needs zero_stage >= 1.
@@ -882,9 +1110,26 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     a flagged step every rank skips the inner step (the parameters and
     the optimizer state stay as they were) while the scale decays.  The
     state is the optimizer's `guard_state` (a `GuardState`).  Refused
-    with op=Adasum."""
+    with op=Adasum.
+
+    `axis_name` takes a `create_hierarchical_mesh` (the JAX package's
+    ("dcn", "hvd") pair): at stage 0 under HOROVOD_HIERARCHICAL_ALLREDUCE
+    the buckets reduce hierarchically (`_DistributedOptimizer`); at
+    stages 1-3 the reduce-scatter and the parameter allgather always run
+    over the pair's two tiers, ownership dcn-major
+    (parallel/optimizer.py).  `fused_apply` steps each bucket's share of
+    the inner optimizer against its own reduced gradients (stage 0
+    only); `early_reduction` reduces every pass of
+    `backward_passes_per_step` and accumulates the reduced gradients.
+    Both refuse op=Adasum, as in the JAX package."""
     del num_groups, groups
     _check_names(named_parameters)
+    if op is Adasum and (fused_apply or early_reduction):
+        raise ValueError(
+            "fused_apply / early_reduction are incompatible with "
+            "op=Adasum: Adasum combines post-update deltas, so there is "
+            "no per-bucket reduction result to consume early")
+    check_axis(axis_name, process_set)
     scaler = _guard_scaler(guard, op)
     if is_cooperative(compression) and op is Adasum:
         raise ValueError(
@@ -916,13 +1161,20 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         if gradient_predivide_factor != 1.0:
             raise ValueError(f"zero_stage={zero_stage} takes no "
                              "gradient_predivide_factor")
+        if fused_apply:
+            raise ValueError(
+                "shard_optimizer_states and fused_apply are mutually "
+                "exclusive: both partition the inner optimizer state "
+                "by bucket — the sharded path already applies per "
+                "shard group")
         return _ShardedOptimizer(
             optimizer, zero_stage, compression=compression,
             backward_passes_per_step=backward_passes_per_step, op=op,
             process_set=process_set,
             fusion_threshold_bytes=fusion_threshold_bytes,
             bucket_order=bucket_order, allgather_wire=allgather_wire,
-            guard=scaler)
+            guard=scaler, axis_name=axis_name,
+            early_reduction=early_reduction)
     if op is Adasum:
         return _DistributedAdasumOptimizer(
             optimizer, named_parameters=named_parameters,
@@ -934,7 +1186,10 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         backward_passes_per_step=backward_passes_per_step, op=op,
         sparse_as_dense=sparse_as_dense,
         gradient_predivide_factor=gradient_predivide_factor,
-        process_set=process_set, guard=scaler)
+        process_set=process_set, guard=scaler, axis_name=axis_name,
+        fused_apply=fused_apply, early_reduction=early_reduction,
+        fusion_threshold_bytes=fusion_threshold_bytes,
+        bucket_order=bucket_order)
 
 
 class SyncBatchNorm(torch.nn.modules.batchnorm._BatchNorm):

@@ -42,6 +42,26 @@ gathered head (`eval_exact_rel`), and under an allgather wire each STEP
 line gives the largest |f32 master − decoded parameter| of this rank's
 shards (`master_wire_diff`).
 
+The optimizer's keywords: `--backward-passes-per-step K` (a step is K
+passes, each its own seeded micro-batch, `opt.step()` after each;
+launches and STEP lines count steps), `--fused-apply`,
+`--early-reduction`, `--guard` (`DistributedOptimizer(guard=True)`, the
+schedule from the env; STEP lines add the loss scale and the flag), and
+`--dcn N`: the data-parallel ranks as `create_hierarchical_mesh(N)`,
+passed as `axis_name=` to the optimizer and the stage-3 placement (the
+hierarchical reduction needs HOROVOD_HIERARCHICAL_ALLREDUCE=1 at stage
+0; stages 1-3 always take the pair; the stage-3 eval head then gathers
+the embedding's group, since `gather_matmul` refuses the pair).
+`--check-hier-step S` (with `--dcn`): on step S's last pass, after the
+backward, every rank synchronizes the optimizer and rank 0 holds the
+reduced gradients (this pass's) to a flat allreduce of the same local
+gradients over the global set (`hier_rel`: largest difference over the
+largest value), and the same gradients through
+`hierarchical_allreduce(dcn_wire="int8")` to the exact result
+(`int8_err`, beside `int8_bound`: two int8 encodes on the dcn leg, each
+at most half a step of a block whose largest value is at most the sum
+over the ranks of their largest |gradient|, over the world size).
+
 The mesh (`--tp --pp --ep --sp`, and `--dp`, by default the rest of
 the world size; `--attn ring|ulysses`, `--moe-every`, `--n-experts`,
 `--n-kv-heads`, `--attn-window`: examples/transformer_lm.py's flags):
@@ -92,7 +112,9 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import Transformer, TransformerConfig, \
     lm_loss, num_params
 from horovod_tpu_torch.models import transformer as T
-from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+from horovod_tpu_torch.parallel import hierarchical as hier
+from horovod_tpu_torch.parallel.mesh import (create_hierarchical_mesh,
+                                             create_hybrid_mesh)
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
 from horovod_tpu_torch.ops import matmul_kernels as mk
 from horovod_tpu_torch.synthetic_benchmark import param_digest, \
@@ -188,7 +210,7 @@ def _profiled(one_step, steps: int, dev, sync) -> dict:
 def run_mesh(args, cfg: TransformerConfig, dev) -> int:
     """The trainer over a hybrid mesh (see the module docstring)."""
     mesh = create_hybrid_mesh(dp=args.dp, pp=args.pp, ep=args.ep,
-                              tp=args.tp, sp=args.sp)
+                              tp=args.tp, sp=args.sp, dcn=args.dcn)
     shape = {a: n for a, n in mesh.shape.items() if n > 1}
     opt_fn = functools.partial(torch.optim.AdamW, lr=3e-4,
                                betas=(0.9, 0.999), eps=1e-8,
@@ -355,6 +377,17 @@ def main(argv=None) -> int:
     p.add_argument("--n-experts", type=int, default=8)
     p.add_argument("--n-kv-heads", type=int, default=0)
     p.add_argument("--attn-window", type=int, default=0)
+    p.add_argument("--dcn", type=int, default=1,
+                   help="slices: the ranks as create_hierarchical_mesh(N) "
+                        "(the optimizer's axis_name), or the mesh's dcn")
+    p.add_argument("--backward-passes-per-step", type=int, default=1)
+    p.add_argument("--fused-apply", action="store_true")
+    p.add_argument("--early-reduction", action="store_true")
+    p.add_argument("--guard", action="store_true",
+                   help="DistributedOptimizer(guard=True)")
+    p.add_argument("--check-hier-step", type=int, default=-1,
+                   help="with --dcn: on this step hold the hierarchical "
+                        "reduction to the flat one and the int8 dcn wire")
     p.add_argument("--check-dense-step", type=int, default=-1,
                    help="mesh: on this step rank 0 computes the loss on "
                         "one rank (reference_loss)")
@@ -374,17 +407,24 @@ def main(argv=None) -> int:
     if max(args.tp, args.pp, args.ep, args.sp) > 1:
         return run_mesh(args, cfg, dev)
     model = Transformer(cfg, seed=hvd.rank()).to(dev)
+    hmesh = create_hierarchical_mesh(args.dcn) if args.dcn > 1 else None
+    K = args.backward_passes_per_step
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
                             betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
     opt = hvd.DistributedOptimizer(opt,
                                    named_parameters=model.named_parameters(),
-                                   zero_stage=args.zero_stage)
+                                   zero_stage=args.zero_stage,
+                                   backward_passes_per_step=K,
+                                   fused_apply=args.fused_apply,
+                                   early_reduction=args.early_reduction,
+                                   guard=True if args.guard else None,
+                                   axis_name=hmesh)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     params = list(model.parameters())
     placement = rows = None
     if args.zero_stage == 3:
-        placement = hvd.zero3_placement(params)
+        placement = hvd.zero3_placement(params, axis_name=hmesh)
         gi_embed = embed_group(placement, model)
         rows = placement.shard(params)
         placement.bind(params)
@@ -421,7 +461,7 @@ def main(argv=None) -> int:
             flat = h.reshape(-1, cfg.d_model).float()
             k3 = mk.tiled_matmul
             before = (k3.launches, k3.plain_calls, k3.strided_launches)
-            if placement is not None:
+            if placement is not None and hmesh is None:
                 logits = placement.gather_matmul(flat, rows, gi_embed)
             else:
                 logits = model.head(h).reshape(flat.shape[0], -1)
@@ -446,9 +486,11 @@ def main(argv=None) -> int:
         return rec
 
     rng = np.random.RandomState(hvd.rank())
-    tokens = torch.from_numpy(rng.randint(
-        0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))).to(dev)
-    x, y = tokens[:, :-1], tokens[:, 1:]
+    micro = []  # one (x, y) a pass of the step
+    for _ in range(K):
+        tokens = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))).to(dev)
+        micro.append((tokens[:, :-1], tokens[:, 1:]))
 
     def sync():
         if dev.type == "cuda":
@@ -471,40 +513,79 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         return p_ / 1e9
 
+    def check_hier() -> dict:
+        """--check-hier-step: this pass's reduced gradients against the
+        flat allreduce and the int8 dcn wire (see the module docstring);
+        called after the backward of the step's last pass."""
+        local = [p.grad.detach().clone() for p in params]
+        opt.synchronize()
+        with torch.no_grad(), record_function("bench.check.hier"):
+            flat = hvd.grouped_allreduce(local, op=hvd.Average)
+            int8 = hier.hierarchical_allreduce(local, hmesh,
+                                               dcn_wire="int8")
+            top = max(float(f.abs().max()) for f in flat)
+            rec = {
+                "hier_rel": max(float((p.grad - f).abs().max())
+                                for p, f in zip(params, flat)) / top,
+                "int8_err": max(float((q - p.grad).abs().max())
+                                for p, q in zip(params, int8)),
+                "int8_bound": 2 * float(hvd.allreduce(
+                    torch.stack([g.abs().max() for g in local]).max(),
+                    op=hvd.Sum)) / 254 / hvd.size(),
+                "grad_top": top}
+        del local, flat, int8
+        return rec if hvd.rank() == 0 else {}
+
     def one_step():
         nonlocal step_no, last_loss, rows, eval_s
         opt.zero_grad(set_to_none=True)
         mem = {"before": phase_peak()}
-        gather_params()
-        with record_function("bench.forward"):
-            logits = model(x)
-            loss = lm_loss(logits, y)
-        mem["forward"] = phase_peak()
-        with record_function("bench.backward"):
-            loss.backward()
-        mem["backward"] = phase_peak()
-        check = {}
-        if step_no == args.check_plain_step and hvd.rank() == 0:
-            # Same parameters as the forward above (the step has not run).
-            check = _check_plain_attention(model, x, y, logits.detach())
-        del logits
-        with record_function("bench.optimizer_step"):
-            updates = opt.step()
-        if placement is not None and updates is not None:
-            with record_function("bench.apply_updates"):
-                rows = placement.apply_updates(rows, updates)
-        del updates
-        release_params()
+        check, losses = {}, []
+        for k, (xk, yk) in enumerate(micro):
+            gather_params()
+            with record_function("bench.forward"):
+                logits = model(xk)
+                loss = lm_loss(logits, yk)
+            mem["forward"] = phase_peak()
+            with record_function("bench.backward"):
+                scaler = getattr(opt, "_scaler", None)
+                (scaler.scale_loss(opt.guard_state, loss)
+                 if scaler is not None else loss).backward()
+            mem["backward"] = phase_peak()
+            if step_no == args.check_plain_step and hvd.rank() == 0 \
+                    and k == 0:
+                # Same parameters as the forward above (the step has not
+                # run).
+                check = _check_plain_attention(model, xk, yk,
+                                               logits.detach())
+            del logits
+            if step_no == args.check_hier_step and k == K - 1:
+                sync()
+                check.update(check_hier())
+            with record_function("bench.optimizer_step"):
+                updates = opt.step()
+            if placement is not None and updates is not None:
+                with record_function("bench.apply_updates"):
+                    rows = placement.apply_updates(rows, updates)
+            del updates
+            release_params()
+            losses.append(loss.detach())
         mem["step"] = phase_peak()
-        last_loss = loss.detach()
+        last_loss = torch.stack(losses).mean()
         if args.log_steps:
             sync()
             rec = {"step": step_no, "rank": hvd.rank(),
-                   "loss": float(last_loss), "launches": launch_counts(),
+                   "loss": float(last_loss),
+                   "pass_losses": [float(v) for v in losses],
+                   "launches": launch_counts(),
                    "digest": digest(), "mem_peak_gb": mem, **check}
             diff = getattr(opt, "master_wire_diff", None)
             if diff is not None:
                 rec["master_wire_diff"] = float(diff)
+            gs = getattr(opt, "guard_state", None)
+            if gs is not None:
+                rec["loss_scale"] = float(gs.loss_scale)
+                rec["guard_flag"] = float(gs.bucket_flags.max())
             print("STEP " + json.dumps(rec), flush=True)
         if args.eval_every and (step_no + 1) % args.eval_every == 0:
             sync()
@@ -524,7 +605,8 @@ def main(argv=None) -> int:
               f"{hvd.size()} rank(s), device {dev}, backend "
               f"{hvd.backend()}, flash attention "
               f"{fa.flash_routed(args.seq_len, dev)}, zero stage "
-              f"{args.zero_stage}", flush=True)
+              f"{args.zero_stage}, {K} pass(es) a step, dcn "
+              f"{args.dcn}", flush=True)
     reset_launch_counts()
     for _ in range(args.num_warmup_batches):
         one_step()
@@ -537,7 +619,7 @@ def main(argv=None) -> int:
             one_step()
         sync()
         dt = time.perf_counter() - t0 - (eval_s - e0)
-        tok_sec = (args.batch_size * args.seq_len
+        tok_sec = (args.batch_size * args.seq_len * K
                    * args.num_batches_per_iter / dt)
         if hvd.rank() == 0:
             print(f"Iter #{i}: {tok_sec:.1f} tok/sec per rank", flush=True)
@@ -555,6 +637,7 @@ def main(argv=None) -> int:
                "launches": launch_counts(),
                "flushes": getattr(opt, "total_flushes", None),
                "n_layers": cfg.n_layers, "zero_stage": args.zero_stage,
+               "passes_per_step": K, "dcn": args.dcn,
                "param_full_bytes": sum(p_.numel() * p_.element_size()
                                        for p_ in params),
                "param_resident_bytes": (

@@ -498,6 +498,18 @@ def current_min_buckets() -> int:
     return tuned_min_buckets(util.min_buckets())
 
 
+def tuned_ag_fusion(default: bool) -> bool:
+    v = _tuned("ag_fusion")
+    return default if v is None else bool(int(v))
+
+
+def current_ag_fusion() -> bool:
+    """The live parameter-allgather fusion of the sharded optimizer:
+    HOROVOD_SHARD_AG_FUSION (off by default: per-group gathers overlap
+    better), or the tuner's `ag_fusion`."""
+    return tuned_ag_fusion(util.env_bool("SHARD_AG_FUSION", False))
+
+
 def tuned_zero_stage(default: int) -> int:
     v = _tuned("zero_stage")
     return default if v is None else int(v)

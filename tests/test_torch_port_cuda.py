@@ -1072,3 +1072,157 @@ def test_guard_at_static_scale_on_card_is_bitwise_unguarded(cuda,
         hvd.shutdown()
     assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                for a, b in zip(off, on))
+
+
+# ---------------------------------------------------------------------------
+# The hierarchical data plane and fused_apply on the card
+# ---------------------------------------------------------------------------
+
+HIER_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.parallel import hierarchical as H
+from horovod_tpu_torch.parallel.mesh import create_hierarchical_mesh
+
+out_dir, n, r, url = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+hvd.init(coordinator_address=url, num_processes=n, process_id=r)
+dev = hvd.device()
+mesh = create_hierarchical_mesh(2, 2)
+rng = np.random.RandomState(r)
+x = torch.from_numpy(rng.randn(100_003).astype(np.float32)).to(dev)
+xi = torch.from_numpy(np.round(rng.randn(4 * 2500) * 8).astype(
+    np.float32)).to(dev)
+res = {"on_card": x.is_cuda}
+res["hier"] = H.hierarchical_reduce_leaf(x, mesh, average=True).cpu()
+res["flat"] = hvd.allreduce(x, op=hvd.Average).cpu()
+res["int8"] = H.hierarchical_reduce_leaf(x, mesh, average=True,
+                                         dcn_wire="int8").cpu()
+shard = H.hierarchical_reduce_scatter(xi, mesh)
+res["rs_ag"] = H.hierarchical_all_gather(shard, mesh).cpu()
+res["int_sum"] = hvd.allreduce(xi, op=hvd.Sum).cpu()
+res["x_max"] = float(x.abs().max())
+
+SHAPES = [(64, 33), (17,), (8, 8, 8), (1000,)]
+
+
+def run(hier, **kw):
+    if hier:
+        os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1"
+    params = [torch.nn.Parameter(torch.zeros(s, device=dev)) for s in SHAPES]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=1.0, momentum=0.5),
+        axis_name=mesh if hier else None, fusion_threshold_bytes=4096,
+        backward_passes_per_step=2, **kw)
+    for t in range(6):
+        g = np.random.RandomState(100 * t + r)
+        for p in params:
+            v = torch.from_numpy((g.randint(-20, 20, p.shape) * 8).astype(
+                np.float32)).to(dev)
+            p.grad = v if p.grad is None else p.grad + v
+        opt.step()
+        if t % 2:
+            opt.zero_grad(set_to_none=True)
+    os.environ.pop("HOROVOD_HIERARCHICAL_ALLREDUCE", None)
+    return [p.detach().cpu() for p in params]
+
+
+res["opt_flat"] = run(False)
+res["opt_hier"] = run(True, fused_apply=True, early_reduction=True)
+torch.save(res, f"{out_dir}/rank{r}.pt")
+hvd.shutdown()
+'''
+
+
+@pytest.fixture(scope="module")
+def hier_on_card(tmp_path_factory):
+    """Four ranks on card 0 over gloo as create_hierarchical_mesh(2, 2),
+    every leg on CUDA tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp = tmp_path_factory.mktemp("hier_card")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for k in [k for k in env if k.startswith("HOROVOD_")]:
+        env.pop(k)
+    url = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", HIER_WORKER, str(tmp), "4", str(r), url],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(4)]
+
+
+def test_hierarchical_leaf_on_card_matches_the_flat_allreduce(hier_on_card):
+    """The three legs on CUDA tensors over gloo: within 1e-6 of the
+    largest value of the flat allreduce (four addends summed in another
+    order), bitwise on integer values (the reduce-scatter and allgather
+    round trip, dcn-major); the int8 dcn leg within two int8 encodes of
+    the exact one (half a step each of a block at most the four ranks'
+    largest |x| summed, over 4), and not equal to it."""
+    for d in hier_on_card:
+        assert d["on_card"]
+        top = float(d["flat"].abs().max())
+        assert float((d["hier"] - d["flat"]).abs().max()) <= 1e-6 * top
+        assert torch.equal(d["rs_ag"], d["int_sum"])
+        bound = 2 * sum(e["x_max"] for e in hier_on_card) / 254 / 4
+        err = float((d["int8"] - d["hier"]).abs().max())
+        assert 0 < err <= bound
+    assert all(torch.equal(d["hier"], hier_on_card[0]["hier"])
+               for d in hier_on_card)
+
+
+def test_hierarchical_optimizer_on_card_is_bitwise_the_flat_one(
+        hier_on_card):
+    """Stage 0 over the pair with fused_apply and early_reduction (K = 2)
+    on integer gradients: bitwise the flat, unfused path on every rank."""
+    for d in hier_on_card:
+        assert all(torch.equal(a, b) for a, b in zip(d["opt_hier"],
+                                                     d["opt_flat"]))
+
+
+def test_fused_apply_on_card_is_bitwise_unfused(cuda):
+    """One rank on the card: AdamW over a small transformer (bf16
+    compute), several buckets each stepping its own local optimizer, the
+    same bits as the one inner step."""
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            d_head=64, d_ff=256, n_layers=2,
+                            compute_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 512, (2, 65))).to(cuda)
+
+    def run(fused):
+        model = Transformer(cfg, seed=0).to(cuda)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3),
+            named_parameters=model.named_parameters(), fused_apply=fused,
+            fusion_threshold_bytes=1 << 18)
+        if fused:
+            assert len(opt.bucket_optimizers) > 1
+        for _ in range(3):
+            opt.zero_grad(set_to_none=True)
+            logits = model(tokens[:, :-1])
+            torch.nn.functional.cross_entropy(
+                logits.reshape(-1, 512).float(),
+                tokens[:, 1:].reshape(-1)).backward()
+            opt.step()
+        return [p.detach().cpu() for p in model.parameters()]
+
+    hvd.init()
+    try:
+        off, on = run(False), run(True)
+    finally:
+        hvd.shutdown()
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(off, on))

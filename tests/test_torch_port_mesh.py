@@ -15,7 +15,8 @@ Four CPU ranks over gloo (`run_world`) run, in one world:
 - `make_train_step` on the `TestTransformer` config of the JAX tests
   (vocab 64, d_model 32, 4 heads x 8, d_ff 64, 4 layers, f32) at B = 4,
   T = 16 for dp=4, dp=2 x tp=2, dp=2 x sp=2 (ring and Ulysses, and the
-  ring with GQA and a window), and tp=2 x sp=2: the loss within 1e-4 of
+  ring with GQA and a window), tp=2 x sp=2 and dcn=2 x dp=2 (the dcn
+  axis replicating the batch, as JAX's step does): the loss within 1e-4 of
   JAX's `make_train_step` on the same mesh, and every gradient,
   reassembled from the ranks' shards, within 1e-3 of its largest value
   of the port's dense model's gradient (the tolerance of the probe that
@@ -62,6 +63,7 @@ CONFIGS = [
     ("dp2_sp2_ring_gqa_window", dict(dp=2, sp=2),
      dict(n_kv_heads=2, attn_window=5)),
     ("tp2_sp2", dict(tp=2, sp=2), {}),
+    ("dcn2_dp2", dict(dcn=2, dp=2), {}),
 ]
 PERM = [(0, 2), (2, 1), (1, 0)]   # rank 3 sends and receives nothing
 
@@ -106,7 +108,9 @@ for name, kw, extra in data["configs"]:
     _, _, loss = step(shards, opt, shard_batch((tokens, targets)))
     grads = T.unshard(T.tree_map(lambda p: p.grad, shards), cfg, mesh)
     res[name] = {"loss": float(loss),
-                 "grads": T.tree_map(lambda g: g.numpy(), grads)}
+                 "grads": T.tree_map(lambda g: g.numpy(), grads),
+                 "coords": dict(mesh.coords),
+                 "shard_digest": T.tree_digest(shards)}
 
 cfg = T.TransformerConfig(**dict(data["cfg"], n_layers=2),
                           compute_dtype=torch.float32)
@@ -291,6 +295,30 @@ def test_train_step_loss_matches_jax_and_grads_match_the_dense_model(
         assert_grads_close(d[name]["grads"], dense, what=name)
 
 
+def test_dcn_axis_replicates_the_batch_as_jax(world):
+    """dcn=2 x dp=2: JAX's make_train_step shards the batch over (dp, ep)
+    alone, so the dcn axis replicates it and sums no gradient over it.
+    The port's loss is JAX's, its sgd(1.0) update (minus the gradient)
+    JAX's within 1e-3 of each leaf's largest element, and every rank
+    holds the same shards after the step, the dcn replicas above all."""
+    data, res = world
+    name, mesh_kw, extra = CONFIGS[-1]
+    assert name == "dcn2_dp2"
+    want_loss, want = jax_step(mesh_kw, data["params"][name],
+                               _jcfg(**extra), data["tokens"],
+                               data["targets"])
+    for d in res:
+        assert abs(d[name]["loss"] - want_loss) < LOSS_ATOL
+        assert_grads_close(d[name]["grads"], want, what=name)
+    by_coords = {(d[name]["coords"]["dcn"], d[name]["coords"]["dp"]): d
+                 for d in res}
+    assert len(by_coords) == N
+    for dp in range(2):
+        assert (by_coords[0, dp][name]["shard_digest"]
+                == by_coords[1, dp][name]["shard_digest"])
+    assert len({d[name]["shard_digest"] for d in res}) == 1
+
+
 def test_training_reduces_loss_and_ranks_agree(world):
     _, res = world
     losses = res[0]["losses"]
@@ -315,10 +343,13 @@ def test_mesh_refusals():
         assert TMESH.MeshConfig(dp=2, tp=3).total() == 6
         assert TMESH.MeshConfig(dp=2, tp=3).sizes() == \
             JMESH.MeshConfig(dp=2, tp=3).sizes()
-        with pytest.raises(NotImplementedError, match="hierarchical"):
-            TT.make_train_step(TMESH.Mesh(
-                shape=dict(m.shape, dcn=2), coords=m.coords, sets=m.sets,
-                ranks=m.ranks), _tcfg(), torch.optim.SGD)
+        # A dcn axis builds the step (it replicates the batch: the
+        # four-rank case is test_dcn_axis_replicates_the_batch_as_jax).
+        _, _, shard_batch = TT.make_train_step(TMESH.Mesh(
+            shape=dict(m.shape, dcn=2), coords=m.coords, sets=m.sets,
+            ranks=m.ranks), _tcfg(), torch.optim.SGD)
+        tok = torch.arange(12).reshape(2, 6)
+        assert all(torch.equal(b, tok) for b in shard_batch((tok, tok)))
     finally:
         hvd.shutdown()
 
