@@ -317,6 +317,42 @@ Phases, each printing its own lines:
                  ranks on one card over gloo: correctness, not
                  scaling).  The phase must end within HIER_BUDGET_S.
 
+21. train_runtime  main path 12: the runtime utilities (utils/megastep.py,
+                 profiler.py, prefetch.py, stall_inspector.py; the
+                 collective bracket and the step hooks).  (a) One rank
+                 (`python -m chip_smoke --runtime-rank`) runs the
+                 default TransformerConfig at T = 16384, batch 1, bf16,
+                 DistributedOptimizer(AdamW(capturable=True)): from one
+                 seed, RUNTIME_CALLS·RUNTIME_K eager steps, then the same
+                 model afresh through RUNTIME_CALLS calls of
+                 `repeat_steps(k = RUNTIME_K)` (an eager warm-up, the
+                 capture of one CUDA graph and its replay, a pure
+                 replay): the losses and the final SHA-256 bitwise the
+                 eager loop's (else within LOSS_TOL, with the largest
+                 difference printed); the step's wall ms and the host's
+                 idle share, eager against replayed.  (b) One more
+                 replay under `start_device_trace`, with HOROVOD_TIMELINE
+                 and HOROVOD_TIMELINE_MARK_CYCLES=1: the merged trace
+                 aligned, K4-K6 (`fwd_sm90`, `bwd_dq_sm90`,
+                 `bwd_dkv_sm90`) k x n_layers times each in the replay's
+                 device events, one cycle and one `step` span for the
+                 call.  (c) Seeded token batches [k, 1, T + 1] from a host
+                 generator through `prefetch_to_device(size = 2)` into
+                 `scan_steps(k)`: every batch bitwise its host source,
+                 and in the third call's trace the H2D copies on another
+                 stream than K4's.  (d) Two ranks share the card over
+                 gloo (`python -m chip_smoke --stall-rank`) with
+                 HOROVOD_STALL_CHECK_TIME_SECONDS=1; rank 1 enters an
+                 allreduce of a CUDA tensor STALL_LATE_S (plus
+                 STALL_SKEW_S) late: rank 0 warns once, naming
+                 `ALLREDUCE:drill` and rank 1 (the store reporter),
+                 `hvd_stall_warnings_total` reads 1, rank 0's timeline
+                 span of the allreduce lasts at least STALL_LATE_S, both
+                 ranks finish.  The phase must end within
+                 RUNTIME_BUDGET_S.  `hvd.init` starts the stall
+                 inspector in every rank of every phase, and every
+                 collective records its metrics.
+
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
 the main shape (logits within HEAD_RTOL, both gradients equal, the
@@ -329,7 +365,7 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 `python3 chip_smoke.py --serve` runs only the MIN_T table, K4 at the
 prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
-sources it runs); `--hier` only phase 20.
+sources it runs); `--hier` only phase 20; `--runtime` only phase 21.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -347,7 +383,10 @@ pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
 per rank on each run of main path 8 as `mesh_launches`, and K4-K6's
 launches on main path 9 as `serve_launches` and on main path 10 per
 rank as `guard_launches` (the ladder) and `guard_zero3_launches`, and on
-main path 11 per rank as `hier_launches` and `hier_zero3_launches`, K3's
+main path 11 per rank as `hier_launches` and `hier_zero3_launches`, and
+on main path 12 as `runtime_launches` (the rank's eager steps, warm-ups
+and captures) and `runtime_replay_launches` (one replay's, read from its
+trace), K3's
 on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
@@ -358,9 +397,11 @@ training ranks go to chiprun_out/.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -3387,6 +3428,393 @@ def train_hier() -> dict:
     return out
 
 
+RUNTIME_BUDGET_S = 60  # phase 21's share of the script's time limit
+RUNTIME_K = 2          # steps a megastep call
+RUNTIME_CALLS = 3      # megastep calls: eager warm-up, capture + replay, replay
+STALL_LATE_S = 3.0     # rank 1 enters the drill's allreduce this late
+STALL_SKEW_S = 0.25    # its sleep's margin over the barrier's skew
+STALL_ENV = {"HOROVOD_STALL_CHECK_TIME_SECONDS": "1"}
+SM90_NAMES = {"flash_fwd": "fwd_sm90", "flash_bwd_dq": "bwd_dq_sm90",
+              "flash_bwd_dkv": "bwd_dkv_sm90"}  # K4-K6's CUDA kernels
+
+
+def _trace_events(path: str) -> list:
+    with open(path) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def _kernel_counts(events) -> dict:
+    """K4-K6 kernel launches in a torch.profiler trace, by wrapper name."""
+    out = {n: 0 for n in SM90_NAMES}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n, sym in SM90_NAMES.items():
+            if sym in e.get("name", ""):
+                out[n] += 1
+    return out
+
+
+def runtime_rank(cfg=None, seq_len: int = 16384, device=None,
+                 k: int = RUNTIME_K, calls: int = RUNTIME_CALLS) -> int:
+    """Phase 21 (a)-(c) in one process (`python -m chip_smoke
+    --runtime-rank`, run by `train_runtime` under HOROVOD_TIMELINE and
+    HOROVOD_TIMELINE_MARK_CYCLES=1; `cfg`, `seq_len` and `device` shrink
+    it for a rehearsal on the CPU).
+
+    (a) One rank, DistributedOptimizer(AdamW(capturable=True)) on the
+    transformer from one seed: calls·k eager steps, then the same model
+    afresh through `calls` calls of `repeat_steps(k)` (warm-up, capture
+    and replay, replay): losses and the final parameters' SHA-256, and
+    per step the wall time (to a sync) and the host's share of it.
+    (b) One more replay under `start_device_trace`: the trace, the
+    merged view and the timeline's cycles and step spans of the call.
+    (c) Seeded token batches [k, 1, T+1] from a host generator through
+    `prefetch_to_device(size=2)` into `scan_steps(k)`; the third call
+    profiled.  Saved to LOG_DIR/runtime_rank0.pt."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.utils import megastep, profiler, timeline
+
+    hvd.init(device=device)
+    dev = hvd.device()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or TransformerConfig(compute_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, seq_len + 1))).to(dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def build():
+        model = Transformer(cfg, seed=0).to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4, capturable=on_card),
+            named_parameters=model.named_parameters())
+        return model, opt
+
+    def step(carry, batch):
+        model, opt = carry
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model(batch[:, :-1]), batch[:, 1:])
+        loss.backward()
+        opt.step()
+        return carry, loss.detach()
+
+    def timed(fn):
+        """(fn's result, wall s to a sync, host s until fn returned)."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        t_host = time.perf_counter() - t0
+        sync()
+        return out, time.perf_counter() - t0, t_host
+
+    FA.reset_launch_counts()
+    res = {"k": k, "calls": calls, "n_layers": cfg.n_layers,
+           "device": str(dev)}
+    # (a) eager, then megastep from the same seed.
+    model, opt = build()
+    eager = []
+    for _ in range(calls * k):
+        (_, loss), wall, host = timed(lambda: step((model, opt), tokens))
+        eager.append((loss.clone(), wall, host))
+    res["eager_losses"] = torch.stack([e[0] for e in eager]).float().cpu()
+    res["eager_digest"] = _sha(model.parameters())
+    res["eager_wall_s"] = [e[1] for e in eager]
+    res["eager_host_s"] = [e[2] for e in eager]
+    del model, opt, eager
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    model, opt = build()
+    mstep = megastep.repeat_steps(step, k, out_mode="all")
+    mega = []
+    for _ in range(calls):
+        (_, losses), wall, host = timed(lambda: mstep((model, opt), tokens))
+        mega.append((losses.clone(), wall, host))
+    res["mega_losses"] = torch.cat([m[0] for m in mega]).float().cpu()
+    res["mega_digest"] = _sha(model.parameters())
+    res["mega_wall_s"] = [m[1] for m in mega]
+    res["mega_host_s"] = [m[2] for m in mega]
+    res["graph"] = mstep.graph is not None
+    res["launches"] = {**FA.launch_counts(), **{
+        f"{n}_sm90": c for n, c in FA.sm90_launch_counts().items()}}
+
+    # (b) one replay under the profiler, with the timeline's marker.
+    tl = timeline.get_timeline()
+    logdir = os.path.join(LOG_DIR, "runtime_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    profiler.start_device_trace(logdir)
+    mstep((model, opt), tokens)
+    sync()
+    trace = profiler.stop_device_trace()
+    res["replay_launches"] = _kernel_counts(_trace_events(trace))
+    if tl is not None:
+        path = tl._writer.filename
+        timeline.stop_timeline()  # flush and close the file
+        res["merge"] = profiler.merge_traces(
+            path, trace, os.path.join(LOG_DIR, "runtime_merged.json"))
+        host = _trace_events_host(path)
+        after = host[next(i for i, e in enumerate(host)
+                          if e["name"] == profiler.TRACE_START_MARKER):]
+        res["replay_cycles"] = sum(e["cat"] == "cycle" for e in after)
+        res["replay_spans"] = sum(e["cat"] == "step" and e["ph"] == "X"
+                                  for e in after)
+        res["cycles"] = sum(e["cat"] == "cycle" for e in host)
+    os.remove(trace)
+
+    # (c) prefetch into scan_steps; the third call profiled.
+    rng = np.random.RandomState(1)
+    sources = [torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (k, 1, seq_len + 1))) for _ in range(calls + 1)]
+    feed = hvd.prefetch_to_device(iter(sources), size=2)
+    sstep = megastep.scan_steps(step, k, out_mode="all")
+    same = []
+    scan_losses = []
+    trace = None
+    for c in range(calls):
+        if c == calls - 1 and on_card:
+            profiler.start_device_trace(logdir)
+        batch = next(feed)
+        _, losses = sstep((model, opt), batch)
+        scan_losses.append(losses.clone())
+        same.append(torch.equal(batch.cpu(), sources[c]))
+    sync()
+    if on_card:
+        trace = profiler.stop_device_trace()
+    same.append(torch.equal(next(feed).cpu(), sources[calls]))
+    res["prefetch_bitwise"] = same
+    res["scan_losses"] = torch.cat(scan_losses).float().cpu()
+    res["scan_graph"] = sstep.graph is not None
+    if trace is not None:
+        ev = _trace_events(trace)
+        copies = [e for e in ev if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in e.get("name", "")]
+        compute = {e.get("args", {}).get("stream") for e in ev
+                   if e.get("cat") == "kernel"
+                   and SM90_NAMES["flash_fwd"] in e.get("name", "")}
+        res["h2d_streams"] = sorted({e.get("args", {}).get("stream")
+                                     for e in copies}, key=str)
+        res["compute_streams"] = sorted(compute, key=str)
+        res["scan_replay_launches"] = _kernel_counts(ev)
+        os.remove(trace)
+
+    # The bracket's host cost: one-element allreduces at one rank (no
+    # exchange), the inspector and the metrics on and off in turns; and
+    # one watchdog check.
+    from horovod_tpu_torch.metrics import catalog as MET
+    from horovod_tpu_torch.utils import stall_inspector
+
+    x = torch.ones(1, device=dev)
+    si = stall_inspector.get_inspector()
+
+    def burst(on: bool, n: int = 2000) -> float:
+        stall_inspector._inspector = si if on else None
+        MET.set_enabled(on)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            hvd.allreduce(x)
+        sync()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    turns = [(on, burst(on)) for on in (True, False, False, True)]
+    stall_inspector._inspector = si
+    MET.set_enabled(True)
+    res["bracket_us"] = {k: [t for on, t in turns if on == (k == "on")]
+                         for k in ("on", "off")}
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        si.check()
+    res["watchdog_check_us"] = (time.perf_counter() - t0) / 1000 * 1e6
+    torch.save(res, os.path.join(LOG_DIR, "runtime_rank0.pt"))
+    hvd.shutdown()
+    return 0
+
+
+def _trace_events_host(path: str) -> list:
+    from horovod_tpu_torch.utils.profiler import _load_timeline_events
+
+    return _load_timeline_events(path)
+
+
+def stall_rank(device=None) -> int:
+    """Phase 21 (d)'s ranks (`python -m chip_smoke --stall-rank` under
+    run_ranks' env and STALL_ENV): rank 1 enters an allreduce of a CUDA
+    tensor STALL_LATE_S late; each rank saves the warnings its stall
+    inspector issued, the metric and its wait to
+    LOG_DIR/stall_rank<r>.pt."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.metrics import catalog as MET
+    from horovod_tpu_torch.utils import stall_inspector
+
+    hvd.init(device=device)
+    r = hvd.rank()
+    si = stall_inspector.get_inspector()
+    warned = []
+    log_warning = si._warn_fn
+    si._warn_fn = lambda m: (warned.append(m), log_warning(m))
+    hvd.barrier()
+    if r == 1:
+        time.sleep(STALL_LATE_S + STALL_SKEW_S)
+    t0 = time.perf_counter()
+    out = hvd.allreduce(torch.full((1024,), float(r + 1),
+                                   device=hvd.device()), name="drill")
+    wait = time.perf_counter() - t0
+    res = {"rank": r, "wait_s": wait, "warned": warned,
+           "warnings": MET.stall_warnings._solo().get(),
+           "reporter": si._reporter is not None,
+           "out_ok": bool((out == 1.5).all()), "device": str(out.device),
+           "backend": hvd.backend()}
+    hvd.shutdown()  # closes rank 0's timeline
+    torch.save(res, os.path.join(LOG_DIR, f"stall_rank{r}.pt"))
+    return 0
+
+
+def check_runtime(res: dict, on_card: bool) -> dict:
+    """Phase 21 (a)-(c)'s checks on `runtime_rank`'s record."""
+    import torch
+
+    k, calls, n_layers = res["k"], res["calls"], res["n_layers"]
+    eager, mega = res["eager_losses"], res["mega_losses"]
+    require(eager.shape == mega.shape == (calls * k,)
+            and torch.isfinite(eager).all() and torch.isfinite(mega).all(),
+            f"runtime: losses {eager} {mega}")
+    bitwise = (torch.equal(eager, mega)
+               and res["eager_digest"] == res["mega_digest"])
+    diff = float((eager - mega).abs().max())
+    require(bitwise or diff <= LOSS_TOL,
+            f"runtime: megastep's losses {diff} off the eager loop's "
+            f"(tol {LOSS_TOL})")
+    require(res["graph"] == on_card and res["scan_graph"] == on_card,
+            f"runtime: graph {res['graph']}, scan graph {res['scan_graph']}")
+    require(all(res["prefetch_bitwise"]),
+            f"runtime: prefetched batches vs host {res['prefetch_bitwise']}")
+    require(torch.isfinite(res["scan_losses"]).all(),
+            f"runtime: scan losses {res['scan_losses']}")
+    out = {"bitwise": bitwise, "max_loss_diff": diff}
+    if "merge" in res:
+        require(res["merge"]["aligned"] and res["replay_cycles"] == 1
+                and res["replay_spans"] == 1,
+                f"runtime: merge {res['merge']}, the replay's cycles "
+                f"{res['replay_cycles']} and step spans "
+                f"{res['replay_spans']} (want 1 each)")
+    if on_card:
+        want = k * n_layers
+        for name in ("replay_launches", "scan_replay_launches"):
+            require(all(c == want for c in res[name].values()),
+                    f"runtime: {name} {res[name]}, want {want} of each")
+        require(res["h2d_streams"] and not set(res["h2d_streams"])
+                & set(res["compute_streams"]),
+                f"runtime: H2D copies on streams {res['h2d_streams']}, "
+                f"compute on {res['compute_streams']}")
+        for n in SM90_NAMES:
+            require(res["launches"][n] > 0 and res["launches"][
+                n + "_sm90"] == res["launches"][n],
+                f"runtime: {n} launches {res['launches']}")
+    # The eager steps after the first and the pure replays (calls from
+    # the third on), per step: wall ms and the host's idle share.
+    e_wall = res["eager_wall_s"][1:]
+    e_host = res["eager_host_s"][1:]
+    m_wall = [w / k for w in res["mega_wall_s"][2:]]
+    m_host = [h / k for h in res["mega_host_s"][2:]]
+    out.update(
+        eager_step_ms=1e3 * sum(e_wall) / len(e_wall),
+        eager_host_idle=1 - sum(e_host) / sum(e_wall),
+        replay_step_ms=1e3 * sum(m_wall) / len(m_wall),
+        replay_host_idle=1 - sum(m_host) / sum(m_wall),
+        bracket_us=res["bracket_us"],
+        watchdog_check_us=res["watchdog_check_us"],
+        launches=res["launches"], replay_launches=res.get("replay_launches"),
+        h2d_streams=res.get("h2d_streams"),
+        compute_streams=res.get("compute_streams"))
+    return out
+
+
+def check_stall(res, tl_path: str, on_card: bool = True) -> dict:
+    """Phase 21 (d)'s checks: rank 0 warned once, naming the drill's
+    allreduce and rank 1; its metric reads 1; its timeline span of the
+    allreduce lasted at least STALL_LATE_S; both ranks finished."""
+    from horovod_tpu_torch.utils.profiler import _load_timeline_events
+
+    r0, r1 = res
+    require(r0["out_ok"] and r1["out_ok"] and r0["reporter"]
+            and r0["device"].startswith("cuda") == on_card
+            and r0["backend"] == "gloo",
+            f"stall drill: {r0} {r1}")
+    require(len(r0["warned"]) == 1 and "[ALLREDUCE:drill]" in r0["warned"][0]
+            and "rank 1 (at op" in r0["warned"][0],
+            f"stall drill: rank 0 warned {r0['warned']}")
+    require(r0["warnings"] == 1 and r1["warned"] == [],
+            f"stall drill: hvd_stall_warnings_total {r0['warnings']}, rank "
+            f"1 warned {r1['warned']}")
+    span = [e for e in _load_timeline_events(tl_path)
+            if e.get("tid") == "ALLREDUCE:drill"]
+    require(len(span) == 1 and span[0]["dur"] >= STALL_LATE_S * 1e6,
+            f"stall drill: rank 0's span {span}")
+    return {"warning": r0["warned"][0], "span_s": span[0]["dur"] / 1e6,
+            "wait_s": [r0["wait_s"], r1["wait_s"]]}
+
+
+def train_runtime() -> dict:
+    """Phase 21 (main path 12): the runtime utilities; see the module
+    docstring."""
+    import torch
+
+    t_start = time.perf_counter()
+    phase = "train_runtime"
+    tl = os.path.join(LOG_DIR, "runtime_timeline.json")
+    run_ranks(phase, 1, "chip_smoke", ["--runtime-rank"], 120, env={
+        "HOROVOD_TIMELINE": tl, "HOROVOD_TIMELINE_MARK_CYCLES": "1"})
+    res = torch.load(os.path.join(LOG_DIR, "runtime_rank0.pt"),
+                     weights_only=False)
+    out = check_runtime(res, on_card=True)
+    log(phase, f"(a) {res['calls']} megastep calls of repeat_steps(k="
+        f"{res['k']}) against {res['calls'] * res['k']} eager steps: "
+        + ("losses and final SHA-256 bitwise equal" if out["bitwise"] else
+           f"largest loss difference {out['max_loss_diff']:.3g} (tol "
+           f"{LOSS_TOL})")
+        + f"; per step eager {out['eager_step_ms']:.2f} ms (host idle "
+        f"{out['eager_host_idle']:.3f}), replayed "
+        f"{out['replay_step_ms']:.2f} ms (host idle "
+        f"{out['replay_host_idle']:.3f})")
+    log(phase, f"(b) one replay's trace: K4-K6 {out['replay_launches']} "
+        f"(want {res['k'] * res['n_layers']} each); merged "
+        f"{res['merge']}; timeline cycles {res['replay_cycles']} and step "
+        f"spans {res['replay_spans']} for the call ({res['cycles']} in all)")
+    log(phase, f"(c) prefetch: {len(res['prefetch_bitwise'])} batches "
+        f"bitwise their host sources; H2D copies on streams "
+        f"{out['h2d_streams']}, K4 on {out['compute_streams']}")
+    log(phase, f"host us a one-element allreduce at one rank, the "
+        f"inspector and metrics on / off in turns (on, off, off, on): "
+        f"{out['bracket_us']}; one watchdog check "
+        f"{out['watchdog_check_us']:.2f} us")
+    stall_tl = os.path.join(LOG_DIR, "stall_timeline.json")
+    run_ranks(f"{phase}_stall", 2, "chip_smoke", ["--stall-rank"], 60,
+              env=dict(STALL_ENV, HOROVOD_TIMELINE=stall_tl))
+    stall = check_stall([torch.load(os.path.join(
+        LOG_DIR, f"stall_rank{r}.pt"), weights_only=False)
+        for r in range(2)], stall_tl)
+    log(phase, f"(d) rank 0 warned once: {stall['warning']!r}; its span "
+        f"{stall['span_s']:.3f} s, waits {stall['wait_s']}")
+    out.update(stall=stall, phase_s=time.perf_counter() - t_start)
+    log(phase, f"{out['phase_s']:.1f} s (budget {RUNTIME_BUDGET_S} s)")
+    require(out["phase_s"] <= RUNTIME_BUDGET_S,
+            f"{phase}: over its budget of {RUNTIME_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3405,6 +3833,10 @@ def main() -> int:
         return decode_rank()
     if sys.argv[1:2] == ["--guard-rank"]:
         return guard_rank()
+    if sys.argv[1:2] == ["--runtime-rank"]:
+        return runtime_rank()
+    if sys.argv[1:2] == ["--stall-rank"]:
+        return stall_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -3435,6 +3867,12 @@ def main() -> int:
         _build.build(["flash_attention_sm90", "flash_attention"])
         hier = train_hier()
         print(json.dumps({"hier": hier}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--runtime"]:
+        # Phase 21 alone (with the builds of the sources it runs).
+        _build.build(["flash_attention_sm90", "flash_attention"])
+        runtime = train_runtime()
+        print(json.dumps({"runtime": runtime}), flush=True)
         return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
@@ -3533,6 +3971,7 @@ def main() -> int:
             f"serve: over its budget of {SERVE_BUDGET_S} s")
     guard = train_guard()
     hier = train_hier()
+    runtime = train_runtime()
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -3614,6 +4053,12 @@ def main() -> int:
                         for h in hier["launches"] + hier["zero3_launches"]),
                     f"{name}: main path 11 off the tensor cores or not "
                     "launched")
+            # Main path 12: the runtime rank's launches (eager steps,
+            # warm-ups and the captures: a replay's launches show in its
+            # trace only) and one replay's, read from its trace.
+            row.update(runtime_launches=runtime["launches"][name],
+                       runtime_replay_launches=runtime[
+                           "replay_launches"][name])
         if name == "tiled_matmul":
             # The launches of the main path's eval forward that took the
             # strided load path (train_zero3 and zero3_nccl require 0),

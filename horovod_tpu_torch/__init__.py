@@ -29,3 +29,7 @@ from .parallel.hierarchical import (  # noqa: F401,E402
     hierarchical_error_feedback_init,
     hierarchical_reduce_scatter,
 )
+
+# The runtime utilities (horovod_tpu/__init__.py:161-169).
+from .utils.prefetch import BackgroundPrefetcher, prefetch_to_device  # noqa: F401,E402
+from .utils.timeline import start_timeline, stop_timeline  # noqa: F401,E402

@@ -97,6 +97,9 @@ class _GlobalState:
     process_sets: Dict[int, ProcessSet] = dataclasses.field(
         default_factory=dict)
     next_set_id: int = 1
+    # The process group's store (this generation's prefix of the
+    # coordinator's), None for one rank: the stall reporter's KV.
+    kv: Optional[object] = None
 
 
 _global_state: Optional[_GlobalState] = None
@@ -203,14 +206,14 @@ def init(*, coordinator_address: Optional[str] = None,
                                   max(size // max(local_size, 1), 1))
         dev = _resolve_device(device, local_rank)
         backend = None
-        group = None
+        group = kv = None
         if coordinator_address:
             backend = _choose_backend(dev, local_size)
             url = (coordinator_address if "://" in coordinator_address
                    else f"tcp://{coordinator_address}")
-            dist.init_process_group(
-                backend, store=_generation_store(url, rank, size),
-                world_size=size, rank=rank)
+            kv = _generation_store(url, rank, size)
+            dist.init_process_group(backend, store=kv, world_size=size,
+                                    rank=rank)
             _generation += 1
             group = dist.group.WORLD
         _init_args = dict(coordinator_address=coordinator_address,
@@ -220,14 +223,26 @@ def init(*, coordinator_address: Optional[str] = None,
             rank=rank, size=size, local_rank=local_rank,
             local_size=local_size, cross_rank=cross_rank,
             cross_size=cross_size, device=dev, backend=backend,
-            global_set=global_set, process_sets={0: global_set})
+            global_set=global_set, process_sets={0: global_set},
+            kv=kv if size > 1 else None)
         logger.info(
             "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
             "device=%s backend=%s", rank, size, local_rank, local_size,
             dev, backend or "none (one rank)")
-    from ..utils import autotune
+    # The runtime instruments, env-gated as in the JAX package
+    # (horovod_tpu/common/basics.py:238-249): HOROVOD_TIMELINE, the stall
+    # inspector (on unless HOROVOD_STALL_CHECK_DISABLE=1), the tuner.
+    from ..utils import autotune, stall_inspector, timeline
 
+    timeline.init_from_env(rank)
+    stall_inspector.init_from_env()
     autotune.init_from_env()
+
+
+def kv_store() -> Optional[object]:
+    """The process group's key-value store (a c10d store), or None for a
+    one-rank job."""
+    return _state().kv
 
 
 def init_arguments() -> dict:
@@ -245,16 +260,19 @@ def shutdown() -> None:
     results are dropped), release the process group so that a later
     `init()` can bootstrap afresh, and mark every process set removed,
     so that a set a caller still holds refuses to run rather than wait
-    on a group that is gone.  The autotuner goes with it, as in the JAX
-    package."""
+    on a group that is gone.  The stall watchdog and the timeline stop
+    first (the watchdog reads the group's store), and the autotuner goes
+    with them, as in the JAX package."""
     global _global_state
     from ..ops import collectives, join
-    from ..utils import autotune
+    from ..utils import autotune, stall_inspector, timeline
 
     with _init_lock:
         if _global_state is None:
             return
         st = _global_state
+        stall_inspector.shutdown_inspector()
+        timeline.stop_timeline()
         collectives.HandleManager.global_instance().drain()
         if st.device.type == "cuda":
             torch.cuda.synchronize(st.device)

@@ -198,9 +198,21 @@ CATALOG: Tuple[EnvVar, ...] = (
        "over the threshold)."),
     _v("HOROVOD_SLO_BUDGET_SLOW", "600", "metrics",
        "Slow burn-rate window in seconds."),
+    _v("HOROVOD_STALL_CHECK_DISABLE", "0", "metrics",
+       "1 disables the stall inspector watchdog."),
+    _v("HOROVOD_STALL_CHECK_TIME_SECONDS", "60.0", "metrics",
+       "Seconds a collective must be outstanding before a stall "
+       "warning (reference: stall_inspector.cc)."),
+    _v("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", "0.0", "metrics",
+       "Seconds after which a stalled job aborts (exit code 57); 0 "
+       "disables shutdown."),
     _v("HOROVOD_TIMELINE", "(unset)", "timeline",
-       "Path of the Chrome-trace timeline file; `init_from_env` starts "
-       "the timeline when it is set (the serving benchmark calls it)."),
+       "Path of the Chrome-trace timeline file; `hvd.init()` starts "
+       "the timeline when it is set (the serving benchmark, which calls "
+       "no `init`, starts it itself)."),
+    _v("HOROVOD_TRACE_STEP_SPANS", "1", "timeline",
+       "1 emits one host span (ph=X, cat=step) per optimizer step or "
+       "megastep call when the timeline is active."),
     _v("HOROVOD_TIMELINE_ALL_RANKS", "0", "timeline",
        "1 records a timeline on every rank instead of rank 0 only."),
     _v("HOROVOD_TIMELINE_MARK_CYCLES", "0", "timeline",

@@ -25,12 +25,15 @@ keep the JAX package's semantics:
 - Under join mode (`ops/join.py`) each outermost collective publishes
   its signature for joined ranks to mirror, and a joined rank
   contributes its op's identity: Average divides by the active count.
-- Every eager dispatch fires the fault points `collective.<kind>` and
-  `chaos.straggler_delay` (`_fault_point`, JAX `_traced.__enter__`),
-  nested ones included, so hit indices line up with the JAX package's;
-  an injected error, and a failure of `torch.distributed` at dispatch or
-  at the wait, surfaces as HorovodInternalError, the signal elastic
-  recovery catches.
+- Every eager dispatch runs in the `_traced` bracket (JAX `_traced`,
+  :150-247), nested ones included: the fault points `collective.<kind>`
+  and `chaos.straggler_delay` first (so hit indices line up with the
+  JAX package's, and an injected straggler delay lands before the
+  span), then a stall-inspector entry, a timeline activity `KIND:name`
+  and, on exit, the `collective_calls` / `collective_bytes` /
+  `collective_latency` metrics.  An injected error, and a failure of
+  `torch.distributed` at dispatch or at the wait, surfaces as
+  HorovodInternalError, the signal elastic recovery catches.
 
 Async ops return integer handles (`HandleManager`) over torch `Work`
 objects; `synchronize` waits and finishes the result.
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -60,6 +64,9 @@ from .. import faults as _faults
 from ..common import basics
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodInternalError, HorovodTpuError
+from ..metrics import catalog as _met
+from ..utils import stall_inspector as _stall
+from ..utils import timeline as _tl
 from . import join as _join
 
 logger = logging.getLogger("horovod_tpu_torch")
@@ -110,11 +117,14 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 
 class _Pending:
     """One in-flight collective: its torch `Work` objects and the
-    function that turns the exchanged buffers into the result."""
+    function that turns the exchanged buffers into the result.  `stall`
+    is the stall-inspector entry that `wait()` closes (set by
+    `_traced.track`)."""
 
     def __init__(self, works: Sequence[Any], finish: Callable[[], Any]):
         self._works = list(works)
         self._finish = finish
+        self.stall = None
 
     def ready(self) -> bool:
         return all(w.is_completed() for w in self._works)
@@ -125,7 +135,16 @@ class _Pending:
                 w.wait()
         except RuntimeError as e:
             raise HorovodInternalError(f"collective failed: {e}") from e
+        finally:
+            if self.stall is not None:
+                si, key = self.stall
+                si.record_end(key)
         return self._finish()
+
+
+def _done(result: Any) -> _Pending:
+    """A handle over a result that is already there."""
+    return _Pending([], lambda: result)
 
 
 def _launch(fn: Callable, *args, **kwargs) -> Any:
@@ -139,28 +158,120 @@ def _launch(fn: Callable, *args, **kwargs) -> Any:
         raise HorovodInternalError(f"{fn.__name__} failed: {e}") from e
 
 
-def _fault_point(kind: str) -> None:
-    """The fault bracket of one eager dispatch (JAX `_traced.__enter__`):
-    fire `collective.<kind>` when the catalog names it, then
-    `chaos.straggler_delay`.  An injected error becomes
-    HorovodInternalError.  One test when no schedule is armed."""
-    if not _faults.active():
-        return
-    try:
-        pt = f"collective.{kind}"
-        if pt in _faults.CATALOG:
-            _faults.point(pt)
-        _faults.point("chaos.straggler_delay")
-    except _faults.FaultInjected as e:
-        raise HorovodInternalError(str(e)) from e
+def _capturing() -> bool:
+    """Whether this thread's stream is being captured into a CUDA graph
+    (`utils/megastep.py`); never in a process that has not initialized
+    CUDA."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+class _traced:
+    """The bracket of one eager collective (JAX `_traced`,
+    ops/collectives.py:150-247), in its order:
+
+    - on entry the fault points: `collective.<kind>` when the catalog
+      names it, then `chaos.straggler_delay` (an injected error becomes
+      HorovodInternalError; a straggler's delay lands before the span
+      starts, so the span blames the rank that was late);
+    - a stall-inspector entry (`utils/stall_inspector.py`), closed on
+      exit, or, for a handle passed to `track`, when its `Work`
+      completes or `wait()` runs;
+    - a timeline activity `KIND:name` (`utils/timeline.py`);
+    - on a clean exit the metrics: one `collective_calls` and the host
+      latency, and `collective_bytes` when the call site gave `stat` the
+      payload: every rank's contribution, the set size times the bytes
+      one rank stages (JAX's staged global (set_size, ...) array).
+
+    A synchronous collective waits inside the bracket, so its span and
+    its stall entry cover the exchange.  While the stream is captured
+    into a CUDA graph the bracket fires the fault points only: a replay
+    runs none of this Python, and the watchdog must not poll a captured
+    event.  Hooks run on autograd's device thread: the inspector, the
+    timeline and the registry each take their own lock.  Overhead with
+    no inspector, timeline or metrics: a few attribute loads."""
+
+    __slots__ = ("_desc", "_kind", "_si", "_key", "_tl", "_token",
+                 "_tracked", "_t0", "_nbytes", "_dtype", "_ps")
+
+    def __init__(self, kind: str, name: Optional[str] = None):
+        self._desc = f"{kind}:{name}" if name else kind
+        self._kind = kind
+        self._si = self._tl = self._key = self._token = None
+        self._tracked = False
+        self._t0 = 0.0
+        self._nbytes = 0
+        self._dtype = "none"
+        self._ps = 0
+
+    def __enter__(self):
+        if _faults.active():
+            try:
+                pt = f"collective.{self._kind.lower()}"
+                if pt in _faults.CATALOG:
+                    _faults.point(pt)
+                _faults.point("chaos.straggler_delay")
+            except _faults.FaultInjected as e:
+                raise HorovodInternalError(str(e)) from e
+        if _capturing():
+            return self
+        self._si = _stall.get_inspector()
+        self._tl = _tl.get_timeline()
+        if self._si is not None:
+            self._key = self._si.record_start(self._desc)
+        if self._tl is not None:
+            self._token = self._tl.activity_start(self._desc, self._kind)
+        self._t0 = time.perf_counter()
+        return self
+
+    def stat(self, nbytes: int, dtype: torch.dtype, ps: ProcessSet) -> None:
+        """The payload: `nbytes` staged by this rank (counted set-size
+        times), its dtype and the process set."""
+        self._nbytes = int(nbytes) * ps.size()
+        self._dtype = _dtype_name(dtype)
+        self._ps = ps.process_set_id
+
+    def track(self, pending: _Pending) -> _Pending:
+        """Keep the stall entry open until `pending` completes."""
+        if self._key is not None:
+            self._si.record_result(self._key, pending)
+            pending.stall = (self._si, self._key)
+            self._tracked = True
+        return pending
+
+    def complete(self, pending: _Pending, sync: bool) -> _Pending:
+        """`pending` waited for inside the bracket (sync), or tracked."""
+        if sync:
+            return _done(pending.wait())
+        return self.track(pending)
+
+    def __exit__(self, exc_type, *exc):
+        if self._token is not None:
+            self._tl.activity_end(self._token)
+        if self._key is not None and (exc_type is not None
+                                      or not self._tracked):
+            self._si.record_end(self._key)
+        if self._t0 and exc_type is None and _met.enabled():
+            lbl = (self._kind, self._dtype, str(self._ps))
+            _met.collective_calls.labels(*lbl).inc()
+            if self._nbytes:
+                _met.collective_bytes.labels(*lbl).inc(self._nbytes)
+            _met.collective_latency.labels(*lbl).observe(
+                time.perf_counter() - self._t0)
+        return False
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _scale(t: torch.Tensor, factor: float) -> torch.Tensor:
     """`t * factor` with the factor cast to t's dtype first, as the JAX
-    package does (`xs * prescale.astype(xs.dtype)`)."""
+    package does (`xs * prescale.astype(xs.dtype)`).  The factor is
+    filled on t's device (no host copy: a CUDA graph can capture it)."""
     if factor == 1.0:
         return t
-    return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
+    return t * torch.full((), factor, dtype=t.dtype, device=t.device)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +405,16 @@ def _allreduce_start(tensor: torch.Tensor, op: ReduceOp, prescale: float,
     return _Pending(works, finish)
 
 
-def _allreduce_dispatch(tensor: torch.Tensor, op: ReduceOp,
-                        prescale: float, postscale: float,
-                        ps: ProcessSet) -> _Pending:
-    """One eager allreduce dispatch (a hit of `collective.allreduce`)."""
-    _fault_point("allreduce")
-    return _allreduce_start(tensor, op, prescale, postscale, ps)
+def _allreduce_traced(tensor: torch.Tensor, op: ReduceOp,
+                      prescale: float, postscale: float, ps: ProcessSet,
+                      name: Optional[str] = None,
+                      sync: bool = False) -> _Pending:
+    """One eager allreduce in its bracket (a hit of
+    `collective.allreduce`)."""
+    with _traced("ALLREDUCE", name) as tr:
+        tr.stat(_nbytes(tensor), tensor.dtype, ps)
+        return tr.complete(
+            _allreduce_start(tensor, op, prescale, postscale, ps), sync)
 
 
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -308,7 +423,6 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Allreduce `tensor` across the ranks of the process set; returns
     a new tensor (reference: EnqueueTensorAllreduce)."""
-    del name
     if op is None:
         op = Sum if average is False else Average
     ps = _resolve_set(process_set)
@@ -317,12 +431,14 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
         if op is Adasum:
             from . import adasum as _adasum
 
-            _fault_point("allreduce")
-            x = _scale(tensor.detach(), prescale_factor)
-            out = _adasum.adasum_allreduce(x, process_set=ps)
-            return _scale(out, postscale_factor)
-        return _allreduce_dispatch(tensor, op, prescale_factor,
-                                   postscale_factor, ps).wait()
+            with _traced("ALLREDUCE", name) as tr:
+                tr.stat(_nbytes(tensor), tensor.dtype, ps)
+                x = _scale(tensor.detach(), prescale_factor)
+                out = _adasum.adasum_allreduce(x, process_set=ps)
+                return _scale(out, postscale_factor)
+        return _allreduce_traced(tensor, op, prescale_factor,
+                                 postscale_factor, ps, name,
+                                 sync=True).wait()
 
 
 def _grouped_allreduce_start(tensors: Sequence[torch.Tensor], op: ReduceOp,
@@ -337,11 +453,12 @@ def _grouped_allreduce_start(tensors: Sequence[torch.Tensor], op: ReduceOp,
         if op is Adasum:
             red = allreduce(fused, op=op, prescale_factor=prescale,
                             postscale_factor=postscale, process_set=ps)
-            buckets.append((idxs, _Pending([], lambda red=red: red)))
+            buckets.append((idxs, _done(red)))
         else:
-            _fault_point("allreduce")  # one per dtype, as in JAX
-            buckets.append((idxs, _allreduce_start(
-                fused, op, prescale, postscale, ps, owned=True)))
+            with _traced("ALLREDUCE") as tr:  # one per dtype, as in JAX
+                tr.stat(_nbytes(fused), fused.dtype, ps)
+                buckets.append((idxs, tr.track(_allreduce_start(
+                    fused, op, prescale, postscale, ps, owned=True))))
 
     def finish():
         out: List[Any] = [None] * len(tensors)
@@ -436,8 +553,8 @@ def allgather_sizes(local_dim0: Sequence[int], ps: ProcessSet,
             f"allgather_sizes takes this process's one rank's size; got "
             f"{len(local_dim0)} values")
     device = basics.device() if device is None else device
-    _fault_point("allgather_sizes")
-    return [row[0] for row in _exchange_dims(local_dim0, ps, device)]
+    with _traced("ALLGATHER_SIZES"):
+        return [row[0] for row in _exchange_dims(local_dim0, ps, device)]
 
 
 def _ragged_allgather_start(t: torch.Tensor, sizes: List[int],
@@ -457,7 +574,29 @@ def _ragged_allgather_start(t: torch.Tensor, sizes: List[int],
     return _Pending(padded._works, finish)
 
 
-def _allgather_any_start(tensor: torch.Tensor, ps: ProcessSet) -> _Pending:
+def _row_bytes(t: torch.Tensor) -> int:
+    """Bytes of one row along dim 0."""
+    rest = 1
+    for d in t.shape[1:]:
+        rest *= d
+    return rest * t.element_size()
+
+
+def _allgather_traced(t: torch.Tensor, sizes: List[int], ps: ProcessSet,
+                      name: Optional[str] = None,
+                      sync: bool = False) -> _Pending:
+    """One gather of t (at least 1-D; rank r holds sizes[r] rows) in its
+    bracket: each rank stages the largest row count."""
+    with _traced("ALLGATHER", name) as tr:
+        tr.stat(max(sizes) * _row_bytes(t), t.dtype, ps)
+        if ps.comm is None:
+            return tr.complete(_allgather_start(t, ps), sync)
+        return tr.complete(_ragged_allgather_start(t, sizes, ps), sync)
+
+
+def _allgather_any_start(tensor: torch.Tensor, ps: ProcessSet,
+                         name: Optional[str] = None,
+                         sync: bool = False) -> _Pending:
     """A multi-rank job exchanges the sizes first, over any set, as the
     JAX package's multi-process path does."""
     t = tensor.detach()
@@ -465,10 +604,7 @@ def _allgather_any_start(tensor: torch.Tensor, ps: ProcessSet) -> _Pending:
         t = t.reshape(1)
     sizes = (allgather_sizes([t.shape[0]], ps, t.device)
              if basics.size() > 1 else [t.shape[0]])
-    _fault_point("allgather")
-    if ps.comm is None:
-        return _allgather_start(t, ps)
-    return _ragged_allgather_start(t, sizes, ps)
+    return _allgather_traced(t, sizes, ps, name, sync)
 
 
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
@@ -479,28 +615,30 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None,
     they differ each rank pads to the largest and the padding is sliced
     off; when they agree the data moves in one
     `all_gather_into_tensor`."""
-    del name
     ps = _resolve_set(process_set)
     with _joinable("allgather", [tensor], process_set=ps):
-        return _allgather_any_start(tensor, ps).wait()
+        return _allgather_any_start(tensor, ps, name, sync=True).wait()
 
 
 def _grouped_allgather_start(tensors: Sequence[torch.Tensor],
                              ps: ProcessSet) -> _Pending:
     """One size exchange for the whole group, then each tensor's gather
-    in flight at once."""
+    in flight at once.  The brackets follow JAX's tensor-by-tensor
+    sequence (sizes, then rows, for each tensor): the first sizes
+    bracket holds the group's one exchange."""
     ts = [t.detach().reshape(1) if t.dim() == 0 else t.detach()
           for t in tensors]
-    for _ in ts:  # JAX gathers tensor by tensor: sizes, then rows
+    table = None
+    starts = []
+    for j, t in enumerate(ts):
         if basics.size() > 1:
-            _fault_point("allgather_sizes")
-        _fault_point("allgather")
-    if ps.comm is None:
-        starts = [_allgather_start(t, ps) for t in ts]
-    else:
-        table = _exchange_dims([t.shape[0] for t in ts], ps, ts[0].device)
-        starts = [_ragged_allgather_start(t, [row[j] for row in table], ps)
-                  for j, t in enumerate(ts)]
+            with _traced("ALLGATHER_SIZES"):
+                if j == 0 and ps.comm is not None:
+                    table = _exchange_dims([u.shape[0] for u in ts], ps,
+                                           ts[0].device)
+        sizes = ([row[j] for row in table] if table is not None
+                 else [t.shape[0]])
+        starts.append(_allgather_traced(t, sizes, ps))
     return _Pending([w for p in starts for w in p._works],
                     lambda: [p.wait() for p in starts])
 
@@ -526,16 +664,27 @@ def grouped_allgather(tensors: Sequence[torch.Tensor],
 
 def _broadcast_start(tensor: torch.Tensor, root_rank: int,
                      ps: ProcessSet, out: torch.Tensor,
-                     result: Optional[torch.Tensor] = None) -> _Pending:
+                     result: Optional[torch.Tensor] = None,
+                     name: Optional[str] = None,
+                     sync: bool = False) -> _Pending:
     """Broadcast `tensor` from set-rank `root_rank` into `out` (which may
-    be `tensor` itself); the handle yields `result` (default `out`): the
-    caller's own tensor for the in-place variants."""
+    be `tensor` itself), in its bracket; the handle yields `result`
+    (default `out`): the caller's own tensor for the in-place
+    variants."""
     if root_rank not in range(ps.size()):
         raise HorovodTpuError(
             f"root_rank {root_rank} out of range for set of size "
             f"{ps.size()}")
-    _fault_point("broadcast")
-    result = out if result is None else result
+    with _traced("BROADCAST", name) as tr:
+        tr.stat(_nbytes(tensor), tensor.dtype, ps)
+        return tr.complete(_broadcast_pending(
+            tensor, root_rank, ps, out,
+            out if result is None else result), sync)
+
+
+def _broadcast_pending(tensor: torch.Tensor, root_rank: int,
+                       ps: ProcessSet, out: torch.Tensor,
+                       result: torch.Tensor) -> _Pending:
     if out is not tensor:
         out.copy_(tensor)
     if ps.comm is None:
@@ -556,33 +705,32 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               name: Optional[str] = None,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Return root's value of `tensor` on every rank (a new tensor)."""
-    del name
     ps = _resolve_set(process_set)
     out = torch.empty_like(tensor.detach(),
                            memory_format=torch.contiguous_format)
     with _joinable("broadcast", [tensor], root_rank=root_rank,
                    process_set=ps):
-        return _broadcast_start(tensor.detach(), root_rank, ps, out).wait()
+        return _broadcast_start(tensor.detach(), root_rank, ps, out,
+                                name=name, sync=True).wait()
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
                name: Optional[str] = None,
                process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """In-place broadcast from root."""
-    del name
     ps = _resolve_set(process_set)
     t = tensor.detach()
     with _joinable("broadcast", [tensor], root_rank=root_rank,
                    process_set=ps):
-        return _broadcast_start(t, root_rank, ps, t, result=tensor).wait()
+        return _broadcast_start(t, root_rank, ps, t, result=tensor,
+                                name=name, sync=True).wait()
 
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:
     """Block until every rank reaches the barrier (reference: BarrierOp;
     a 1-element allreduce, as in the JAX package)."""
     ps = _resolve_set(process_set)
-    with _joinable("barrier", process_set=ps):
-        _fault_point("barrier")
+    with _joinable("barrier", process_set=ps), _traced("BARRIER"):
         allreduce(torch.zeros((1,), dtype=torch.int32,
                               device=basics.device()),
                   op=Sum, process_set=ps)
@@ -650,18 +798,29 @@ def _alltoall_exchange_splits(splits: Sequence[int], ps: ProcessSet,
     """Every rank's send splits as an (n, n) table: row s is what rank s
     sends to each rank (reference: MPIController::
     AlltoallGetRecvSplits; JAX `_alltoall_exchange_splits`)."""
-    _fault_point("alltoall_splits")
-    return _exchange_dims([int(s) for s in splits], ps, device)
+    with _traced("ALLTOALL_SPLITS"):
+        return _exchange_dims([int(s) for s in splits], ps, device)
 
 
 def _alltoall_start(t: torch.Tensor, send: List[int], recv: List[int],
-                    ps: ProcessSet) -> _Pending:
-    """One `all_to_all_single` of t's rows: send[i] rows to set rank i,
-    recv[i] rows from it.  Gloo takes CUDA tensors here too (torch 2.11
-    on an H100, uneven splits included)."""
+                    ps: ProcessSet, staged: Optional[int] = None,
+                    name: Optional[str] = None,
+                    sync: bool = False) -> _Pending:
+    """One `all_to_all_single` of t's rows in its bracket: send[i] rows
+    to set rank i, recv[i] rows from it.  `staged`: the bytes one rank
+    stages in the JAX package's program (its payload counts those;
+    default t's bytes).
+    Gloo takes CUDA tensors here too (torch 2.11 on an H100, uneven
+    splits included)."""
+    with _traced("ALLTOALL", name) as tr:
+        tr.stat(_nbytes(t) if staged is None else staged, t.dtype, ps)
+        return tr.complete(_alltoall_pending(t, send, recv, ps), sync)
+
+
+def _alltoall_pending(t: torch.Tensor, send: List[int], recv: List[int],
+                      ps: ProcessSet) -> _Pending:
     out = torch.empty((sum(recv),) + tuple(t.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    _fault_point("alltoall")
     if ps.comm is None:
         out.copy_(t)
         return _Pending([], lambda: out)
@@ -672,8 +831,9 @@ def _alltoall_start(t: torch.Tensor, send: List[int], recv: List[int],
     return _Pending(works, lambda: out)
 
 
-def _alltoall_any_start(tensor: torch.Tensor, splits,
-                        ps: ProcessSet) -> _Pending:
+def _alltoall_any_start(tensor: torch.Tensor, splits, ps: ProcessSet,
+                        name: Optional[str] = None,
+                        sync: bool = False) -> _Pending:
     t = tensor.detach()
     n = ps.size()
     if splits is None:
@@ -683,7 +843,7 @@ def _alltoall_any_start(tensor: torch.Tensor, splits,
                 f"alltoall without splits requires dim0 ({d0}) divisible "
                 f"by set size ({n})")
         even = [d0 // n] * n
-        return _alltoall_start(t, even, even, ps)
+        return _alltoall_start(t, even, even, ps, _nbytes(t), name, sync)
     send = [int(s) for s in (splits.tolist() if isinstance(
         splits, torch.Tensor) else splits)]
     if len(send) != n:
@@ -698,7 +858,10 @@ def _alltoall_any_start(tensor: torch.Tensor, splits,
     table = _alltoall_exchange_splits(send, ps, t.device)
     me = ps.rank()
     recv = [int(table[s][me]) for s in range(n)]
-    moved = _alltoall_start(t, send, recv, ps)
+    # JAX pads every chunk to the table's largest split (at least 1).
+    maxc = max(max(row) for row in table) or 1
+    moved = _alltoall_start(t, send, recv, ps, n * maxc * _row_bytes(t),
+                            name, sync)
     rsplits = torch.tensor(recv, dtype=torch.int32)
     return _Pending(moved._works, lambda: (moved.wait(), rsplits))
 
@@ -712,18 +875,17 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
     r sends splits[i] rows to rank i, and the call returns (received,
     received_splits) as the JAX package's `alltoall` does, the splits an
     int32 tensor."""
-    del name
     ps = _resolve_set(process_set)
     t = tensor.detach()
     if splits is None:
         with _joinable("alltoall", [t], process_set=ps):
-            return _alltoall_any_start(t, None, ps).wait()
+            return _alltoall_any_start(t, None, ps, name, sync=True).wait()
     # A joined rank mirrors with zero rows and zero splits.
     sig = [0] + list(t.shape[1:])
     with _joinable("alltoallv", [], process_set=ps,
                    extra={"shapes": [sig],
                           "dtypes": [_dtype_name(t.dtype)]}):
-        return _alltoall_any_start(t, splits, ps).wait()
+        return _alltoall_any_start(t, splits, ps, name, sync=True).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +964,19 @@ def _reducescatter_start(tensor: torch.Tensor, op: ReduceOp,
     return _Pending(red._works, finish)
 
 
+def _reducescatter_traced(tensor: torch.Tensor, op: ReduceOp,
+                          ps: ProcessSet, name: Optional[str] = None,
+                          sync: bool = False) -> _Pending:
+    """One reduce-scatter in its bracket: each rank stages its tensor
+    padded to n·c rows."""
+    with _traced("REDUCESCATTER", name) as tr:
+        pending = _reducescatter_start(tensor, op, ps)
+        _, c, rest = _scatter_geometry(tensor, ps.size())
+        tr.stat(ps.size() * c * rest * tensor.element_size(), tensor.dtype,
+                ps)
+        return tr.complete(pending, sync)
+
+
 def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
                   name: Optional[str] = None,
                   process_set: Optional[ProcessSet] = None) -> torch.Tensor:
@@ -817,12 +992,10 @@ def reducescatter(tensor: torch.Tensor, op: ReduceOp = Average,
     Every backend runs `reduce_scatter_tensor`, gloo on CUDA tensors
     included (torch 2.11 on an H100: tests/test_torch_port_cuda.py
     `test_gloo_on_card_reducescatter`)."""
-    del name
     ps = _resolve_set(process_set)
     with _joinable("reducescatter", [tensor], op=op, process_set=ps):
         _check_scatter_op(op)
-        _fault_point("reducescatter")
-        return _reducescatter_start(tensor, op, ps).wait()
+        return _reducescatter_traced(tensor, op, ps, name, sync=True).wait()
 
 
 def _grouped_reducescatter_start(tensors: Sequence[torch.Tensor],
@@ -839,11 +1012,12 @@ def _grouped_reducescatter_start(tensors: Sequence[torch.Tensor],
         by_dtype.setdefault(t.dtype, []).append(i)
     buckets = []
     for idxs in by_dtype.values():
-        _fault_point("reducescatter")  # one per dtype, as in JAX
-        fused = torch.cat([_gather_rows(ts[i], n * geo[i][1]).reshape(n, -1)
-                           for i in idxs], dim=1)
-        buckets.append((idxs, _reducescatter_flat(fused.reshape(-1), op, ps,
-                                                  masked=False)))
+        with _traced("REDUCESCATTER") as tr:  # one per dtype, as in JAX
+            fused = torch.cat([_gather_rows(ts[i], n * geo[i][1])
+                               .reshape(n, -1) for i in idxs], dim=1)
+            tr.stat(_nbytes(fused), fused.dtype, ps)
+            buckets.append((idxs, tr.track(_reducescatter_flat(
+                fused.reshape(-1), op, ps, masked=False))))
 
     def finish():
         out: List[Any] = [None] * len(ts)
@@ -957,8 +1131,8 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                         process_set=process_set)
         return _handle(_Pending([], lambda: out))
     ps = _resolve_set(process_set)
-    return _async("allreduce", [tensor], lambda: _allreduce_dispatch(
-        tensor, op, prescale_factor, postscale_factor, ps), op=op,
+    return _async("allreduce", [tensor], lambda: _allreduce_traced(
+        tensor, op, prescale_factor, postscale_factor, ps, name), op=op,
         process_set=ps, prescale=prescale_factor, postscale=postscale_factor)
 
 
@@ -987,13 +1161,11 @@ def reducescatter_async(tensor: torch.Tensor, op: ReduceOp = Average,
                         name: Optional[str] = None,
                         process_set: Optional[ProcessSet] = None) -> int:
     """`reducescatter`'s handle, any dim 0 (JAX `reducescatter_async`)."""
-    del name
     ps = _resolve_set(process_set)
 
     def start():
         _check_scatter_op(op)
-        _fault_point("reducescatter")
-        return _reducescatter_start(tensor, op, ps)
+        return _reducescatter_traced(tensor, op, ps, name)
 
     return _async("reducescatter", [tensor], start, op=op, process_set=ps)
 
@@ -1002,10 +1174,10 @@ def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
                     process_set: Optional[ProcessSet] = None) -> int:
     """`allgather`'s handle; a ragged dim 0's sizes are exchanged before
     it returns."""
-    del name
     ps = _resolve_set(process_set)
     return _async("allgather", [tensor],
-                  lambda: _allgather_any_start(tensor, ps), process_set=ps)
+                  lambda: _allgather_any_start(tensor, ps, name),
+                  process_set=ps)
 
 
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
@@ -1027,15 +1199,14 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
     """`alltoall`'s handle: the received tensor, or with `splits`
     (received, received_splits).  The split table is exchanged before it
     returns."""
-    del name
     ps = _resolve_set(process_set)
     t = tensor.detach()
     if splits is None:
         return _async("alltoall", [t],
-                      lambda: _alltoall_any_start(t, None, ps),
+                      lambda: _alltoall_any_start(t, None, ps, name),
                       process_set=ps)
     return _async("alltoallv", [],
-                  lambda: _alltoall_any_start(t, splits, ps),
+                  lambda: _alltoall_any_start(t, splits, ps, name),
                   process_set=ps, extra={
                       "shapes": [[0] + list(t.shape[1:])],
                       "dtypes": [_dtype_name(t.dtype)]})
@@ -1044,24 +1215,23 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None,
                     process_set: Optional[ProcessSet] = None) -> int:
-    del name
     ps = _resolve_set(process_set)
     t = tensor.detach()
     out = torch.empty_like(t, memory_format=torch.contiguous_format)
     return _async("broadcast", [t],
-                  lambda: _broadcast_start(t, root_rank, ps, out),
+                  lambda: _broadcast_start(t, root_rank, ps, out,
+                                           name=name),
                   root_rank=root_rank, process_set=ps)
 
 
 def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
                      name: Optional[str] = None,
                      process_set: Optional[ProcessSet] = None) -> int:
-    del name
     ps = _resolve_set(process_set)
     t = tensor.detach()
     return _async("broadcast", [t],
                   lambda: _broadcast_start(t, root_rank, ps, t,
-                                           result=tensor),
+                                           result=tensor, name=name),
                   root_rank=root_rank, process_set=ps)
 
 

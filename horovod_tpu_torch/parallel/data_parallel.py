@@ -37,17 +37,29 @@ on the pair (ops/collectives.py:667-676); a cooperative bucket rides the
 ring over the pair's ranks, which is the global set.  Without the flag
 the pair reduces flat.
 
+The step hooks (JAX :342-357, :422-426, :537-637, :723-733, :981-1015)
+live here too: the reduction records `buckets_per_step`, `bucket_bytes`,
+the wire metrics and the `wire_bucket_k` / `fused_bucket_k` instants,
+and `allreduce_gradients` the gradient bytes.  The port has no compiled
+dispatch, so its step boundary is the optimizer's `step()`
+(`torch/__init__.py`, `parallel/optimizer.py`), which calls
+`record_step`: one cycle mark, then one `step` span, `steps` and
+`critical_path_ms`, in JAX's order; `utils/megastep.py` holds these
+hooks off (`hold_step_hooks`) and records one per call instead.
+
 Not ported: the straggler-reaction cap on the bucket count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, List, Optional, Sequence
+import time
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..common import basics
+from ..common import basics, util
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
@@ -55,8 +67,105 @@ from ..ops import fused_collectives as _fc
 from ..ops import wire as _wire
 from ..ops.compression import Compression, NoneCompressor, is_cooperative
 from ..ops.quantized import quantized_allreduce_shard
+from ..metrics import catalog as _met
+from ..utils import timeline as _tl
 from . import hierarchical as _hier
 from .mesh import is_hierarchical
+
+
+# -- the step hooks ----------------------------------------------------------
+
+_held = 0  # hold_step_hooks depth
+
+
+@contextlib.contextmanager
+def hold_step_hooks() -> Iterator[None]:
+    """Hold the optimizers' step hooks off (`step_hooks_held`): megastep
+    runs k steps a call, and a CUDA graph's replay runs none of their
+    Python, so it records one step per call itself."""
+    global _held
+    _held += 1
+    try:
+        yield
+    finally:
+        _held -= 1
+
+
+def step_hooks_held() -> bool:
+    return _held > 0
+
+
+StepClock = Tuple[float, Optional[float]]
+
+
+def step_clock() -> StepClock:
+    """The start of a step: the host clock, and the timeline's clock when
+    a timeline is on and HOROVOD_TRACE_STEP_SPANS (default 1) asks for
+    step spans."""
+    tl = _tl.get_timeline()
+    return (time.perf_counter(),
+            tl.now_us() if tl is not None
+            and util.env_bool("TRACE_STEP_SPANS", True) else None)
+
+
+def record_step(clock: StepClock, steps: int = 1) -> None:
+    """The step boundary's instruments (JAX data_parallel :995-1015):
+    mark a cycle, then a `step` span from `clock` (after the mark, so the
+    span carries the ID of the step it measured), and `steps`,
+    `critical_path_ms` (this step's host wall ms) and, under the fused
+    pipeline, `fused_steps`."""
+    t0, t0_us = clock
+    tl = _tl.get_timeline()
+    if tl is not None:
+        tl.mark_cycle()
+        if t0_us is not None:
+            tl.complete("step", category="step", start_us=t0_us)
+    if _met.enabled():
+        _met.steps.inc(steps)
+        _met.critical_path_ms.set((time.perf_counter() - t0) * 1e3)
+        if _fc.fused_enabled():
+            _met.fused_steps.inc(steps)
+
+
+def record_buckets(buckets: Sequence[Tuple[str, int, int]],
+                   policy: bool) -> None:
+    """One eager reduction's bucket metrics from its (wire, raw bytes,
+    wire bytes) per bucket: `buckets_per_step` and `bucket_bytes` (the
+    mean raw bytes), and under a wire policy, as in the JAX package,
+    `wire_bytes_saved` and the per-step wire gauges."""
+    if not _met.enabled() or not buckets:
+        return
+    raw = sum(b[1] for b in buckets)
+    wire = sum(b[2] for b in buckets)
+    _met.buckets_per_step.set(len(buckets))
+    _met.bucket_bytes.set(raw // len(buckets))
+    if not policy:
+        return
+    _met.wire_bytes_saved.inc(raw - wire)
+    _met.wire_bytes_saved_per_step.set(raw - wire)
+    fmt: dict = {}
+    for name, _, w in buckets:
+        fmt[name] = fmt.get(name, 0) + w
+    for name, w in fmt.items():
+        _met.wire_format_bytes.labels(name).set(w)
+
+
+def bucket_instant(k: int, wire: str, leaves: int, raw: int, wbytes: int,
+                   chunks: Optional[List[Tuple[int, int]]] = None) -> None:
+    """The timeline's `wire_bucket_k` instant (and `fused_bucket_k` when
+    the bucket went through the fused pipeline in `chunks`): the JAX
+    package labels the buckets of a wire policy's reduction."""
+    tl = _tl.get_timeline()
+    if tl is None:
+        return
+    tl.instant(f"wire_bucket_{k}", category="wire",
+               args={"bucket": k, "format": wire, "leaves": leaves,
+                     "raw_bytes": raw, "wire_bytes": wbytes})
+    if chunks:
+        tl.instant(f"fused_bucket_{k}", category="fused",
+                   args={"bucket": k, "format": wire,
+                         "chunks": len(chunks),
+                         "chunk_bytes": 4 * chunks[0][1]})
 
 
 def _bucket_permutation(n: int, bucket_order) -> List[int]:
@@ -348,10 +457,16 @@ def _grouped(group: List[torch.Tensor], op, process_set,
     hierarchical form on `hier_mesh`."""
     if hier_mesh is not None:
         return _hier.grouped_start(group, hier_mesh, op is C.Average)()
-    if (_fc.fused_enabled() and op in (C.Average, C.Sum)
-            and (process_set is None or process_set.process_set_id == 0)):
+    if _fused_route(op, process_set, hier_mesh):
         return _fc.pipelined_grouped_allreduce(group, op=op)
     return C.grouped_allreduce(group, op=op, process_set=process_set)
+
+
+def _fused_route(op, process_set, hier_mesh) -> bool:
+    """Whether `_grouped` takes the fused pipeline."""
+    return (hier_mesh is None and _fc.fused_enabled()
+            and op in (C.Average, C.Sum)
+            and (process_set is None or process_set.process_set_id == 0))
 
 
 def _sentinel_flags(leaves: Sequence[torch.Tensor], results,
@@ -431,13 +546,23 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
         bucket_order=bucket_order)
     results = []
     launder = set()  # buckets on a quantizing codec
+    stats = []  # (wire, raw bytes, wire bytes) per bucket
     for k, idxs in enumerate(parts):
         group = [leaves[i].detach() for i in idxs]
-        codec = bucket_codec(
-            compression, policy,
-            sum(t.numel() * t.element_size() for t in group),
-            all(i in float_ord for i in idxs))
+        raw = sum(t.numel() * t.element_size() for t in group)
+        nelem = sum(t.numel() for t in group)
+        codec = bucket_codec(compression, policy, raw,
+                             all(i in float_ord for i in idxs))
         if codec is not None:
+            wbytes = (codec.wire_nbytes(nelem) if codec.cooperative
+                      else nelem * codec.cast_dtype.itemsize
+                      if codec.cast_dtype is not None else raw)
+            stats.append((codec.name, raw, wbytes))
+            if policy is not None:
+                chunks = (_fc.plan_chunks(nelem, 4) if not codec.cooperative
+                          and _fused_route(op, process_set, hier_mesh)
+                          else None)
+                bucket_instant(k, codec.name, len(idxs), raw, wbytes, chunks)
             if codec.cooperative:
                 launder.add(k)
                 flat = torch.cat([t.to(torch.float32).reshape(-1)
@@ -470,9 +595,13 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
             c, ctx = compression.compress(t)
             compressed.append(c)
             ctxs.append(ctx)
+        stats.append((_wire.compressor_wire(compression), raw,
+                      sum(c.numel() * c.element_size() for c in compressed)))
         red = _grouped(compressed, op, process_set, hier_mesh)
         results.append((idxs, [compression.decompress(r, ctx)
                                for r, ctx in zip(red, ctxs)]))
+    if not step_hooks_held():
+        record_buckets(stats, policy is not None)
     if sentinel:
         # Under a cooperative compression= every bucket's inputs are
         # checked, its exact integer bucket too (the JAX package's rule).
@@ -509,6 +638,9 @@ def allreduce_gradients(grads: Any, op=C.Average,
     appends the cross-rank f32[B] per-bucket non-finite flags as the last
     element: `(reduced, flags)` or `(reduced, new_state, flags)`."""
     leaves, rebuild = _flatten(grads)
+    if _met.enabled() and not step_hooks_held():
+        _met.grad_bytes_reduced.inc(
+            sum(t.numel() * t.element_size() for t in leaves))
     red = reduce_gradient_buckets(
         leaves, op=op, compression=compression, process_set=process_set,
         fusion_threshold_bytes=fusion_threshold_bytes,

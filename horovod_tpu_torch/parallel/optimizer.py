@@ -103,8 +103,10 @@ from ..ops import collectives as C
 from ..ops import fused_collectives as _fc
 from ..ops import quantized as Q
 from ..ops import wire as _wire
+from ..metrics import catalog as _met
 from ..ops.compression import Compression, is_cooperative
 from ..utils.autotune import current_ag_fusion
+from . import data_parallel as _dp
 from . import hierarchical as _hier
 from .data_parallel import (active_wire_policy, bucket_codec, check_axis,
                             reduce_gradient_buckets, shard_group_partition)
@@ -255,6 +257,46 @@ class _ShardedOptimizer:
         self._scaler = guard
         self.guard_state = (guard.init(len(self._groups), device=dev)
                             if guard is not None else None)
+        self._clock: Optional[_dp.StepClock] = None
+        self._rs_bytes, self._ag_bytes = self._wire_bytes()
+        if _met.enabled() and self._bpps > 1:
+            _met.grad_shard_bytes.set(grad_accum_bytes(self))
+
+    def _wire_bytes(self):
+        """Bytes entering the gradient reduce-scatter and the parameter
+        allgather a step, at wire width (JAX :703-755, :804): the
+        `rs_bytes` and `param_ag_bytes` gauges."""
+        rs = ag = 0
+        comp = _wire.get_codec(_wire.compressor_wire(self._compression))
+        for g, codec in zip(self._groups, self._rs_codecs):
+            if self._mesh is not None:
+                dt = _wire.get_codec(self._rs_wire).cast_dtype or g.dtype
+                rs += g.padded * dt.itemsize
+            elif codec is not None and codec.cooperative:
+                rs += codec.wire_nbytes(g.padded)
+            elif codec is not None and codec.cast_dtype is not None:
+                rs += g.padded * codec.cast_dtype.itemsize
+            else:
+                dt = (comp.cast_dtype if comp.cast_dtype is not None
+                      and g.dtype.is_floating_point else g.dtype)
+                rs += g.padded * dt.itemsize
+            if self._ag_codec.cooperative:
+                ag += self.n * self._ag_codec.wire_nbytes(g.shard_sz)
+            else:
+                dt = self._ag_codec.cast_dtype or (
+                    torch.float32 if self.allgather_wire else g.dtype)
+                ag += g.padded * dt.itemsize
+        return rs, ag
+
+    def _record_sync(self) -> None:
+        """One sync's optimizer metrics (eager: every sync counts, the
+        guard's verdict aside, as JAX's `_sync_update`)."""
+        if not _met.enabled() or _dp.step_hooks_held():
+            return
+        _met.optimizer_syncs.inc()
+        if not self._no_rs:
+            _met.rs_bytes.set(self._rs_bytes)
+        _met.param_ag_bytes.set(self._ag_bytes)
 
     def _release_shards(self) -> None:
         for sh in self._shards:
@@ -523,11 +565,20 @@ class _ShardedOptimizer:
                 updates[i] = t.to(self._params[i].dtype)
         return updates
 
-    @torch.no_grad()
     def step(self, closure=None):
         """One pass.  On every `backward_passes_per_step`-th pass the
         sharded step runs; at stage 3 it returns the updates for
-        `placement.apply_updates`, else None."""
+        `placement.apply_updates`, else None.  Each pass is a step
+        boundary of the instruments (`data_parallel.record_step`)."""
+        clock = self._clock or _dp.step_clock()
+        self._clock = None
+        out = self._step(closure)
+        if not _dp.step_hooks_held():
+            _dp.record_step(clock)
+        return out
+
+    @torch.no_grad()
+    def _step(self, closure):
         if closure is not None:
             raise HorovodTpuError(
                 "zero_stage >= 1 takes no closure: run forward and backward "
@@ -574,11 +625,17 @@ class _ShardedOptimizer:
                 # Scattered: only the shards of the gradients stay.
                 for p in self._params:
                     p.grad = None
+        self._record_sync()
         if self._scaler is not None and not self._gate(g_shards, in_flags):
             return self._skipped()  # flagged: skipped on every rank alike
-        return self._apply(g_shards)
+        out = self._apply(g_shards)
+        if _met.enabled() and not _dp.step_hooks_held():
+            _met.opt_state_bytes.set(optimizer_state_bytes(self))
+        return out
 
     def zero_grad(self, *a, **kw):
+        if self._clock is None:
+            self._clock = _dp.step_clock()
         return self._opt.zero_grad(*a, **kw)
 
     def synchronize(self) -> None:

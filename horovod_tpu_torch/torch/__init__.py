@@ -96,6 +96,8 @@ from ..ops.quantized import quantized_allreduce_shard
 from ..guard import sentinel as _sentinel
 from ..guard.loss_scale import DynamicLossScale, unscale_
 from ..parallel import hierarchical as _hier
+from ..metrics import catalog as _met
+from ..parallel import data_parallel as _dp
 from ..parallel.data_parallel import (_wire_nbytes, active_wire_policy,
                                       bucket_codec, check_axis, check_wire,
                                       gradient_bucket_partition, hier_route)
@@ -523,7 +525,19 @@ class _DistributedOptimizer:
     accumulator and released, and the Kth pass applies the accumulator
     times 1/K with no further collective; under the guard each pass's
     flags fold into `pending_flag` and the Kth pass gates on them.
-    Under either, a sparse gradient is densified."""
+    Under either, a sparse gradient is densified.
+
+    Every `step()` (each pass) is a step boundary of the data plane's
+    instruments (`data_parallel.record_step`: a cycle mark and a `step`
+    span from the pass's `zero_grad()` or first final gradient, `steps`,
+    `critical_path_ms`), and every sync records its buckets
+    (`buckets_per_step`, `bucket_bytes`, the wire metrics, the
+    `wire_bucket_k` instants under a wire policy), `grad_bytes_reduced` and
+    `optimizer_syncs`; megastep holds these off
+    (`data_parallel.hold_step_hooks`).  At one rank the step reaches the
+    host nowhere (no `.item()`, no synchronize), so that megastep can
+    capture it into a CUDA graph, the guard excepted (its verdict is one
+    host read)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[Iterable[Tuple[str, Any]]] = None,
@@ -572,6 +586,7 @@ class _DistributedOptimizer:
                 _bucket_optimizer(optimizer, [self._params[i] for i in idxs])
                 for idxs in self._parts))
         self._accum: Dict[int, torch.Tensor] = {}
+        self._clock: Optional[_dp.StepClock] = None  # this step's start
         self._scaler = guard
         self.guard_state = None
         if guard is not None:
@@ -651,6 +666,8 @@ class _DistributedOptimizer:
             self._flush()
 
     def _hook(self, p: torch.Tensor) -> None:
+        if self._clock is None:
+            self._clock = _dp.step_clock()
         if (not self._early
                 and self._pass_count % self._bpps != self._bpps - 1):
             return
@@ -680,6 +697,7 @@ class _DistributedOptimizer:
         if codec is not None and codec.cooperative:
             self._step_buckets.append((codec.name, raw, codec.wire_nbytes(
                 sum(p.grad.numel() for p in params))))
+            self._bucket_instant(len(params))
             self._in_flight.append(("ring", None, params, codec.name, b))
             return
         # The policy's exact and cast wires are those compressors' casts.
@@ -693,6 +711,7 @@ class _DistributedOptimizer:
         self._step_buckets.append(
             (_wire.compressor_wire(comp), raw,
              sum(c.numel() * c.element_size() for c in compressed)))
+        self._bucket_instant(len(params))
         wire_op, pre, post = self._op, 1.0, 1.0
         if self._predivide != 1.0:
             # Reference: averaging split around the Sum wire.
@@ -711,6 +730,15 @@ class _DistributedOptimizer:
                                     postscale_factor=post,
                                     process_set=self._ps)
         self._in_flight.append(("flat", h, params, (ctxs, comp, 1.0), b))
+
+    def _bucket_instant(self, leaves: int) -> None:
+        """The timeline's `wire_bucket_k` of the bucket just dispatched
+        (under a wire policy, as the JAX package)."""
+        if self._policy is None:
+            return
+        wire, raw, wbytes = self._step_buckets[-1]
+        _dp.bucket_instant(len(self._step_buckets) - 1, wire, leaves, raw,
+                           wbytes)
 
     def _ring(self, flat: torch.Tensor, wire: str) -> torch.Tensor:
         """One bucket's flat f32 gradients through the quantized ring."""
@@ -781,6 +809,12 @@ class _DistributedOptimizer:
         self._sparse_in_flight = []
         self._synchronized = True
         self.last_buckets, self._step_buckets = self._step_buckets, []
+        if _met.enabled() and not _dp.step_hooks_held():
+            _dp.record_buckets(self.last_buckets, self._policy is not None)
+            raw = sum(b[1] for b in self.last_buckets)
+            _met.grad_bytes_reduced.inc(raw)
+            _met.grad_bytes_per_step.set(raw)
+            _met.optimizer_syncs.inc()
 
     @torch.no_grad()
     def _fold(self, params: List[torch.Tensor], last: bool) -> None:
@@ -827,6 +861,14 @@ class _DistributedOptimizer:
             local.step()
 
     def step(self, closure=None):
+        clock = self._clock or _dp.step_clock()
+        self._clock = None
+        out = self._step(closure)
+        if not _dp.step_hooks_held():
+            _dp.record_step(clock)
+        return out
+
+    def _step(self, closure):
         self._pass_count += 1
         last = self._pass_count % self._bpps == 0
         if not last and not self._early:
@@ -916,6 +958,8 @@ class _DistributedOptimizer:
         return not bool(bad)
 
     def zero_grad(self, *a, **kw):
+        if self._clock is None:
+            self._clock = _dp.step_clock()
         return self._opt.zero_grad(*a, **kw)
 
     def __getattr__(self, item):
@@ -996,6 +1040,7 @@ class _DistributedAdasumOptimizer:
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
         self._starting = {id(p): torch.empty_like(p) for p in self._params}
+        self._clock: Optional[_dp.StepClock] = None
 
     def reset_step_state(self) -> None:
         """Drop a partial accumulation of `backward_passes_per_step`
@@ -1016,6 +1061,16 @@ class _DistributedAdasumOptimizer:
                 for o, ctx in zip(outs, ctxs)]
 
     def step(self, closure=None):
+        """One pass (a step boundary of the instruments, as
+        `_DistributedOptimizer.step`'s)."""
+        clock = self._clock or _dp.step_clock()
+        self._clock = None
+        out = self._step(closure)
+        if not _dp.step_hooks_held():
+            _dp.record_step(clock)
+        return out
+
+    def _step(self, closure):
         self._pass_count += 1
         if self._pass_count % self._bpps != 0:
             return None  # accumulation pass
@@ -1035,9 +1090,13 @@ class _DistributedAdasumOptimizer:
             with record_function("hvd.adasum.apply"):
                 for p, d in zip(stepped, reduced):
                     p.copy_(self._starting[id(p)] + d)
+        if _met.enabled() and not _dp.step_hooks_held():
+            _met.optimizer_syncs.inc()
         return loss
 
     def zero_grad(self, *a, **kw):
+        if self._clock is None:
+            self._clock = _dp.step_clock()
         return self._opt.zero_grad(*a, **kw)
 
     def synchronize(self) -> None:

@@ -62,6 +62,23 @@ largest value), and the same gradients through
 at most half a step of a block whose largest value is at most the sum
 over the ranks of their largest |gradient|, over the world size).
 
+The runtime utilities: `--megastep M` runs M steps a call through
+`utils/megastep.py` (`repeat_steps` on the fixed batch, `scan_steps`
+on M prefetched ones; on the card one CUDA graph of M steps, replayed
+from the third call on; AdamW then takes `capturable=True`): a call
+counts as one of `--num-batches-per-iter`, tok/sec counts its M steps,
+and `--log-steps` prints one STEP line a call, after a sync, with the
+call's M losses.  It takes the plain data-parallel step only, so it
+refuses `--guard` (its verdict reads the host once a step) and, on the
+card, ranks that share a gloo group (their collectives run on the host),
+and takes none of `--zero-stage`, `--backward-passes-per-step` > 1,
+`--dcn`, `--eval-every` or the check flags.  `--prefetch N` draws a new
+seeded token batch a step on the host (or M stacked under megastep)
+and feeds it through `prefetch_to_device(size=N)`; without it every
+step trains on one fixed batch.  HOROVOD_TIMELINE (and
+HOROVOD_TIMELINE_MARK_CYCLES=1) records the collectives, one cycle and
+one `step` span a step or megastep call.
+
 The mesh (`--tp --pp --ep --sp`, and `--dp`, by default the rest of
 the world size; `--attn ring|ulysses`, `--moe-every`, `--n-experts`,
 `--n-kv-heads`, `--attn-window`: examples/transformer_lm.py's flags):
@@ -117,6 +134,7 @@ from horovod_tpu_torch.parallel.mesh import (create_hierarchical_mesh,
                                              create_hybrid_mesh)
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
 from horovod_tpu_torch.ops import matmul_kernels as mk
+from horovod_tpu_torch.utils import megastep
 from horovod_tpu_torch.synthetic_benchmark import param_digest, \
     profile_summary
 
@@ -205,6 +223,31 @@ def _profiled(one_step, steps: int, dev, sync) -> dict:
         with open(path) as f:
             trace = json.load(f)
     return profile_summary(trace, wall, steps, on_card=dev.type == "cuda")
+
+
+def check_megastep(args, dev) -> None:
+    """`--megastep`'s refusals (see the module docstring)."""
+    if args.guard:
+        raise SystemExit(
+            "--megastep refuses --guard: the guard's skip-step verdict "
+            "reads the host once a step, which a CUDA graph cannot "
+            "capture")
+    if dev.type == "cuda" and hvd.size() > 1 and hvd.backend() == "gloo":
+        raise SystemExit(
+            "--megastep refuses ranks that share a gloo group on the card: "
+            "gloo's collectives run on the host, which a CUDA graph cannot "
+            "capture")
+    other = [f for f, on in (
+        ("--zero-stage", args.zero_stage),
+        ("--backward-passes-per-step", args.backward_passes_per_step > 1),
+        ("--dcn", args.dcn > 1), ("--eval-every", args.eval_every),
+        ("--check-plain-step", args.check_plain_step >= 0),
+        ("--check-hier-step", args.check_hier_step >= 0),
+        ("--fused-apply", args.fused_apply),
+        ("--early-reduction", args.early_reduction)) if on]
+    if other:
+        raise SystemExit(f"--megastep takes the plain data-parallel step "
+                         f"only, not {', '.join(other)}")
 
 
 def run_mesh(args, cfg: TransformerConfig, dev) -> int:
@@ -391,6 +434,12 @@ def main(argv=None) -> int:
     p.add_argument("--check-dense-step", type=int, default=-1,
                    help="mesh: on this step rank 0 computes the loss on "
                         "one rank (reference_loss)")
+    p.add_argument("--megastep", type=int, default=0,
+                   help="M steps a call through utils/megastep.py (one "
+                        "CUDA graph on the card)")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="a new token batch a step through "
+                        "prefetch_to_device(size=N)")
     args = p.parse_args(argv)
 
     hvd.init(device=args.device)
@@ -406,11 +455,15 @@ def main(argv=None) -> int:
         attn_window=args.attn_window)
     if max(args.tp, args.pp, args.ep, args.sp) > 1:
         return run_mesh(args, cfg, dev)
+    if args.megastep:
+        check_megastep(args, dev)
     model = Transformer(cfg, seed=hvd.rank()).to(dev)
     hmesh = create_hierarchical_mesh(args.dcn) if args.dcn > 1 else None
     K = args.backward_passes_per_step
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
-                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+                            capturable=bool(args.megastep)
+                            and dev.type == "cuda")
     opt = hvd.DistributedOptimizer(opt,
                                    named_parameters=model.named_parameters(),
                                    zero_stage=args.zero_stage,
@@ -491,6 +544,20 @@ def main(argv=None) -> int:
         tokens = torch.from_numpy(rng.randint(
             0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))).to(dev)
         micro.append((tokens[:, :-1], tokens[:, 1:]))
+    fixed = tokens  # the last pass's [B, T+1]: megastep's fixed batch
+    feed = None
+    if args.prefetch:
+        def host_batches():
+            """A new seeded batch of tokens a step on the host: [K, B,
+            T+1], or [M, B, T+1] under megastep."""
+            lead = args.megastep or K
+            while True:
+                yield torch.from_numpy(rng.randint(
+                    0, cfg.vocab_size,
+                    (lead, args.batch_size, args.seq_len + 1)))
+
+        feed = hvd.prefetch_to_device(host_batches(), size=args.prefetch,
+                                      device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -536,12 +603,48 @@ def main(argv=None) -> int:
         del local, flat, int8
         return rec if hvd.rank() == 0 else {}
 
+    def train_step(carry, tokens):
+        """One plain step on tokens [B, T+1] (megastep's step_fn)."""
+        model_, opt_ = carry
+        opt_.zero_grad(set_to_none=True)
+        loss = lm_loss(model_(tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+        opt_.step()
+        return carry, loss.detach()
+
+    mstep = None
+    if args.megastep:
+        mstep = (megastep.scan_steps if feed is not None
+                 else megastep.repeat_steps)(train_step, args.megastep,
+                                             out_mode="all")
+
+    def mega_step():
+        """One megastep call: M steps, one STEP line."""
+        nonlocal step_no, last_loss
+        _, losses = mstep((model, opt), next(feed) if feed is not None
+                          else fixed)
+        last_loss = losses.mean()
+        if args.log_steps:
+            sync()
+            rec = {"step": step_no, "rank": hvd.rank(),
+                   "loss": float(last_loss),
+                   "pass_losses": [float(v) for v in losses],
+                   "launches": launch_counts(), "digest": digest(),
+                   "megastep": args.megastep, "graph": mstep.graph is not None}
+            print("STEP " + json.dumps(rec), flush=True)
+        step_no += 1
+
     def one_step():
         nonlocal step_no, last_loss, rows, eval_s
+        if mstep is not None:
+            return mega_step()
         opt.zero_grad(set_to_none=True)
         mem = {"before": phase_peak()}
         check, losses = {}, []
-        for k, (xk, yk) in enumerate(micro):
+        steps = micro
+        if feed is not None:
+            steps = [(t[:, :-1], t[:, 1:]) for t in next(feed)]
+        for k, (xk, yk) in enumerate(steps):
             gather_params()
             with record_function("bench.forward"):
                 logits = model(xk)
@@ -620,7 +723,7 @@ def main(argv=None) -> int:
         sync()
         dt = time.perf_counter() - t0 - (eval_s - e0)
         tok_sec = (args.batch_size * args.seq_len * K
-                   * args.num_batches_per_iter / dt)
+                   * (args.megastep or 1) * args.num_batches_per_iter / dt)
         if hvd.rank() == 0:
             print(f"Iter #{i}: {tok_sec:.1f} tok/sec per rank", flush=True)
         tok_secs.append(tok_sec)
@@ -638,6 +741,7 @@ def main(argv=None) -> int:
                "flushes": getattr(opt, "total_flushes", None),
                "n_layers": cfg.n_layers, "zero_stage": args.zero_stage,
                "passes_per_step": K, "dcn": args.dcn,
+               "megastep": args.megastep, "prefetch": args.prefetch,
                "param_full_bytes": sum(p_.numel() * p_.element_size()
                                        for p_ in params),
                "param_resident_bytes": (

@@ -1,14 +1,20 @@
 """Chrome-trace timeline of the host-side control plane.
 
 Counterpart of `horovod_tpu/utils/timeline.py` (reference:
-horovod/common/timeline.cc): `HOROVOD_TIMELINE=/path.json` starts it
-(`init_from_env`), `HOROVOD_TIMELINE_MARK_CYCLES=1` marks step cycles.
-Events go to an in-memory queue on the hot path (no IO) and a writer
-thread drains it to a Chrome ``chrome://tracing`` JSON array.  The
-port has the Python writer only (the JAX package's native C++ writer
-waits for `_native/`).  Its callers so far are the serving stack's
+horovod/common/timeline.cc): `HOROVOD_TIMELINE=/path.json` starts it at
+`hvd.init()` (`init_from_env`; `hvd.shutdown()` stops it),
+`HOROVOD_TIMELINE_MARK_CYCLES=1` marks step cycles.  Events go to an
+in-memory queue on the hot path (no IO) and a writer thread drains it to
+a Chrome ``chrome://tracing`` JSON array.  The port has the Python
+writer only (the JAX package's native C++ writer waits for `_native/`).
+Its callers: every eager collective (`ops/collectives.py _traced`: one
+``KIND:name`` activity), the optimizers' step boundary (a cycle mark
+and a ``step`` span a step, `parallel/data_parallel.py record_step`;
+megastep's one a call), the reduction's ``wire_bucket_k`` /
+``fused_bucket_k`` / ``guard_bucket_k`` instants, the serving stack's
 request spans (`serve/server.py`: tid ``req/<id>``) and `slo_toggle`
-instants; the device side belongs to `torch.profiler`.
+instants, and the profiler's alignment marker.  The device side belongs
+to `torch.profiler` (`utils/profiler.py` merges the two).
 """
 
 from __future__ import annotations
@@ -242,9 +248,8 @@ atexit.register(stop_timeline)
 
 
 def init_from_env(rank: int) -> None:
-    """Honor HOROVOD_TIMELINE like the reference (`serve_benchmark` calls
-    it; the JAX package's `hvd.init()` does, and the port's will when the
-    training path's timeline hooks are ported).
+    """Honor HOROVOD_TIMELINE like the reference (`hvd.init()` calls it,
+    and `serve_benchmark`, which runs without `init`).
 
     Like the reference, only rank 0 writes (timeline.cc gates on rank)
     unless HOROVOD_TIMELINE_ALL_RANKS is set, in which case the filename

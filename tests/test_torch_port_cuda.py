@@ -21,7 +21,9 @@ another order inside each K tile, then one rounding of the output).
 The wire codecs on the card are bitwise their CPU runs (a decoded NaN
 any NaN, and an fp8 NaN code of either sign: a NaN made by inf / inf
 has the hardware's sign), and the quantized ring over
-gloo on CUDA tensors bitwise its plain model run on the card.
+gloo on CUDA tensors bitwise its plain model run on the card.  A
+megastep's CUDA-graph replay is bitwise the eager loop (the same
+kernels on the same inputs).
 """
 
 import json
@@ -1226,3 +1228,160 @@ def test_fused_apply_on_card_is_bitwise_unfused(cuda):
         hvd.shutdown()
     assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                for a, b in zip(off, on))
+
+
+# ---------------------------------------------------------------------------
+# The runtime utilities on the card: megastep's CUDA graph, the prefetcher
+# ---------------------------------------------------------------------------
+
+MEGA_CFG = dict(vocab_size=512, d_model=128, n_heads=2, d_head=64, d_ff=256,
+                n_layers=2)
+MEGA_T = 512  # flash routes from HOROVOD_FLASH_ATTENTION_MIN_T (512) up
+
+
+def _mega_setup(cuda):
+    from horovod_tpu_torch.models.transformer import lm_loss
+
+    cfg = TransformerConfig(**MEGA_CFG, compute_dtype=torch.bfloat16)
+    model = Transformer(cfg, seed=0).to(cuda)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-3, capturable=True),
+        named_parameters=model.named_parameters())
+
+    def step(carry, tokens):
+        m, o = carry
+        o.zero_grad(set_to_none=True)
+        loss = lm_loss(m(tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+        o.step()
+        return carry, loss.detach()
+
+    return model, opt, step
+
+
+def _tokens(seed, shape, cuda=None):
+    t = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, MEGA_CFG["vocab_size"], shape))
+    return t if cuda is None else t.to(cuda)
+
+
+def _bits(model):
+    return [p.detach().cpu().view(torch.uint8) for p in model.parameters()]
+
+
+def test_megastep_replay_is_bitwise_the_eager_loop(cuda):
+    """repeat_steps(k=2): the warm-up, the capture (which replays once)
+    and a pure replay give the eager loop's losses and parameters bit for
+    bit; the flash kernels run inside the graph."""
+    from horovod_tpu_torch.utils import megastep
+
+    tokens = _tokens(5, (1, MEGA_T + 1), cuda)
+    hvd.init()
+    try:
+        model, opt, step = _mega_setup(cuda)
+        eager = [step((model, opt), tokens)[1].clone() for _ in range(6)]
+        want = _bits(model)
+        model, opt, step = _mega_setup(cuda)
+        mstep = megastep.repeat_steps(step, 2, out_mode="all")
+        FA.reset_launch_counts()
+        got = []
+        for c in range(3):
+            _, losses = mstep((model, opt), tokens)
+            got.append(losses.clone())
+            assert (mstep.graph is not None) == (c >= 1)
+        counts = FA.sm90_launch_counts()
+    finally:
+        hvd.shutdown()
+    assert torch.equal(torch.stack(eager), torch.cat(got))
+    assert all(torch.equal(a, b) for a, b in zip(want, _bits(model)))
+    # The warm-up's 2 steps and the capture's 2 (replays count none).
+    assert all(c == 4 * MEGA_CFG["n_layers"] for c in counts.values())
+
+
+def test_scan_steps_on_prefetched_batches_is_bitwise_the_loop(cuda):
+    from horovod_tpu_torch.utils import megastep
+
+    sources = [_tokens(10 + c, (2, 1, MEGA_T + 1)) for c in range(3)]
+    hvd.init()
+    try:
+        model, opt, step = _mega_setup(cuda)
+        eager = [step((model, opt), s[j].to(cuda))[1].clone()
+                 for s in sources for j in range(2)]
+        want = _bits(model)
+        model, opt, step = _mega_setup(cuda)
+        sstep = megastep.scan_steps(step, 2)
+        got = []
+        for src, batch in zip(sources, hvd.prefetch_to_device(
+                iter(sources), size=2)):
+            assert batch.is_cuda and torch.equal(batch.cpu(), src)
+            _, last = sstep((model, opt), batch)
+            got.append(last.clone())
+    finally:
+        hvd.shutdown()
+    assert torch.equal(torch.stack(eager[1::2]), torch.stack(got))
+    assert all(torch.equal(a, b) for a, b in zip(want, _bits(model)))
+
+
+def test_prefetch_copies_on_a_side_stream(cuda):
+    """The host-to-device copies run on the prefetcher's own stream, not
+    on the stream that computes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    src = [torch.randn(1 << 20) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = [(b * 2).sum() for b in hvd.prefetch_to_device(
+            iter(src), size=2, device=cuda)]
+        torch.cuda.synchronize()
+    for o, s in zip(out, src):
+        torch.testing.assert_close(o.cpu(), (s * 2).sum())
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                        f"prefetch_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            ev = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    copies = {e["args"]["stream"] for e in ev
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]}
+    kernels = {e["args"]["stream"] for e in ev if e.get("cat") == "kernel"}
+    assert copies and kernels and not copies & kernels
+
+
+def test_megastep_refusals_on_card(cuda, monkeypatch):
+    """No fallback: the guard, a multi-rank gloo group, a batch on the
+    host and a step that reads the host each raise."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.utils import megastep
+
+    tokens = _tokens(5, (1, MEGA_T + 1), cuda)
+    hvd.init()
+    try:
+        model, _, step = _mega_setup(cuda)
+        guarded = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3, capturable=True),
+            guard=True)
+        with pytest.raises(HorovodTpuError, match="under the guard"):
+            megastep.repeat_steps(step, 2)((model, guarded), tokens)
+        model, opt, step = _mega_setup(cuda)
+        with pytest.raises(HorovodTpuError, match="as CUDA tensors"):
+            megastep.repeat_steps(step, 2)((model, opt), tokens.cpu())
+
+        with monkeypatch.context() as m:
+            m.setattr(basics, "size", lambda: 2)
+            m.setattr(basics, "backend", lambda: "gloo")
+            with pytest.raises(HorovodTpuError, match="gloo group"):
+                megastep.repeat_steps(step, 2)((model, opt), tokens)
+
+        def reads_host(carry, t):
+            carry, loss = step(carry, t)
+            return carry, torch.tensor(float(loss), device=cuda)
+
+        mstep = megastep.repeat_steps(reads_host, 2)
+        mstep((model, opt), tokens)  # the eager warm-up reads it fine
+        with pytest.raises(RuntimeError):
+            mstep((model, opt), tokens)  # the capture cannot
+        assert mstep.graph is None
+    finally:
+        hvd.shutdown()
