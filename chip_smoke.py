@@ -353,6 +353,47 @@ Phases, each printing its own lines:
                  inspector in every rank of every phase, and every
                  collective records its metrics.
 
+22. train_trace  main path 13: the telemetry plane and the fleet tracer
+                 closed-loop (metrics/exposition.py, fleet.py,
+                 history.py, anomaly.py; trace/core.py, measure.py,
+                 reaction.py; the bucket cap in data_parallel.py).  Two
+                 gloo ranks share the card (`python -m chip_smoke
+                 --trace-rank`) and train the default TransformerConfig
+                 at T = 16384, bf16, AdamW, from one seed, the gradients
+                 reduced by the eager `allreduce_gradients` (its
+                 partition read live) at a HOROVOD_FUSION_THRESHOLD of
+                 TRACE_BUCKETS buckets, one cycle a step, under
+                 TRACE_ENV (every rank's timeline with its cycle marks,
+                 HOROVOD_METRICS_PORT=0, the history every 0.5 s, the
+                 stall inspector on, patience 2, cooldown 1).  Rank 1's
+                 own env arms `chaos.straggler_delay` (TRACE_DELAY a
+                 collective) from the first collective of the first
+                 straggling window.  A warm-up step, then windows of
+                 TRACE_WINDOW steps: one clean, straggling ones until
+                 the policy fires (at most TRACE_STRAGGLE_MAX), the
+                 cooldown, one settled.  At each window's end every rank
+                 allgathers its own window events, analyzes the merged
+                 trace (`trace.core.analyze`, `TraceMeasurements`) and
+                 feeds its own `StragglerReactionPolicy`; an
+                 `AnomalyMonitor` (TRACE_MONITOR) sees each step's ms.
+                 Required: finite losses and one parameter SHA-256 on
+                 both ranks at every step; K4-K6 n_layers a step on
+                 each rank, all on the tensor cores; rank 1 blamed in
+                 every straggling window; the same decisions on both
+                 ranks; a rebalance against rank 1, then one bucket a
+                 step on both ranks and the settled window's wait ms a
+                 step below every straggling window's; rank 0's
+                 /metrics showing one rebalance, `hvd_reaction_max_
+                 buckets` 1 and collective calls, rank 1's showing the
+                 injections; /healthz 200 on both; `read_fleet` on rank
+                 0 (after the firing window, from the watchdogs'
+                 publishes) giving both ranks and naming rank 1 in the
+                 trace section; `hvd_critical_path_ms` points in each
+                 history; a monitor trip at the first straggling step on
+                 both ranks (trips on clean steps printed, not gated);
+                 the merged trace under chiprun_out/ with flow events on
+                 both ranks.  The phase must end within TRACE_BUDGET_S.
+
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
 the main shape (logits within HEAD_RTOL, both gradients equal, the
@@ -365,7 +406,8 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 `python3 chip_smoke.py --serve` runs only the MIN_T table, K4 at the
 prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
-sources it runs); `--hier` only phase 20; `--runtime` only phase 21.
+sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
+`--trace` only phase 22.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -386,7 +428,7 @@ rank as `guard_launches` (the ladder) and `guard_zero3_launches`, and on
 main path 11 per rank as `hier_launches` and `hier_zero3_launches`, and
 on main path 12 as `runtime_launches` (the rank's eager steps, warm-ups
 and captures) and `runtime_replay_launches` (one replay's, read from its
-trace), K3's
+trace), and on main path 13 per rank as `trace_launches`, K3's
 on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
@@ -397,6 +439,7 @@ training ranks go to chiprun_out/.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -3815,6 +3858,418 @@ def train_runtime() -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 22: the telemetry plane and the fleet tracer (main path 13)
+# ---------------------------------------------------------------------------
+
+TRACE_BUDGET_S = 90      # phase 22's share of the script's time limit
+TRACE_WINDOW = 3         # steps an analysis window
+TRACE_STRAGGLE_MAX = 3   # straggling windows the policy has to fire in
+TRACE_BUCKETS = 8        # buckets a step before the rebalance
+TRACE_DELAY = "50ms"     # rank 1's delay at every collective dispatch
+# Collectives of one window's analysis (allgather_object: two allgathers,
+# each with its size exchange) and of the steps before the first window
+# (none): with the
+# buckets they give the hit of the fault point where rank 1's delay
+# starts, the first collective of the first straggling window.
+TRACE_ANALYSIS_HITS = 4
+TRACE_PRE_HITS = 0
+TRACE_ENV = {"HOROVOD_TIMELINE_ALL_RANKS": "1",
+             "HOROVOD_TIMELINE_MARK_CYCLES": "1",
+             "HOROVOD_METRICS_PORT": "0",
+             "HOROVOD_METRICS_HISTORY_INTERVAL": "0.5",
+             "HOROVOD_STRAGGLER_PATIENCE": "2",
+             "HOROVOD_STRAGGLER_COOLDOWN": "1",
+             "HOROVOD_ANOMALY_Z": "3"}
+# The monitor's EWMA: a zero-initialised mean needs a fast alpha to learn
+# the clean level in TRACE_WINDOW steps; the floor of its std is 5% of
+# the mean (the one-card step varies by a few percent within a call).
+TRACE_MONITOR = {"alpha": 0.9, "warmup": TRACE_WINDOW, "rel_floor": 0.05}
+
+
+def trace_buckets(cfg, nbuckets: int = TRACE_BUCKETS):
+    """(HOROVOD_FUSION_THRESHOLD that gives `nbuckets` buckets of the
+    model's gradients, the bucket count it gives), from the parameters'
+    metadata (the model built on the meta device)."""
+    import torch
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import data_parallel as dp
+
+    with torch.device("meta"):
+        params = list(Transformer(cfg, seed=0).parameters())
+    total = sum(p.numel() * p.element_size() for p in params)
+    threshold = -(-total // nbuckets)
+    return threshold, len(dp.gradient_bucket_partition(
+        params, fusion_threshold_bytes=threshold))
+
+
+def trace_first_hit(buckets: int, window: int = TRACE_WINDOW) -> int:
+    """The hit of `chaos.straggler_delay` where rank 1's delay starts:
+    after the warm-up step and the clean window (buckets a step) and the
+    clean window's analysis."""
+    return 1 + TRACE_PRE_HITS + (1 + window) * buckets + TRACE_ANALYSIS_HITS
+
+
+def _window_events(events, lo: int, hi: int) -> list:
+    """One rank's events of steps lo..hi (JAX faults/chaos.py
+    `_window_events`): the CYCLE instants lo-1..hi and the collective
+    spans stamped lo-1..hi-1 (a span carries the cycles completed when
+    it was issued)."""
+    out = []
+    for ev in events:
+        name = str(ev.get("name", ""))
+        if ev.get("ph") == "i" and name.startswith("CYCLE_"):
+            if name[6:].isdigit() and lo - 1 <= int(name[6:]) <= hi:
+                out.append(ev)
+        elif ev.get("ph") == "X" and ev.get("cat") == "collective":
+            st = ev.get("step")
+            if st is not None and lo - 1 <= int(st) <= hi - 1:
+                out.append(ev)
+    return out
+
+
+def _http(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def trace_rank(cfg=None, seq_len: int = 16384, device=None,
+               window: int = TRACE_WINDOW) -> int:
+    """Phase 22's ranks (`python -m chip_smoke --trace-rank`, run by
+    `train_trace` through run_ranks under TRACE_ENV; rank 1 alone armed
+    with `chaos.straggler_delay` from the first straggling window on;
+    `cfg`, `seq_len` and `device` shrink it for a rehearsal on the CPU).
+
+    The transformer from one seed with AdamW, its gradients reduced by
+    the eager `allreduce_gradients` (the partition read live), one cycle
+    a step (`step_clock` / `record_step`).  A warm-up step, then windows
+    of `window` steps: one clean, straggling ones until the policy
+    fires, the cooldown, one settled.  At each window's end every rank
+    loads its own events of the window, allgathers them, analyzes the
+    merged trace, publishes the measurements and feeds its own
+    `StragglerReactionPolicy`; an `AnomalyMonitor` sees each step's
+    milliseconds.  Saved to LOG_DIR/trace_rank<r>.pt."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.metrics import anomaly, exposition, fleet, history
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel import data_parallel as dp
+    from horovod_tpu_torch.trace import core as tcore
+    from horovod_tpu_torch.trace.measure import TraceMeasurements
+    from horovod_tpu_torch.trace.reaction import StragglerReactionPolicy
+    from horovod_tpu_torch.utils import timeline
+
+    t_phase = time.perf_counter()
+    hvd.init(device=device)
+    r, dev = hvd.rank(), hvd.device()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or TransformerConfig(compute_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.RandomState(r).randint(
+        0, cfg.vocab_size, (1, seq_len + 1))).to(dev)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    model = Transformer(cfg, seed=0).to(dev)
+    params = list(model.parameters())
+    opt = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    policy = StragglerReactionPolicy()
+    monitor = anomaly.AnomalyMonitor(**TRACE_MONITOR)
+    path = timeline.get_timeline()._writer.filename
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    res = {"rank": r, "device": str(dev), "backend": hvd.backend(),
+           "n_layers": cfg.n_layers, "losses": [], "digests": [],
+           "step_ms": [], "buckets": [], "windows": [], "trips": [],
+           "patience": policy.patience, "cooldown": policy.cooldown}
+    t = 0
+
+    def step():
+        nonlocal t
+        t += 1
+        clock = dp.step_clock()
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model(x), y)
+        loss.backward()
+        grads = [p.grad for p in params]
+        res["buckets"].append(len(dp.gradient_bucket_partition(grads)))
+        for p, g in zip(params, dp.allreduce_gradients(grads)):
+            p.grad = g
+        opt.step()
+        res["losses"].append(float(loss))
+        sync()
+        ms = (time.perf_counter() - clock[0]) * 1e3
+        dp.record_step(clock)
+        res["step_ms"].append(ms)
+        res["digests"].append(_sha(params))
+        if t > 1:  # the warm-up step builds and allocates
+            a = monitor.observe("hvd_critical_path_ms", ms, step=t)
+            if a is not None:
+                res["trips"].append({"step": t, "value": a.value,
+                                     "score": a.score})
+
+    def window_(kind: str) -> dict:
+        lo = t + 1
+        if kind == "straggle" and not any(
+                w["kind"] == "straggle" for w in res["windows"]):
+            # The first straggling window: rank 1's delay starts at its
+            # first collective.
+            res["hits_before"] = faults.points_hit("chaos.straggler_delay")
+            res["injected_before"] = faults.injections()
+        for _ in range(window):
+            step()
+        time.sleep(0.05)  # let the timeline's writer drain its queue
+        mine = _window_events(tcore.load_events(path), lo, t)
+        traces = dict(enumerate(hvd.allgather_object(mine)))
+        report = tcore.analyze(traces)
+        m = TraceMeasurements.from_report(report)
+        m.apply_to_metrics()
+        d = policy.observe(m)
+        w = {"kind": kind, "steps": [lo, t],
+             "straggler_rank": m.straggler_rank, "skew_share": m.skew_share,
+             "wait_ms_per_step": m.wait_ms_per_step,
+             "critical_path_ms": m.critical_path_ms,
+             "step_skew_ms": m.step_skew_ms,
+             "decision": dataclasses.asdict(d),
+             "buckets_after": len(dp.gradient_bucket_partition(params)),
+             "ranks_seen": sorted(traces),
+             "events": [len(v) for _, v in sorted(traces.items())]}
+        res["windows"].append(w)
+        return w
+
+    FA.reset_launch_counts()
+    step()  # warm-up
+    window_("clean")
+    for _ in range(TRACE_STRAGGLE_MAX):
+        if window_("straggle")["decision"]["action"] == "rebalance":
+            break
+    # The fleet view: the watchdog publishes each rank's snapshot (the
+    # firing window's trace gauges) at its cadence; rank 0 reads both.
+    time.sleep(1.2)
+    hvd.barrier()
+    if r == 0:
+        snaps = fleet.read_fleet(basics.kv_store())
+        res["fleet_ranks"] = [s["rank"] for s in snaps]
+        res["fleet_view"] = fleet.render_fleet(snaps)
+    hvd.barrier()
+    window_("cooldown")
+    window_("settled")
+    res["launches"] = {**FA.launch_counts(), **{
+        f"{n}_sm90": c for n, c in FA.sm90_launch_counts().items()}}
+    res["injections"] = {f"{p}:{m}": n
+                         for (p, m), n in faults.injections().items()}
+    res["reaction"] = dp.reaction_rebalance()
+
+    # The endpoints: rank 0 scrapes both ranks' /metrics and /healthz.
+    ports = hvd.allgather_object(exposition.server_port())
+    res["ports"] = ports
+    res["healthz"] = {str(q): _http(f"http://127.0.0.1:{port}/healthz")
+                      for q, port in enumerate(ports) if r == 0 or q == r}
+    if r == 0:
+        res["metrics"] = {str(q): _http(f"http://127.0.0.1:{port}/metrics")
+                          for q, port in enumerate(ports)}
+    hist = history.get_history()
+    res["history_points"] = len(hist.points("hvd_critical_path_ms")) \
+        if hist is not None else 0
+    res["history_samples"] = hist.samples_taken if hist is not None else 0
+    hvd.barrier()
+    hvd.shutdown()  # closes the timeline, stops the endpoint and sampler
+    res["released"] = exposition.server_port() is None
+    res["rank_s"] = time.perf_counter() - t_phase
+    torch.save(res, os.path.join(LOG_DIR, f"trace_rank{r}.pt"))
+    return 0
+
+
+def _metric(text: str, name: str, **labels) -> list:
+    """The values of `name`'s samples in a Prometheus text whose labels
+    include `labels`."""
+    out = []
+    for line in text.splitlines():
+        if not line.startswith(name) or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        if head != name and not head.startswith(name + "{"):
+            continue
+        if all(f'{k}="{v}"' in head for k, v in labels.items()):
+            out.append(float(value))
+    return out
+
+
+def check_trace(res, first_hit: int, on_card: bool = True) -> dict:
+    """Phase 22's checks on the two ranks' records (see the module
+    docstring)."""
+    r0, r1 = res
+    n = len(r0["losses"])
+    require(n == len(r1["losses"]) and all(
+        math.isfinite(v) for v in r0["losses"] + r1["losses"]),
+        f"trace: losses {r0['losses']} {r1['losses']}")
+    require(r0["digests"] == r1["digests"],
+            "trace: the ranks' parameter SHA-256 differ at steps "
+            f"{[i + 1 for i, (a, b) in enumerate(zip(r0['digests'], r1['digests'])) if a != b]}")
+    require(r0["backend"] == "gloo" and r0["device"].startswith("cuda")
+            == on_card, f"trace: {r0['backend']} on {r0['device']}")
+    # Rank 1's delay starts at the first straggling window's first
+    # collective, and only there.
+    require(r1["hits_before"] == first_hit - 1
+            and r1["injected_before"] == {} and r0["injections"] == {}
+            and r1["injections"].get("chaos.straggler_delay:delay", 0) > 0,
+            f"trace: rank 1 hit the point {r1['hits_before']} times "
+            f"before the straggling windows (want {first_hit - 1}), "
+            f"injected {r1['injected_before']} then {r1['injections']}; "
+            f"rank 0 {r0['injections']}")
+    wins = r0["windows"]
+    require([w["decision"] for w in wins] == [w["decision"] for w in
+                                               r1["windows"]],
+            "trace: the ranks' decisions differ")
+    kinds = [w["kind"] for w in wins]
+    strag = [w for w in wins if w["kind"] == "straggle"]
+    fired = strag[-1] if strag else None
+    require(kinds[0] == "clean" and kinds[-2:] == ["cooldown", "settled"]
+            and fired is not None
+            and fired["decision"]["action"] == "rebalance"
+            and fired["decision"]["rank"] == 1,
+            f"trace: windows {[(w['kind'], w['decision']) for w in wins]}")
+    require(all(w["straggler_rank"] == 1 for w in strag),
+            f"trace: straggling windows blamed "
+            f"{[w['straggler_rank'] for w in strag]}")
+    require(all(w["ranks_seen"] == [0, 1] and min(w["events"]) > 0
+                for w in wins), f"trace: window events "
+            f"{[(w['ranks_seen'], w['events']) for w in wins]}")
+    settled = wins[-1]
+    require(wins[-2]["decision"]["reason"] == "cooldown",
+            f"trace: cooldown window {wins[-2]['decision']}")
+    before = r0["buckets"][0]
+    require(before > 1 and all(
+        rec["windows"][-1]["buckets_after"] == 1
+        and rec["buckets"][-1] == 1 and rec["reaction"] == (1, 1)
+        for rec in res), f"trace: buckets {r0['buckets']} / "
+        f"{r1['buckets']}, reaction {r0['reaction']} {r1['reaction']}")
+    require(all(settled["wait_ms_per_step"] < w["wait_ms_per_step"]
+                for w in strag), f"trace: wait ms a step settled "
+            f"{settled['wait_ms_per_step']} vs straggling "
+            f"{[w['wait_ms_per_step'] for w in strag]}")
+    if on_card:
+        for name in SM90_NAMES:
+            for rec in res:
+                want = n * rec["n_layers"]
+                require(rec["launches"][name] == rec["launches"][
+                    name + "_sm90"] == want,
+                    f"trace: rank {rec['rank']} {name} launches "
+                    f"{rec['launches']}, want {want} on the tensor cores")
+    # The endpoints and the fleet view.
+    m0, m1 = r0["metrics"]["0"], r0["metrics"]["1"]
+    require(m0[0] == 200 and m1[0] == 200, "trace: /metrics "
+            f"{m0[0]} {m1[0]}")
+    reactions = _metric(m0[1], "hvd_straggler_reactions_total",
+                        action="rebalance")
+    max_b = _metric(m0[1], "hvd_reaction_max_buckets")
+    calls = sum(_metric(m0[1], "hvd_collective_calls_total"))
+    inj = sum(_metric(m1[1], "hvd_fault_injections_total",
+                      point="chaos.straggler_delay"))
+    require(reactions == [1.0] and max_b == [1.0] and calls > 0 and inj > 0,
+            f"trace: rank 0's /metrics reactions {reactions}, max buckets "
+            f"{max_b}, collective calls {calls}; rank 1's injections {inj}")
+    health = [r0["healthz"]["0"], r0["healthz"]["1"], r1["healthz"]["1"]]
+    require(all(h[0] == 200 for h in health), f"trace: /healthz {health}")
+    require(r0["fleet_ranks"] == [0, 1]
+            and "blamed straggler (rank 0's analysis): rank 1"
+            in r0["fleet_view"], f"trace: fleet {r0['fleet_ranks']}\n"
+            f"{r0['fleet_view']}")
+    require(all(rec["history_points"] > 0 and rec["released"]
+                for rec in res), "trace: history points "
+            f"{[rec['history_points'] for rec in res]}, endpoints released "
+            f"{[rec['released'] for rec in res]}")
+    onset = strag[0]["steps"][0]
+    require(all(any(a["step"] == onset for a in rec["trips"])
+                for rec in res), f"trace: the monitor did not trip at the "
+            f"straggler's onset (step {onset}): "
+            f"{[rec['trips'] for rec in res]}")
+    clean_trips = [a for rec in res for a in rec["trips"]
+                   if a["step"] < onset]
+    return {"windows": [{k: w[k] for k in (
+        "kind", "steps", "straggler_rank", "skew_share", "wait_ms_per_step",
+        "critical_path_ms")} | {"action": w["decision"]["action"],
+                                 "reason": w["decision"]["reason"]}
+        for w in wins],
+        "buckets": [before, 1], "steps": n,
+        "step_ms": [r0["step_ms"], r1["step_ms"]],
+        "trips": [rec["trips"] for rec in res], "clean_trips": clean_trips,
+        "launches": [rec["launches"] for rec in res],
+        "injections": r1["injections"], "fleet_view": r0["fleet_view"],
+        "history_points": [rec["history_points"] for rec in res],
+        "rank_s": [rec["rank_s"] for rec in res]}
+
+
+def train_trace() -> dict:
+    """Phase 22 (main path 13): the telemetry plane and the fleet tracer
+    closed-loop; see the module docstring."""
+    import torch
+    from horovod_tpu_torch.models import TransformerConfig
+    from horovod_tpu_torch.trace import core as tcore
+
+    t_start = time.perf_counter()
+    phase = "train_trace"
+    threshold, buckets = trace_buckets(
+        TransformerConfig(compute_dtype=torch.bfloat16))
+    first = trace_first_hit(buckets)
+    tl = os.path.join(LOG_DIR, "trace_timeline.json")
+    for f in (tl, os.path.join(LOG_DIR, "trace_timeline.rank1.json")):
+        if os.path.exists(f):
+            os.remove(f)
+    run_ranks(phase, 2, "chip_smoke", ["--trace-rank"], 180, env=dict(
+        TRACE_ENV, HOROVOD_TIMELINE=tl,
+        HOROVOD_FUSION_THRESHOLD=str(threshold)),
+        rank_env=lambda r: {"HOROVOD_FAULT_SPEC": (
+            f"chaos.straggler_delay@{first}:delay:{TRACE_DELAY}")}
+        if r == 1 else {})
+    res = [torch.load(os.path.join(LOG_DIR, f"trace_rank{r}.pt"),
+                      weights_only=False) for r in range(2)]
+    out = check_trace(res, first, on_card=True)
+    paths = [tl, os.path.join(LOG_DIR, "trace_timeline.rank1.json")]
+    merged = tcore.merge(paths)
+    tcore.write_merged(merged, os.path.join(LOG_DIR, "trace_fleet.json"))
+    flows = {e["pid"] for e in merged["traceEvents"] if e.get("cat") == "xrank"}
+    require(merged["metadata"]["ranks"] == [0, 1] and flows == {0, 1},
+            f"trace: merged {merged['metadata']}, flow pids {flows}")
+    for w in out["windows"]:
+        log(phase, f"{w['kind']} steps {w['steps']}: blamed rank "
+            f"{w['straggler_rank']}, skew share {w['skew_share']}, wait "
+            f"{w['wait_ms_per_step']} ms a step, critical path "
+            f"{w['critical_path_ms']} ms -> {w['action']} ({w['reason']})")
+    log(phase, f"buckets {out['buckets'][0]} -> 1 at threshold {threshold} "
+        f"(rank 1's delay {TRACE_DELAY} from hit {first}; injections "
+        f"{out['injections']}); K4-K6 {out['launches'][0]} on rank 0")
+    log(phase, f"step ms rank 0 {[round(v, 1) for v in out['step_ms'][0]]}")
+    log(phase, f"monitor trips {out['trips']} (on clean steps: "
+        f"{out['clean_trips']}); history points {out['history_points']}")
+    log(phase, "fleet view read on rank 0:\n" + out["fleet_view"].rstrip())
+    log(phase, f"merged {merged['metadata']['flow_events']} flow events, "
+        f"offsets {merged['metadata']['clock_offsets_us']} -> "
+        "chiprun_out/trace_fleet.json")
+    out.update(threshold=threshold, first_hit=first,
+               flow_events=merged["metadata"]["flow_events"],
+               phase_s=time.perf_counter() - t_start)
+    log(phase, f"{out['phase_s']:.1f} s (budget {TRACE_BUDGET_S} s; "
+        f"ranks {[round(s, 1) for s in out['rank_s']]})")
+    require(out["phase_s"] <= TRACE_BUDGET_S,
+            f"{phase}: over its budget of {TRACE_BUDGET_S} s")
+    return out
+
 def main() -> int:
     import torch
 
@@ -3837,6 +4292,8 @@ def main() -> int:
         return runtime_rank()
     if sys.argv[1:2] == ["--stall-rank"]:
         return stall_rank()
+    if sys.argv[1:2] == ["--trace-rank"]:
+        return trace_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -3873,6 +4330,13 @@ def main() -> int:
         _build.build(["flash_attention_sm90", "flash_attention"])
         runtime = train_runtime()
         print(json.dumps({"runtime": runtime}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--trace"]:
+        # Phase 22 alone (with the builds of the sources it runs).
+        _build.build(["flash_attention_sm90", "flash_attention"])
+        trace = train_trace()
+        print(json.dumps({"trace": {k: v for k, v in trace.items()
+                                    if k != "fleet_view"}}), flush=True)
         return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
@@ -3972,6 +4436,7 @@ def main() -> int:
     guard = train_guard()
     hier = train_hier()
     runtime = train_runtime()
+    trace = train_trace()
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -4059,6 +4524,9 @@ def main() -> int:
             row.update(runtime_launches=runtime["launches"][name],
                        runtime_replay_launches=runtime[
                            "replay_launches"][name])
+            # Main path 13: the traced, straggling, rebalanced run's
+            # launches per rank (all on the tensor cores: check_trace).
+            row.update(trace_launches=[t[name] for t in trace["launches"]])
         if name == "tiled_matmul":
             # The launches of the main path's eval forward that took the
             # strided load path (train_zero3 and zero3_nccl require 0),

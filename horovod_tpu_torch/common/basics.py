@@ -230,13 +230,20 @@ def init(*, coordinator_address: Optional[str] = None,
             "device=%s backend=%s", rank, size, local_rank, local_size,
             dev, backend or "none (one rank)")
     # The runtime instruments, env-gated as in the JAX package
-    # (horovod_tpu/common/basics.py:238-249): HOROVOD_TIMELINE, the stall
-    # inspector (on unless HOROVOD_STALL_CHECK_DISABLE=1), the tuner.
+    # (horovod_tpu/common/basics.py:238-262): HOROVOD_TIMELINE, the stall
+    # inspector (on unless HOROVOD_STALL_CHECK_DISABLE=1), the tuner; the
+    # metrics endpoint (HOROVOD_METRICS_PORT), the fallback fleet
+    # publisher (only where the watchdog, which publishes itself, is
+    # off) and the history sampler (HOROVOD_METRICS_HISTORY_INTERVAL).
+    from ..metrics import exposition, fleet, history
     from ..utils import autotune, stall_inspector, timeline
 
     timeline.init_from_env(rank)
     stall_inspector.init_from_env()
     autotune.init_from_env()
+    exposition.init_from_env(rank, size)
+    fleet.maybe_start_kv_publisher()
+    history.init_from_env()
 
 
 def kv_store() -> Optional[object]:
@@ -260,10 +267,12 @@ def shutdown() -> None:
     results are dropped), release the process group so that a later
     `init()` can bootstrap afresh, and mark every process set removed,
     so that a set a caller still holds refuses to run rather than wait
-    on a group that is gone.  The stall watchdog and the timeline stop
-    first (the watchdog reads the group's store), and the autotuner goes
-    with them, as in the JAX package."""
+    on a group that is gone.  The stall watchdog, the fleet publisher and
+    the timeline stop first (the watchdog and the publisher read the
+    group's store); the autotuner, the history sampler and the metrics
+    endpoint go with them, as in the JAX package."""
     global _global_state
+    from ..metrics import exposition, fleet, history
     from ..ops import collectives, join
     from ..utils import autotune, stall_inspector, timeline
 
@@ -272,6 +281,7 @@ def shutdown() -> None:
             return
         st = _global_state
         stall_inspector.shutdown_inspector()
+        fleet.stop_kv_publisher()
         timeline.stop_timeline()
         collectives.HandleManager.global_instance().drain()
         if st.device.type == "cuda":
@@ -283,6 +293,8 @@ def shutdown() -> None:
         _global_state = None
         join.reset()
         autotune.shutdown_manager()
+        history.stop_history()
+        exposition.stop_server()
 
 
 def autotune_record_step(items: float = 1.0) -> None:

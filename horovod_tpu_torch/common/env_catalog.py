@@ -198,6 +198,25 @@ CATALOG: Tuple[EnvVar, ...] = (
        "over the threshold)."),
     _v("HOROVOD_SLO_BUDGET_SLOW", "600", "metrics",
        "Slow burn-rate window in seconds."),
+    _v("HOROVOD_METRICS_PORT", "-1", "metrics",
+       "Port of the Prometheus endpoint (/metrics, /healthz) that "
+       "`hvd.init()` starts; -1 disables, 0 picks a free port; with "
+       "several processes each adds its rank."),
+    _v("HOROVOD_METRICS_KV_INTERVAL", "5.0", "metrics",
+       "Seconds between fleet snapshot publishes of the fallback "
+       "publisher (a rank whose stall watchdog, which publishes at its "
+       "own cadence, is off)."),
+    _v("HOROVOD_METRICS_HISTORY_INTERVAL", "0 (off)", "metrics",
+       "Seconds between history-ring samples of every metric series "
+       "(metrics/history.py); 0/unset disables the sampler."),
+    _v("HOROVOD_METRICS_HISTORY_DEPTH", "512", "metrics",
+       "Points kept per series ring before the oldest are evicted."),
+    _v("HOROVOD_METRICS_HISTORY_DIR", "(system temp)", "metrics",
+       "Directory for the history JSONL dumps written on "
+       "flight-recorder triggers."),
+    _v("HOROVOD_ANOMALY_Z", "4.0", "metrics",
+       "EWMA z-score threshold of the anomaly detectors "
+       "(metrics/anomaly.py); higher = fewer, louder trips."),
     _v("HOROVOD_STALL_CHECK_DISABLE", "0", "metrics",
        "1 disables the stall inspector watchdog."),
     _v("HOROVOD_STALL_CHECK_TIME_SECONDS", "60.0", "metrics",
@@ -217,6 +236,23 @@ CATALOG: Tuple[EnvVar, ...] = (
        "1 records a timeline on every rank instead of rank 0 only."),
     _v("HOROVOD_TIMELINE_MARK_CYCLES", "0", "timeline",
        "1 marks step/cycle boundaries in the timeline."),
+    # -- the fleet tracer (trace/) -------------------------------------------
+    _v("HOROVOD_TRACE_ALIGN", "cycle", "trace",
+       "Cross-rank clock alignment of trace merge/analyze: 'cycle' "
+       "aligns ranks on the CYCLE_n per-step instants, 'wall' trusts "
+       "the raw per-rank clocks."),
+    _v("HOROVOD_TRACE_FLOW_EVENTS", "1", "trace",
+       "1 links the same collective across ranks with Chrome flow "
+       "events (s/t/f) in the merged trace."),
+    _v("HOROVOD_STRAGGLER_PATIENCE", "3", "trace",
+       "Consecutive analysis windows one rank must be blamed before "
+       "the straggler reaction policy acts (trace/reaction.py)."),
+    _v("HOROVOD_STRAGGLER_SKEW_THRESHOLD", "0.75", "trace",
+       "Skew share (straggler wait / critical path) at or above which "
+       "the reaction escalates straight to degrade instead of a bucket "
+       "rebalance."),
+    _v("HOROVOD_STRAGGLER_COOLDOWN", "2", "trace",
+       "Analysis windows the reaction policy sleeps after firing."),
     # -- fault injection and retries (faults/) -------------------------------
     _v("HOROVOD_FAULT_SPEC", "(unset)", "faults",
        "Fault schedule, point[@N]:mode[:arg] entries separated by commas "

@@ -17,8 +17,10 @@ batch or a flipped parameter bit).  `CATALOG` is the JAX package's whole
 catalog, so a spec valid there is valid here; the points of modules not
 ported yet (rendezvous, the elastic driver, serving replicas,
 resharding) never fire.  An ``exit`` fault runs the hooks of
-`register_exit_hook` first (the serving flight recorder's dump).  The JAX package counts injections into its
-metrics registry, which is not ported; here `injections()` counts them.
+`register_exit_hook` first (the serving flight recorder's dump).  Every
+injection is counted into `hvd_fault_injections_total{point,mode}`, as
+in the JAX package, and `injections()` returns the armed schedule's
+counts by (point, mode).
 """
 
 from __future__ import annotations

@@ -127,7 +127,8 @@ def parse_spec(text: str) -> List[FaultAction]:
 class FaultSchedule:
     """The armed schedule: spec entries, per-point hit counters and
     per-point seeded RNGs.  `fire(name)` is the only hot entry point.
-    `injections` counts what fired, by (point, mode)."""
+    `injections` counts what fired, by (point, mode), as does the
+    metric `hvd_fault_injections_total`."""
 
     def __init__(self, actions: List[FaultAction], seed: int = 0):
         self._seed = seed
@@ -176,6 +177,7 @@ class FaultSchedule:
         act = self._decide(point)
         if act is None:
             return None
+        _record_injection(point, act.mode)
         logger.warning("fault injected: %r", act)
         if act.mode == "err":
             raise FaultInjected(f"injected fault at {point}")
@@ -187,6 +189,15 @@ class FaultSchedule:
             _run_exit_hooks(f"fault_exit:{point}")
             os._exit(act.exit_code)
         return act
+
+
+def _record_injection(point: str, mode: str) -> None:
+    """`hvd_fault_injections_total{point,mode}` (JAX faults/spec.py:233).
+    Imported here: faults stays importable before metrics."""
+    from ..metrics import catalog as _met
+
+    if _met.enabled():
+        _met.fault_injections.labels(point, mode).inc()
 
 
 # Pre-exit hooks: run (best effort) before an `exit`-mode fault's os._exit.

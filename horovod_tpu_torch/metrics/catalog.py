@@ -2,10 +2,12 @@
 in the port's registry (counterpart of `horovod_tpu/metrics/catalog.py`,
 copied whole).
 
-The port writes the serving series (`serve_*`, the SLO budget gauges,
-`autoscale_shed`); the others are declared so that names and help text
-stay one list with the JAX package's.  `enabled()` gates every write
-(HOROVOD_METRICS_DISABLE=1 turns them off).
+The port writes the series of what it has ported (the collectives, the
+step hooks, the optimizers, serving, the fault points, the stall
+inspector, the anomaly monitor and the fleet tracer); the others are
+declared so that names and help text stay one list with the JAX
+package's.  `enabled()` gates every write (HOROVOD_METRICS_DISABLE=1
+turns them off).
 """
 
 from __future__ import annotations

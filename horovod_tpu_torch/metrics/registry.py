@@ -6,8 +6,9 @@ label-value tuple, and an update holds a tiny per-child lock for one
 add.  Histograms use fixed log-scale buckets, so percentiles come from
 the bucket counts alone.  Metric creation takes the registry lock,
 updates never do.  Names follow the Prometheus conventions of the JAX
-package (`hvd_*_total` counters, `_seconds` histograms); its exposition
-and fleet view are not ported.
+package (`hvd_*_total` counters, `_seconds` histograms); exposition.py
+renders them in the Prometheus text format and fleet.py merges the
+ranks' snapshots.
 """
 
 from __future__ import annotations

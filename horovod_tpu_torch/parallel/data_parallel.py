@@ -47,7 +47,15 @@ dispatch, so its step boundary is the optimizer's `step()`
 `critical_path_ms`, in JAX's order; `utils/megastep.py` holds these
 hooks off (`hold_step_hooks`) and records one per call instead.
 
-Not ported: the straggler-reaction cap on the bucket count.
+The straggler reaction (JAX :96-137, :172-186): `set_reaction_rebalance`
+caps the bucket COUNT of every partition (`trace/reaction.py` arms it
+with 1 against a blamed rank), and `reaction_generation` counts the
+arms and disarms.  The eager reduction reads the partition at every
+call, so it follows at once; `fused_apply` and ZeRO 1-3 bake theirs and
+raise on the step after a change; megastep captures its graph again.
+The stage-0 hook optimizer forms its buckets from the running threshold
+as gradients arrive and does not read the cap, as the JAX package's
+torch shim does not.
 """
 
 from __future__ import annotations
@@ -217,6 +225,45 @@ def _wire_nbytes(t: torch.Tensor, compression) -> int:
     return c.numel() * c.element_size()
 
 
+# -- the straggler reaction's partition override ------------------------
+# Fewer, larger buckets mean a straggler pays its per-collective overhead
+# once per step instead of once per bucket.  Module-level so that every
+# consumer of the partition sees the same override; generation-counted
+# so that baked partitions and captured graphs are invalidated loudly.
+_REACTION = {"max_buckets": 0, "avoid_rank": -1, "generation": 0}
+
+
+def set_reaction_rebalance(max_buckets: int, avoid_rank: int = -1) -> int:
+    """Arm the straggler rebalance: cap the gradient bucket partition at
+    `max_buckets` buckets (1: one bucket, the strongest form).
+    `avoid_rank` records whom the rebalance shields (informational: the
+    partition is rank-symmetric, so every rank arms the same override
+    in lockstep).  Returns the new reaction generation."""
+    _REACTION["max_buckets"] = max(0, int(max_buckets))
+    _REACTION["avoid_rank"] = int(avoid_rank)
+    _REACTION["generation"] += 1
+    if _met.enabled():
+        _met.reaction_max_buckets.set(_REACTION["max_buckets"])
+    return _REACTION["generation"]
+
+
+def clear_reaction_rebalance() -> int:
+    """Disarm the straggler rebalance (also a new generation: the
+    partition changes back)."""
+    return set_reaction_rebalance(0, -1)
+
+
+def reaction_rebalance() -> Tuple[int, int]:
+    """(max_buckets, avoid_rank) of the armed override; (0, -1) when
+    disarmed."""
+    return (_REACTION["max_buckets"], _REACTION["avoid_rank"])
+
+
+def reaction_generation() -> int:
+    """Monotone counter bumped on every arm and disarm."""
+    return _REACTION["generation"]
+
+
 def gradient_bucket_partition(leaves: Sequence[torch.Tensor],
                               compression=Compression.none,
                               fusion_threshold_bytes: Optional[int] = None,
@@ -227,7 +274,8 @@ def gradient_bucket_partition(leaves: Sequence[torch.Tensor],
     integer leaves form a leading bucket and the float leaves are counted
     at 4 bytes an element.  Defaults come from the live tunables
     (HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_ORDER,
-    HOROVOD_MIN_BUCKETS)."""
+    HOROVOD_MIN_BUCKETS); an armed straggler rebalance caps the bucket
+    count."""
     from ..utils.autotune import (current_bucket_order,
                                   current_fusion_threshold,
                                   current_min_buckets)
@@ -239,10 +287,17 @@ def gradient_bucket_partition(leaves: Sequence[torch.Tensor],
 
     def cap(nbytes):
         m = current_min_buckets()
+        threshold = fusion_threshold_bytes
         if m > 1 and nbytes:
             # At least `m` buckets: cap the effective threshold.
-            return min(fusion_threshold_bytes, max(1, -(-sum(nbytes) // m)))
-        return fusion_threshold_bytes
+            threshold = min(threshold, max(1, -(-sum(nbytes) // m)))
+        # The straggler rebalance: at most `max_buckets` buckets, by
+        # RAISING the threshold (wins over both knobs above).  Exact for
+        # 1 (the greedy split is strict-`>`), best-effort above.
+        mb = _REACTION["max_buckets"]
+        if mb >= 1 and nbytes:
+            threshold = max(threshold, -(-sum(nbytes) // mb))
+        return threshold
 
     if is_cooperative(compression):
         float_idx = [i for i, t in enumerate(leaves)

@@ -33,7 +33,11 @@ steps:
      into the graph, then replays the graph once (a capture records the
      work, it does not run it);
   3. every later call copies its batch into the static buffer and
-     replays.
+     replays;
+  4. a call after the straggler reaction armed or disarmed its bucket
+     cap (`data_parallel.reaction_generation()` moved since the
+     capture) captures the graph again, which replays the new
+     partition: the JAX package retraces on the same key.
 
 The outputs on the card are the graph's static tensors, overwritten by
 the next call: clone what you keep.  A failed capture raises; nothing
@@ -172,6 +176,8 @@ class _Megastep:
         self.calls = 0
         self._static_batch = None
         self._static_out = None
+        self._generation = 0  # the reaction generation at capture
+        self.captures = 0
 
     def __call__(self, carry, batch):
         from ..parallel import data_parallel as _dp
@@ -221,6 +227,12 @@ class _Megastep:
                     "carry in place and returns the carry it was given "
                     "(a graph replays into the same memory)")
             return out
+        from ..parallel import data_parallel as _dp
+
+        gen = _dp.reaction_generation()
+        if self.graph is not None and gen != self._generation:
+            # The graph baked the old bucket partition in: capture again.
+            self.graph = self._static_out = None
         if self.graph is None:
             self._static_batch = _map(lambda x: x.clone(), batch)
             torch.cuda.synchronize()
@@ -234,6 +246,8 @@ class _Megastep:
                         f"(got {type(x).__name__}, which a replay would "
                         "not update)")
             self.graph, self._static_out = graph, out
+            self._generation = gen
+            self.captures += 1
         else:
             _map(lambda s, x: s.copy_(x), self._static_batch, batch)
         self.graph.replay()

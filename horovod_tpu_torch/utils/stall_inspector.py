@@ -22,9 +22,10 @@ Rank attribution: `KvRankReporter` publishes this rank's operation
 count on the process group's key-value store (the c10d store that
 `hvd.init` builds on the coordinator, keys ``stall/rank/<r>``) and names
 the ranks behind it.  A one-rank job has no store, so the warning names
-this process and says that attribution is unavailable.  (The JAX
-package's watchdog also publishes the fleet's metrics snapshots; that
-waits for `metrics/fleet.py`.)
+this process and says that attribution is unavailable.  At the same
+cadence the watchdog publishes this rank's metrics snapshot on the same
+store (`metrics/fleet.py`, key ``metrics/rank/<r>``), as the JAX
+package's does: `fleet.read_fleet` reads the fleet view back.
 """
 
 from __future__ import annotations
@@ -279,6 +280,12 @@ class StallInspector:
                 with self._lock:
                     seq = self._next_key
                 self._reporter.publish(seq)
+                # The watchdog doubles as the metrics fleet publisher:
+                # same store, same cadence (metrics/fleet.py reads it).
+                from ..metrics import fleet as _fleet
+
+                _fleet.publish(self._reporter._store,
+                               rank=self._reporter._rank)
             self.check()
 
     def stop(self) -> None:

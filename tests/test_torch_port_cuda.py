@@ -23,7 +23,9 @@ any NaN, and an fp8 NaN code of either sign: a NaN made by inf / inf
 has the hardware's sign), and the quantized ring over
 gloo on CUDA tensors bitwise its plain model run on the card.  A
 megastep's CUDA-graph replay is bitwise the eager loop (the same
-kernels on the same inputs).
+kernels on the same inputs), also after the straggler reaction's cap
+made it capture again; the cap gives CUDA leaves the partition of their
+CPU copies.
 """
 
 import json
@@ -1297,6 +1299,76 @@ def test_megastep_replay_is_bitwise_the_eager_loop(cuda):
     # The warm-up's 2 steps and the capture's 2 (replays count none).
     assert all(c == 4 * MEGA_CFG["n_layers"] for c in counts.values())
 
+
+
+def test_megastep_captures_again_after_a_reaction_change(cuda):
+    """`set_reaction_rebalance` between two calls moves the reaction
+    generation: the next call captures the graph again (the port's
+    retrace) and the replays after it are bitwise the eager steps."""
+    from horovod_tpu_torch.parallel import data_parallel as dp
+    from horovod_tpu_torch.utils import megastep
+
+    tokens = _tokens(6, (1, MEGA_T + 1), cuda)
+    saved = dict(dp._REACTION)
+    hvd.init()
+    try:
+        model, opt, step = _mega_setup(cuda)
+        eager = [step((model, opt), tokens)[1].clone() for _ in range(8)]
+        want = _bits(model)
+        model, opt, step = _mega_setup(cuda)
+        mstep = megastep.repeat_steps(step, 2, out_mode="all")
+        got, graphs = [], []
+        for c in range(4):
+            if c == 2:
+                dp.set_reaction_rebalance(1, avoid_rank=0)
+            _, losses = mstep((model, opt), tokens)
+            got.append(losses.clone())
+            graphs.append(mstep.graph)
+        captures = mstep.captures
+    finally:
+        dp._REACTION.clear()
+        dp._REACTION.update(saved)
+        hvd.shutdown()
+    assert captures == 2
+    assert graphs[2] is not graphs[1] and graphs[3] is graphs[2]
+    assert torch.equal(torch.stack(eager), torch.cat(got))
+    assert all(torch.equal(a, b) for a, b in zip(want, _bits(model)))
+
+
+@pytest.mark.parametrize("max_buckets", [0, 1, 3])
+def test_reaction_cap_on_cuda_leaves(cuda, max_buckets):
+    """The cap reads metadata only: CUDA leaves get their CPU copies'
+    partition, on the exact wire and on int8, and one bucket under a cap
+    of 1; the eager reduction at one rank gives the same values armed
+    or not."""
+    from horovod_tpu_torch.parallel import data_parallel as dp
+
+    g = torch.Generator().manual_seed(3)
+    cpu = [torch.randn(s, generator=g).to(dt) for s, dt in [
+        ((64, 33), torch.float32), ((1000,), torch.float32),
+        ((5, 5, 5), torch.bfloat16), ((2048,), torch.float32),
+        ((31, 17), torch.float16)]] + [torch.arange(7, dtype=torch.int32)]
+    leaves = [t.to(cuda) for t in cpu]
+    saved = dict(dp._REACTION)
+    hvd.init()
+    try:
+        plain = dp.allreduce_gradients(leaves, fusion_threshold_bytes=4096)
+        dp.set_reaction_rebalance(max_buckets, avoid_rank=0)
+        for wire in (hvd.Compression.none, hvd.Compression.int8):
+            got = dp.gradient_bucket_partition(
+                leaves, compression=wire, fusion_threshold_bytes=4096)
+            assert got == dp.gradient_bucket_partition(
+                cpu, compression=wire, fusion_threshold_bytes=4096)
+            if max_buckets == 1:
+                assert sum(any(leaves[i].dtype.is_floating_point
+                               for i in b) for b in got) == 1
+        armed = dp.allreduce_gradients(leaves, fusion_threshold_bytes=4096)
+    finally:
+        dp._REACTION.clear()
+        dp._REACTION.update(saved)
+        hvd.shutdown()
+    assert all(a.is_cuda and torch.equal(a, b)
+               for a, b in zip(armed, plain))
 
 def test_scan_steps_on_prefetched_batches_is_bitwise_the_loop(cuda):
     from horovod_tpu_torch.utils import megastep
