@@ -56,7 +56,13 @@ Phases, each printing its own lines:
 5. train_average one rank on NCCL, op=Average, batch 64: img/sec and the
                  number of fused buckets flushed;
 6. train_transformer  main path 2: two ranks share the card over gloo and
-                 run `python -m horovod_tpu_torch.transformer_benchmark`
+                 run, started by the port's launcher (`python -m
+                 horovod_tpu_torch.runner -np 2 --output-filename
+                 chiprun_out/train_transformer`, which sets each rank's
+                 topology env; every eager collective under
+                 HOROVOD_COLLECTIVE_CONSISTENCY_CHECK=1, held over the
+                 launcher's rendezvous KV),
+                 `python -m horovod_tpu_torch.transformer_benchmark`
                  on the default TransformerConfig (vocab 32000, d_model
                  512, 8 x 64 heads, d_ff 2048, 8 layers) at T = 16384,
                  batch 1 per rank, bf16, DistributedOptimizer(AdamW),
@@ -147,8 +153,9 @@ Phases, each printing its own lines:
                  launched on both ranks, rank 0's plain rerun of the
                  combine within COMBINE_RTOL); then one rank on NCCL runs
                  `--model inception3` (299x299, 23,834,568 params) and
-                 `--model vgg16` (224x224) under Average with
-                 `--profile 3`: img/sec, peak memory, the profile, and
+                 `--model vgg16` (224x224) under Average, 2 warm-up
+                 steps, 2 x 3 timed and `--profile 2`: img/sec, peak
+                 memory, the profile, and
                  for VGG-16 the buckets it flushed, which must be in
                  every step the count of the JAX package's greedy
                  partition of its gradients (in the order the backward
@@ -161,7 +168,8 @@ Phases, each printing its own lines:
                  held-out accuracy above MNIST_MIN_ACC;
 15. bench        `python -m horovod_tpu_torch.bench` at one rank on NCCL
                  (ResNet-50, batch 64) and at two ranks sharing the card
-                 over gloo (batch 32, DDP on gloo): the hvd, plain and
+                 over gloo (batch 32, DDP on gloo), each row 2 warm-up
+                 steps and 3 x 5 timed: the hvd, plain and
                  DDP rows' img/sec, vs_baseline and vs_ddp, each row's
                  +-1.96 sigma and idle share;
 16. train_wire   the wire layer (ops/wire.py, ops/quantized.py).  (a) The
@@ -186,7 +194,8 @@ Phases, each printing its own lines:
                  threshold=1048576 (each bucket's codec, raw and wire
                  bytes those of `wire_policy_plan` over ResNet-50's
                  gradients in hook order), and under `--compression
-                 fp8_e4m3`; img/sec and the host ms in `hvd.ring`.
+                 fp8_e4m3` (these two runs share the card at once, as do
+                 (c) and (d)); img/sec and the host ms in `hvd.ring`.
                  (c) Main path 7: phase 8's stage-3 transformer (8
                  layers, full width) with HOROVOD_ZERO_GATHER_WIRE=int8
                  and HOROVOD_WIRE_POLICY=auto: finite losses within
@@ -208,8 +217,8 @@ Phases, each printing its own lines:
                  two ranks sharing the card over gloo, the default
                  TransformerConfig (vocab 32000, d_model 512, 8 x 64
                  heads, d_ff 2048; 4 of its 8 layers) at T = 16384,
-                 AdamW, under HOROVOD_FLASH_ATTENTION=1, 2 steps and
-                 one profiled:
+                 AdamW, under HOROVOD_FLASH_ATTENTION=1, 1 step (the
+                 checked one) and one profiled:
                  (b) sp=2 ring attention (T_local = 8192 on the flash
                  ring: causal diagonal pairs, non-causal past pairs,
                  skipped future pairs whose K/V hops still happen),
@@ -226,7 +235,8 @@ Phases, each printing its own lines:
                  tensor cores, as many per rank as `expected_flash`
                  says; tok/sec per rank, idle share and host ms in the
                  mesh ranges (hvd.sp.hop, hvd.sp.a2a, hvd.tp.psum,
-                 hvd.ep.a2a, hvd.pp.hop, ...).
+                 hvd.ep.a2a, hvd.pp.hop, ...).  Two runs share the card
+                 at a time, so these rates and shares are under sharing.
 18. serve        main path 9: decode and the continuous-batching server
                  on the default TransformerConfig at full width, bf16,
                  seeded random weights, one process (after the kernels
@@ -245,7 +255,7 @@ Phases, each printing its own lines:
                  prefill chain fed the same tokens (`teacher_forced`:
                  equal up to the first near-tie, SERVE_TIE, and within
                  SERVE_TIE of the best after it).  (b) InferenceServer at
-                 max_batch 8 over a seeded make_trace of 24 requests
+                 max_batch 8 over a seeded make_trace of 12 requests
                  (serve_benchmark's FULL_TRACE, decode_bench.py's mix)
                  plus one of T0 prompt tokens, under fifo, static and
                  speculation (a 2-layer draft, gamma from the knob):
@@ -393,6 +403,27 @@ Phases, each printing its own lines:
                  both ranks (trips on clean steps printed, not gated);
                  the merged trace under chiprun_out/ with flow events on
                  both ranks.  The phase must end within TRACE_BUDGET_S.
+23. launcher     the port's launcher and its rendezvous KV, five jobs
+                 started at once: (a) `python -m horovod_tpu_torch.runner
+                 --check-build` exits 0 showing [X] for NCCL, CUDA and
+                 the CUDA kernels (read without touching the card); (b)
+                 `runner.run(launcher_allreduce, np=2)`: each rank calls
+                 hvd.init() on the card and allreduces a seeded
+                 LAUNCHER_N-float tensor, the results come back in rank
+                 order, on cuda:0, bitwise the numpy sum; (f) while that
+                 job runs, rank 0 reads both ranks' metrics snapshots
+                 from the KV with `python -m horovod_tpu_torch.metrics
+                 --kv ADDR:PORT --secret S`; (c) under the consistency
+                 check, rank 1 allreduces another shape than rank 0: the
+                 launcher exits nonzero within CC_TIMEOUT_S + 30 s with
+                 the per-rank dump; (d) a rank that exits 3 brings the
+                 launcher down with exit 3 and the other rank's process
+                 tree (it and its child) gone; (e) the static
+                 `runner.executor.Executor` at np=2 runs two functions in
+                 turn (the rank and card, then the slot's topology env),
+                 results in rank order.  One JSON line `{"launcher":
+                 ...}` of what it found; the phase must end within
+                 LAUNCHER_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -407,7 +438,7 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
 sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
-`--trace` only phase 22.
+`--trace` only phase 22; `--launcher` only phase 23.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -440,10 +471,12 @@ training ranks go to chiprun_out/.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -1151,12 +1184,70 @@ RESNET = "horovod_tpu_torch.synthetic_benchmark"
 TRANSFORMER = "horovod_tpu_torch.transformer_benchmark"
 
 
+def _port_env(env=None) -> dict:
+    """This process's environment with `env` added and the checkout on
+    PYTHONPATH (the ranks import the port from it)."""
+    return dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def run_launcher(args, timeout: float, env=None):
+    """Run `python -m horovod_tpu_torch.runner args` (the port's launcher)
+    with `env` added; return (exit code, its output).  At the time limit
+    the launcher gets SIGINT, which makes it terminate its ranks' process
+    trees before it exits, then SIGKILL."""
+    import signal
+
+    p = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", *args], cwd=HERE,
+        env=_port_env(env), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        text, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"launcher {args[:6]}: no exit in {timeout} s")
+    return p.returncode, text
+
+
+_RANK_PREFIX = re.compile(r"^\[\d+\]<\d\d:\d\d:\d\d> ")
+
+
 def run_ranks(phase: str, nranks: int, module: str, args, timeout: float,
-              env=None, rank_env=None):
+              env=None, rank_env=None, launcher: bool = False):
     """Run `python -m module args` as `nranks` processes, rank r on card
     r mod the card count (all on card 0 when there is one), with `env`
     (and `rank_env(r)`) added to the environment; return each rank's
-    stdout lines.  Raises if a rank fails or times out."""
+    stdout lines.  Raises if a rank fails or times out.
+
+    `launcher=True` starts the ranks through the port's launcher
+    (`python -m horovod_tpu_torch.runner -np nranks --output-filename
+    chiprun_out/<phase>`), which sets each rank's topology env, and reads
+    each rank's `rank.N.log` (without the launcher's `[r]<time> `
+    prefix)."""
+    if launcher:
+        require(rank_env is None, "the launcher gives every rank one env")
+        logs = os.path.join(LOG_DIR, phase)
+        shutil.rmtree(logs, ignore_errors=True)
+        rc, text = run_launcher(
+            ["-np", str(nranks), "--output-filename", logs, sys.executable,
+             "-m", module, *args], timeout, env=env)
+        ranks = []
+        for r in range(nranks):
+            with open(os.path.join(logs, f"rank.{r}.log")) as f:
+                ranks.append([_RANK_PREFIX.sub("", l)
+                              for l in f.read().splitlines()])
+        if rc != 0:
+            raise RuntimeError(f"{phase}: the launcher exited {rc}:\n"
+                               + text[-2000:] + "".join(
+                                   f"\nrank {r}:\n" + "\n".join(l[-40:])
+                                   for r, l in enumerate(ranks)))
+        return ranks
     port = _free_port()
     os.makedirs(LOG_DIR, exist_ok=True)
     procs = []
@@ -1201,8 +1292,22 @@ def _records(lines, tag):
             if l.startswith(tag + " ")]
 
 
+def concurrently(fns, workers: int = 2) -> list:
+    """Call `fns` (each starting its own rank processes), `workers` at a
+    time; return their results in order, raising the first failure.
+    Jobs whose numbers are not compared across calls share the card this
+    way, to keep the script within its time limit: process starts, not
+    steps, take most of such a job's wall."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
+
+
 def launch(phase: str, nranks: int, args, module: str = RESNET,
-           grow=None, timeout: float = 900, env=None, rank_env=None):
+           grow=None, timeout: float = 900, env=None, rank_env=None,
+           launcher: bool = False):
     """Run `nranks` ranks of `module` with `args` (and `env`) and hold
     them to the checks every training run shares; return each rank's
     SUMMARY, with its STEP losses added as `step_losses` and its EVAL
@@ -1218,9 +1323,11 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     result's largest value; the transformer's logits within LOGITS_RTOL
     of their largest value (and the non-causal fault's beyond it), its
     loss within LOSS_TOL.  A held-out forward's launches (an EVAL line
-    after a step's STEP line) do not count toward the next step's."""
+    after a step's STEP line) do not count toward the next step's.
+    `launcher=True` starts the ranks through the port's launcher
+    (run_ranks)."""
     outs = run_ranks(phase, nranks, module, args, timeout, env=env,
-                     rank_env=rank_env)
+                     rank_env=rank_env, launcher=launcher)
     steps = [_records(lines, "STEP") for lines in outs]
     evals = [_records(lines, "EVAL") for lines in outs]
     summaries = [_records(lines, "SUMMARY")[-1] for lines in outs]
@@ -1345,18 +1452,35 @@ def train_average():
 
 
 def train_transformer():
+    """Main path 2, started by the port's launcher with every eager
+    collective under the consistency check."""
     summaries = launch("train_transformer", 2, [
         "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
         "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        module=TRANSFORMER, timeout=600, grow=FLASH_GROW)
+        module=TRANSFORMER, timeout=600, grow=FLASH_GROW, launcher=True,
+        env=LAUNCHED_ENV)
     require(all(s["steps"] == 3 and s["n_layers"] == 8 for s in summaries),
             f"steps per rank: {[s['steps'] for s in summaries]}")
+    # The check ran on the ranks: every flushed gradient bucket's
+    # allreduce (3 steps of at least one each) and the other eager
+    # collectives, as many on each rank.
+    checks = [(s["consistency_checks"], s["flushes"]) for s in summaries]
+    require(all(n >= f >= 3 for n, f in checks)
+            and len({n for n, _ in checks}) == 1,
+            f"consistency checks, buckets flushed per rank: {checks}")
     for s in summaries:
         log("train_transformer", f"rank {s['rank']}: "
             f"{s['tok_sec_per_rank']:.1f} tok/sec (3 steps, checks "
             f"included), backend {s['backend']}, peak memory "
-            f"{s['peak_mem_gb']:.2f} GB, launches {s['launches']}")
+            f"{s['peak_mem_gb']:.2f} GB, launches {s['launches']}, "
+            f"{s['consistency_checks']} consistency checks "
+            f"({s['flushes']} buckets flushed)")
     return summaries
+
+
+# Phase 6's ranks run every eager collective under the consistency check
+# (utils/consistency.py, over the launcher's rendezvous KV).
+LAUNCHED_ENV = {"HOROVOD_COLLECTIVE_CONSISTENCY_CHECK": "1"}
 
 
 def transformer_nccl():
@@ -1985,8 +2109,8 @@ def train_zoo():
     for model in ("inception3", "vgg16"):
         (s,) = launch(f"{phase}_{model}", 1, [
             "--model", model, "--num-classes", "1000", "--batch-size", "32",
-            "--num-warmup-batches", "3", "--num-batches-per-iter", "5",
-            "--num-iters", "3", "--profile", "3"], timeout=600)
+            "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
+            "--num-iters", "2", "--profile", "2"], timeout=600)
         require(s["backend"] == "nccl" and s["params"] == ZOO_N[model], s)
         if model == "vgg16":
             require(s["flushes"] == buckets * s["steps"],
@@ -2031,7 +2155,9 @@ def bench_rows():
     gloo (batch 32)."""
     results = {}
     for name, nranks, args in (
-            ("bench_np1", 1, []),
+            ("bench_np1", 1, ["--num-warmup-batches", "2",
+                              "--num-batches-per-iter", "5",
+                              "--num-iters", "3"]),
             ("bench_np2", 2, ["--batch-size", "32", "--num-warmup-batches",
                               "2", "--num-batches-per-iter", "5",
                               "--num-iters", "3"])):
@@ -2233,9 +2359,12 @@ def train_wire(zero3_summaries):
         f"{profiled[0]['ranges_ms_per_step'].get('hvd.synchronize')} ms, "
         f"idle share {profiled[0]['device_idle_share']}")
 
+    # The int4 policy and fp8 runs share the card, as do (c) and (d).
     want = _policy_plan(WIRE_POLICY_INT4, sizes)
-    summaries, _ = _wire_run("train_wire_int4", [],
-                             env={"HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4})
+    (summaries, _), (fp8, _) = concurrently([
+        lambda: _wire_run("train_wire_int4", [], env={
+            "HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4}),
+        lambda: _wire_run("train_wire_fp8", ["--compression", "fp8_e4m3"])])
     for s in summaries:
         require(s["buckets"] == want, f"int4 policy buckets {s['buckets']} "
                 f"(wire_policy_plan: {want})")
@@ -2245,21 +2374,27 @@ def train_wire(zero3_summaries):
         f"{WIRE_POLICY_INT4}: buckets {summaries[0]['buckets']} (those of "
         f"wire_policy_plan), "
         f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec")
-    summaries, _ = _wire_run("train_wire_fp8", ["--compression",
-                                                "fp8_e4m3"])
-    results["fp8_e4m3"] = {"img_sec": [s["img_sec_per_rank"]
-                                       for s in summaries]}
+    results["fp8_e4m3"] = {"img_sec": [s["img_sec_per_rank"] for s in fp8]}
     log("train_wire", f"ResNet-50 fp8_e4m3 ring: "
-        f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec, "
-        f"last losses {[round(s['last_loss'], 4) for s in summaries]}")
+        f"{[round(s['img_sec_per_rank'], 2) for s in fp8]} img/sec, "
+        f"last losses {[round(s['last_loss'], 4) for s in fp8]}")
 
-    # (c) Main path 7: the stage-3 head over an int8 gather.
-    zsum = launch("train_wire_zero3", 2, [
-        "--zero-stage", "3", "--num-warmup-batches", "0",
-        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
-        "--eval-every", "3", "--check-plain-step", "2"],
-        module=TRANSFORMER, timeout=600, env=dict(ZERO3_ENV, **WIRE_ENV),
-        grow=FLASH_GROW)
+    # (c) Main path 7: the stage-3 head over an int8 gather, beside (d)
+    # ZeRO-1 with the parameter allgather on int8.
+    grow2 = {k: 2 for k in FLASH_GROW}
+    zsum, z1 = concurrently([
+        lambda: launch("train_wire_zero3", 2, [
+            "--zero-stage", "3", "--num-warmup-batches", "0",
+            "--num-batches-per-iter", "1", "--num-iters", "3",
+            "--log-steps", "--eval-every", "3", "--check-plain-step", "2"],
+            module=TRANSFORMER, timeout=600,
+            env=dict(ZERO3_ENV, **WIRE_ENV), grow=FLASH_GROW),
+        lambda: launch("train_wire_zero1", 2, [
+            "--zero-stage", "1", "--n-layers", "2", "--num-warmup-batches",
+            "0", "--num-batches-per-iter", "1", "--num-iters", "3",
+            "--log-steps"], module=TRANSFORMER, timeout=600, grow=grow2,
+            env={"HOROVOD_SHARD_AG_WIRE": "int8",
+                 "HOROVOD_WIRE_POLICY": "auto"})])
     tol = K3_RTOL["torch.float32"]
     for s, s0 in zip(zsum, zero3_summaries):
         r = s["rank"]
@@ -2295,13 +2430,7 @@ def train_wire(zero3_summaries):
             f"{ev0['eval_loss']:.4f}); peak memory {s['peak_mem_gb']:.2f} GB")
     results["zero3"] = zsum
 
-    # (d) ZeRO-1 with the parameter allgather on int8.
-    grow2 = {k: 2 for k in FLASH_GROW}
-    z1 = launch("train_wire_zero1", 2, [
-        "--zero-stage", "1", "--n-layers", "2", "--num-warmup-batches", "0",
-        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps"],
-        module=TRANSFORMER, timeout=600, grow=grow2, env={
-            "HOROVOD_SHARD_AG_WIRE": "int8", "HOROVOD_WIRE_POLICY": "auto"})
+    # (d) ZeRO-1's int8 allgather.
     for r in (0, 1):
         recs = _records(open(os.path.join(
             LOG_DIR, f"train_wire_zero1_rank{r}.log")).read().splitlines(),
@@ -2327,10 +2456,11 @@ FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # name, mesh flags, other flags, layers
 # Depth 4 (of the config's 8): every layer kind and every mesh hop runs
 # at full width, in half the script's time for this phase.
-# Checked steps of each train_mesh run (then one profiled): two, so that
-# phase 20 fits the script's time limit (a checked step at 4 layers
-# takes about 2.5 s on the H100, and the phase runs five such runs).
-MESH_CHECKED_STEPS = 2
+# Checked steps of each train_mesh run (then one profiled): one, so that
+# the script with phase 23 keeps to its 1,060 s target (a checked step at
+# 4 layers takes about 2.5 s on the H100, and the phase runs five such
+# runs; step 0 carries the one-rank reference check either way).
+MESH_CHECKED_STEPS = 1
 MESH_RUNS = [
     ("ring", ["--sp", "2"], [], 4),
     ("ulysses", ["--sp", "2", "--attn", "ulysses"], [], 4),
@@ -2368,8 +2498,8 @@ def train_mesh():
     common = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
               "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
               "--check-dense-step", "0", "--profile", "1"]
-    out = {}
-    for name, mesh, extra, layers in MESH_RUNS:
+
+    def one(name, mesh, extra, layers):
         t0 = time.perf_counter()
         summaries = launch(f"mesh_{name}", 2, mesh + extra + common + [
             "--n-layers", str(layers)], module=TRANSFORMER, env=MESH_ENV,
@@ -2400,8 +2530,11 @@ def train_mesh():
                 f"{s['ranges_ms_per_step']}, peak {s['peak_mem_gb']:.2f} "
                 f"GB, {layers} layers")
         log(f"mesh_{name}", f"{time.perf_counter() - t0:.1f} s")
-        out[name] = summaries
-    return out
+        return summaries
+
+    # Two runs share the card at a time.
+    return dict(zip([run[0] for run in MESH_RUNS], concurrently(
+        [functools.partial(one, *run) for run in MESH_RUNS])))
 
 
 # ---------------------------------------------------------------------------
@@ -2659,7 +2792,7 @@ def serve_decode(FA, D, T, launches) -> dict:
 
 def serve_server(FA, D, T, launches, smi: str) -> dict:
     """Phase 18 (b): InferenceServer at max_batch 8 over a seeded
-    make_trace of 24 requests plus one whose prompt takes K4, under fifo
+    make_trace of 12 requests plus one whose prompt takes K4, under fifo
     then static, and the speculative server (a 2-layer draft at full
     width, gamma from the knob): every request's tokens held to its own
     batch-1 greedy chain (`teacher_forced`: equal up to the first
@@ -2676,7 +2809,9 @@ def serve_server(FA, D, T, launches, smi: str) -> dict:
     params = T.tree_map(lambda a: a.to(dev), T.transformer_init(0, cfg))
     dp = D.decode_params(params, cfg)
     T0 = serve_prompt_len(FA)
-    trace = make_trace(18, 24, cfg.vocab_size, **FULL_TRACE)
+    # 12 requests (more than max_batch, so the batch still turns over):
+    # the script's depth, which keeps it to its time target.
+    trace = make_trace(18, 12, cfg.vocab_size, **FULL_TRACE)
     long_prompt = np.random.RandomState(18).randint(
         0, cfg.vocab_size, T0).astype(np.int32)
     trace.append((4, long_prompt, SERVE_NEW))
@@ -4270,6 +4405,226 @@ def train_trace() -> dict:
             f"{phase}: over its budget of {TRACE_BUDGET_S} s")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 23: the launcher, its rendezvous KV, run(), the Executor, the
+# consistency check and the metrics fleet over the KV
+# ---------------------------------------------------------------------------
+
+LAUNCHER_BUDGET_S = 45   # phase 23's share of the script's time limit
+LAUNCHER_N = 1 << 20     # floats each rank allreduces in (b)
+CC_TIMEOUT_S = 10        # HOROVOD_CONSISTENCY_TIMEOUT in (c)
+TOPOLOGY_KEYS = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+                 "HOROVOD_LOCAL_SIZE")  # (e)'s second function reads them
+
+# (d)'s ranks: rank 0 starts a child and sleeps, rank 1 exits 3 once the
+# pids are written; the launcher must return 3 with both gone.
+EXIT3_RANK = """
+import os, subprocess, sys, time
+d = sys.argv[1]
+if os.environ["HOROVOD_RANK"] == "0":
+    child = subprocess.Popen(["sleep", "300"])
+    with open(os.path.join(d, "pids.tmp"), "w") as f:
+        f.write(f"{os.getpid()} {child.pid}")
+    os.replace(os.path.join(d, "pids.tmp"), os.path.join(d, "pids"))
+    time.sleep(300)
+while not os.path.exists(os.path.join(d, "pids")):
+    time.sleep(0.05)
+sys.exit(3)
+"""
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def launcher_allreduce(seed: int):
+    """(b): on each rank `hvd.init()` on the card, a Sum allreduce of a
+    seeded LAUNCHER_N-float tensor; returns (rank, device, the SHA-256 of
+    the result, rank 0's fleet reading).  Rank 0 waits until every
+    rank's watchdog has published its snapshot to the rendezvous KV and
+    runs (f), `python -m horovod_tpu_torch.metrics --kv ADDR:PORT
+    --secret S --raw`, while the job runs."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.elastic_worker import client_from_env
+
+    hvd.init()
+    r = hvd.rank()
+    x = np.random.RandomState(seed + r).randn(LAUNCHER_N).astype(np.float32)
+    y = hvd.allreduce(torch.from_numpy(x).to(hvd.device()), op=hvd.Sum)
+    fleet = None
+    if r == 0:
+        kv = client_from_env()
+        deadline = time.monotonic() + 20
+        while (len(kv.keys("metrics/rank/")) < hvd.size()
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        env = os.environ
+        p = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.metrics", "--raw",
+             "--kv", f"{env['HOROVOD_RENDEZVOUS_ADDR']}:"
+             f"{env['HOROVOD_RENDEZVOUS_PORT']}",
+             "--secret", env["HOROVOD_SECRET_KEY"]],
+            capture_output=True, text=True, timeout=60, env=_port_env())
+        snaps = json.loads(p.stdout) if p.returncode == 0 else []
+        fleet = {"rc": p.returncode, "ranks": [s["rank"] for s in snaps],
+                 "allreduce_calls": [sum(
+                     v for labels, v in s["metrics"].get(
+                         "hvd_collective_calls_total", {}).get(
+                         "samples", []) if labels[0] == "ALLREDUCE")
+                     for s in snaps], "stderr": p.stderr[-500:]}
+    hvd.barrier()
+    dev = str(hvd.device())
+    out = (r, dev, _digest(y.cpu().numpy()), fleet)
+    hvd.shutdown()
+    return out
+
+
+def executor_whoami():
+    """(e)'s first function: this worker's rank and card."""
+    import torch
+
+    return int(os.environ["HOROVOD_RANK"]), torch.cuda.get_device_name(0)
+
+
+def executor_topology(keys):
+    """(e)'s second function: this worker's values of the topology env
+    variables `keys`, as the launcher's slot env set them."""
+    return tuple(int(os.environ[k]) for k in keys)
+
+
+def cc_rank() -> int:
+    """(c)'s ranks: one matching allreduce, then rank 1 allreduces
+    another shape than rank 0 under the consistency check."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    r = hvd.rank()
+    hvd.allreduce(torch.ones(4, device=hvd.device()), op=hvd.Sum)
+    hvd.allreduce(torch.ones(2 + r, device=hvd.device()), op=hvd.Sum)
+    hvd.shutdown()
+    return 0
+
+
+def launcher_phase() -> dict:
+    """Phase 23: (a)-(f) of the module docstring, all five launches at
+    once in threads; every check raises on failure."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke as cs  # pickled by reference for the workers
+    from horovod_tpu_torch.runner import run
+    from horovod_tpu_torch.runner.executor import Executor
+
+    t_start = time.perf_counter()
+    phase = "launcher"
+    d = os.path.join(LOG_DIR, "launcher_exit")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    want = _digest(sum(np.random.RandomState(23 + r).randn(
+        LAUNCHER_N).astype(np.float32) for r in range(2)))
+    card = torch.cuda.get_device_name(0)
+    timed = {}
+
+    def timed_call(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        timed[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    with ThreadPoolExecutor(4) as pool:
+        a = pool.submit(timed_call, "a", run_launcher, ["--check-build"], 60)
+        c = pool.submit(timed_call, "c", run_launcher, [
+            "-np", "2", sys.executable, "-c",
+            "import sys, chip_smoke; sys.exit(chip_smoke.cc_rank())"],
+            CC_TIMEOUT_S + 60, env={
+                "HOROVOD_COLLECTIVE_CONSISTENCY_CHECK": "1",
+                "HOROVOD_CONSISTENCY_TIMEOUT": str(CC_TIMEOUT_S)})
+        dd = pool.submit(timed_call, "d", run_launcher, [
+            "-np", "2", sys.executable, "-c", EXIT3_RANK, d], 60)
+        b = pool.submit(timed_call, "b", run, cs.launcher_allreduce,
+                        args=(23,), np=2,
+                        extra_env={"PYTHONPATH": _port_env()["PYTHONPATH"]})
+
+        def executor():
+            with Executor(np=2, extra_env={
+                    "PYTHONPATH": _port_env()["PYTHONPATH"]}) as ex:
+                return ex.run(cs.executor_whoami), ex.run(
+                    cs.executor_topology, args=(TOPOLOGY_KEYS,))
+
+        e = pool.submit(timed_call, "e", executor)
+        (rc_a, out_a), (rc_c, out_c), (rc_d, out_d) = \
+            a.result(), c.result(), dd.result()
+        res_b, (who, res_e) = b.result(), e.result()
+
+    # (a) --check-build: NCCL, CUDA and the CUDA kernels built or
+    # buildable, read without touching the card.
+    marks = {ln[8:]: ln[5] for ln in out_a.splitlines()
+             if ln.startswith("    [")}
+    card_marks = ("NCCL", "CUDA", "CUDA kernels (adasum, flash attention, "
+                  "tiled matmul)")
+    require(rc_a == 0 and "gloo (CPU, ranks sharing a card)" in marks
+            and all(marks.get(k) == "X" for k in card_marks),
+            f"(a) --check-build exited {rc_a}:\n{out_a}")
+    # (b) run(): results in rank order, on the card, the numpy sum.
+    dev0 = "cuda:0"
+    require([(r, dv) for r, dv, _, _ in res_b] == [(0, dev0), (1, dev0)]
+            and all(h == want for _, _, h, _ in res_b),
+            f"(b) run(): {[(r, dv, h[:12]) for r, dv, h, _ in res_b]} "
+            f"(want the numpy sum {want[:12]})")
+    # (c) the consistency check: nonzero within its timeout plus 30 s,
+    # with the per-rank dump.
+    dump = ["collective consistency check FAILED at collective #1",
+            'process 0: {"dtypes": ["float32"], "kind": "allreduce", '
+            '"op": "Sum", "shapes": [[2]]}',
+            'process 1: {"dtypes": ["float32"], "kind": "allreduce", '
+            '"op": "Sum", "shapes": [[3]]}']
+    require(rc_c != 0 and timed["c"] <= CC_TIMEOUT_S + 30
+            and all(line in out_c for line in dump),
+            f"(c) consistency: exit {rc_c} in {timed['c']} s:\n"
+            f"{out_c[-3000:]}")
+    # (d) a rank's exit 3 is the launcher's, and the other rank's tree
+    # is gone.
+    with open(os.path.join(d, "pids")) as f:
+        pids = [int(v) for v in f.read().split()]
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    require(rc_d == 3 and not alive, f"(d) exit {rc_d}, alive {alive}:\n"
+            f"{out_d[-2000:]}")
+    # (e) the Executor: two functions in turn, results in rank order.
+    require(who == [(0, card), (1, card)]
+            and res_e == [(r, 2, r, 2) for r in (0, 1)],
+            f"(e) Executor: {who}, {res_e}")
+    # (f) the fleet over the KV, read while (b)'s job ran.
+    fleet = res_b[0][3]
+    require(fleet["rc"] == 0 and fleet["ranks"] == [0, 1]
+            and all(n >= 1 for n in fleet["allreduce_calls"]),
+            f"(f) metrics --kv: {fleet}")
+    out = {"seconds": timed,
+           "cc_exit": rc_c, "exit3": rc_d, "fleet": fleet,
+           "phase_s": round(time.perf_counter() - t_start, 2)}
+    log(phase, f"(a) --check-build [X] NCCL, CUDA, CUDA kernels; (b) run() "
+        f"np=2 on {dev0}, bitwise the numpy sum; (c) mismatch exit {rc_c} "
+        f"in {timed['c']} s with the dump; (d) exit 3 returned, tree gone; "
+        f"(e) Executor two functions in rank order; (f) metrics --kv ranks "
+        f"{fleet['ranks']}, allreduce calls {fleet['allreduce_calls']}; "
+        f"seconds {timed}; {out['phase_s']} s (budget {LAUNCHER_BUDGET_S})")
+    require(out["phase_s"] <= LAUNCHER_BUDGET_S,
+            f"{phase}: over its budget of {LAUNCHER_BUDGET_S} s")
+    print(json.dumps({"launcher": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4337,6 +4692,10 @@ def main() -> int:
         trace = train_trace()
         print(json.dumps({"trace": {k: v for k, v in trace.items()
                                     if k != "fleet_view"}}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--launcher"]:
+        # Phase 23 alone (nothing to build: it launches no kernel).
+        launcher_phase()
         return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
@@ -4437,6 +4796,7 @@ def main() -> int:
     hier = train_hier()
     runtime = train_runtime()
     trace = train_trace()
+    launcher_phase()
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)

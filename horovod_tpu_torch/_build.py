@@ -58,6 +58,19 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def available() -> bool:
+    """True when every source can be had without building here: its
+    library is built, or `nvcc` is found to build it at first use.
+    Builds nothing and touches no card (the launcher's --check-build)."""
+    if all(os.path.exists(_library_path(n)) for n in sources()):
+        return True
+    try:
+        _nvcc()
+    except HorovodTpuError:
+        return False
+    return True
+
+
 def build(names: Iterable[str]) -> None:
     """Build every named source that has no current library, all
     `nvcc`s started together; raise if one fails."""

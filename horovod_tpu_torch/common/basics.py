@@ -274,7 +274,7 @@ def shutdown() -> None:
     global _global_state
     from ..metrics import exposition, fleet, history
     from ..ops import collectives, join
-    from ..utils import autotune, stall_inspector, timeline
+    from ..utils import autotune, consistency, stall_inspector, timeline
 
     with _init_lock:
         if _global_state is None:
@@ -292,6 +292,7 @@ def shutdown() -> None:
             ps.group, ps.removed = None, True
         _global_state = None
         join.reset()
+        consistency.reset()
         autotune.shutdown_manager()
         history.stop_history()
         exposition.stop_server()

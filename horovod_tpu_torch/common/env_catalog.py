@@ -46,8 +46,39 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Index of this process's host among the hosts."),
     _v("HOROVOD_CROSS_SIZE", "size // local_size", "topology",
        "Number of hosts."),
+    _v("HOROVOD_RANK", "0", "topology",
+       "Global rank of this process; set by the launcher for every "
+       "worker (reference: gloo_run's env contract); `run()`'s and the "
+       "Executor's workers key their results by it."),
+    _v("HOROVOD_SLOT", "(unset)", "topology",
+       "Slot index of this worker; names its heartbeat key."),
     _v("HOROVOD_ELASTIC_GEN", "0", "elastic",
-       "Elastic generation; scopes the join keys in the store."),
+       "Elastic generation; scopes the join and consistency-check keys."),
+    _v("HOROVOD_ELASTIC_JOINING", "0", "elastic",
+       "1 for a worker joining an already-running generation "
+       "(`elastic_worker.is_joining_worker`)."),
+    _v("HOROVOD_ELASTIC_LEASE_TTL", "15.0", "elastic",
+       "Seconds a worker heartbeat lease lives; /healthz answers 503 "
+       "once the last beat is older."),
+    _v("HOROVOD_HEARTBEAT_INTERVAL", "lease_ttl/3 (min 0.5)", "elastic",
+       "Seconds between worker heartbeat-lease publishes; defaults to a "
+       "third of HOROVOD_ELASTIC_LEASE_TTL."),
+    # -- the rendezvous KV: the launcher's control plane --------------------
+    _v("HOROVOD_RENDEZVOUS_ADDR", "127.0.0.1", "rendezvous",
+       "Address of the launcher's rendezvous/KV server workers connect "
+       "back to; set, it also routes the metrics fleet there."),
+    _v("HOROVOD_RENDEZVOUS_PORT", "(assigned)", "rendezvous",
+       "Port of the rendezvous/KV server."),
+    _v("HOROVOD_SECRET_KEY", "(generated)", "rendezvous",
+       "Shared HMAC secret authenticating every rendezvous/KV request."),
+    _v("HOROVOD_COLLECTIVE_CONSISTENCY_CHECK", "0", "ops",
+       "1 holds every outermost eager collective's signature (kind, "
+       "shapes, dtypes, op) to every rank's of its process set over the "
+       "rendezvous KV before it runs (utils/consistency.py)."),
+    _v("HOROVOD_CONSISTENCY_TIMEOUT", "30.0", "ops",
+       "Seconds the consistency check waits for peers' collective "
+       "signatures before declaring them divergent/stalled (read per "
+       "check)."),
     # -- the data-parallel optimizer and the ZeRO ladder --------------------
     _v("HOROVOD_FUSION_THRESHOLD", "67108864", "autotune",
        "Gradient-fusion bucket size in bytes; also sets the ZeRO shard "
@@ -264,7 +295,8 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_FAULT_HOSTS", "(all)", "faults",
        "Comma list of HOROVOD_HOSTNAME values the spec is armed on."),
     _v("HOROVOD_HOSTNAME", "(unset)", "topology",
-       "This host's name, matched against HOROVOD_FAULT_HOSTS."),
+       "This host's name, matched against HOROVOD_FAULT_HOSTS; names its "
+       "heartbeat key."),
     _v("HOROVOD_RETRY_MAX_ATTEMPTS", "5", "faults",
        "Attempts of a retried operation (HOROVOD_<SITE>_RETRY_MAX_ATTEMPTS "
        "overrides per site, e.g. RESET: the elastic re-rendezvous)."),

@@ -8,6 +8,14 @@ class HorovodTpuError(Exception):
     """Base class for all framework errors."""
 
 
+class RendezvousConnectionError(HorovodTpuError):
+    """Transport-level rendezvous failure (connect refused, reset,
+    mid-flight drop).  Distinct from logical server errors (key timeout,
+    barrier timeout) so retry policies can retry ONLY the transport
+    class: transport errors are safe to retry for idempotent ops, while
+    a logical timeout already consumed its deadline."""
+
+
 class CheckpointCorruptError(HorovodTpuError):
     """A persisted checkpoint failed its integrity check (sha256
     mismatch, truncated or unreadable payload).  Restore treats the step

@@ -235,8 +235,8 @@ def run(func: Callable) -> Callable:
         def train(state, ...): ...
 
     The runner's hooks of the JAX package (a joining worker's first
-    sync, the notification client) are absent until `runner/` is
-    ported."""
+    sync, the notification client) come with the elastic driver, which
+    the port does not have yet."""
 
     @functools.wraps(func)
     def wrapper(state: State, *args, **kwargs):

@@ -13,10 +13,12 @@ its eager collectives (`ops/collectives.py`), `state.commit` in
 `elastic.State.commit`, `checkpoint.save` and `checkpoint.restore` in
 `utils/checkpoint.py`, and `guard.nan_grad` and `guard.param_bitflip` in
 `guard.TrainingGuard.maybe_inject` (which turns their `err` into a NaN
-batch or a flipped parameter bit).  `CATALOG` is the JAX package's whole
-catalog, so a spec valid there is valid here; the points of modules not
-ported yet (rendezvous, the elastic driver, serving replicas,
-resharding) never fire.  An ``exit`` fault runs the hooks of
+batch or a flipped parameter bit), the `rendezvous.*` points in the
+rendezvous client (`runner/rendezvous.py`) and `worker.heartbeat` in
+`runner/elastic_worker.publish_heartbeat`.  `CATALOG` is the JAX
+package's whole catalog, so a spec valid there is valid here; the
+points of modules not ported yet (the elastic driver and
+`worker.refresh`, serving replicas, resharding) never fire.  An ``exit`` fault runs the hooks of
 `register_exit_hook` first (the serving flight recorder's dump).  Every
 injection is counted into `hvd_fault_injections_total{point,mode}`, as
 in the JAX package, and `injections()` returns the armed schedule's

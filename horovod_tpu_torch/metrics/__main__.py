@@ -1,30 +1,40 @@
 """`python -m horovod_tpu_torch.metrics` — merged fleet view.
 
-Counterpart of `horovod_tpu/metrics/__main__.py`.  Scrapes worker HTTP
-endpoints (HOROVOD_METRICS_PORT on each worker) and prints one merged
-cluster view: per-rank step skew, aggregate collective throughput,
-the trace attribution gauges.
+Counterpart of `horovod_tpu/metrics/__main__.py`.  Reads every rank's
+snapshot from the rendezvous KV (the default; uses the same
+HOROVOD_RENDEZVOUS_{ADDR,PORT}/HOROVOD_SECRET_KEY env the launched
+workers get) or scrapes worker HTTP endpoints directly, and prints one
+merged cluster view: per-rank step skew, aggregate collective
+throughput, the trace attribution gauges.
 
+    python -m horovod_tpu_torch.metrics                 # env-configured KV
+    python -m horovod_tpu_torch.metrics --kv host:port --secret s3cr3t
     python -m horovod_tpu_torch.metrics --scrape host1:9090 --scrape host2:9091
-    python -m horovod_tpu_torch.metrics --raw --scrape host1:9090
+    python -m horovod_tpu_torch.metrics --raw           # JSON snapshots
     python -m horovod_tpu_torch.metrics top --scrape host1:9090
     python -m horovod_tpu_torch.metrics top --once --scrape host1:9090
 
-The JAX package's default source, the rendezvous KV (`--kv`,
-HOROVOD_RENDEZVOUS_ADDR), needs the launcher's rendezvous client, which
-the port does not have yet: `--kv` is refused with a message saying so.
-Inside a job, `fleet.read_fleet(basics.kv_store())` reads the process
-group's store directly.
+A job started without the launcher publishes on its process group's
+c10d store instead: `fleet.read_fleet(basics.kv_store())` reads it
+inside the job.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import urllib.request
 
-from .fleet import render_fleet
+from .fleet import read_fleet, render_fleet
+
+
+def _kv_client(addr_port: str, secret: str):
+    from ..runner.rendezvous import RendezvousClient
+
+    addr, _, port = addr_port.rpartition(":")
+    return RendezvousClient(addr or "127.0.0.1", int(port), secret)
 
 
 def _parse_prometheus(text: str, rank: int) -> dict:
@@ -94,26 +104,36 @@ def _scrape(endpoints) -> list:
 
 def _add_source_args(ap) -> None:
     ap.add_argument("--kv", metavar="ADDR:PORT",
-                    help="rendezvous KV address (not available in the "
-                         "port yet: it needs the launcher's rendezvous "
-                         "client)")
+                    help="rendezvous KV address (default: "
+                         "HOROVOD_RENDEZVOUS_ADDR/PORT env)")
+    ap.add_argument("--secret",
+                    help="rendezvous secret (default: HOROVOD_SECRET_KEY)")
     ap.add_argument("--scrape", action="append", default=[],
                     metavar="HOST:PORT",
-                    help="scrape worker HTTP endpoints (repeatable)")
+                    help="scrape worker HTTP endpoints instead of the KV "
+                         "(repeatable)")
 
 
 def _make_fetch(ap, args):
     """Zero-arg snapshot poller from the parsed source options (shared
     by the one-shot view and the `top` console)."""
-    if args.kv or not args.scrape:
-        ap.error("the rendezvous KV source (--kv, or the default from "
-                 "HOROVOD_RENDEZVOUS_ADDR) needs the launcher's "
-                 "rendezvous client, which horovod_tpu_torch does not "
-                 "have yet (it comes with runner/); use --scrape "
-                 "HOST:PORT, or fleet.read_fleet(basics.kv_store()) inside "
-                 "a job")
-    endpoints = list(args.scrape)
-    return lambda: _scrape(endpoints)
+    if args.scrape:
+        endpoints = list(args.scrape)
+        return lambda: _scrape(endpoints)
+    addr_port = args.kv
+    if not addr_port:
+        addr = os.environ.get("HOROVOD_RENDEZVOUS_ADDR")
+        port = os.environ.get("HOROVOD_RENDEZVOUS_PORT")
+        if not addr or not port:
+            ap.error("no --kv/--scrape and no HOROVOD_RENDEZVOUS_ADDR/"
+                     "PORT in the environment")
+        addr_port = f"{addr}:{port}"
+    secret = args.secret or os.environ.get("HOROVOD_SECRET_KEY")
+    if not secret:
+        ap.error("no --secret and no HOROVOD_SECRET_KEY in the "
+                 "environment")
+    client = _kv_client(addr_port, secret)
+    return lambda: read_fleet(client)
 
 
 def _main_top(argv) -> int:
@@ -121,7 +141,7 @@ def _main_top(argv) -> int:
 
     ap = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.metrics top",
-        description="Live fleet console (HTTP scrape).")
+        description="Live fleet console (KV or HTTP scrape).")
     _add_source_args(ap)
     ap.add_argument("--interval", type=float, default=2.0,
                     help="refresh interval in seconds (default 2)")
@@ -142,7 +162,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.metrics",
-        description="Merged cluster metrics view (HTTP scrape).")
+        description="Merged cluster metrics view (KV or HTTP scrape).")
     _add_source_args(ap)
     ap.add_argument("--raw", action="store_true",
                     help="print raw JSON snapshots instead of the view")

@@ -6,14 +6,13 @@ HOROVOD_METRICS_PORT is set, alongside the timeline — common/basics.py),
 serving:
 
     /metrics   Prometheus text format 0.0.4
-    /healthz   200 "ok" (set_liveness_probe overrides; a probe that
+    /healthz   liveness (set_liveness_probe overrides; a probe that
                fails or raises gives 503)
 
-The JAX package's default /healthz probe reads the elastic worker's
-heartbeat lease and answers 503 once the last beat is older than the
-lease TTL.  The port has no heartbeat leases yet (they come with the
-launcher and the elastic driver), so its default probe is the JAX
-package's "no lease regime" branch: the process is up, so it is alive.
+The default /healthz probe reads the worker's heartbeat lease
+(`runner.elastic_worker.lease_ttl()` / `heartbeat_age()`), as the JAX
+package's does: 200 "ok" while no heartbeat has landed or leases are
+off, 200 "ok (heartbeat Xs ago)" within the TTL, 503 past it.
 
 Multi-process launches offset the port by the process index so every
 worker on a host gets a distinct endpoint; HOROVOD_METRICS_PORT=0 binds
@@ -45,15 +44,29 @@ _liveness_probe = None
 
 def set_liveness_probe(fn) -> None:
     """Override the /healthz probe (tests, embedders); None restores
-    the default."""
+    the heartbeat-lease default."""
     global _liveness_probe
     _liveness_probe = fn
 
 
 def _default_liveness():
-    """No lease regime: a process that answers is alive (the JAX
-    package's default without heartbeat leases)."""
-    return True, "ok"
+    """Healthy unless this worker runs heartbeat leases AND its last
+    beat is older than the lease TTL — the exact staleness the elastic
+    driver would declare the worker dead for, surfaced as 503 so an
+    external probe agrees with the control plane without parsing
+    Prometheus text."""
+    try:
+        from ..runner import elastic_worker as _ew
+        ttl = _ew.lease_ttl()
+        age = _ew.heartbeat_age()
+    except Exception:  # noqa: BLE001 — liveness must not 500
+        return True, "ok"
+    if ttl <= 0 or age is None:
+        return True, "ok"  # no lease regime: process up == alive
+    if age <= ttl:
+        return True, f"ok (heartbeat {age:.1f}s ago)"
+    return False, (f"heartbeat stale: {age:.1f}s since last beat "
+                   f"(lease ttl {ttl:.1f}s)")
 
 
 def _liveness():

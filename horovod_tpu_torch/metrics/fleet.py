@@ -1,18 +1,20 @@
-"""Fleet aggregation: per-rank snapshots over the process group's store.
+"""Fleet aggregation: per-rank snapshots over a key-value store.
 
-Counterpart of `horovod_tpu/metrics/fleet.py`.  Channel: the same
-key-value store `KvRankReporter` uses for the stall heartbeats
-(utils/stall_inspector.py): the c10d store `hvd.init` builds on the
-coordinator, under the generation's prefix.  Each worker's watchdog
-publishes
+Counterpart of `horovod_tpu/metrics/fleet.py`.  Channel: under the
+launcher (HOROVOD_RENDEZVOUS_ADDR set), the rendezvous KV through
+`runner.elastic_worker.client_from_env()`, as in the JAX package;
+otherwise the c10d store `hvd.init` builds on the coordinator, under the
+generation's prefix (the one `KvRankReporter` uses for the stall
+heartbeats, utils/stall_inspector.py).  Each worker's watchdog publishes
 
     metrics/rank/{rank} = JSON snapshot()
 
-and any rank reads the keys of ranks 0..size-1 back (`read_fleet`) and
-merges them into one cluster view: counters and histograms sum across
-ranks, gauges stay per-rank (min/max/mean in the merged rendering).  A
-c10d store has no key listing, and its `get` blocks on a missing key,
-so `read_fleet` probes each rank's key with `check` first.  The data
+and any reader (a rank, or `python -m horovod_tpu_torch.metrics --kv`)
+reads them back (`read_fleet`) and merges them into one cluster view:
+counters and histograms sum across ranks, gauges stay per-rank
+(min/max/mean in the merged rendering).  `_Store` gives both stores one
+face: a c10d store has no key listing and its `get` blocks on a missing
+key, so there each rank's key is probed with `check` first.  The data
 plane never touches the store — snapshots are small (one JSON object
 per rank) and published at watchdog cadence, not step cadence.
 """
@@ -32,8 +34,8 @@ logger = logging.getLogger("horovod_tpu_torch.metrics")
 KV_PREFIX = "metrics/rank/"
 
 __all__ = ["snapshot", "publish", "read_fleet", "aggregate",
-           "render_fleet", "maybe_start_kv_publisher", "stop_kv_publisher",
-           "KV_PREFIX"]
+           "render_fleet", "fleet_store", "maybe_start_kv_publisher",
+           "stop_kv_publisher", "KV_PREFIX"]
 
 
 def snapshot(registry: Optional[MetricsRegistry] = None,
@@ -64,31 +66,81 @@ def snapshot(registry: Optional[MetricsRegistry] = None,
     return {"rank": rank, "ts": time.time(), "metrics": metrics}
 
 
+class _Store:
+    """One face over either store: the rendezvous client (`put`,
+    `get` -> str or None, `keys`) or a c10d store (`set`, `check`,
+    `get` -> bytes, no listing)."""
+
+    def __init__(self, client):
+        self._c = client
+        self._c10d = not hasattr(client, "keys")
+
+    def put(self, key: str, value: str) -> None:
+        if self._c10d:
+            self._c.set(key, value)
+        else:
+            self._c.put(key, value)
+
+    def get(self, key: str) -> Optional[str]:
+        if not self._c10d:
+            return self._c.get(key)
+        if not self._c.check([key]):
+            return None
+        return self._c.get(key).decode()
+
+    def rank_keys(self, size: Optional[int]) -> List[str]:
+        """The snapshot keys to read: the KV lists them; a c10d store is
+        probed for ranks 0..size-1 (default: the world size)."""
+        if not self._c10d and size is None:
+            return self._c.keys(KV_PREFIX)
+        if size is None:
+            from ..common import basics
+            size = basics.size()
+        return [f"{KV_PREFIX}{r}" for r in range(size)]
+
+
+def fleet_store(store=None):
+    """Where this process's snapshots go: the rendezvous KV under the
+    launcher (HOROVOD_RENDEZVOUS_ADDR set), else `store` (the process
+    group's c10d store, or None for a one-rank job).  Best-effort, as
+    in the JAX package: a launcher env without a usable port or secret
+    gives None (nothing is published), never an error."""
+    import os
+
+    if "HOROVOD_RENDEZVOUS_ADDR" in os.environ:
+        try:
+            from ..runner.elastic_worker import client_from_env
+            return client_from_env()
+        except Exception:  # noqa: BLE001
+            logger.debug("rendezvous KV unavailable for the fleet",
+                         exc_info=True)
+            return None
+    return store
+
+
 def publish(client, rank: Optional[int] = None) -> None:
     """Publish this process's snapshot to the store (called from the
     stall inspector's watchdog thread; never raises — the store may be
-    gone at shutdown)."""
+    gone at shutdown, the KV mid-restart)."""
     try:
         snap = snapshot(rank=rank)
-        client.set(f"{KV_PREFIX}{snap['rank']}",
-                   json.dumps(snap, separators=(",", ":")))
+        _Store(client).put(f"{KV_PREFIX}{snap['rank']}",
+                           json.dumps(snap, separators=(",", ":")))
     except Exception:  # noqa: BLE001
         logger.debug("metrics KV publish failed", exc_info=True)
 
 
 def read_fleet(client, size: Optional[int] = None) -> List[dict]:
-    """Every rank's latest snapshot from the store, sorted by rank.
-    `size` (default: the world size) bounds the ranks probed; a rank
-    that has not published yet is left out."""
-    if size is None:
-        from ..common import basics
-        size = basics.size()
+    """Every rank's latest snapshot from the store, sorted by rank.  On
+    a c10d store `size` (default: the world size) bounds the ranks
+    probed; the rendezvous KV lists its keys.  A rank that has not
+    published yet is left out."""
+    store = _Store(client)
     snaps = []
-    for r in range(size):
-        key = f"{KV_PREFIX}{r}"
-        if not client.check([key]):
+    for key in store.rank_keys(size):
+        raw = store.get(key)
+        if raw is None:
             continue
-        raw = client.get(key)
         try:
             snaps.append(json.loads(raw))
         except (ValueError, TypeError):
@@ -241,10 +293,11 @@ _publisher_thread: Optional[threading.Thread] = None
 
 
 def maybe_start_kv_publisher(interval_s: Optional[float] = None) -> bool:
-    """Start the fallback publisher thread if (a) the process group has
-    a store (a job of more than one rank), and (b) no stall-inspector
-    watchdog is running (which would otherwise publish for us).  Returns
-    True when started."""
+    """Start the fallback publisher thread if (a) there is a store to
+    publish to (`fleet_store`: the rendezvous KV under the launcher, else
+    the process group's, which a one-rank job lacks), and (b) no
+    stall-inspector watchdog is running (which would otherwise publish
+    for us).  Returns True when started."""
     global _publisher_stop, _publisher_thread
     from ..common import basics, util
     from ..utils import stall_inspector as _stall
@@ -253,11 +306,11 @@ def maybe_start_kv_publisher(interval_s: Optional[float] = None) -> bool:
         return False
     if not basics.is_initialized():
         return False
-    client = basics.kv_store()
-    if client is None:
-        return False
     if _stall.get_inspector() is not None:
         return False  # the watchdog publishes snapshots itself
+    client = fleet_store(basics.kv_store())
+    if client is None:
+        return False
     interval = (interval_s if interval_s is not None
                 else util.env_float("METRICS_KV_INTERVAL", 5.0))
     rank = basics.rank()

@@ -1,7 +1,9 @@
 """The model zoo (counterpart of `horovod_tpu/models/__init__.py`).
 
 `zoo_build(name, ...)` builds a benchmark model by its tf_cnn_benchmarks
-name ("resnet50", "inception3", "vgg16", ...: `zoo_models()`).
+name ("resnet50", "inception3", "vgg16", ...: `zoo_models()`).  The
+decode names (prefill, decode step, extend, generate, speculative, beam
+search, `make_decode_step`) are `models/decode.py`'s.
 """
 
 from typing import Optional
@@ -30,6 +32,17 @@ from .convert import (  # noqa: F401
     transformer_from_jax,
     vgg_from_jax,
     zoo_from_jax,
+)
+from .decode import (  # noqa: F401
+    ShardedDecode,
+    init_decode_cache,
+    make_decode_step,
+    transformer_beam_search,
+    transformer_decode_step,
+    transformer_extend,
+    transformer_generate,
+    transformer_prefill,
+    transformer_speculative_generate,
 )
 
 

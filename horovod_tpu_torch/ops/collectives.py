@@ -65,6 +65,7 @@ from ..common import basics
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodInternalError, HorovodTpuError
 from ..metrics import catalog as _met
+from ..utils import consistency as _cc
 from ..utils import stall_inspector as _stall
 from ..utils import timeline as _tl
 from . import join as _join
@@ -288,9 +289,11 @@ def _dtype_name(dt: torch.dtype) -> str:
 class _joinable:
     """Bracket for the outermost eager collective: when join mode is
     armed, publish this op's signature so that joined ranks can mirror
-    it (JAX `_joinable`).  Collectives nested inside it (a barrier's
-    allreduce, the size exchange of a ragged allgather) publish
-    nothing."""
+    it; otherwise, under HOROVOD_COLLECTIVE_CONSISTENCY_CHECK=1, hold the
+    same signature to every rank's of the op's process set
+    (`utils/consistency.py`; JAX `_joinable`).  Collectives nested inside
+    it (a barrier's allreduce, the size exchange of a ragged allgather)
+    publish nothing."""
 
     __slots__ = ("_outer",)
 
@@ -301,7 +304,7 @@ class _joinable:
                  prescale: float = 1.0, postscale: float = 1.0,
                  extra: Optional[Dict[str, Any]] = None):
         self._outer = not getattr(_join_tls, "nested", False)
-        if not (self._outer and _join.armed()):
+        if not (self._outer and (_join.armed() or _cc.enabled())):
             return
         shapes = [list(t.shape) for t in tensors]
         if kind == "allgather":
@@ -321,7 +324,14 @@ class _joinable:
         if postscale != 1.0:
             sig["post"] = float(postscale)
         sig.update(extra or {})
-        _join.publish_signature(sig)
+        if _join.armed():
+            # Join mode owns the signature protocol: the blocking
+            # consistency barrier would deadlock against a joined rank,
+            # which mirrors only after the signature is published, and
+            # the mirroring itself enforces cross-rank agreement.
+            _join.publish_signature(sig)
+        else:
+            _cc.check(sig, ranks=process_set.ranks if process_set else None)
 
     def __enter__(self):
         if self._outer:

@@ -134,7 +134,7 @@ from horovod_tpu_torch.parallel.mesh import (create_hierarchical_mesh,
                                              create_hybrid_mesh)
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
 from horovod_tpu_torch.ops import matmul_kernels as mk
-from horovod_tpu_torch.utils import megastep
+from horovod_tpu_torch.utils import consistency, megastep
 from horovod_tpu_torch.synthetic_benchmark import param_digest, \
     profile_summary
 
@@ -739,6 +739,9 @@ def main(argv=None) -> int:
                "steps": step_no, "last_loss": float(last_loss),
                "launches": launch_counts(),
                "flushes": getattr(opt, "total_flushes", None),
+               # Eager collectives held to every rank's under
+               # HOROVOD_COLLECTIVE_CONSISTENCY_CHECK=1 (0 with it off).
+               "consistency_checks": sum(consistency._seqs.values()),
                "n_layers": cfg.n_layers, "zero_stage": args.zero_stage,
                "passes_per_step": K, "dcn": args.dcn,
                "megastep": args.megastep, "prefetch": args.prefetch,

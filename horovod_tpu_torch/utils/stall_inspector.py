@@ -23,9 +23,10 @@ count on the process group's key-value store (the c10d store that
 `hvd.init` builds on the coordinator, keys ``stall/rank/<r>``) and names
 the ranks behind it.  A one-rank job has no store, so the warning names
 this process and says that attribution is unavailable.  At the same
-cadence the watchdog publishes this rank's metrics snapshot on the same
-store (`metrics/fleet.py`, key ``metrics/rank/<r>``), as the JAX
-package's does: `fleet.read_fleet` reads the fleet view back.
+cadence the watchdog publishes this rank's metrics snapshot
+(`metrics/fleet.py`, key ``metrics/rank/<r>``): on the rendezvous KV
+under the launcher, as the JAX package's does, else on the same store;
+`fleet.read_fleet` reads the fleet view back.
 """
 
 from __future__ import annotations
@@ -275,17 +276,20 @@ class StallInspector:
         self._thread.start()
 
     def _run(self) -> None:
+        # The watchdog doubles as the metrics fleet publisher, at the
+        # same cadence: to the rendezvous KV under the launcher, else to
+        # the reporter's store (metrics/fleet.py reads either back).
+        from ..metrics import fleet as _fleet
+
+        fleet_store = _fleet.fleet_store(
+            self._reporter._store if self._reporter is not None else None)
         while not self._stop.wait(self.check_interval):
             if self._reporter is not None:
                 with self._lock:
                     seq = self._next_key
                 self._reporter.publish(seq)
-                # The watchdog doubles as the metrics fleet publisher:
-                # same store, same cadence (metrics/fleet.py reads it).
-                from ..metrics import fleet as _fleet
-
-                _fleet.publish(self._reporter._store,
-                               rank=self._reporter._rank)
+            if fleet_store is not None:
+                _fleet.publish(fleet_store)
             self.check()
 
     def stop(self) -> None:

@@ -34,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHER_ENV = ("HOROVOD_COORDINATOR_ADDR", "HOROVOD_NUM_PROCESSES",
                 "HOROVOD_PROCESS_ID", "HOROVOD_LOCAL_RANK",
                 "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK",
-                "HOROVOD_CROSS_SIZE")
+                "HOROVOD_CROSS_SIZE", "HOROVOD_RENDEZVOUS_ADDR",
+                "HOROVOD_RENDEZVOUS_PORT", "HOROVOD_SECRET_KEY")
 
 
 @pytest.fixture(autouse=True)

@@ -1457,3 +1457,61 @@ def test_megastep_refusals_on_card(cuda, monkeypatch):
         assert mstep.graph is None
     finally:
         hvd.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The launcher on the card
+# ---------------------------------------------------------------------------
+
+RUN_FNS = r'''
+def allreduce_on_the_card(seed):
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    r = hvd.rank()
+    x = np.random.RandomState(seed + r).randn(4096).astype(np.float32)
+    y = hvd.allreduce(torch.from_numpy(x).to(hvd.device()), op=hvd.Sum)
+    out = (r, str(hvd.device()), hvd.backend(),
+           y.cpu().numpy().tobytes().hex())
+    hvd.shutdown()
+    return out
+'''
+
+
+def test_run_np2_allreduces_on_the_card(cuda, tmp_path, monkeypatch):
+    """`runner.run(np=2)`: each rank calls `hvd.init()` with no device
+    and lands on card local_rank mod the card count (gloo where the two
+    share one), and the sum is bitwise numpy's."""
+    from horovod_tpu_torch.runner import run
+
+    for k in ("HOROVOD_COORDINATOR_ADDR", "HOROVOD_RENDEZVOUS_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    (tmp_path / "card_run_fns.py").write_text(RUN_FNS)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    import card_run_fns
+
+    out = run(card_run_fns.allreduce_on_the_card, args=(7,), np=2)
+    want = sum(np.random.RandomState(7 + k).randn(4096).astype(np.float32)
+               for k in range(2))
+    n = torch.cuda.device_count()
+    backend = "nccl" if n >= 2 else "gloo"
+    assert [tuple(o[:3]) for o in out] == [
+        (r, f"cuda:{r % n}", backend) for r in range(2)]
+    assert all(bytes.fromhex(o[3]) == want.tobytes() for o in out)
+
+
+def test_check_build_on_the_card(cuda):
+    r = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "--check-build"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, env=dict(
+            os.environ, PYTHONPATH=os.pathsep.join(
+                [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p])))
+    assert r.returncode == 0, r.stderr
+    for line in ("    [X] NCCL", "    [X] CUDA",
+                 "    [X] CUDA kernels (adasum, flash attention, tiled "
+                 "matmul)", "    [X] torch.distributed (c10d TCPStore)"):
+        assert line in r.stdout.splitlines(), r.stdout

@@ -59,7 +59,17 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "horovod_tpu_torch.guard.controller, horovod_tpu_torch.guard.digest, "
         "horovod_tpu_torch.guard.loss_scale, "
         "horovod_tpu_torch.guard.sentinel, "
-        "horovod_tpu_torch.utils.checkpoint\n"
+        "horovod_tpu_torch.utils.checkpoint, horovod_tpu_torch.runner, "
+        "horovod_tpu_torch.runner.launch, horovod_tpu_torch.runner.api, "
+        "horovod_tpu_torch.runner.exec_run, "
+        "horovod_tpu_torch.runner.executor, horovod_tpu_torch.runner.lsf, "
+        "horovod_tpu_torch.runner.lsf_bootstrap, "
+        "horovod_tpu_torch.runner.network, "
+        "horovod_tpu_torch.runner.rendezvous, "
+        "horovod_tpu_torch.runner.elastic_worker, "
+        "horovod_tpu_torch.runner.safe_exec, "
+        "horovod_tpu_torch.utils.consistency, horovod_tpu_torch.version, "
+        "horovod_tpu_torch.metrics.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'horovod_tpu' or m.startswith('horovod_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)")

@@ -325,7 +325,7 @@ def test_sparkline_and_empty_views_are_jax():
     assert PTOP.run_top(lambda: [], once=True) == 1
 
 
-def test_scrape_parser_and_top_once_are_jax(capsys):
+def test_scrape_parser_and_top_once_are_jax(capsys, monkeypatch):
     from horovod_tpu.metrics.__main__ import _parse_prometheus as jparse
     from horovod_tpu_torch.metrics.__main__ import _parse_prometheus as pparse
     from horovod_tpu_torch.metrics.__main__ import main
@@ -342,9 +342,11 @@ def test_scrape_parser_and_top_once_are_jax(capsys):
         PEXP.stop_server()
     out = capsys.readouterr().out
     assert "hvd top" in out and "fleet view: 1 rank(s)" in out
+    # The KV source wants the rendezvous secret, as JAX's CLI does.
+    monkeypatch.delenv("HOROVOD_SECRET_KEY", raising=False)
     with pytest.raises(SystemExit):
         main(["--kv", "127.0.0.1:1"])
-    assert "rendezvous client" in capsys.readouterr().err
+    assert "no --secret" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
