@@ -8,7 +8,9 @@ Phases, each printing its own lines:
 1. env           the card's name and power limit (nvidia-smi), torch and
                  CUDA versions;
 2. build         builds every CUDA source of the port (csrc/*.cu) with
-                 nvcc, one process per source, all started together;
+                 nvcc, one process per source, all started together,
+                 and the native control plane (_native/) with g++
+                 beside them;
 3. kernels       each kernel against its plain PyTorch version on the card,
                  at the main paths' shapes and at others, with the stated
                  tolerance; kernel, plain and library times and the bound.
@@ -151,18 +153,19 @@ Phases, each printing its own lines:
                  batch 32 per rank, bf16) for 3 steps with the checks of
                  phase 4 (finite losses, one digest per step, K1 and K2
                  launched on both ranks, rank 0's plain rerun of the
-                 combine within COMBINE_RTOL); then one rank on NCCL runs
-                 `--model inception3` (299x299, 23,834,568 params) and
-                 `--model vgg16` (224x224) under Average, 2 warm-up
-                 steps, 2 x 3 timed and `--profile 2`: img/sec, peak
-                 memory, the profile, and
-                 for VGG-16 the buckets it flushed, which must be in
+                 combine within COMBINE_RTOL); beside it on the card one
+                 rank on NCCL runs `--model inception3` (299x299,
+                 23,834,568 params) and `--model vgg16` (224x224) under
+                 Average, 2 warm-up steps, 2 x 3 steps and `--profile
+                 2` (the profiler's path): peak memory and, for VGG-16,
+                 the buckets it flushed, which must be in
                  every step the count of the JAX package's greedy
                  partition of its gradients (in the order the backward
                  makes them final, from a VGG-16 of its own on the card)
                  at the 64 MiB threshold;
-14. mnist        BASELINE config 1: two ranks share the card over gloo and
-                 run `python -m horovod_tpu_torch.torch_mnist` for 2
+14. mnist        beside phase 10, side by side on the card: BASELINE
+                 config 1: two ranks share the card over gloo and run
+                 `python -m horovod_tpu_torch.torch_mnist` for 2
                  epochs: finite losses and one digest per step, each
                  rank's mean loss lower in the second epoch, the
                  held-out accuracy above MNIST_MIN_ACC;
@@ -195,7 +198,8 @@ Phases, each printing its own lines:
                  bytes those of `wire_policy_plan` over ResNet-50's
                  gradients in hook order), and under `--compression
                  fp8_e4m3` (these two runs share the card at once, as do
-                 (c) and (d)); img/sec and the host ms in `hvd.ring`.
+                 (c) and (d)); the int8 run's img/sec and host ms in
+                 `hvd.ring`.
                  (c) Main path 7: phase 8's stage-3 transformer (8
                  layers, full width) with HOROVOD_ZERO_GATHER_WIRE=int8
                  and HOROVOD_WIRE_POLICY=auto: finite losses within
@@ -233,10 +237,8 @@ Phases, each printing its own lines:
                  MoE layers route each shard's rows on their own, as the
                  mesh does), and on every step every K4-K6 launch on the
                  tensor cores, as many per rank as `expected_flash`
-                 says; tok/sec per rank, idle share and host ms in the
-                 mesh ranges (hvd.sp.hop, hvd.sp.a2a, hvd.tp.psum,
-                 hvd.ep.a2a, hvd.pp.hop, ...).  Two runs share the card
-                 at a time, so these rates and shares are under sharing.
+                 says.  Two runs share the card at a time, so they print
+                 no rate, time or idle share.
 18. serve        main path 9: decode and the continuous-batching server
                  on the default TransformerConfig at full width, bf16,
                  seeded random weights, one process (after the kernels
@@ -421,9 +423,37 @@ Phases, each printing its own lines:
                  tree (it and its child) gone; (e) the static
                  `runner.executor.Executor` at np=2 runs two functions in
                  turn (the rank and card, then the slot's topology env),
-                 results in rank order.  One JSON line `{"launcher":
-                 ...}` of what it found; the phase must end within
-                 LAUNCHER_BUDGET_S.
+                 results in rank order.  (a) also shows [X] for the
+                 elastic launcher and the native control plane.  One
+                 JSON line `{"launcher": ...}` of what it found; the
+                 phase must end within LAUNCHER_BUDGET_S.
+24. elastic_driver  after phase 23: full-width `elastic_resnet`
+                 (ResNet-50, 224x224, 1000 classes, batch 32 a rank,
+                 bf16, sync batch norm, DistributedOptimizer(SGD
+                 momentum), TorchState with an ElasticSampler) under
+                 the port's elastic driver, `python -m
+                 horovod_tpu_torch.runner --host-discovery-script D
+                 --min-np 1 --max-np 2`, D printing a hosts file the
+                 phase rewrites; the fake hosts hostA and hostB
+                 (HVD_TPU_FAKE_LOCAL_HOSTS) share the card over gloo.
+                 (a) Scale up: after hostA's first COMMIT hostB is
+                 added; rank 0 resets without a rollback, the joiner
+                 enters generation >= 1 as a joiner with rank 0's last
+                 commit's parameters and rank 0's whole state after the
+                 sync (parameters, batch-norm buffers and momentum:
+                 `state_digest`), and the two ranks' parameters agree
+                 at every step at size 2.  (b) Failure: at hostB's first
+                 COMMIT after ELASTIC_DRIVER_B_STEPS steps its worker
+                 is SIGKILLed; the driver blacklists hostB and
+                 publishes a degraded generation, the survivor restores
+                 its last commit and finishes alone, the driver exits
+                 0, every loss finite, the driver served with the
+                 native engine.  Prints the reset seconds, the seconds
+                 from the hosts file's growth and from the kill to the
+                 next generation's first step, and img/sec a rank at
+                 sizes 1, 2 and 1, beside the card's name and power
+                 limit; one JSON line `{"elastic_driver": ...}`; the
+                 phase must end within ELASTIC_DRIVER_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -438,7 +468,8 @@ train_zero3's peak memory at most train_transformer's, rank by rank.
 prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
 sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
-`--trace` only phase 22; `--launcher` only phase 23.
+`--trace` only phase 22; `--launcher` only phase 23; `--elastic` only
+phase 24.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -446,6 +477,12 @@ the same checks as the training phases, and prints each rank's SUMMARY
 and, with `--profile K`, its PROFILE line (a torch.profiler breakdown
 of K steps: device time, idle share, host time in each `hvd.*` and
 `bench.*` range).
+
+Jobs that run side by side on the card (`concurrently`: phases 10 and
+14, phase 13's runs, phase 16's int4 / fp8 and (c) / (d) runs, phase
+17's runs) check results and count launches; they print no rate, time
+or idle share (`launch(shared=True)`), since each shares the card and
+the host with another.
 
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
 zoo deltas, with their launches on main path 5, and their launches on
@@ -466,6 +503,11 @@ line
 `{"ok": true, "device": {...}}`.  Any failure raises and exits non-zero
 with no result line; so does a host without CUDA.  Full logs of the
 training ranks go to chiprun_out/.
+
+Every process the script starts, and every process those start, carries
+RUN_MARK in its environment; when the script ends, however it ends, it
+kills whichever of them is still running and names each on stderr
+(`stop_leftovers`).
 """
 
 from __future__ import annotations
@@ -597,6 +639,71 @@ def require(ok: bool, msg) -> None:
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+# Set by the script's top process and inherited by every process under
+# it (ranks, launchers, the elastic driver and its workers, builds).
+RUN_MARK = "HVD_SMOKE_RUN"
+
+
+def marked_processes(mark: str) -> dict:
+    """pid -> (seconds since it started, command line) of every process
+    but this one whose environment holds RUN_MARK=mark (zombies have no
+    environment: they are gone)."""
+    needle = f"\0{RUN_MARK}={mark}\0".encode()
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    hz = os.sysconf("SC_CLK_TCK")
+    found = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if needle not in b"\0" + f.read() + b"\0":
+                    continue
+            with open(f"/proc/{name}/stat") as f:
+                # field 22, the start time in ticks since boot (the
+                # command in field 2 may hold spaces: split after it)
+                started = int(f.read().rsplit(")", 1)[1].split()[19]) / hz
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                found[int(name)] = (round(uptime - started, 1), f.read(
+                    ).replace(b"\0", b" ").decode(errors="replace").strip())
+        except OSError:  # exited meanwhile, or not ours
+            continue
+    return found
+
+
+def stop_leftovers(mark: str, timeout: float = 10.0) -> dict:
+    """SIGKILL every process still running under RUN_MARK=mark (looking
+    again until none is left or `timeout` passes), reap this process's
+    own exited children, and return what was found (pid -> (age in
+    seconds, command))."""
+    import signal
+
+    left = {}
+    deadline = time.monotonic() + timeout
+    while True:
+        now = marked_processes(mark)
+        if not now or time.monotonic() > deadline:
+            break
+        left.update(now)
+        for pid in now:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.1)
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+    for pid, (age, cmd) in sorted(left.items()):
+        print(f"[cleanup] killed pid {pid}, started {age} s before the "
+              f"end, left running: {cmd[:300]}", file=sys.stderr, flush=True)
+    return left
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1295,9 +1402,10 @@ def _records(lines, tag):
 def concurrently(fns, workers: int = 2) -> list:
     """Call `fns` (each starting its own rank processes), `workers` at a
     time; return their results in order, raising the first failure.
-    Jobs whose numbers are not compared across calls share the card this
-    way, to keep the script within its time limit: process starts, not
-    steps, take most of such a job's wall."""
+    Jobs that only check results share the card this way, to keep the
+    script within its time limit (process starts, not steps, take most
+    of such a job's wall); they print no rate or time
+    (`launch(shared=True)`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(workers) as pool:
@@ -1305,9 +1413,19 @@ def concurrently(fns, workers: int = 2) -> list:
         return [f.result() for f in futures]
 
 
+# A key of a SUMMARY that holds a rate, a time or an idle share.
+_TIMED = ("_sec", "_ms", "idle")
+
+
+def _untimed(rec: dict) -> dict:
+    """`rec` without its rates, times and idle shares."""
+    return {k: v for k, v in rec.items()
+            if not any(t in k for t in _TIMED)}
+
+
 def launch(phase: str, nranks: int, args, module: str = RESNET,
            grow=None, timeout: float = 900, env=None, rank_env=None,
-           launcher: bool = False):
+           launcher: bool = False, shared: bool = False):
     """Run `nranks` ranks of `module` with `args` (and `env`) and hold
     them to the checks every training run shares; return each rank's
     SUMMARY, with its STEP losses added as `step_losses` and its EVAL
@@ -1325,7 +1443,9 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     loss within LOSS_TOL.  A held-out forward's launches (an EVAL line
     after a step's STEP line) do not count toward the next step's.
     `launcher=True` starts the ranks through the port's launcher
-    (run_ranks)."""
+    (run_ranks).  `shared=True` (a job beside another on the card)
+    prints each SUMMARY without its rates and times (`_untimed`) and no
+    PROFILE."""
     outs = run_ranks(phase, nranks, module, args, timeout, env=env,
                      rank_env=rank_env, launcher=launcher)
     steps = [_records(lines, "STEP") for lines in outs]
@@ -1342,8 +1462,11 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
             for k, n in rec.get("check_launches", {}).items():
                 s["check_launches"][k] = s["check_launches"].get(k, 0) + n
         for tag in ("SUMMARY", "PROFILE", "EVAL"):
+            if shared and tag == "PROFILE":
+                continue
             for rec in _records(lines, tag):
-                log(phase, f"{tag} {json.dumps(rec)}")
+                shown = _untimed(rec) if shared else rec
+                log(phase, f"{tag} {json.dumps(shown)}")
     if "--log-steps" not in args:
         return summaries
     grow = grow or {}
@@ -1881,9 +2004,7 @@ def surface_np2() -> None:
             f"{d['sparse_opt_True']['err']:.3g}; SyncBatchNorm{SYNC_BN_SHAPE} "
             "bf16 vs BatchNorm2d over both batches, relative: " + ", ".join(
                 f"{k} {v:.3g}" for k, v in bn.items() if k != "dtype")
-            + f" (tol {SYNC_BN_TOL:.3g}, statistics {SYNC_BN_STAT_TOL}); "
-            "host ms " + ", ".join(
-                f"{k} {v:.2f}" for k, v in d["ms"].items()))
+            + f" (tol {SYNC_BN_TOL:.3g}, statistics {SYNC_BN_STAT_TOL})")
 
 
 # ---------------------------------------------------------------------------
@@ -2087,30 +2208,38 @@ FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 
 
 def train_zoo():
-    """Main path 5 (see the module docstring)."""
+    """Main path 5 (see the module docstring).  The Adasum pair and the
+    one-rank runs go side by side on the card: their checks are counts,
+    launches and losses, and they print no rate."""
     phase = "train_zoo"
-    summaries = launch(phase, 2, [
-        "--model", "vgg16", "--use-adasum", "--num-classes", "1000",
-        "--image-size", "224", "--batch-size", "32",
-        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
-        "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        grow=ADASUM_GROW, timeout=900)
+
+    def adasum_pair():
+        return launch(phase, 2, [
+            "--model", "vgg16", "--use-adasum", "--num-classes", "1000",
+            "--image-size", "224", "--batch-size", "32",
+            "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+            "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
+            grow=ADASUM_GROW, timeout=900, shared=True)
+
+    def one_rank_runs():
+        return {model: launch(f"{phase}_{model}", 1, [
+            "--model", model, "--num-classes", "1000", "--batch-size", "32",
+            "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
+            "--num-iters", "2", "--profile", "2"], timeout=600,
+            shared=True)[0]
+            for model in ("inception3", "vgg16")}
+
+    summaries, singles = concurrently([adasum_pair, one_rank_runs])
     require(all(s["steps"] == 3 and s["params"] == ZOO_N["vgg16"]
                 for s in summaries), f"vgg16 Adasum: {summaries}")
     for s in summaries:
-        log(phase, f"vgg16 Adasum rank {s['rank']}: "
-            f"{s['img_sec_per_rank']:.2f} img/sec (3 steps, checks "
-            f"included), backend {s['backend']}, peak memory "
+        log(phase, f"vgg16 Adasum rank {s['rank']}: 3 steps, backend "
+            f"{s['backend']}, peak memory "
             f"{s['peak_mem_gb']:.2f} GB, launches {s['launches']}")
     vgg_sizes = hook_order("vgg16", 224)
     buckets = expected_buckets(vgg_sizes, FUSION_THRESHOLD)
     require(sum(vgg_sizes) == 4 * ZOO_N["vgg16"], "vgg16 gradient bytes")
-    singles = {}
-    for model in ("inception3", "vgg16"):
-        (s,) = launch(f"{phase}_{model}", 1, [
-            "--model", model, "--num-classes", "1000", "--batch-size", "32",
-            "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
-            "--num-iters", "2", "--profile", "2"], timeout=600)
+    for model, s in singles.items():
         require(s["backend"] == "nccl" and s["params"] == ZOO_N[model], s)
         if model == "vgg16":
             require(s["flushes"] == buckets * s["steps"],
@@ -2118,12 +2247,10 @@ def train_zoo():
                     f"want {buckets} a step (the JAX partition of its "
                     f"gradients in hook order at {FUSION_THRESHOLD} bytes)")
         log(phase, f"{model} at {s['image_size']}x{s['image_size']}, one "
-            f"rank on NCCL: {s['img_sec_per_rank']:.2f} img/sec (+- "
-            f"{1.96 * s['img_sec_std']:.2f}), batch 32, buckets flushed "
+            f"rank on NCCL: batch 32, buckets flushed "
             f"{s['flushes']} over {s['steps']} steps "
             f"({s['flushes'] / s['steps']:g} a step), peak memory "
             f"{s['peak_mem_gb']:.2f} GB, last loss {s['last_loss']:.4f}")
-        singles[model] = s
     log(phase, f"vgg16 buckets a step at {FUSION_THRESHOLD} bytes: "
         f"{buckets} (gradient bytes in hook order: {vgg_sizes[:6]} ...)")
     return summaries, singles
@@ -2132,7 +2259,7 @@ def train_zoo():
 def mnist_np2():
     """BASELINE config 1's trainer at two ranks on the card over gloo."""
     summaries = launch("mnist", 2, ["--epochs", "2", "--log-steps"],
-                       module=MNIST, timeout=300)
+                       module=MNIST, timeout=300, shared=True)
     for s in summaries:
         losses, acc = s["epoch_losses"], s["test_acc"]
         require(len(losses) == 2 and losses[1] < losses[0],
@@ -2144,8 +2271,7 @@ def mnist_np2():
     for s in summaries:
         log("mnist", f"rank {s['rank']}: epoch mean losses "
             f"{s['epoch_losses']}, held-out accuracy {s['test_acc']}, "
-            f"{s['img_sec_per_rank']:.1f} img/sec, {s['steps']} steps, "
-            f"backend {s['backend']}")
+            f"{s['steps']} steps, backend {s['backend']}")
     return summaries
 
 
@@ -2297,14 +2423,14 @@ def _policy_plan(spec: str, sizes):
         fusion_threshold_bytes=FUSION_THRESHOLD, bucket_order="forward")]
 
 
-def _wire_run(phase: str, args, env=None):
+def _wire_run(phase: str, args, env=None, shared: bool = False):
     """Two ranks of the ResNet-50 benchmark on a wire; every bucket of
     every step on the ring.  Returns the summaries."""
     summaries = launch(phase, 2, [
         "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
         "--batch-size", "32", "--num-warmup-batches", "0",
         "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
-        *args], env=env, timeout=600)
+        *args], env=env, timeout=600, shared=shared)
     steps = [_records(open(os.path.join(LOG_DIR, f"{phase}_rank{r}.log"))
                       .read().splitlines(), "STEP") for r in (0, 1)]
     for r, recs in enumerate(steps):
@@ -2363,20 +2489,18 @@ def train_wire(zero3_summaries):
     want = _policy_plan(WIRE_POLICY_INT4, sizes)
     (summaries, _), (fp8, _) = concurrently([
         lambda: _wire_run("train_wire_int4", [], env={
-            "HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4}),
-        lambda: _wire_run("train_wire_fp8", ["--compression", "fp8_e4m3"])])
+            "HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4}, shared=True),
+        lambda: _wire_run("train_wire_fp8", ["--compression", "fp8_e4m3"],
+                          shared=True)])
     for s in summaries:
         require(s["buckets"] == want, f"int4 policy buckets {s['buckets']} "
                 f"(wire_policy_plan: {want})")
-    results["int4"] = {"img_sec": [s["img_sec_per_rank"] for s in summaries],
-                       "buckets": summaries[0]["buckets"]}
+    results["int4"] = {"buckets": summaries[0]["buckets"]}
     log("train_wire", f"ResNet-50 under HOROVOD_WIRE_POLICY="
         f"{WIRE_POLICY_INT4}: buckets {summaries[0]['buckets']} (those of "
-        f"wire_policy_plan), "
-        f"{[round(s['img_sec_per_rank'], 2) for s in summaries]} img/sec")
-    results["fp8_e4m3"] = {"img_sec": [s["img_sec_per_rank"] for s in fp8]}
+        f"wire_policy_plan)")
+    results["fp8_e4m3"] = {"last_loss": [s["last_loss"] for s in fp8]}
     log("train_wire", f"ResNet-50 fp8_e4m3 ring: "
-        f"{[round(s['img_sec_per_rank'], 2) for s in fp8]} img/sec, "
         f"last losses {[round(s['last_loss'], 4) for s in fp8]}")
 
     # (c) Main path 7: the stage-3 head over an int8 gather, beside (d)
@@ -2388,13 +2512,13 @@ def train_wire(zero3_summaries):
             "--num-batches-per-iter", "1", "--num-iters", "3",
             "--log-steps", "--eval-every", "3", "--check-plain-step", "2"],
             module=TRANSFORMER, timeout=600,
-            env=dict(ZERO3_ENV, **WIRE_ENV), grow=FLASH_GROW),
+            env=dict(ZERO3_ENV, **WIRE_ENV), grow=FLASH_GROW, shared=True),
         lambda: launch("train_wire_zero1", 2, [
             "--zero-stage", "1", "--n-layers", "2", "--num-warmup-batches",
             "0", "--num-batches-per-iter", "1", "--num-iters", "3",
             "--log-steps"], module=TRANSFORMER, timeout=600, grow=grow2,
             env={"HOROVOD_SHARD_AG_WIRE": "int8",
-                 "HOROVOD_WIRE_POLICY": "auto"})])
+                 "HOROVOD_WIRE_POLICY": "auto"}, shared=True)])
     tol = K3_RTOL["torch.float32"]
     for s, s0 in zip(zsum, zero3_summaries):
         r = s["rank"]
@@ -2418,8 +2542,7 @@ def train_wire(zero3_summaries):
                 f"weights {ev['eval_logits_rel']} (tol {tol}), vs the exact "
                 f"head {ev['eval_exact_rel']} (tol {WIRE_LOGITS_RTOL})")
         log("train_wire", f"stage 3, int8 head gather and auto policy, rank "
-            f"{r}: {s['tok_sec_per_rank']:.1f} tok/sec (phase 8 "
-            f"{s0['tok_sec_per_rank']:.1f}); losses {s['step_losses']} vs "
+            f"{r}: losses {s['step_losses']} vs "
             f"exact wire {s0['step_losses']} (max diff {max(diffs):.3g}, tol "
             f"{WIRE_LOSS_TOL}); eval forward K3 launches "
             f"{ev['k3_launches']} (strided {ev['k3_strided_launches']}), "
@@ -2440,8 +2563,7 @@ def train_wire(zero3_summaries):
                 f"rank {r}: f32 master vs decoded parameter {diffs}")
         log("train_wire", f"stage 1, int8 allgather, rank {r}: largest "
             f"|f32 master - decoded parameter| by step {diffs}; digests "
-            f"equal across ranks each step; "
-            f"{z1[r]['tok_sec_per_rank']:.1f} tok/sec")
+            f"equal across ranks each step")
     torch.cuda.empty_cache()
     return results
 
@@ -2492,9 +2614,8 @@ def train_mesh():
     LOSS_TOL of rank 0's one-rank `reference_loss` on the same weights
     and tokens, every K4-K6 launch on the tensor cores and as many per
     rank and step as `expected_flash` says (the reference's launches
-    left out); tok/sec per rank, with and without the checks' wall time,
-    idle share and the mesh ranges' host ms from one profiled step
-    (whose `bench.check.digest` range gives the digest's share)."""
+    left out), and one profiled step (the profiler's path).  Two runs
+    share the card at a time, so they print no rate or time."""
     common = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
               "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
               "--check-dense-step", "0", "--profile", "1"]
@@ -2503,7 +2624,7 @@ def train_mesh():
         t0 = time.perf_counter()
         summaries = launch(f"mesh_{name}", 2, mesh + extra + common + [
             "--n-layers", str(layers)], module=TRANSFORMER, env=MESH_ENV,
-            timeout=400, grow={n: None for n in FLASH_NAMES})
+            timeout=400, grow={n: None for n in FLASH_NAMES}, shared=True)
         for s in summaries:
             want = expected_flash(name, s)
             per_step = []
@@ -2521,14 +2642,9 @@ def train_mesh():
                             f"{got[n]} launches, {got[n + '_sm90']} on the "
                             f"tensor cores (want {want})")
             log(f"mesh_{name}", f"rank {s['rank']} {s['coords']}: "
-                f"{s['tok_sec_per_rank']:.1f} tok/sec per rank "
-                f"({MESH_CHECKED_STEPS} checked steps), "
-                f"{s['tok_sec_per_rank_net']:.1f} without the "
-                f"checks (their ms per step {s['check_ms_per_step']}), "
-                f"idle {s['device_idle_share']}, K4-K6 launches "
-                f"per step {per_step} (all tensor cores), host ms per step "
-                f"{s['ranges_ms_per_step']}, peak {s['peak_mem_gb']:.2f} "
-                f"GB, {layers} layers")
+                f"{MESH_CHECKED_STEPS} checked steps, K4-K6 launches "
+                f"per step {per_step} (all tensor cores), peak "
+                f"{s['peak_mem_gb']:.2f} GB, {layers} layers")
         log(f"mesh_{name}", f"{time.perf_counter() - t0:.1f} s")
         return summaries
 
@@ -4567,7 +4683,7 @@ def launcher_phase() -> dict:
     marks = {ln[8:]: ln[5] for ln in out_a.splitlines()
              if ln.startswith("    [")}
     card_marks = ("NCCL", "CUDA", "CUDA kernels (adasum, flash attention, "
-                  "tiled matmul)")
+                  "tiled matmul)", "elastic", "native control plane (C++)")
     require(rc_a == 0 and "gloo (CPU, ranks sharing a card)" in marks
             and all(marks.get(k) == "X" for k in card_marks),
             f"(a) --check-build exited {rc_a}:\n{out_a}")
@@ -4613,7 +4729,8 @@ def launcher_phase() -> dict:
     out = {"seconds": timed,
            "cc_exit": rc_c, "exit3": rc_d, "fleet": fleet,
            "phase_s": round(time.perf_counter() - t_start, 2)}
-    log(phase, f"(a) --check-build [X] NCCL, CUDA, CUDA kernels; (b) run() "
+    log(phase, f"(a) --check-build [X] NCCL, CUDA, CUDA kernels, elastic, "
+        f"native control plane; (b) run() "
         f"np=2 on {dev0}, bitwise the numpy sum; (c) mismatch exit {rc_c} "
         f"in {timed['c']} s with the dump; (d) exit 3 returned, tree gone; "
         f"(e) Executor two functions in rank order; (f) metrics --kv ranks "
@@ -4622,6 +4739,226 @@ def launcher_phase() -> dict:
     require(out["phase_s"] <= LAUNCHER_BUDGET_S,
             f"{phase}: over its budget of {LAUNCHER_BUDGET_S} s")
     print(json.dumps({"launcher": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: full-width elastic ResNet-50 under the elastic driver, 1 -> 2
+# -> 1 ranks
+# ---------------------------------------------------------------------------
+
+ELASTIC_DRIVER_BUDGET_S = 90  # phase 24's share of the script's time limit
+# Two epochs of eight batches at one rank: rank 0 is still training when
+# the joiner arrives (it trains on until it sees the new generation at a
+# commit, at most two steps later, then waits in the bootstrap for the
+# joiner), both ranks take at least three steps at size 2 before the
+# failure, and the survivor four alone after it.
+ELASTIC_DRIVER_ARGS = ["--epochs", "2", "--batches-per-epoch", "8",
+                       "--commit-every", "2", "--log-steps"]
+# hostB's worker is killed at its first commit after this many steps
+# (a rate at size 2 leaves the first step out).
+ELASTIC_DRIVER_B_STEPS = 3
+_DRIVER_PREFIX = re.compile(r"^\[(\d+)\]<\d\d:\d\d:\d\d> ([A-Z]+) (\{.*\})$")
+
+
+def _segments(steps):
+    """Split one rank's STEP records into runs of one world size: a list
+    of `{"size": n, "ms": [train_ms of each step]}`, in order."""
+    runs = []
+    for s in steps:
+        if not runs or runs[-1]["size"] != s["size"]:
+            runs.append({"size": s["size"], "ms": []})
+        runs[-1]["ms"].append(s["train_ms"])
+    return runs
+
+
+def elastic_driver_phase(smi: str, trainer_args=(), budget: float =
+                         ELASTIC_DRIVER_BUDGET_S) -> dict:
+    """Phase 24: (a) scale up from hostA to hostA + hostB, (b) SIGKILL
+    hostB's worker, under `python -m horovod_tpu_torch.runner
+    --host-discovery-script`; every check raises on failure.
+    `trainer_args` go to the trainer after ELASTIC_DRIVER_ARGS (the CPU
+    rehearsal passes `--device cpu` and a small model)."""
+    import signal
+    import threading
+
+    from horovod_tpu_torch import _native
+
+    phase = "elastic_driver"
+    t_start = time.perf_counter()
+    require(_native.load() is not None,
+            f"{phase}: the native control plane did not build")
+    d = os.path.join(LOG_DIR, phase)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    hosts = os.path.join(d, "hosts.txt")
+
+    def set_hosts(text):
+        with open(hosts + ".tmp", "w") as f:
+            f.write(text)
+        os.replace(hosts + ".tmp", hosts)
+
+    set_hosts("hostA:1\n")
+    script = os.path.join(d, "discover.sh")
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts}\n")
+    os.chmod(script, 0o755)
+    p = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner",
+         "--host-discovery-script", script, "--min-np", "1", "--max-np",
+         "2", "--log-level", "INFO", sys.executable, "-m", ELASTIC,
+         *ELASTIC_DRIVER_ARGS, *trainer_args], cwd=HERE,
+        env=_port_env({"HVD_TPU_FAKE_LOCAL_HOSTS": "hostA,hostB"}),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    lines, recs = [], {0: [], 1: []}  # the worker spawned as rank r
+    cond = threading.Condition()
+
+    def pump():
+        with open(os.path.join(d, "driver.log"), "w") as out:
+            for line in p.stdout:
+                out.write(line)
+                m = _DRIVER_PREFIX.match(line.rstrip("\n"))
+                with cond:
+                    lines.append(line)
+                    if m and int(m.group(1)) in recs:
+                        recs[int(m.group(1))].append(
+                            (m.group(2), json.loads(m.group(3))))
+                    cond.notify_all()
+
+    def wait_for(who, tag, what, after_steps=0):
+        deadline = t_start + budget
+        with cond:
+            while True:
+                got, steps = None, 0
+                for t, r in recs[who]:
+                    steps += t == "STEP"
+                    if t == tag and steps >= after_steps:
+                        got = r
+                        break
+                if got is not None:
+                    return got
+                require(p.poll() is None or pumper.is_alive(),
+                        f"{phase}: the driver exited {p.poll()} before "
+                        f"{what}:\n" + "".join(lines[-60:]))
+                require(time.perf_counter() < deadline,
+                        f"{phase}: no {what} within {budget} s:\n"
+                        + "".join(lines[-60:]))
+                cond.wait(0.2)
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+    try:
+        # (a) after rank 0's first commit, hostB joins
+        wait_for(0, "COMMIT", "COMMIT of hostA's worker")
+        t_grow = time.time()
+        set_hosts("hostA:1\nhostB:1\n")
+        # (b) at the joiner's first commit after ELASTIC_DRIVER_B_STEPS
+        # steps, its worker is killed
+        wait_for(1, "COMMIT", "COMMIT of hostB's worker",
+                 after_steps=ELASTIC_DRIVER_B_STEPS)
+        enter_b = wait_for(1, "ENTER", "ENTER of hostB's worker")
+        os.kill(enter_b["pid"], signal.SIGKILL)
+        t_kill = time.time()
+        rc = p.wait(timeout=max(1.0, t_start + budget
+                                - time.perf_counter()))
+        pumper.join(30)
+    finally:
+        if p.poll() is None:  # the driver tears its workers down
+            p.send_signal(signal.SIGTERM)
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    text = "".join(lines)
+    require(rc == 0, f"{phase}: the driver exited {rc}:\n{text[-6000:]}")
+    require("native rendezvous server on port" in text,
+            f"{phase}: the driver did not serve with the native engine")
+    require("blacklisting host hostB" in text and "DEGRADED" in text,
+            f"{phase}: hostB was not blacklisted, or no degraded "
+            f"generation:\n{text[-4000:]}")
+    a = recs[0]
+    b = recs[1]
+
+    def tagged(rs, tag):
+        return [r for t, r in rs if t == tag]
+
+    enters_a, commits_a = tagged(a, "ENTER"), tagged(a, "COMMIT")
+    steps_a, steps_b = tagged(a, "STEP"), tagged(b, "STEP")
+    (summary,) = tagged(a, "SUMMARY")
+    require([e["resets"] for e in enters_a] == [0, 1, 2]
+            and summary["resets"] == 2 and summary["size"] == 1,
+            f"{phase}: hostA's entries {enters_a}, summary {summary}")
+    # (a) the joiner: a later generation, joining, rank 0's last commit
+    # (the parameters, the batch-norm buffers and the momentum); rank 0
+    # entered it with the same state.
+    pos = [i for i, (t, r) in enumerate(a) if t == "ENTER"]
+    last_commit = [r for t, r in a[:pos[1]] if t == "COMMIT"][-1]
+    require(enter_b["gen"] >= 1 and enter_b["joining"]
+            and enter_b["rank"] == 1 and enters_a[1]["gen"] == enter_b["gen"],
+            f"{phase}: the joiner's entry {enter_b}")
+    reset1 = [r for r in tagged(a, "RESET") if r["resets"] == 1]
+    require(reset1 and reset1[0]["digest"] == last_commit["digest"],
+            f"{phase}: rank 0's reset on the new generation rolled back")
+    require(enter_b["digest"] == enters_a[1]["digest"]
+            == last_commit["digest"]
+            and enter_b["state_digest"] == enters_a[1]["state_digest"],
+            f"{phase}: the joiner's state is not rank 0's last commit")
+    both = {(s["epoch"], s["batch"]): s["digest"] for s in steps_b}
+    pairs = [(s["digest"], both[(s["epoch"], s["batch"])]) for s in steps_a
+             if s["size"] == 2 and (s["epoch"], s["batch"]) in both]
+    require(pairs and all(x == y for x, y in pairs)
+            and all(s["size"] == 2 for s in steps_b),
+            f"{phase}: the ranks' parameters differ at size 2 ({pairs})")
+    # (b) the survivor's restore is its last commit before the failure,
+    # and it finishes alone
+    reset2 = [r for r in tagged(a, "RESET") if r["resets"] == 2]
+    commit_before = [r for t, r in a[:pos[2]] if t == "COMMIT"][-1]
+    require(reset2 and reset2[0]["digest"] == commit_before["digest"]
+            and enters_a[2]["digest"] == commit_before["digest"],
+            f"{phase}: after the failure the parameters are not the last "
+            "commit's")
+    require(all(math.isfinite(s["loss"]) for s in steps_a + steps_b),
+            f"{phase}: a non-finite loss")
+    runs = _segments(steps_a)
+    require([r["size"] for r in runs] == [1, 2, 1]
+            and steps_a[-1]["size"] == 1,
+            f"{phase}: hostA's sizes {[r['size'] for r in runs]}")
+    args = [*ELASTIC_DRIVER_ARGS, *trainer_args]
+    bs = int(args[args.index("--batch-size") + 1]) \
+        if "--batch-size" in args else 32  # elastic_resnet's default
+    img_sec = [[round(bs * 1e3 * (len(r["ms"]) - 1) / sum(r["ms"][1:]), 2)
+                if len(r["ms"]) > 1 else None for r in runs]]
+    runs_b = _segments(steps_b)
+    img_sec.append([round(bs * 1e3 * (len(r["ms"]) - 1) / sum(r["ms"][1:]),
+                          2) if len(r["ms"]) > 1 else None for r in runs_b])
+    grow_s = min(s["wall"] for s in steps_a + steps_b
+                 if s["size"] == 2) - t_grow
+    shrink_s = min(s["wall"] for s in steps_a[len(steps_a) - len(
+        runs[2]["ms"]):]) - t_kill
+    out = {"card": smi, "engine": "native",
+           "reset_seconds": [round(x, 3) for x in summary["reset_seconds"]],
+           "grow_to_first_step_s": round(grow_s, 3),
+           "kill_to_first_step_s": round(shrink_s, 3),
+           "img_sec_per_rank": {"hostA (1, 2, 1)": img_sec[0],
+                                "hostB (2)": img_sec[1]},
+           "steps": {"hostA": len(steps_a), "hostB": len(steps_b)},
+           "joiner_gen": enter_b["gen"],
+           "phase_s": round(time.perf_counter() - t_start, 2)}
+    log(phase, f"{smi}: native control plane; (a) hostB joined generation "
+        f"{enter_b['gen']} with rank 0's last commit and, after the sync, "
+        f"rank 0's whole state (parameters, buffers, momentum), "
+        f"{len(pairs)} steps equal at size 2, first step at size "
+        f"2 {grow_s:.3f} s after the hosts file grew; (b) hostB killed, "
+        f"blacklisted, the survivor restored its last commit and took its "
+        f"first step alone {shrink_s:.3f} s after the kill; resets "
+        f"{out['reset_seconds']} s; img/sec a rank (train time, sizes 1, "
+        f"2, 1) {img_sec[0]}, the joiner at 2 {img_sec[1]}; "
+        f"{out['phase_s']} s (budget {budget})")
+    require(out["phase_s"] <= budget,
+            f"{phase}: over its budget of {budget} s")
+    print(json.dumps({"elastic_driver": out}), flush=True)
     return out
 
 
@@ -4697,6 +5034,11 @@ def main() -> int:
         # Phase 23 alone (nothing to build: it launches no kernel).
         launcher_phase()
         return 0
+    if sys.argv[1:2] == ["--elastic"]:
+        # Phase 24 alone (nothing to build with nvcc: the path runs no
+        # kernel; the native control plane is built with g++).
+        elastic_driver_phase(smi)
+        return 0
     if sys.argv[1:2] == ["--serve"]:
         # The flash threshold's table and phase 18 alone.
         _build.build(["flash_attention_sm90", "flash_attention"])
@@ -4714,8 +5056,18 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build(_build.sources())
-    log("build", f"{time.perf_counter() - t0:.2f} s for "
+    # The native control plane (g++) builds beside the nvcc builds.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch import _native
+
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_native.load)
+        _build.build(_build.sources())
+        require(native.result() is not None,
+                "the native control plane did not build with g++")
+    log("build", f"native control plane {_native.library_path()} (g++); "
+        f"{time.perf_counter() - t0:.2f} s for "
         f"{_build.sources()} (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name in _build.sources():
         with open(_build._library_path(name) + ".log") as f:
@@ -4759,8 +5111,11 @@ def main() -> int:
     zero3_nccl(nccl_summary)
     log("zero3_nccl", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    surface_np2()
-    log("surface_np2", f"{time.perf_counter() - t0:.1f} s")
+    # Phases 10 and 14 side by side on the card: both check results and
+    # print no rate.
+    concurrently([surface_np2, mnist_np2])
+    log("surface_np2", f"and mnist beside it: {time.perf_counter() - t0:.1f}"
+        " s")
     t0 = time.perf_counter()
     train_elastic()
     log("train_elastic", f"{time.perf_counter() - t0:.1f} s")
@@ -4770,9 +5125,6 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo_summaries, _ = train_zoo()
     log("train_zoo", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mnist_np2()
-    log("mnist", f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bench = bench_rows()
     log("bench", f"{time.perf_counter() - t0:.1f} s")
@@ -4796,7 +5148,9 @@ def main() -> int:
     hier = train_hier()
     runtime = train_runtime()
     trace = train_trace()
+    # Phases 23 and 24 in turn: both print times.
     launcher_phase()
+    elastic_driver_phase(smi)
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -4907,4 +5261,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if RUN_MARK in os.environ:  # a rank of a running smoke: its top
+        sys.exit(main())        # process stops what is left
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    import signal
+
+    # A SIGTERM (a time limit) ends the run through the sweep below too.
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        rc = main()
+    finally:
+        stop_leftovers(os.environ[RUN_MARK])
+    sys.exit(rc)

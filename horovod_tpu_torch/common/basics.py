@@ -24,12 +24,15 @@ groups, and each group gets a generation of its own in it
 do: a `file://` store deletes its file when its last user closes it, so
 a fast rank could join the old file or lose the new one, and at
 `tcp://` rank 0 would bind the port again while clients may still reach
-the old server.
+the old server.  Under the elastic driver each generation names a
+coordinator of its own, and a worker that joins another generation
+drops the cached store first (`forget_store`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import threading
 import urllib.parse
@@ -155,6 +158,30 @@ def _choose_backend(device: torch.device, local_size: int) -> str:
     return "gloo"
 
 
+# Under the elastic driver: how long past the driver's deadline for a
+# silent new worker a rank waits for the others of its generation at the
+# bootstrap.
+ELASTIC_BOOTSTRAP_MARGIN_S = 5.0
+
+
+def _bootstrap_timeout() -> datetime.timedelta:
+    """The timeout of the coordinator store and the process group.
+    Outside the elastic driver torch's default (30 minutes).  Under it
+    (HOROVOD_ELASTIC=1) the driver's deadline for a new worker that has
+    not beaten yet, the larger of its start grace and lease TTL (both
+    set in the worker's env), plus ELASTIC_BOOTSTRAP_MARGIN_S: a rank of
+    the generation that dies or hangs before its bootstrap has been
+    failed by then and a newer generation published, so the waiting
+    ranks' bootstrap raises and the reset's retry joins the newer one.
+    The timeout also bounds each collective's wait over gloo, as
+    upstream's HOROVOD_GLOO_TIMEOUT_SECONDS does."""
+    if util.getenv("ELASTIC") != "1":
+        return dist.constants.default_pg_timeout
+    silent = max(util.env_float("ELASTIC_START_GRACE", 60.0),
+                 util.env_float("ELASTIC_LEASE_TTL", 15.0))
+    return datetime.timedelta(seconds=silent + ELASTIC_BOOTSTRAP_MARGIN_S)
+
+
 def _generation_store(url: str, rank: int, size: int):
     """The store of the next process group on `url`: a prefix of its own
     in the process's one store for that coordinator."""
@@ -165,14 +192,23 @@ def _generation_store(url: str, rank: int, size: int):
             store = dist.FileStore(parsed.path, size)
         elif parsed.scheme == "tcp":
             store = dist.TCPStore(parsed.hostname, parsed.port, size,
-                                  rank == 0,
-                                  timeout=dist.constants.default_pg_timeout)
+                                  rank == 0, timeout=_bootstrap_timeout())
         else:
             raise HorovodTpuError(
                 f"coordinator address {url!r}: want host:port, tcp:// or "
                 "file://")
         _store_key, _store, _generation = (url, size), store, 0
     return dist.PrefixStore(f"gen{_generation}", _store)
+
+
+def forget_store() -> None:
+    """Drop the cached coordinator store (with its server, where this
+    rank bound it): the next `init()` builds the store of the
+    coordinator it is given.  An elastic generation has a coordinator of
+    its own, so the worker drops the store when it joins another
+    generation (`runner/elastic_worker.refresh_from_control_plane`)."""
+    global _store_key, _store, _generation
+    _store_key, _store, _generation = None, None, 0
 
 
 def init(*, coordinator_address: Optional[str] = None,
@@ -185,8 +221,16 @@ def init(*, coordinator_address: Optional[str] = None,
     The default is `cuda:{local_rank % device_count}`; `"cpu"` runs the
     rank on the CPU over gloo.  With no argument and no CUDA device,
     `init` raises.
+
+    A worker the elastic driver spawned (HOROVOD_ELASTIC=1) registers
+    with it first, unless it has already: the driver spawns workers with
+    no coordinator, and the registration sets the generation's rank,
+    size and coordinator in the env read below.
     """
     global _global_state, _generation, _init_args
+    if coordinator_address is None and _global_state is None:
+        from ..runner import elastic_worker
+        elastic_worker.register()
     with _init_lock:
         if _global_state is not None:
             logger.debug("horovod_tpu_torch.init() called twice; ignoring")
@@ -213,7 +257,7 @@ def init(*, coordinator_address: Optional[str] = None,
                    else f"tcp://{coordinator_address}")
             kv = _generation_store(url, rank, size)
             dist.init_process_group(backend, store=kv, world_size=size,
-                                    rank=rank)
+                                    rank=rank, timeout=_bootstrap_timeout())
             _generation += 1
             group = dist.group.WORLD
         _init_args = dict(coordinator_address=coordinator_address,

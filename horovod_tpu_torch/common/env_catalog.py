@@ -63,6 +63,26 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_HEARTBEAT_INTERVAL", "lease_ttl/3 (min 0.5)", "elastic",
        "Seconds between worker heartbeat-lease publishes; defaults to a "
        "third of HOROVOD_ELASTIC_LEASE_TTL."),
+    _v("HOROVOD_ELASTIC", "0", "elastic",
+       "1 in a worker the elastic driver spawned: hvd.init() registers "
+       "with the driver first, and hvd.elastic.run watches the "
+       "generation and beats the heartbeat lease."),
+    _v("HOROVOD_ELASTIC_START_GRACE", "60.0", "elastic",
+       "Seconds after a spawn before the elastic driver fails a worker "
+       "that has never beaten its heartbeat (--lease-start-grace)."),
+    _v("HOROVOD_MAX_RESPAWNS_PER_HOST", "3", "elastic",
+       "Respawns the elastic driver allows a host before it blacklists "
+       "the host outright (--max-respawns)."),
+    _v("HOROVOD_BLACKLIST_THRESHOLD", "1", "elastic",
+       "Failure strikes before a host is blacklisted from respawn."),
+    _v("HOROVOD_RESPAWN_BACKOFF_BASE", "1.0", "elastic",
+       "Base seconds of the exponential respawn backoff per host."),
+    _v("HOROVOD_RESPAWN_BACKOFF_MAX", "30.0", "elastic",
+       "Cap in seconds of the exponential respawn backoff."),
+    _v("HOROVOD_COORDINATOR_BASE_PORT", "(derived)", "topology",
+       "Base port the elastic driver advances from, a generation at a "
+       "time, for a remote rank 0's TCPStore (default: 46327 plus a "
+       "hash of the job's secret)."),
     # -- the rendezvous KV: the launcher's control plane --------------------
     _v("HOROVOD_RENDEZVOUS_ADDR", "127.0.0.1", "rendezvous",
        "Address of the launcher's rendezvous/KV server workers connect "
@@ -267,6 +287,9 @@ CATALOG: Tuple[EnvVar, ...] = (
        "1 records a timeline on every rank instead of rank 0 only."),
     _v("HOROVOD_TIMELINE_MARK_CYCLES", "0", "timeline",
        "1 marks step/cycle boundaries in the timeline."),
+    _v("HOROVOD_TIMELINE_DISABLE_NATIVE", "0", "timeline",
+       "1 keeps the timeline on the Python writer thread instead of the "
+       "native C++ writer (used when its library is built)."),
     # -- the fleet tracer (trace/) -------------------------------------------
     _v("HOROVOD_TRACE_ALIGN", "cycle", "trace",
        "Cross-rank clock alignment of trace merge/analyze: 'cycle' "

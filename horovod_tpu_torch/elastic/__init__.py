@@ -7,16 +7,18 @@ function is decorated with `@hvd.elastic.run` and takes a `State`;
 `state.commit()` snapshots on the host.  When a collective fails
 (`HorovodInternalError`: an injected fault or a failure of the process
 group) the wrapper restores the last commit, tears the runtime down and
-builds it again (`_reset`: `shutdown()`, then `init()` on the rank's
-device under the RESET retry policy), and `state.sync()` broadcasts
-from rank 0.  On `HostsUpdatedInterrupt` (`notify_hosts_updated`, seen
-at a commit) it resets without the rollback.
+builds it again (`_reset`), and `state.sync()` broadcasts from rank 0
+(under the driver from the lowest rank that holds the job's state,
+`_sync_root`).  On `HostsUpdatedInterrupt` (`notify_hosts_updated`, seen at a commit)
+it resets without the rollback.
 
-What the JAX package has and the port does not yet: the elastic driver
-and its worker hooks (joining workers, refreshing the generation from
-the control plane, the notification client) come with `runner/`, so a
-reset here rejoins the same ranks on the same coordinator; `TpuState`
-and `ShardedTpuState` hold JAX pytrees and row shards, and
+Under the elastic driver (HOROVOD_ELASTIC=1, `runner/elastic/`) a reset
+joins the driver's current generation: its coordinator, size and rank
+(`runner/elastic_worker.refresh_from_control_plane`); `run` starts the
+membership watch and the heartbeat, and a worker spawned into a running
+job (HOROVOD_ELASTIC_JOINING=1) syncs before its first step.  Without
+the driver a reset rejoins the same ranks on the same coordinator.
+`TpuState` and `ShardedTpuState` hold JAX pytrees and row shards;
 `torch/elastic.py` `TorchState` takes their place.
 """
 
@@ -43,8 +45,16 @@ logger = logging.getLogger("horovod_tpu_torch.elastic")
 __all__ = ["State", "ObjectState", "ElasticSampler", "run",
            "notify_hosts_updated"]
 
-# Membership-change notifications (from tests, or later from the driver).
+# Membership-change notifications (from the driver's watch, or tests).
 _host_update_queue: "queue.Queue[bool]" = queue.Queue()
+
+# How long a reset after a failed collective waits, under the driver,
+# for a generation newer than the one that failed: the driver reaps a
+# dead worker within its 0.2 s poll and its discovery's 1 s interval.
+# Rejoining the failed generation would wait in the bootstrap for a rank
+# that is gone; an injected fault with no death behind it never gets a
+# new generation, and after the wait the ranks rejoin in place.
+FAILED_GEN_WAIT_S = 10.0
 
 
 def notify_hosts_updated(skip_sync: bool = False) -> None:
@@ -53,15 +63,45 @@ def notify_hosts_updated(skip_sync: bool = False) -> None:
     _host_update_queue.put(skip_sync)
 
 
+def drop_host_updates() -> None:
+    """Drop the membership changes reported so far: a worker that has
+    just joined the driver's current generation has seen them all."""
+    while True:
+        try:
+            _host_update_queue.get_nowait()
+        except queue.Empty:
+            return
+
+
+def _sync_root(holds_state: bool) -> int:
+    """The rank a sync broadcasts from: rank 0 outside the driver.  Under
+    the driver, the lowest rank that holds the job's state, from one
+    allgather of every rank's `holds_state`.  The driver gives out ranks
+    in host-name order, so a worker spawned into a running job (or
+    respawned) can be rank 0, and it holds no state until its first sync
+    ends; broadcasting from it would overwrite every survivor's state
+    with its fresh one.  Rank 0 when no rank holds state."""
+    from ..runner import elastic_worker
+
+    if not elastic_worker._elastic_env():
+        return 0
+    held = F.allgather_object(bool(holds_state))
+    return next((r for r, h in enumerate(held) if h), 0)
+
+
 class State:
     """Base state with commit / restore / sync (reference:
     horovod/common/elastic.py `State`).  `reset_seconds` holds how long
     each reset of `run` took, from the teardown to the end of the
-    sync."""
+    sync.  `holds_state` is False in a worker the driver spawned into a
+    running job (HOROVOD_ELASTIC_JOINING=1) until its first sync ends."""
 
     def __init__(self, **kwargs):
+        from ..runner.elastic_worker import is_joining_worker
+
         self._reset_callbacks: List[Callable[[], None]] = []
         self.reset_seconds: List[float] = []
+        self.holds_state = not is_joining_worker()
 
     def register_reset_callbacks(self, callbacks) -> None:
         self._reset_callbacks.extend(callbacks)
@@ -142,14 +182,15 @@ class ObjectState(State):
             self._saved = self._prev_saved
             self._restore_from(self._saved)
 
-    def _sync_scalars(self, names) -> None:
+    def _sync_scalars(self, names, root: int) -> None:
         synced = F.broadcast_object({k: getattr(self, k) for k in names},
-                                    root_rank=0)
+                                    root_rank=root)
         for k, v in synced.items():
             setattr(self, k, v)
 
     def sync(self) -> None:
-        self._sync_scalars(self._known)
+        self._sync_scalars(self._known, _sync_root(self.holds_state))
+        self.holds_state = True
         self.save()
 
 
@@ -202,23 +243,41 @@ class ElasticSampler:
         return len(self.local_indices)
 
 
-def _reset() -> None:
-    """Tear the runtime down and build it again over the same ranks
-    (reference: elastic reset = shutdown + init re-rendezvous): the same
-    coordinator, world size, rank and device as the last `init`, under
+def _reset(after_failure: bool = False) -> None:
+    """Tear the runtime down and build it again (reference: elastic
+    reset = shutdown + init re-rendezvous), under
     `RetryPolicy.from_env("RESET", ...)` (HOROVOD_RESET_RETRY_* tunes
     it).  `shutdown` waits for the collectives still in flight.  Every
     wire error-feedback residual is invalidated first
     (`wire.reset_error_feedback`): one encoded against the old membership
-    must not reach the first step after the reset."""
+    must not reach the first step after the reset.
+
+    Without the driver: the same coordinator, world size, rank and
+    device as the last `init`.  Under the driver: the device stays, and
+    the coordinator, size and rank come from the generation
+    `refresh_from_control_plane` joins; after a failed collective
+    (`after_failure`) it first waits up to FAILED_GEN_WAIT_S for a newer
+    generation than the failed one."""
+    from ..runner import elastic_worker
+
     args = basics.init_arguments()
     _wire.reset_error_feedback()
     basics.shutdown()
+    if elastic_worker._elastic_env():
+        if after_failure:
+            elastic_worker.await_next_generation(FAILED_GEN_WAIT_S)
+
+        def rejoin():
+            elastic_worker.refresh_from_control_plane()
+            basics.init(device=args["device"])
+    else:
+        def rejoin():
+            basics.init(**args)
     try:
         RetryPolicy.from_env(
             "RESET", max_attempts=15, base_delay=0.5, multiplier=2.0,
             max_delay=2.0, jitter=0.1).run(
-            lambda: basics.init(**args), retry_on=(Exception,),
+            rejoin, retry_on=(Exception,),
             give_up_on=(HorovodInternalError,), site="elastic.reset")
     except HorovodInternalError:
         raise
@@ -234,18 +293,26 @@ def run(func: Callable) -> Callable:
         @hvd.elastic.run
         def train(state, ...): ...
 
-    The runner's hooks of the JAX package (a joining worker's first
-    sync, the notification client) come with the elastic driver, which
-    the port does not have yet."""
+    The wrapper starts the driver's notification client
+    (`notification_manager_init`), and a worker spawned into a running
+    job syncs its state before its first step, as the ranks already
+    there do in their reset; the sync's root is the lowest rank of
+    those (`_sync_root`)."""
 
     @functools.wraps(func)
     def wrapper(state: State, *args, **kwargs):
+        from ..runner.elastic_worker import is_joining_worker
+
+        notification_manager_init()
+        if is_joining_worker():
+            state.sync()
         reset_required = False
         skip_sync = False
+        after_failure = False
         while True:
             if reset_required:
                 t0 = time.perf_counter()
-                _reset()
+                _reset(after_failure)
                 state.on_reset()
                 if not skip_sync:
                     state.sync()
@@ -259,9 +326,21 @@ def run(func: Callable) -> Callable:
                                "last commit", e)
                 state.restore()
                 reset_required = True
+                after_failure = True
             except HostsUpdatedInterrupt as e:
                 logger.info("hosts updated — re-initializing")
                 reset_required = True
                 skip_sync = e.skip_sync
+                after_failure = False
 
     return wrapper
+
+
+def notification_manager_init() -> None:
+    """Start the driver's generation watch and the heartbeat lease
+    (reference: WorkerNotificationManager.init); nothing outside the
+    driver.  The in-process queue (`notify_hosts_updated`) is always
+    active."""
+    from ..runner.elastic_worker import maybe_start_notification_client
+
+    maybe_start_notification_client()

@@ -12,29 +12,42 @@ batch x size images, each made from its index with a seed, and an
 `ElasticSampler` shards it.  The state is `TorchState(model, optimizer,
 epoch, batch_idx, sampler)`, committed every --commit-every batches
 and at the end of each epoch, and the loop runs under
-`@hvd.elastic.run`.
+`@hvd.elastic.run`.  An epoch ends when the rank's shard has no full
+batch left: after a membership change the ranks share the rest of the
+epoch's indices anew.
 
 Run it with HOROVOD_FAULT_SPEC (and HOROVOD_FAULT_SEED) to inject
 collective failures: every rank makes the same calls, so a fault fires
 at the same hit on each, and both restore their last commit.
 
 Each rank prints JSON lines: STEP (loss, the parameters' SHA-256, the
-resets so far), COMMIT (the digest committed), RESET (after each reset:
-the digest the restore left, before the sync), ENTER (each entry of the
-training function: the digest after the sync), EPOCH (whether the ranks
-processed every index of the epoch exactly once) and SUMMARY (with the
-hits of `collective.allreduce` when a fault spec names it).
+resets so far, the world size, the step's host ms and its wall-clock
+time), COMMIT (the digest committed), RESET (after each reset: the
+digest the restore left, before the sync), ENTER (each entry of the
+training function: the digest after the sync and `state_digest`, that
+of the model's whole state_dict and the optimizer's state, the process
+id, the elastic generation and whether the worker joined a running
+job), EPOCH
+(whether the ranks processed every index of the epoch exactly once) and
+SUMMARY (with the hits of `collective.allreduce` when a fault spec
+names it).
 
     python -m horovod_tpu_torch.elastic_resnet --epochs 2 \\
         --batches-per-epoch 4 --commit-every 2 --log-steps
 Multi-process: HOROVOD_COORDINATOR_ADDR, HOROVOD_NUM_PROCESSES and
-HOROVOD_PROCESS_ID per rank, as for the synthetic benchmark.
+HOROVOD_PROCESS_ID per rank, as for the synthetic benchmark; or under
+the elastic driver, which sets them for each generation:
+
+    horovodrun_tpu_torch --host-discovery-script ./hosts.sh --min-np 1 \\
+        --max-np 2 python -m horovod_tpu_torch.elastic_resnet
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import sys
 import time
 
@@ -44,6 +57,7 @@ import torch.nn.functional as F
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import faults
 from horovod_tpu_torch.models import ResNet
+from horovod_tpu_torch.runner import elastic_worker
 from horovod_tpu_torch.synthetic_benchmark import param_digest
 
 SEED = 0  # of the synthetic images and the sampler's shuffle
@@ -59,6 +73,20 @@ def synthetic_batch(indices, image_size: int, num_classes: int,
         xs.append(torch.rand((3, image_size, image_size), generator=g))
         ys.append(int(torch.randint(0, num_classes, (1,), generator=g)))
     return torch.stack(xs), torch.tensor(ys)
+
+
+def state_digest(model: torch.nn.Module, opt) -> str:
+    """SHA-256 of what a sync carries: every entry of the model's
+    state_dict (parameters and batch-norm buffers) and the optimizer's
+    state tensors, in parameter-index order."""
+    h = hashlib.sha256()
+    tensors = list(model.state_dict().values())
+    sd = opt.state_dict()["state"]
+    tensors += [v for i in sorted(sd) for _, v in sorted(sd[i].items())
+                if isinstance(v, torch.Tensor)]
+    for t in tensors:
+        h.update(t.detach().cpu().clone().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _pending_start(sampler, batch_size: int) -> int:
@@ -101,8 +129,12 @@ def main(argv=None) -> int:
         torch.optim.SGD(model.parameters(), lr=0.01 * hvd.size(),
                         momentum=0.9),
         named_parameters=model.named_parameters())
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    # A worker joining a running job takes its state in the sync that
+    # `hvd.elastic.run` starts with, beside the ranks' reset.
+    joining = elastic_worker.is_joining_worker()
+    if not joining:
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
 
     bs = args.batch_size
     sampler = hvd.elastic.ElasticSampler(
@@ -127,11 +159,13 @@ def main(argv=None) -> int:
     @hvd.elastic.run
     def train(state):
         emit("ENTER", resets=len(state.reset_seconds), epoch=state.epoch,
-             batch=state.batch_idx, digest=param_digest(model))
+             batch=state.batch_idx, digest=param_digest(model),
+             state_digest=state_digest(model, opt), pid=os.getpid(),
+             gen=elastic_worker._known_gen, joining=joining)
         while state.epoch < args.epochs:
             smp = state.sampler
             rel = _pending_start(smp, bs)
-            while state.batch_idx < args.batches_per_epoch:
+            while (rel + 1) * bs <= len(smp.local_indices):
                 t0 = time.perf_counter()
                 idx = smp.local_indices[rel * bs:(rel + 1) * bs]
                 x, y = synthetic_batch(idx, args.image_size,
@@ -156,7 +190,9 @@ def main(argv=None) -> int:
                     emit("STEP", step=step, epoch=state.epoch,
                          batch=state.batch_idx - 1, loss=lv,
                          digest=param_digest(model),
-                         resets=len(state.reset_seconds))
+                         resets=len(state.reset_seconds),
+                         size=hvd.size(), train_ms=(t2 - t1) * 1e3,
+                         wall=time.time())
                     parts["digest"].append((time.perf_counter() - t2) * 1e3)
                 if step == args.notify_at_step and not stats["notified"]:
                     stats["notified"] = True

@@ -14,11 +14,13 @@ its eager collectives (`ops/collectives.py`), `state.commit` in
 `utils/checkpoint.py`, and `guard.nan_grad` and `guard.param_bitflip` in
 `guard.TrainingGuard.maybe_inject` (which turns their `err` into a NaN
 batch or a flipped parameter bit), the `rendezvous.*` points in the
-rendezvous client (`runner/rendezvous.py`) and `worker.heartbeat` in
-`runner/elastic_worker.publish_heartbeat`.  `CATALOG` is the JAX
-package's whole catalog, so a spec valid there is valid here; the
-points of modules not ported yet (the elastic driver and
-`worker.refresh`, serving replicas, resharding) never fire.  An ``exit`` fault runs the hooks of
+rendezvous client (`runner/rendezvous.py`), `worker.heartbeat` in
+`runner/elastic_worker.publish_heartbeat`, `worker.refresh` in
+`runner/elastic_worker.refresh_from_control_plane`, and
+`elastic.publish` and `elastic.spawn` in the elastic driver
+(`runner/elastic/driver.py`).  `CATALOG` is the JAX package's whole
+catalog, so a spec valid there is valid here; the points of modules not
+ported yet (serving replicas, resharding) never fire.  An ``exit`` fault runs the hooks of
 `register_exit_hook` first (the serving flight recorder's dump).  Every
 injection is counted into `hvd_fault_injections_total{point,mode}`, as
 in the JAX package, and `injections()` returns the armed schedule's

@@ -12,14 +12,17 @@ Reference parity map (SURVEY.md §2.5, §3.1):
   - horovod/runner/http/http_server.py (RendezvousServer KV)
       → `rendezvous.py` (TCP KV store, the JAX package's wire protocol)
   - horovod/runner/gloo_run.py                 → `exec_run.py`
-  - horovod/ray/runner.py (RayExecutor)        → `executor.py`
+  - horovod/ray/runner.py (RayExecutor, ElasticRayExecutor)
+      → `executor.py` (`Executor`, `ElasticExecutor`)
+  - horovod/runner/elastic/ (discovery, registration, driver)
+      → `elastic/`; horovod/runner/elastic/worker.py → `elastic_worker.py`
 
 One worker process per slot, one GPU per process: each worker's
 `hvd.init()` bootstraps its process group over rank 0's c10d TCPStore
 (HOROVOD_COORDINATOR_ADDR), and the KV rendezvous store carries the rest
 of the control plane (results, commands, the consistency check, the
-metrics fleet, heartbeats).  The elastic path (runner/elastic/) is not
-ported yet.
+metrics fleet, heartbeats) and, in elastic jobs
+(--host-discovery-script), the driver's numbered generations.
 """
 
 from .api import run  # noqa: F401

@@ -11,19 +11,20 @@ through the rendezvous KV store before the server shuts down.
 from __future__ import annotations
 
 import base64
+import contextlib
+import inspect
 import logging
 import os
 import pickle
 import sys
 import tempfile
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 logger = logging.getLogger("horovod_tpu_torch.runner")
 
 from ..common.exceptions import HorovodTpuError
 from . import hosts as hosts_mod
 from .exec_run import exec_run
-from .launch import ELASTIC_UNAVAILABLE
 from .settings import Settings
 
 _WORKER_SNIPPET = """\
@@ -42,6 +43,47 @@ client = RendezvousClient(
 client.put("runfunc/result/" + os.environ["HOROVOD_RANK"],
            base64.b64encode(pickle.dumps(result)).decode())
 """
+
+
+@contextlib.contextmanager
+def shipped_call(func: Callable, args: tuple, kwargs: Optional[dict],
+                 extra_env: Optional[dict] = None):
+    """The call the workers run, shipped as `run()` and the
+    `ElasticExecutor` ship it: `(func, args, kwargs)` pickled into a
+    file.  Yields the workers' env (`extra_env`, the file as
+    HVD_TPU_RUN_FUNC_FILE and the directory of `func`'s module as
+    HVD_TPU_RUN_FUNC_PATH: pickle names `func` by its module) and their
+    command (`_WORKER_SNIPPET`, which puts the result on the KV); the
+    file is removed on exit."""
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
+        pickle.dump((func, args, kwargs or {}), f)
+        func_file = f.name
+    env = dict(extra_env or {})
+    env["HVD_TPU_RUN_FUNC_FILE"] = func_file
+    try:
+        env["HVD_TPU_RUN_FUNC_PATH"] = os.path.dirname(
+            os.path.abspath(inspect.getfile(func)))
+    except TypeError:
+        pass
+    try:
+        yield env, [sys.executable, "-c", _WORKER_SNIPPET]
+    finally:
+        try:
+            os.unlink(func_file)
+        except OSError:
+            pass
+
+
+def call_results(kv) -> Dict[int, Any]:
+    """The results the workers of a shipped call put on the KV
+    (`runfunc/result/{rank}`), by rank."""
+    out = {}
+    for key in kv.keys("runfunc/result/"):
+        raw = kv.get(key)
+        if raw is not None:
+            out[int(key.rsplit("/", 1)[1])] = pickle.loads(
+                base64.b64decode(raw))
+    return out
 
 
 def run(
@@ -70,8 +112,9 @@ def run(
     `use_gloo`/`use_mpi` are drop-in no-ops since each worker's
     `hvd.init()` picks NCCL or gloo itself).
 
-    `host_discovery_script` (+ min_np/max_np/slots) is the elastic route,
-    which needs the elastic driver: it raises until that is ported.
+    `host_discovery_script` (+ min_np/max_np/slots) routes through the
+    elastic driver (`ElasticExecutor`), mirroring the reference's elastic
+    run() path; the result list then holds the surviving ranks'.
 
     `start_timeout` bounds elastic host discovery; static worker startup is
     bounded by the process group's own bootstrap timeout.  With remote
@@ -89,7 +132,16 @@ def run(
     if hosts and hostfile:
         raise ValueError("pass either hosts or hostfile, not both")
     if host_discovery_script:
-        raise HorovodTpuError(ELASTIC_UNAVAILABLE)
+        from .executor import ElasticExecutor
+
+        ex = ElasticExecutor(
+            host_discovery_script, min_np=min_np or np, max_np=max_np,
+            slots=slots or 1, verbose=verbose, extra_env=extra_env,
+            start_timeout=start_timeout, ssh_port=ssh_port,
+            ssh_identity_file=ssh_identity_file,
+            network_interfaces=network_interfaces,
+            output_filename=output_filename)
+        return ex.run(func, args, kwargs)
     if slots is not None:
         logger.warning("run(): `slots` only applies with "
                        "host_discovery_script; ignored for static hosts")
@@ -107,46 +159,21 @@ def run(
             " and repo to be on a shared filesystem visible to all hosts")
     assignments = hosts_mod.get_host_assignments(host_list, np)
 
-    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
-        pickle.dump((func, args, kwargs or {}), f)
-        func_file = f.name
-    env = dict(extra_env or {})
-    env["HVD_TPU_RUN_FUNC_FILE"] = func_file
-    # Pickle serializes `func` by module reference; make its defining
-    # module importable in the workers (reference ships the function over
-    # the task service instead).
-    try:
-        import inspect
-        env["HVD_TPU_RUN_FUNC_PATH"] = os.path.dirname(
-            os.path.abspath(inspect.getfile(func)))
-    except TypeError:
-        pass
-
-    settings = Settings(
-        num_proc=np, hosts=host_list, verbose=verbose, extra_env=env,
-        start_timeout=start_timeout,
-        ssh_port=ssh_port, ssh_identity_file=ssh_identity_file,
-        nics=network_interfaces, output_filename=output_filename,
-        command=[sys.executable, "-c", _WORKER_SNIPPET],
-    )
-
-    results: List[Any] = [None] * np
-    missing: List[int] = []
-
-    def collect(server):
-        for r in range(np):
-            val = server.kv().get(f"runfunc/result/{r}")
-            if val is None:
-                missing.append(r)
-            else:
-                results[r] = pickle.loads(base64.b64decode(val))
-
-    try:
-        rc = exec_run(settings, assignments, result_hook=collect)
-    finally:
-        os.unlink(func_file)
+    got: Dict[int, Any] = {}
+    with shipped_call(func, args, kwargs, extra_env) as (env, command):
+        settings = Settings(
+            num_proc=np, hosts=host_list, verbose=verbose, extra_env=env,
+            start_timeout=start_timeout,
+            ssh_port=ssh_port, ssh_identity_file=ssh_identity_file,
+            nics=network_interfaces, output_filename=output_filename,
+            command=command,
+        )
+        rc = exec_run(settings, assignments,
+                      result_hook=lambda server: got.update(
+                          call_results(server.kv())))
     if rc != 0:
         raise HorovodTpuError(f"run() workers failed with exit code {rc}")
+    missing = [r for r in range(np) if r not in got]
     if missing:
         raise HorovodTpuError(f"run(): no result from ranks {missing}")
-    return results
+    return [got[r] for r in range(np)]

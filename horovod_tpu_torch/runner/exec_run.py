@@ -38,7 +38,14 @@ DEFAULT_COORDINATOR_PORT = 46327
 
 
 def _is_local(hostname: str) -> bool:
-    return hostname in LOCAL_HOSTNAMES
+    if hostname in LOCAL_HOSTNAMES:
+        return True
+    # Fake-cluster hook (the reference's localhost pattern, SURVEY.md §4,
+    # and the JAX package's): hostnames listed here exec locally instead
+    # of over ssh, so elastic jobs can add, fail and blacklist "hosts" on
+    # one machine.
+    fake = os.environ.get("HVD_TPU_FAKE_LOCAL_HOSTS")
+    return bool(fake) and hostname in fake.split(",")
 
 
 def slot_env(

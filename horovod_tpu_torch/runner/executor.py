@@ -1,7 +1,8 @@
 """Programmatic multi-worker executor (counterpart of
 `horovod_tpu/runner/executor.py`; reference: horovod/ray/runner.py
 `RayExecutor` — start a persistent worker pool, run functions on every
-worker repeatedly, tear the pool down).
+worker repeatedly, tear the pool down; `ElasticExecutor` for the
+discovery-driven variant, reference ElasticRayExecutor).
 
 The workers are ordinary launched processes (local fork or SSH — the
 same exec plumbing as `horovodrun_tpu_torch`) running a small command
@@ -30,7 +31,6 @@ from ..common.exceptions import HorovodTpuError
 from . import hosts as hosts_mod
 from . import safe_exec
 from .exec_run import _free_port, _is_local, build_command, slot_env
-from .launch import ELASTIC_UNAVAILABLE
 from .rendezvous import RendezvousServer
 from .settings import Settings
 
@@ -294,12 +294,72 @@ class Executor:
 
 
 class ElasticExecutor:
-    """Discovery-driven variant (reference: ElasticRayExecutor).  It
-    wraps the elastic driver, which the port does not have yet, and
-    refuses until then with the launcher's error."""
+    """Discovery-driven variant (reference: ElasticRayExecutor).
 
-    def __init__(self, *args, **kwargs):
-        raise HorovodTpuError(ELASTIC_UNAVAILABLE)
+    Wraps the elastic driver (`runner/elastic/driver.py`): workers are
+    (re)spawned per the discovery script within [min_np, max_np]; `run`
+    ships a pickled function exactly like `horovod_tpu_torch.runner.api.run`
+    and returns the surviving ranks' results.
+    """
+
+    def __init__(self, discovery_script, min_np: int = 1,
+                 max_np: Optional[int] = None, slots: int = 1,
+                 verbose: int = 0, extra_env: Optional[dict] = None,
+                 start_timeout: float = 120.0,
+                 ssh_port: Optional[int] = None,
+                 ssh_identity_file: Optional[str] = None,
+                 network_interfaces: Optional[str] = None,
+                 output_filename: Optional[str] = None,
+                 transport=None):
+        # `discovery_script` is a path (reference CLI surface) or a
+        # HostDiscovery instance (programmatic backends).
+        from .elastic.discovery import HostDiscovery
+        self._discovery = (discovery_script
+                           if isinstance(discovery_script, HostDiscovery)
+                           else None)
+        self._script = None if self._discovery else discovery_script
+        self._transport = transport
+        self._min_np = min_np
+        self._max_np = max_np
+        self._slots = slots
+        self._verbose = verbose
+        self._extra_env = dict(extra_env or {})
+        self._start_timeout = start_timeout
+        self._ssh_port = ssh_port
+        self._ssh_identity_file = ssh_identity_file
+        self._nics = network_interfaces
+        self._output_filename = output_filename
+
+    def run(self, fn: Callable, args: tuple = (),
+            kwargs: Optional[dict] = None) -> List[Any]:
+        from .api import call_results, shipped_call
+        from .elastic.driver import elastic_run
+
+        got: dict = {}
+        with shipped_call(fn, args, kwargs, self._extra_env) as (env,
+                                                                  command):
+            settings = Settings(
+                num_proc=self._min_np,
+                min_np=self._min_np, max_np=self._max_np,
+                host_discovery_script=self._script,
+                slots_per_host=self._slots,
+                elastic=True, verbose=self._verbose, extra_env=env,
+                start_timeout=self._start_timeout,
+                ssh_port=self._ssh_port,
+                ssh_identity_file=self._ssh_identity_file,
+                nics=self._nics, output_filename=self._output_filename,
+                command=command,
+            )
+            rc = elastic_run(settings,
+                             result_hook=lambda server: got.update(
+                                 call_results(server.kv())),
+                             discovery=self._discovery,
+                             transport=self._transport)
+        if rc != 0:
+            raise HorovodTpuError(
+                f"ElasticExecutor run failed with exit code {rc}")
+        # In rank order: the ranks of the last generation that put one.
+        return [got[r] for r in sorted(got)]
 
 
 __all__ = ["Executor", "ElasticExecutor"]

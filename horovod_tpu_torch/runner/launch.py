@@ -7,12 +7,13 @@ Flag surface mirrors the reference's `parse_args` (SURVEY.md §2.5): -np,
 --min-np/--max-np/--host-discovery-script/--slots, --check-build,
 --log-level, --verbose, --output-filename.  The --gloo/--mpi backend
 selectors are accepted-and-ignored for drop-in compatibility: each
-worker's `hvd.init()` picks NCCL or gloo itself.  The elastic route
-(--host-discovery-script) needs the elastic driver, which the port does
-not have yet, and refuses.
+worker's `hvd.init()` picks NCCL or gloo itself.  --host-discovery-script
+routes through the elastic driver (`runner/elastic/driver.py`).
 
 Usage:  horovodrun_tpu_torch -np 4 -H a:2,b:2 python train.py
         python -m horovod_tpu_torch.runner -np 2 python train.py
+        horovodrun_tpu_torch --host-discovery-script ./hosts.sh \
+            --min-np 1 --max-np 4 python train.py
 """
 
 from __future__ import annotations
@@ -28,11 +29,6 @@ from . import hosts as hosts_mod
 from .settings import Settings
 
 logger = logging.getLogger("horovod_tpu_torch.runner")
-
-# The JAX package's error for a missing elastic driver.
-ELASTIC_UNAVAILABLE = (
-    "elastic launcher unavailable: horovod_tpu_torch.runner.elastic (the "
-    "elastic driver behind --host-discovery-script) is not ported yet")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -117,9 +113,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def check_build() -> str:
     """Reference: `horovodrun --check-build` output shape.  Reads the
-    build flags of torch.distributed and of the port's CUDA sources;
-    builds nothing and initializes no CUDA."""
-    from .. import _build
+    build flags of torch.distributed and of the port's CUDA sources, and
+    loads the native control plane (building it with g++ when it is not
+    built yet: [X] means it serves); initializes no CUDA."""
+    from .. import _build, _native
     from ..common import basics
 
     def mark(ok: bool) -> str:
@@ -139,7 +136,7 @@ def check_build() -> str:
         "    [X] rendezvous KV (control plane)",
         "",
         "Available features:",
-        "    [ ] elastic launcher",
+        "    [X] elastic",
         "    [X] adasum",
         "    [X] process sets",
         "    [X] timeline",
@@ -147,7 +144,8 @@ def check_build() -> str:
         "    [X] quantized wire (int8/fp8 ring)",
         f"    [{mark(_build.available())}] CUDA kernels (adasum, flash "
         "attention, tiled matmul)",
-        "    [ ] native control plane (C++)",
+        f"    [{mark(_native.load() is not None)}] native control plane "
+        "(C++)",
     ]
     return "\n".join(lines)
 
@@ -214,7 +212,8 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
 
     try:
         if settings.elastic:
-            raise HorovodTpuError(ELASTIC_UNAVAILABLE)
+            from .elastic.driver import elastic_run
+            return elastic_run(settings)
         # Inside an LSF batch job with no explicit hosts, the scheduler's
         # allocation IS the host list (reference: launch.py auto-detects
         # LSF and routes through js_run).

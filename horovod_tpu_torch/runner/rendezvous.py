@@ -16,10 +16,10 @@ Wire protocol (one request per line, newline-terminated):
 payload = JSON {"op": PUT|GET|WAIT|DEL|KEYS|BARRIER|LEASE|PING|SHUTDOWN,
 ...}.  Responses use the same envelope.  It is byte for byte the JAX
 package's, so a client of either package talks to a server of the
-other.  `RendezvousServer(prefer_native=True)` looks for the C++ engine
-(`horovod_tpu_torch._native`, not ported yet) and, not finding it, runs
-the threaded Python server, as the JAX package does when its engine is
-not built.
+other.  `RendezvousServer(prefer_native=True)` serves with the C++
+engine (`horovod_tpu_torch._native`, built with g++ at first use) and,
+where it cannot be built or loaded, runs the threaded Python server, as
+the JAX package does.
 """
 
 from __future__ import annotations

@@ -49,7 +49,7 @@ class Settings:
     reset_limit: Optional[int] = None
 
     # Fault tolerance (None = resolve from HOROVOD_* env; read by the
-    # elastic driver, which the port does not have yet).
+    # elastic driver).
     lease_ttl: Optional[float] = None          # heartbeat lease TTL (s)
     lease_start_grace: Optional[float] = None  # silence allowed post-spawn
     blacklist_threshold: Optional[int] = None  # strikes before blacklist

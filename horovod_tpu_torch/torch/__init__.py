@@ -436,17 +436,53 @@ def broadcast_parameters(params, root_rank: int = 0) -> None:
                        root_rank)
 
 
+def _create_optimizer_state(optimizer) -> None:
+    """Give a fresh optimizer its state, as upstream's
+    `broadcast_optimizer_state` does: one step of the wrapped
+    optimizer (not the distributed step, which would allreduce) on zero
+    gradients, with the parameters and gradients put back after it (a
+    weight decay would move them)."""
+    inner = getattr(optimizer, "_opt", optimizer)
+    kept = []
+    with torch.no_grad():
+        for group in inner.param_groups:
+            for p in group["params"]:
+                if p.requires_grad:
+                    kept.append((p, p.grad, p.detach().clone()))
+                    p.grad = torch.zeros_like(p)
+        inner.step()
+        for p, grad, data in kept:
+            p.copy_(data)
+            p.grad = grad
+
+
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               root_rank: int = 0) -> None:
     """Broadcast optimizer state tensors and hyperparameters from root
-    (reference: broadcast_optimizer_state's state_dict walk)."""
+    (reference: broadcast_optimizer_state's state_dict walk).  Every
+    rank takes root's state: a rank with none where root has some (a
+    worker that joined a running elastic job) creates it first
+    (`_create_optimizer_state`), and a rank with some where root has
+    none drops it, so that every rank broadcasts the same tensors, in
+    the order of their parameter index and name."""
     sd = optimizer.state_dict()
-    _broadcast_inplace([v for st in sd.get("state", {}).values()
-                        for v in st.values() if isinstance(v, torch.Tensor)],
-                       root_rank)
     hyper = [{k: v for k, v in g.items() if k != "params"}
              for g in sd.get("param_groups", [])]
-    synced = broadcast_object(hyper, root_rank=root_rank)
+    n_root, synced = broadcast_object((len(sd["state"]), hyper),
+                                      root_rank=root_rank)
+    if len(sd["state"]) != n_root:
+        if n_root == 0:
+            getattr(optimizer, "_opt", optimizer).state.clear()
+        elif not sd["state"]:
+            _create_optimizer_state(optimizer)
+        else:
+            raise HorovodTpuError(
+                f"optimizer state of {len(sd['state'])} parameters here "
+                f"and {n_root} on root rank {root_rank}: cannot broadcast")
+        sd = optimizer.state_dict()
+    _broadcast_inplace([v for i in sorted(sd["state"])
+                        for _, v in sorted(sd["state"][i].items())
+                        if isinstance(v, torch.Tensor)], root_rank)
     for g, h in zip(optimizer.param_groups, synced):
         g.update(h)
 

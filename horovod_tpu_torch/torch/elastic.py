@@ -22,6 +22,7 @@ from ..elastic import (  # noqa: F401  (the hvd.elastic surface)
     ElasticSampler,
     ObjectState,
     State,
+    _sync_root,
     notify_hosts_updated,
     run,
 )
@@ -47,11 +48,14 @@ class TorchState(ObjectState):
 
     `save` copies `model.state_dict()` (buffers included: batch-norm
     statistics) and `optimizer.state_dict()` to host memory; `restore`
-    loads them back in place; `sync` broadcasts them from rank 0.  An
-    `ElasticSampler` among the scalars is kept in place: its epoch and
-    indices are saved and restored, and `sync` takes the union of every
-    rank's processed indices and shards the rest again
-    (`ElasticSampler.reset`) instead of taking rank 0's.
+    loads them back in place; `sync` broadcasts them from rank 0, or
+    under the driver from the lowest rank that holds the job's state
+    (`elastic._sync_root`).  An `ElasticSampler` among the scalars is
+    kept in place: its epoch and indices are saved and restored, and
+    `sync` takes the root's epoch and length (a worker that joined a
+    running job has neither), then the
+    union of every rank's processed indices, and shards the rest again
+    (`ElasticSampler.reset`), as upstream's sampler handler does.
 
     `on_reset` also drops the `DistributedOptimizer` wrapper's state of
     the failed step (`reset_step_state`): its open bucket, the handles
@@ -107,13 +111,20 @@ class TorchState(ObjectState):
         super().on_reset()
 
     def sync(self) -> None:
+        root = _sync_root(self.holds_state)
         if self.model is not None:
-            broadcast_parameters(self.model.state_dict(), root_rank=0)
+            broadcast_parameters(self.model.state_dict(), root_rank=root)
         if self.optimizer is not None:
-            broadcast_optimizer_state(self.optimizer, root_rank=0)
-        for k in self._samplers:
-            getattr(self, k).reset()
-        self._sync_scalars(self._scalars())
+            broadcast_optimizer_state(self.optimizer, root_rank=root)
+        if self._samplers:
+            samplers = [getattr(self, k) for k in self._samplers]
+            roots = broadcast_object([(s.epoch, s.num_samples)
+                                      for s in samplers], root_rank=root)
+            for s, (epoch, num_samples) in zip(samplers, roots):
+                s.epoch, s.num_samples = epoch, num_samples
+                s.reset()
+        self._sync_scalars(self._scalars(), root)
+        self.holds_state = True
         self.save()
 
 

@@ -5,8 +5,10 @@ horovod/common/timeline.cc): `HOROVOD_TIMELINE=/path.json` starts it at
 `hvd.init()` (`init_from_env`; `hvd.shutdown()` stops it),
 `HOROVOD_TIMELINE_MARK_CYCLES=1` marks step cycles.  Events go to an
 in-memory queue on the hot path (no IO) and a writer thread drains it to
-a Chrome ``chrome://tracing`` JSON array.  The port has the Python
-writer only (the JAX package's native C++ writer waits for `_native/`).
+a Chrome ``chrome://tracing`` JSON array: the native C++ writer of
+`_native/` when its library is built (it is never built inside
+`hvd.init()`), else a Python thread; HOROVOD_TIMELINE_DISABLE_NATIVE=1
+keeps the Python one.  Both write the same events.
 Its callers: every eager collective (`ops/collectives.py _traced`: one
 ``KIND:name`` activity), the optimizers' step boundary (a cycle mark
 and a ``step`` span a step, `parallel/data_parallel.py record_step`;
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import logging
 import os
 import queue
 import threading
@@ -28,6 +31,9 @@ import time
 from typing import Optional
 
 from ..common import util
+
+logger = logging.getLogger("horovod_tpu_torch.timeline")
+
 
 class _TimelineWriter:
     """Background thread draining event records to a Chrome-trace JSON file.
@@ -88,6 +94,59 @@ class _TimelineWriter:
             self._thread.join(timeout=5)
 
 
+class _NativeWriterAdapter:
+    """Routes records into the C++ buffered writer thread
+    (`_native/`: TimelineWriter, reference timeline.cc)."""
+
+    def __init__(self, filename: str):
+        from .._native import load
+        from .._native.control_plane import NativeTimelineWriter
+        # Only a built library: this runs inside hvd.init() and must not
+        # start a synchronous g++ build.
+        if load(build_if_missing=False) is None:
+            raise RuntimeError("native library not built")
+        self.filename = filename
+        self._w = NativeTimelineWriter(filename)
+
+    # Chrome-trace keys the native writer's fixed parameter list covers.
+    _KNOWN = frozenset(("name", "cat", "ph", "ts", "dur", "pid", "tid",
+                        "s", "args"))
+
+    def enqueue(self, record: dict) -> None:
+        args = record.get("args")
+        # Other keys ("step", "id" pairing async/flow events) travel as
+        # top-level keys through extra_json, as the Python writer keeps
+        # them.
+        extra = {k: v for k, v in record.items() if k not in self._KNOWN}
+        self._w.event(
+            name=str(record.get("name", "")),
+            cat=str(record.get("cat", "")),
+            ph=str(record.get("ph", "i")),
+            ts_us=float(record.get("ts", 0.0)),
+            dur_us=float(record.get("dur", -1.0)),
+            pid=int(record.get("pid", 0)),
+            tid=str(record.get("tid", "")),
+            scope=str(record.get("s", "")),
+            args_json=json.dumps(args, default=str) if args else "",
+            extra_json=(json.dumps(extra, default=str)[1:-1]
+                        if extra else ""),
+        )
+
+    def close(self) -> None:
+        self._w.close()
+
+
+def _make_writer(filename: str):
+    """The native C++ writer when it is built, else the Python thread."""
+    if not util.env_bool("TIMELINE_DISABLE_NATIVE", False):
+        try:
+            return _NativeWriterAdapter(filename)
+        except Exception as e:  # noqa: BLE001 — native engine optional
+            logger.debug("native timeline writer unavailable (%s); "
+                         "using the Python writer", e)
+    return _TimelineWriter(filename)
+
+
 class Timeline:
     """Per-process timeline of control-plane activities.
 
@@ -98,7 +157,7 @@ class Timeline:
 
     def __init__(self, filename: str, rank: int = 0,
                  mark_cycles: bool = False):
-        self._writer = _TimelineWriter(filename)
+        self._writer = _make_writer(filename)
         self._rank = rank
         self._mark_cycles = mark_cycles
         # token -> (tensor_name, activity, start_us); tokens are unique per

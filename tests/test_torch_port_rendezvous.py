@@ -316,7 +316,10 @@ def test_a_broken_launcher_env_leaves_init_and_the_watchdog_running(
         hvd.shutdown()
 
 
-def test_prefer_native_finds_no_engine_and_serves_in_python():
+def test_prefer_native_finds_no_engine_and_serves_in_python(monkeypatch):
+    # A host without a compiler: the native library cannot be had.
+    from horovod_tpu_torch._native import control_plane
+    monkeypatch.setattr(control_plane, "load", lambda **_: None)
     server = PR.RendezvousServer()
     port = server.start()
     try:

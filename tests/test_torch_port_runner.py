@@ -467,7 +467,10 @@ def test_check_build_output_shape():
     assert mark["CUDA"] == ("X" if basics.cuda_built() else " ")
     assert mark["gloo (CPU, ranks sharing a card)"] == "X"
     assert mark["torch.distributed (c10d TCPStore)"] == "X"
-    assert mark["native control plane (C++)"] == " "
+    from horovod_tpu_torch import _native
+    assert mark["elastic"] == "X"
+    assert mark["native control plane (C++)"] == \
+        ("X" if _native.load() is not None else " ")
     from horovod_tpu_torch import _build
     assert mark["CUDA kernels (adasum, flash attention, tiled matmul)"] == \
         ("X" if _build.available() else " ")
@@ -477,18 +480,9 @@ def test_check_build_output_shape():
         [ln for ln in jl if ln.endswith(":")][1:]
 
 
-def test_the_elastic_route_and_the_usage_errors_refuse(capsys):
+def test_the_usage_errors_refuse(capsys):
     from horovod_tpu_torch.runner import run
-    from horovod_tpu_torch.runner.executor import ElasticExecutor
 
-    assert PL.run_commandline(["--host-discovery-script", "d.sh",
-                               "python", "x.py"]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("Error: elastic launcher unavailable")
-    with pytest.raises(PErr, match="elastic launcher unavailable"):
-        run(len, np=2, host_discovery_script="d.sh")
-    with pytest.raises(PErr, match="elastic launcher unavailable"):
-        ElasticExecutor("d.sh")
     with pytest.raises(ValueError, match="conflict"):
         run(len, np=2, hosts="a:2", host_discovery_script="d.sh")
     with pytest.raises(ValueError, match="either hosts or hostfile"):
