@@ -454,6 +454,42 @@ Phases, each printing its own lines:
                  sizes 1, 2 and 1, beside the card's name and power
                  limit; one JSON line `{"elastic_driver": ...}`; the
                  phase must end within ELASTIC_DRIVER_BUDGET_S.
+25. reshard_chaos  main path 15, after phase 24: live resharding
+                 (parallel/reshard.py), elastic ZeRO
+                 (`hvd.elastic.ShardedTorchState`) and the chaos soak
+                 (faults/chaos.py), in one launch of two ranks sharing
+                 the card over gloo under the port's launcher, whose KV
+                 is the reshard transport (`reshard_rank`): the default
+                 TransformerConfig at T = 16384, AdamW at stage 3 under
+                 ZERO3_ENV, RESHARD_STEPS steps, then (a) a shrink 2->1
+                 of every stream (parameter rows, exp_avg, exp_avg_sq,
+                 the scalars) in chunks under HOROVOD_RESHARD_PEAK_BYTES,
+                 bitwise the local restack, the measured staging peak
+                 under the ceiling (a host in both worlds keeps its own
+                 rows: only the others' travel); (b)
+                 a grow 1->2, bitwise the original streams, and one more
+                 step from the round-tripped state in a rebuilt optimizer
+                 bitwise (loss and SHA-256) the same step from the
+                 original; (d) `reshard.peer_die` on rank 1: both
+                 ranks' sync takes the restore path (every rank's
+                 committed shards), digest gate clean;
+                 a corrupt chunk refused; (e) the chaos soak at np=2,
+                 seed 7, 5 generations x 4 steps, its tensors on the
+                 card, at JAX's settings (its reactions the policy's on
+                 its windows' skew shares) and again with the degrade
+                 branch off (JAX's rebalance), held to the JAX soak's
+                 invariants; (f) rank 0 alone: a crash shrink to one
+                 rank through the restore path (the checkpoint) into an
+                 optimizer and placement built at n=1, bitwise (a)'s
+                 streams, and a step there; (c) ShardedTorchState's
+                 publish at that world of one and both ranks' sync in a
+                 new world of two on the live path (bytes moved, the
+                 optimizer and placement rebuilt at n=2, the digest
+                 gate), bitwise the original streams.  K4-K6 launched on
+                 the tensor cores on every rank.  Prints the shrink, grow, sync and restore
+                 times, bytes, chunks and peaks, each soak event's
+                 outcome and MTTR; the phase must end within
+                 RESHARD_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -469,7 +505,10 @@ prefill shape and phase 18 (with their own builds of the flash sources).
 `python3 chip_smoke.py --guard` runs only phase 19 (with the builds of the
 sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
 `--trace` only phase 22; `--launcher` only phase 23; `--elastic` only
-phase 24.
+phase 24. `python3 chip_smoke.py --phases GROUP...` runs the named groups
+of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25) after
+every build, and the whole run and it print `PHASE_TIME <group> <s>`
+after each group.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -484,6 +523,20 @@ Jobs that run side by side on the card (`concurrently`: phases 10 and
 or idle share (`launch(shared=True)`), since each shares the card and
 the host with another.
 
+Process starts, not steps, take most of a short run's time, so runs of
+the same rank count share their processes (`launch_folded`: each run in
+turn, `module.main(args)` with its own environment and its own process
+group): phases 4 and 12 in one pair; the one-rank runs of phases 5, 7,
+9, 19 (a) and bench_np1 in one process; phases 6 and 8 in one pair under
+the launcher; phase 11's two runs in one pair; phase 13's one-rank runs
+in one process; bench_np2 and phase 16's int8 run in one pair; phase
+16's int4 run and (c), and its fp8 run and (d), in two pairs side by
+side; phase 17's ring and tp runs, and its Ulysses and ep runs, in two
+pairs side by side, then pp; phase 20's (a) and (b) in one set of four.
+Each phase checks and prints its runs where it did; a folded run's
+memory figures include what its process still held when it began (its
+log says how much).
+
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
 zoo deltas, with their launches on main path 5, and their launches on
 main path 1 net of the ladder check's tree; K3 with its launches on
@@ -496,7 +549,8 @@ rank as `guard_launches` (the ladder) and `guard_zero3_launches`, and on
 main path 11 per rank as `hier_launches` and `hier_zero3_launches`, and
 on main path 12 as `runtime_launches` (the rank's eager steps, warm-ups
 and captures) and `runtime_replay_launches` (one replay's, read from its
-trace), and on main path 13 per rank as `trace_launches`, K3's
+trace), and on main path 13 per rank as `trace_launches`, and on main
+path 15 per rank as `reshard_launches`, K3's
 on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
@@ -1413,6 +1467,97 @@ def concurrently(fns, workers: int = 2) -> list:
         return [f.result() for f in futures]
 
 
+FOLD_ENV = "HVD_SMOKE_FOLD"
+
+
+def fold_rank() -> int:
+    """A rank that runs several trainer runs in turn in one process (`python
+    -m chip_smoke --fold-rank`): FOLD_ENV holds a JSON list of [module,
+    args, env]; each runs as `module.main(args)` (chip_smoke's own `main`
+    with `args` as its argv) with `env` added ("{rank}" in a value is this
+    rank), after a `FOLD <i>` line, the
+    card's cache emptied and its peak-memory count reset before it.  Each
+    `main` initializes the runtime and shuts it down, so every run gets a
+    process group of its own on the same coordinator (its next
+    generation), as a new process would."""
+    import importlib
+
+    import torch
+
+    from horovod_tpu_torch import faults
+
+    rank = os.environ.get("HOROVOD_PROCESS_ID",
+                          os.environ.get("HOROVOD_RANK", "0"))
+    argv = sys.argv
+    for i, (module, args, env) in enumerate(json.loads(os.environ[FOLD_ENV])):
+        env = {k: v.replace("{rank}", rank) for k, v in env.items()}
+        print(f"FOLD {i}", flush=True)
+        gc.collect()  # the last run's tensors, before the cache is emptied
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            # cuBLAS's workspaces live in the caching allocator too.
+            getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # What the process still holds from the runs before: the
+            # run's memory figures include it (`launch_folded` logs it).
+            print(f"FOLD_HELD {torch.cuda.memory_allocated()}", flush=True)
+        # A run reads HOROVOD_FAULT_SPEC at its first fault point, as a
+        # new process would.
+        faults._env_loaded = False
+        sys.argv = [module, *args]
+        main = importlib.import_module(module).main
+        try:  # chip_smoke's own main reads its mode from sys.argv
+            rc = _with_env(env, lambda: main(list(args))
+                           if main.__code__.co_argcount else main())
+        finally:
+            sys.argv = argv
+        if rc:
+            return rc
+    faults.clear()
+    return 0
+
+
+def launch_folded(phase: str, nranks: int, runs, timeout: float = 900,
+                  env=None, launcher: bool = False) -> list:
+    """Run several trainer runs in turn in the same `nranks` rank processes
+    (`fold_rank`), each process started once: `runs` is a list of dicts
+    with `phase`, `args` and optionally `module` (RESNET), `env`, `grow`,
+    `shared` and `raw`.  Each run's lines are held to `launch`'s checks
+    under its own phase name (a `raw` run's are not: it prints no
+    SUMMARY), its SUMMARY's memory figures (`*_mem_gb`) as the process
+    read them, with what it still held from the runs before (`fold_rank`'s
+    FOLD_HELD) logged; returns (summaries or None, each rank's lines) a
+    run.
+    `launcher=True` starts the processes through the port's launcher
+    (run_ranks)."""
+    spec = [[r.get("module", RESNET), list(r["args"]), r.get("env", {})]
+            for r in runs]
+    outs = run_ranks(phase, nranks, "chip_smoke", ["--fold-rank"], timeout,
+                     env=dict(env or {}, **{FOLD_ENV: json.dumps(spec)}),
+                     launcher=launcher)
+    parts = [[[] for _ in runs] for _ in outs]
+    for r, lines in enumerate(outs):
+        i = -1
+        for line in lines:
+            if line.startswith("FOLD "):
+                i = int(line.split()[1])
+            elif line.startswith("FOLD_HELD "):
+                if i > 0:
+                    log(runs[i]["phase"], f"rank {r}: "
+                        f"{int(line.split()[1]) / 1e9:.3f} GB held from the "
+                        "runs before it in its process")
+            elif i >= 0:
+                parts[r][i].append(line)
+    out = []
+    for i, run in enumerate(runs):
+        lines = [parts[r][i] for r in range(nranks)]
+        out.append((None if run.get("raw") else check_launch(
+            run["phase"], lines, run["args"], module=run.get("module", RESNET),
+            grow=run.get("grow"), shared=run.get("shared", False)), lines))
+    return out
+
+
 # A key of a SUMMARY that holds a rate, a time or an idle share.
 _TIMED = ("_sec", "_ms", "idle")
 
@@ -1424,7 +1569,7 @@ def _untimed(rec: dict) -> dict:
 
 
 def launch(phase: str, nranks: int, args, module: str = RESNET,
-           grow=None, timeout: float = 900, env=None, rank_env=None,
+           grow=None, timeout: float = 900, env=None,
            launcher: bool = False, shared: bool = False):
     """Run `nranks` ranks of `module` with `args` (and `env`) and hold
     them to the checks every training run shares; return each rank's
@@ -1447,7 +1592,15 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     prints each SUMMARY without its rates and times (`_untimed`) and no
     PROFILE."""
     outs = run_ranks(phase, nranks, module, args, timeout, env=env,
-                     rank_env=rank_env, launcher=launcher)
+                     launcher=launcher)
+    return check_launch(phase, outs, args, module=module, grow=grow,
+                        shared=shared)
+
+
+def check_launch(phase: str, outs, args, module: str = RESNET, grow=None,
+                 shared: bool = False):
+    """`launch`'s checks on each rank's stdout lines `outs` of one run."""
+    nranks = len(outs)
     steps = [_records(lines, "STEP") for lines in outs]
     evals = [_records(lines, "EVAL") for lines in outs]
     summaries = [_records(lines, "SUMMARY")[-1] for lines in outs]
@@ -1545,13 +1698,38 @@ def launch(phase: str, nranks: int, args, module: str = RESNET,
     return summaries
 
 
-def train_adasum():
-    summaries = launch("train_adasum", 2, [
-        "--use-adasum", "--model", "resnet50", "--num-classes", "1000",
-        "--image-size", "224", "--batch-size", "32",
-        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
-        "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        grow=ADASUM_GROW, timeout=600)
+AUTOTUNE_ARGS = ["--model", "resnet50", "--num-classes", "1000",
+                 "--image-size", "224", "--batch-size", "32",
+                 "--num-warmup-batches", "1", "--num-batches-per-iter", "4",
+                 "--num-iters", "3", "--log-steps"]
+
+
+def adasum_and_autotune():
+    """Phase 4's ranks then phase 12's, in turn in one pair of processes
+    (`launch_folded`); returns (phase 4's summaries, phase 12's summaries
+    and lines)."""
+    for r in (0, 1):
+        path = os.path.join(LOG_DIR, f"autotune_rank{r}.csv")
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    (adasum, _), autotune = launch_folded("adasum_autotune", 2, [
+        dict(phase="train_adasum", args=[
+            "--use-adasum", "--model", "resnet50", "--num-classes", "1000",
+            "--image-size", "224", "--batch-size", "32",
+            "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+            "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
+            grow=ADASUM_GROW),
+        dict(phase="autotune_np2", args=AUTOTUNE_ARGS, env=dict(
+            AUTOTUNE_ENV, HOROVOD_AUTOTUNE_LOG=os.path.join(
+                LOG_DIR, "autotune_rank{rank}.csv")))], timeout=900)
+    log("adasum_autotune", f"{time.perf_counter() - t0:.1f} s for phases 4 "
+        "and 12 in one pair of processes")
+    return adasum, autotune
+
+
+def train_adasum(summaries):
+    """Phase 4's checks on its summaries (`adasum_and_autotune`)."""
     require(all(s["steps"] == 3 for s in summaries),
             f"steps per rank: {[s['steps'] for s in summaries]}")
     for s in summaries:
@@ -1561,11 +1739,44 @@ def train_adasum():
     return summaries
 
 
-def train_average():
-    (s,) = launch("train_average", 1, [
-        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
-        "--batch-size", "64", "--num-warmup-batches", "3",
-        "--num-batches-per-iter", "5", "--num-iters", "3"], timeout=400)
+AVERAGE_ARGS = ["--model", "resnet50", "--num-classes", "1000",
+                "--image-size", "224", "--batch-size", "64",
+                "--num-warmup-batches", "3", "--num-batches-per-iter", "5",
+                "--num-iters", "3"]
+TRANSFORMER_NCCL_ARGS = ["--num-warmup-batches", "2",
+                         "--num-batches-per-iter", "3", "--num-iters", "3"]
+ZERO3_NCCL_ARGS = ["--zero-stage", "3", "--num-warmup-batches", "2",
+                   "--num-batches-per-iter", "3", "--num-iters", "3",
+                   "--eval-every", "11"]
+BENCH_NP1_ARGS = ["--num-warmup-batches", "2", "--num-batches-per-iter", "5",
+                  "--num-iters", "3"]
+
+
+def single_rank_runs() -> dict:
+    """The one-rank runs on NCCL of phases 5, 7, 9, 19 (a) and 15
+    (bench_np1), in turn in one process (`launch_folded`): one process
+    start instead of six.  Each run still has the card to itself and its
+    own process group; each phase checks and prints its run's summary
+    where it did."""
+    runs = [dict(phase="train_average", args=AVERAGE_ARGS),
+            dict(phase="transformer_nccl", args=TRANSFORMER_NCCL_ARGS,
+                 module=TRANSFORMER),
+            dict(phase="zero3_nccl", args=ZERO3_NCCL_ARGS,
+                 module=TRANSFORMER, env=ZERO3_ENV),
+            dict(phase="guard_resnet_off", args=GUARD_RESNET_ARGS),
+            dict(phase="guard_resnet_on", args=GUARD_RESNET_ARGS,
+                 env={"HOROVOD_GUARD": "1"}),
+            dict(phase="bench_np1", args=BENCH_NP1_ARGS, module=BENCH,
+                 raw=True)]
+    t0 = time.perf_counter()
+    out = launch_folded("single_rank", 1, runs, timeout=1200)
+    log("single_rank", f"{time.perf_counter() - t0:.1f} s for "
+        f"{[r['phase'] for r in runs]} in one process")
+    return {r["phase"]: o for r, o in zip(runs, out)}
+
+
+def train_average(s):
+    """Phase 5; `s`: its summary (`single_rank_runs`)."""
     require(s["backend"] == "nccl", s)
     log("train_average", f"{s['img_sec_per_rank']:.2f} img/sec "
         f"(+- {1.96 * s['img_sec_std']:.2f}), batch 64, backend "
@@ -1574,14 +1785,31 @@ def train_average():
     return s
 
 
-def train_transformer():
-    """Main path 2, started by the port's launcher with every eager
-    collective under the consistency check."""
-    summaries = launch("train_transformer", 2, [
-        "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
-        "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
-        module=TRANSFORMER, timeout=600, grow=FLASH_GROW, launcher=True,
-        env=LAUNCHED_ENV)
+ZERO3_ARGS = ["--zero-stage", "3", "--num-warmup-batches", "0",
+              "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
+              "--eval-every", "3", "--check-plain-step", "2"]
+
+
+def transformer_and_zero3():
+    """Main paths 2 and 3: phase 6's run then phase 8's, in turn in one
+    pair of processes started by the port's launcher (`launch_folded`),
+    phase 6's with every eager collective under the consistency check;
+    returns each run's summaries."""
+    t0 = time.perf_counter()
+    (stage0, _), (zero3, _) = launch_folded("train_transformer", 2, [
+        dict(phase="train_transformer", args=[
+            "--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+            "--num-iters", "3", "--log-steps", "--check-plain-step", "1"],
+            module=TRANSFORMER, grow=FLASH_GROW, env=LAUNCHED_ENV),
+        dict(phase="train_zero3", args=ZERO3_ARGS, module=TRANSFORMER,
+             env=ZERO3_ENV, grow=FLASH_GROW)], timeout=900, launcher=True)
+    log("train_transformer", f"{time.perf_counter() - t0:.1f} s for phases "
+        "6 and 8 in one pair of processes")
+    return stage0, zero3
+
+
+def train_transformer(summaries):
+    """Main path 2's checks on its summaries (`transformer_and_zero3`)."""
     require(all(s["steps"] == 3 and s["n_layers"] == 8 for s in summaries),
             f"steps per rank: {[s['steps'] for s in summaries]}")
     # The check ran on the ranks: every flushed gradient bucket's
@@ -1606,10 +1834,8 @@ def train_transformer():
 LAUNCHED_ENV = {"HOROVOD_COLLECTIVE_CONSISTENCY_CHECK": "1"}
 
 
-def transformer_nccl():
-    (s,) = launch("transformer_nccl", 1, [
-        "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
-        "--num-iters", "3"], module=TRANSFORMER, timeout=400)
+def transformer_nccl(s):
+    """Phase 7; `s`: its summary (`single_rank_runs`)."""
     require(s["backend"] is None or s["backend"] == "nccl", s)
     log("transformer_nccl", f"{s['tok_sec_per_rank']:.1f} tok/sec "
         f"(+- {1.96 * s['tok_sec_std']:.1f}), T 16384, batch 1, one rank "
@@ -1618,14 +1844,10 @@ def transformer_nccl():
     return s
 
 
-def train_zero3(stage0):
-    """Main path 3 (see the module docstring); `stage0`: phase 6's
-    summaries, the same seeds and data at stage 0."""
-    summaries = launch("train_zero3", 2, [
-        "--zero-stage", "3", "--num-warmup-batches", "0",
-        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
-        "--eval-every", "3", "--check-plain-step", "2"],
-        module=TRANSFORMER, timeout=600, env=ZERO3_ENV, grow=FLASH_GROW)
+def train_zero3(summaries, stage0):
+    """Main path 3 (see the module docstring): the checks on its
+    summaries (`transformer_and_zero3`); `stage0`: phase 6's, the same
+    seeds and data at stage 0."""
     tol = K3_RTOL["torch.float32"]
     for s, s0 in zip(summaries, stage0):
         r = s["rank"]
@@ -1673,13 +1895,9 @@ def train_zero3(stage0):
     return summaries
 
 
-def zero3_nccl(stage0):
-    """One rank on NCCL at stage 3; `stage0`: phase 7's summary."""
-    (s,) = launch("zero3_nccl", 1, [
-        "--zero-stage", "3", "--num-warmup-batches", "2",
-        "--num-batches-per-iter", "3", "--num-iters", "3",
-        "--eval-every", "11"], module=TRANSFORMER, timeout=400,
-        env=ZERO3_ENV)
+def zero3_nccl(s, stage0):
+    """One rank on NCCL at stage 3; `s`: its summary (`single_rank_runs`),
+    `stage0`: phase 7's."""
     require(s["backend"] == "nccl", s)
     cap = s["param_full_bytes"] + 4 * s["shard_groups"]
     require(s["param_storage_bytes"] == 0 and
@@ -2050,8 +2268,8 @@ def elastic_fault_spec(steps: int, hits: int = ELASTIC_HITS_PER_STEP):
     raise RuntimeError(f"no seed places one fault of {spec}")
 
 
-def _elastic_run(name: str, env=None):
-    outs = run_ranks(name, 2, ELASTIC, ELASTIC_ARGS, timeout=600, env=env)
+def _elastic_run(name: str, outs):
+    """One elastic run's checks on each rank's lines `outs`."""
     runs = []
     for r, lines in enumerate(outs):
         (summary,) = _records(lines, "SUMMARY")
@@ -2084,11 +2302,18 @@ def _elastic_run(name: str, env=None):
 
 
 def train_elastic():
-    clean = _elastic_run("train_elastic_clean")
+    """Main path 4: the fault-free run then the faulted one, in turn in one
+    pair of processes (`launch_folded`)."""
     steps = 2 * 4
     spec, seed, first = elastic_fault_spec(steps)
-    faulted = _elastic_run("train_elastic_fault", env={
-        "HOROVOD_FAULT_SPEC": spec, "HOROVOD_FAULT_SEED": str(seed)})
+    (_, clean), (_, faulted) = launch_folded("train_elastic", 2, [
+        dict(phase="train_elastic_clean", args=ELASTIC_ARGS, module=ELASTIC,
+             raw=True),
+        dict(phase="train_elastic_fault", args=ELASTIC_ARGS, module=ELASTIC,
+             env={"HOROVOD_FAULT_SPEC": spec,
+                  "HOROVOD_FAULT_SEED": str(seed)}, raw=True)], timeout=900)
+    clean = _elastic_run("train_elastic_clean", clean)
+    faulted = _elastic_run("train_elastic_fault", faulted)
     require(all(s["resets"] == 0 for s in clean), f"fault-free run reset "
             f"{[s['resets'] for s in clean]} times")
     resets = [s["resets"] for s in faulted]
@@ -2156,20 +2381,12 @@ def expected_buckets(sizes, threshold: int) -> int:
     return len([b for b in _buckets_by_nbytes(sizes, threshold) if b])
 
 
-def autotune_np2():
+def autotune_np2(run):
+    """Phase 12's checks on its (summaries, lines) (`adasum_and_autotune`)."""
     sizes = hook_order()
     logs = [os.path.join(LOG_DIR, f"autotune_rank{r}.csv") for r in (0, 1)]
-    for path in logs:
-        if os.path.exists(path):
-            os.remove(path)
-    summaries = launch("autotune_np2", 2, [
-        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
-        "--batch-size", "32", "--num-warmup-batches", "1",
-        "--num-batches-per-iter", "4", "--num-iters", "3", "--log-steps"],
-        env=AUTOTUNE_ENV, timeout=600,
-        rank_env=lambda r: {"HOROVOD_AUTOTUNE_LOG": logs[r]})
-    steps = [_records(open(os.path.join(LOG_DIR, f"autotune_np2_rank{r}.log"))
-                      .read().splitlines(), "STEP") for r in (0, 1)]
+    summaries, lines = run
+    steps = [_records(lines[r], "STEP") for r in (0, 1)]
     thresholds = [[s["fusion_threshold"] for s in rec] for rec in steps]
     require(thresholds[0] == thresholds[1],
             f"the ranks' thresholds differ: {thresholds}")
@@ -2222,12 +2439,15 @@ def train_zoo():
             grow=ADASUM_GROW, timeout=900, shared=True)
 
     def one_rank_runs():
-        return {model: launch(f"{phase}_{model}", 1, [
-            "--model", model, "--num-classes", "1000", "--batch-size", "32",
-            "--num-warmup-batches", "2", "--num-batches-per-iter", "3",
-            "--num-iters", "2", "--profile", "2"], timeout=600,
-            shared=True)[0]
-            for model in ("inception3", "vgg16")}
+        models = ("inception3", "vgg16")
+        out = launch_folded(f"{phase}_singles", 1, [
+            dict(phase=f"{phase}_{model}", args=[
+                "--model", model, "--num-classes", "1000", "--batch-size",
+                "32", "--num-warmup-batches", "2", "--num-batches-per-iter",
+                "3", "--num-iters", "2", "--profile", "2"], shared=True)
+            for model in models], timeout=900)
+        return {model: summaries[0]
+                for model, (summaries, _) in zip(models, out)}
 
     summaries, singles = concurrently([adasum_pair, one_rank_runs])
     require(all(s["steps"] == 3 and s["params"] == ZOO_N["vgg16"]
@@ -2275,19 +2495,34 @@ def mnist_np2():
     return summaries
 
 
-def bench_rows():
+BENCH_NP2_ARGS = ["--batch-size", "32", "--num-warmup-batches", "2",
+                  "--num-batches-per-iter", "5", "--num-iters", "3"]
+WIRE_INT8_ARGS = ["--compression", "int8", "--check-wire-step", "1",
+                  "--profile", "3"]
+
+
+def bench_and_int8():
+    """bench_np2 then phase 16's int8 run, in turn in one pair of
+    processes (`launch_folded`), each alone on the card; returns
+    (bench_np2's lines, the int8 run's (summaries, lines))."""
+    t0 = time.perf_counter()
+    (_, bench), int8 = launch_folded("bench_np2", 2, [
+        dict(phase="bench_np2", args=BENCH_NP2_ARGS, module=BENCH, raw=True),
+        dict(phase="train_wire_int8",
+             args=WIRE_RESNET_ARGS + WIRE_INT8_ARGS)], timeout=900)
+    log("bench_np2", f"{time.perf_counter() - t0:.1f} s for bench_np2 and "
+        "train_wire's int8 run in one pair of processes")
+    return bench, int8
+
+
+def bench_rows(np1_outs, np2_outs):
     """`python -m horovod_tpu_torch.bench` at one rank on NCCL (its
     defaults: ResNet-50, batch 64) and at two ranks sharing the card over
-    gloo (batch 32)."""
+    gloo (batch 32); each's lines from `single_rank_runs` and
+    `bench_and_int8`."""
     results = {}
-    for name, nranks, args in (
-            ("bench_np1", 1, ["--num-warmup-batches", "2",
-                              "--num-batches-per-iter", "5",
-                              "--num-iters", "3"]),
-            ("bench_np2", 2, ["--batch-size", "32", "--num-warmup-batches",
-                              "2", "--num-batches-per-iter", "5",
-                              "--num-iters", "3"])):
-        outs = run_ranks(name, nranks, BENCH, args, timeout=600)
+    for name, nranks, outs in (("bench_np1", 1, np1_outs),
+                               ("bench_np2", 2, np2_outs)):
         lines = [l for l in outs[0] if l.startswith("{")]
         require(len(lines) == 1, f"{name}: {len(lines)} result lines")
         r = json.loads(lines[0])
@@ -2423,16 +2658,15 @@ def _policy_plan(spec: str, sizes):
         fusion_threshold_bytes=FUSION_THRESHOLD, bucket_order="forward")]
 
 
-def _wire_run(phase: str, args, env=None, shared: bool = False):
-    """Two ranks of the ResNet-50 benchmark on a wire; every bucket of
-    every step on the ring.  Returns the summaries."""
-    summaries = launch(phase, 2, [
-        "--model", "resnet50", "--num-classes", "1000", "--image-size", "224",
-        "--batch-size", "32", "--num-warmup-batches", "0",
-        "--num-batches-per-iter", "1", "--num-iters", "3", "--log-steps",
-        *args], env=env, timeout=600, shared=shared)
-    steps = [_records(open(os.path.join(LOG_DIR, f"{phase}_rank{r}.log"))
-                      .read().splitlines(), "STEP") for r in (0, 1)]
+WIRE_RESNET_ARGS = ["--model", "resnet50", "--num-classes", "1000",
+                    "--image-size", "224", "--batch-size", "32",
+                    "--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "1", "--num-iters", "3", "--log-steps"]
+
+
+def _check_ring_steps(phase: str, steps) -> None:
+    """Every bucket of every step of each rank's STEP records on the
+    ring."""
     for r, recs in enumerate(steps):
         before = (0, 0)
         for rec in recs:
@@ -2442,12 +2676,12 @@ def _wire_run(phase: str, args, env=None, shared: bool = False):
             require(flushed > 0 and ring == flushed,
                     f"{phase} rank {r} step {rec['step']}: {ring} of "
                     f"{flushed} buckets on the ring")
-    return summaries, steps
 
 
-def train_wire(zero3_summaries):
+def train_wire(zero3_summaries, int8):
     """Phase 16 (b)-(d); `zero3_summaries`: phase 8's, the same
-    stage-3 run on the exact wire."""
+    stage-3 run on the exact wire; `int8`: the int8 run's (summaries,
+    lines) (`bench_and_int8`)."""
     import torch
 
     results = {}
@@ -2455,9 +2689,9 @@ def train_wire(zero3_summaries):
     # Under an explicit int8 every bucket rides the ring: the policy plan
     # with an int8 big codec and no threshold is its partition and wire.
     int8_plan = _policy_plan("big=int8,threshold=0", sizes)
-    summaries, steps = _wire_run("train_wire_int8", [
-        "--compression", "int8", "--check-wire-step", "1", "--profile",
-        "3"])
+    summaries, int8_lines = int8
+    steps = [_records(lines, "STEP") for lines in int8_lines]
+    _check_ring_steps("train_wire_int8", steps)
     check = next(rec["wire_check"] for rec in steps[0]
                  if "wire_check" in rec)
     require(check["bitwise"] and check["bound_ok"] and
@@ -2466,9 +2700,7 @@ def train_wire(zero3_summaries):
     for s in summaries:
         require(s["buckets"] == int8_plan, f"int8 buckets {s['buckets']} "
                 f"(want {int8_plan})")
-    profiled = [rec for rec in _records(open(os.path.join(
-        LOG_DIR, "train_wire_int8_rank0.log")).read().splitlines(),
-        "PROFILE")]
+    profiled = _records(int8_lines[0], "PROFILE")
     ring_ms = profiled[0]["ranges_ms_per_step"].get("hvd.ring")
     results["int8"] = {"img_sec": [s["img_sec_per_rank"] for s in summaries],
                        "ring_ms": ring_ms, "check": check,
@@ -2485,13 +2717,38 @@ def train_wire(zero3_summaries):
         f"{profiled[0]['ranges_ms_per_step'].get('hvd.synchronize')} ms, "
         f"idle share {profiled[0]['device_idle_share']}")
 
-    # The int4 policy and fp8 runs share the card, as do (c) and (d).
+    # Two pairs of processes share the card: the int4 policy run then (c)
+    # in one, the fp8 run then (d) in the other.
     want = _policy_plan(WIRE_POLICY_INT4, sizes)
-    (summaries, _), (fp8, _) = concurrently([
-        lambda: _wire_run("train_wire_int4", [], env={
-            "HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4}, shared=True),
-        lambda: _wire_run("train_wire_fp8", ["--compression", "fp8_e4m3"],
-                          shared=True)])
+    grow2 = {k: 2 for k in FLASH_GROW}
+    (summaries, int4_lines), (zsum, _), (fp8, fp8_lines), (_, z1_lines) = [
+        run for chain in concurrently([
+            lambda: launch_folded("train_wire_chain0", 2, [
+                dict(phase="train_wire_int4", args=WIRE_RESNET_ARGS,
+                     env={"HOROVOD_WIRE_POLICY": WIRE_POLICY_INT4},
+                     shared=True),
+                dict(phase="train_wire_zero3", args=[
+                    "--zero-stage", "3", "--num-warmup-batches", "0",
+                    "--num-batches-per-iter", "1", "--num-iters", "3",
+                    "--log-steps", "--eval-every", "3",
+                    "--check-plain-step", "2"], module=TRANSFORMER,
+                    env=dict(ZERO3_ENV, **WIRE_ENV), grow=FLASH_GROW,
+                    shared=True)], timeout=900),
+            lambda: launch_folded("train_wire_chain1", 2, [
+                dict(phase="train_wire_fp8",
+                     args=WIRE_RESNET_ARGS + ["--compression", "fp8_e4m3"],
+                     shared=True),
+                dict(phase="train_wire_zero1", args=[
+                    "--zero-stage", "1", "--n-layers", "2",
+                    "--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "1", "--num-iters", "3", "--log-steps"],
+                    module=TRANSFORMER, grow=grow2,
+                    env={"HOROVOD_SHARD_AG_WIRE": "int8",
+                         "HOROVOD_WIRE_POLICY": "auto"}, shared=True)],
+                timeout=900)]) for run in chain]
+    for phase, lines in (("train_wire_int4", int4_lines),
+                         ("train_wire_fp8", fp8_lines)):
+        _check_ring_steps(phase, [_records(l, "STEP") for l in lines])
     for s in summaries:
         require(s["buckets"] == want, f"int4 policy buckets {s['buckets']} "
                 f"(wire_policy_plan: {want})")
@@ -2503,22 +2760,8 @@ def train_wire(zero3_summaries):
     log("train_wire", f"ResNet-50 fp8_e4m3 ring: "
         f"last losses {[round(s['last_loss'], 4) for s in fp8]}")
 
-    # (c) Main path 7: the stage-3 head over an int8 gather, beside (d)
-    # ZeRO-1 with the parameter allgather on int8.
-    grow2 = {k: 2 for k in FLASH_GROW}
-    zsum, z1 = concurrently([
-        lambda: launch("train_wire_zero3", 2, [
-            "--zero-stage", "3", "--num-warmup-batches", "0",
-            "--num-batches-per-iter", "1", "--num-iters", "3",
-            "--log-steps", "--eval-every", "3", "--check-plain-step", "2"],
-            module=TRANSFORMER, timeout=600,
-            env=dict(ZERO3_ENV, **WIRE_ENV), grow=FLASH_GROW, shared=True),
-        lambda: launch("train_wire_zero1", 2, [
-            "--zero-stage", "1", "--n-layers", "2", "--num-warmup-batches",
-            "0", "--num-batches-per-iter", "1", "--num-iters", "3",
-            "--log-steps"], module=TRANSFORMER, timeout=600, grow=grow2,
-            env={"HOROVOD_SHARD_AG_WIRE": "int8",
-                 "HOROVOD_WIRE_POLICY": "auto"}, shared=True)])
+    # (c) Main path 7: the stage-3 head over an int8 gather; (d) ZeRO-1
+    # with the parameter allgather on int8.
     tol = K3_RTOL["torch.float32"]
     for s, s0 in zip(zsum, zero3_summaries):
         r = s["rank"]
@@ -2555,9 +2798,7 @@ def train_wire(zero3_summaries):
 
     # (d) ZeRO-1's int8 allgather.
     for r in (0, 1):
-        recs = _records(open(os.path.join(
-            LOG_DIR, f"train_wire_zero1_rank{r}.log")).read().splitlines(),
-            "STEP")
+        recs = _records(z1_lines[r], "STEP")
         diffs = [rec["master_wire_diff"] for rec in recs]
         require(len(diffs) == 3 and all(d > 0 for d in diffs),
                 f"rank {r}: f32 master vs decoded parameter {diffs}")
@@ -2620,11 +2861,7 @@ def train_mesh():
               "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
               "--check-dense-step", "0", "--profile", "1"]
 
-    def one(name, mesh, extra, layers):
-        t0 = time.perf_counter()
-        summaries = launch(f"mesh_{name}", 2, mesh + extra + common + [
-            "--n-layers", str(layers)], module=TRANSFORMER, env=MESH_ENV,
-            timeout=400, grow={n: None for n in FLASH_NAMES}, shared=True)
+    def check(name, layers, summaries):
         for s in summaries:
             want = expected_flash(name, s)
             per_step = []
@@ -2645,12 +2882,30 @@ def train_mesh():
                 f"{MESH_CHECKED_STEPS} checked steps, K4-K6 launches "
                 f"per step {per_step} (all tensor cores), peak "
                 f"{s['peak_mem_gb']:.2f} GB, {layers} layers")
-        log(f"mesh_{name}", f"{time.perf_counter() - t0:.1f} s")
         return summaries
 
-    # Two runs share the card at a time.
-    return dict(zip([run[0] for run in MESH_RUNS], concurrently(
-        [functools.partial(one, *run) for run in MESH_RUNS])))
+    def chain(k, runs):
+        """`runs`, in turn in one pair of processes."""
+        t0 = time.perf_counter()
+        out = launch_folded(f"mesh_chain{k}", 2, [
+            dict(phase=f"mesh_{name}", args=mesh + extra + common + [
+                "--n-layers", str(layers)], module=TRANSFORMER,
+                grow={n: None for n in FLASH_NAMES}, shared=True)
+            for name, mesh, extra, layers in runs], timeout=900,
+            env=MESH_ENV)
+        log(f"mesh_chain{k}", f"{[r[0] for r in runs]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        return {name: check(name, layers, summaries)
+                for (name, _, _, layers), (summaries, _) in zip(runs, out)}
+
+    # Two pairs of processes share the card, each running its runs in turn
+    # (ring then tp, Ulysses then ep: the parent's pairs), then pp alone.
+    out = {}
+    for done in concurrently([functools.partial(chain, 0, MESH_RUNS[0:4:2]),
+                              functools.partial(chain, 1, MESH_RUNS[1:4:2])]):
+        out.update(done)
+    out.update(chain(2, MESH_RUNS[4:]))
+    return {name: out[name] for name, *_ in MESH_RUNS}
 
 
 # ---------------------------------------------------------------------------
@@ -3474,17 +3729,16 @@ def guard_rank(cfg=None, seq_len: int = 16384, device=None,
     return 0
 
 
-def train_guard() -> dict:
+def train_guard(singles) -> dict:
     """Phase 19 (main path 10): (a) the guard's cost on ResNet-50 at one
-    rank, (b) the ladder and its teeth, (c) stage 3; see the module
-    docstring."""
+    rank (its two runs from `single_rank_runs`), (b) the ladder and its
+    teeth, (c) stage 3; see the module docstring."""
     import torch
 
     t_start = time.perf_counter()
     resnet = {}
-    for name, env in (("off", {}), ("on", {"HOROVOD_GUARD": "1"})):
-        (s,) = launch(f"guard_resnet_{name}", 1, GUARD_RESNET_ARGS, env=env,
-                      timeout=300)
+    for name in ("off", "on"):
+        (s,) = singles[f"guard_resnet_{name}"][0]
         require(s["backend"] == "nccl" and s["device"].startswith("cuda")
                 and s["guarded"] == (name == "on"),
                 f"guard_resnet_{name}: {s}")
@@ -3649,23 +3903,24 @@ def train_hier() -> dict:
 
     t_start = time.perf_counter()
     phase = "train_hier"
-    a = launch(f"{phase}_stage0", HIER_RANKS, HIER_ARGS + [
-        "--num-iters", "3", "--fused-apply", "--early-reduction", "--guard",
-        "--check-hier-step", "1", "--profile", "1"], module=TRANSFORMER,
-        grow=HIER_GROW, timeout=HIER_BUDGET_S, env=HIER_ENV)
-    profiles = []
-    for r in range(HIER_RANKS):
-        with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank{r}.log")) as f:
-            profiles.append(_records(f.read().splitlines(), "PROFILE")[-1])
-    steps = []
-    with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank0.log")) as f:
-        steps = _records(f.read().splitlines(), "STEP")
+    # (a) and (b) in turn in the same four processes.
+    (a, a_lines), (b, _) = launch_folded(phase, HIER_RANKS, [
+        dict(phase=f"{phase}_stage0", args=HIER_ARGS + [
+            "--num-iters", "3", "--fused-apply", "--early-reduction",
+            "--guard", "--check-hier-step", "1", "--profile", "1"],
+            module=TRANSFORMER, grow=HIER_GROW, env=HIER_ENV),
+        dict(phase=f"{phase}_zero3", args=HIER_ARGS + [
+            "--num-iters", "2", "--zero-stage", "3", "--eval-every", "2"],
+            module=TRANSFORMER, grow=HIER_GROW,
+            env=dict(ZERO3_ENV, HOROVOD_SHARD_AG_FUSION="1"))],
+        timeout=HIER_BUDGET_S)
+    profiles = [_records(lines, "PROFILE")[-1] for lines in a_lines]
+    steps = _records(a_lines[0], "STEP")
     for s in a:
         require(s["passes_per_step"] == HIER_PASSES and s["dcn"] == 2
                 and s["size"] == HIER_RANKS, f"{phase}: {s}")
     for r in range(HIER_RANKS):
-        with open(os.path.join(LOG_DIR, f"{phase}_stage0_rank{r}.log")) as f:
-            recs = _records(f.read().splitlines(), "STEP")
+        recs = _records(a_lines[r], "STEP")
         require(all(rec["guard_flag"] == 0.0 for rec in recs),
                 f"{phase}: rank {r} flagged a step: "
                 f"{[rec['guard_flag'] for rec in recs]}")
@@ -3694,10 +3949,6 @@ def train_hier() -> dict:
         f"{chk['int8_err']:.3g} off the exact leg (bound "
         f"{chk['int8_bound']:.3g})")
 
-    env = dict(ZERO3_ENV, HOROVOD_SHARD_AG_FUSION="1")
-    b = launch(f"{phase}_zero3", HIER_RANKS, HIER_ARGS + [
-        "--num-iters", "2", "--zero-stage", "3", "--eval-every", "2"],
-        module=TRANSFORMER, grow=HIER_GROW, timeout=HIER_BUDGET_S, env=env)
     for sa, sb in zip(a, b):
         require(sb["zero_stage"] == 3, f"{phase}: {sb}")
         diff = abs(sb["step_losses"][0] - sa["step_losses"][0])
@@ -4962,6 +5213,705 @@ def elastic_driver_phase(smi: str, trainer_args=(), budget: float =
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: live resharding, elastic ZeRO state and the chaos soak
+# ---------------------------------------------------------------------------
+
+RESHARD_BUDGET_S = 200   # phase 25's share of the script's time limit
+RESHARD_STEPS = 2        # stage-3 steps before the reshards
+RESHARD_DIE_TIMEOUT = 5.0  # (d): how long a fetch waits for the dead peer
+RESHARD_ENV = {"HOROVOD_RESHARD_TIMEOUT": "60"}
+# (e): the soak's environment (tests/test_torch_port_chaos.py's, JAX's
+# soak's settings).
+SOAK_ENV = {"HOROVOD_TIMELINE_ALL_RANKS": "1",
+            "HOROVOD_TIMELINE_MARK_CYCLES": "1",
+            "HOROVOD_TIMELINE_DISABLE_NATIVE": "1",
+            "HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+            "HOROVOD_STRAGGLER_PATIENCE": "2",
+            "HOROVOD_STRAGGLER_COOLDOWN": "1",
+            "HOROVOD_CHAOS_GENERATIONS": "5",
+            "HOROVOD_CHAOS_STEPS_PER_GEN": "4"}
+SOAK_SEED = 7
+# (e) again with the reaction's degrade branch off (no skew share reaches
+# it): JAX's rebalance, its loud re-init and the anomaly it leaves.
+SOAK_DEGRADE_OFF = {"HOROVOD_STRAGGLER_SKEW_THRESHOLD": "inf"}
+
+
+def _streams_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def reshard_rank(cfg=None, seq_len: int = 16384, device=None,
+                 zero3_env=None, peak=None, chunk=None,
+                 out_dir: str = LOG_DIR, keep_streams: bool = False) -> int:
+    """The ranks of phase 25 (run by `reshard_phase` through the port's
+    launcher as `python -m chip_smoke --reshard-rank`, whose KV is the
+    transport; `cfg`, `seq_len`, `device`, `zero3_env`, `peak` and
+    `chunk` shrink it for the CPU, tests/test_torch_port_sharded_state.py,
+    which also keeps the streams, `keep_streams`).
+    The transformer at stage 3 (AdamW, ZERO3_ENV) takes RESHARD_STEPS
+    steps, its state held by a `ShardedTorchState` that checkpoints it,
+    then:
+
+    (a) a shrink 2->1: both ranks publish their streams, rank 0 fetches;
+        held bitwise to the local restack (every rank's streams
+        allgathered, then cut), the staging peak to its ceiling, and in
+        (f) to the restore path (the checkpoint restored, then cut);
+    (b) a grow 1->2 from rank 0's world-1 streams: bitwise the original
+        streams; a fresh optimizer filled with them takes one more step,
+        bitwise the loss and the parameters' SHA-256 of the same step
+        from the original state;
+    (d) `reshard.peer_die` armed on rank 1 at the publish: both ranks'
+        sync degrades to the restore path (without a checkpoint: the
+        committed shards) and the digest gate passes;
+        `reshard.chunk_corrupt` on rank 1: rank 0's fetch refuses it;
+    (e) the chaos soak at np=2 on the card (seed SOAK_SEED, SOAK_ENV)
+        in a second process group, then again with SOAK_DEGRADE_OFF;
+    (f) rank 0 alone: a crash shrink (no publish) to a world of one,
+        whose sync takes the restore path into an optimizer and a
+        placement built at n=1, bitwise (a)'s live streams; one step
+        there;
+    (c) the state's own live path across a world change, 1->2: rank 0
+        publishes its world-1 state at `on_hosts_updated`, both ranks
+        join a new world of two and `sync` fetches each one's shards,
+        rebuilds its optimizer and placement, gates on the digest and
+        broadcasts the scalars: bitwise the original 2-rank streams.
+    Saved to out_dir/reshard_rank<r>.pt."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.faults.chaos import ChaosSoak
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.transformer import lm_loss
+    from horovod_tpu_torch.parallel import data_parallel
+    from horovod_tpu_torch.parallel import reshard as rs
+    from horovod_tpu_torch.synthetic_benchmark import param_digest
+    from horovod_tpu_torch.transformer_benchmark import (
+        launch_counts, reset_launch_counts)
+    from horovod_tpu_torch.utils.checkpoint import CheckpointManager
+
+    hvd.init(device=device)
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    require(n == 2, f"phase 25 runs at np=2, got {n}")
+    init_args = basics.init_arguments()
+    cfg = cfg or TransformerConfig(compute_dtype=torch.bfloat16)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    peak = peak or rs.default_peak_bytes()
+    chunk = chunk or rs.default_chunk_bytes(peak)
+    res = {"rank": r, "device": str(dev), "peak_ceiling": peak,
+           "chunk_bytes": chunk, "workers": rs.parallel_workers(peak, chunk)}
+    times = {}
+    t_phase = time.perf_counter()
+    tmp = hvd.broadcast_object(
+        tempfile.mkdtemp(prefix="chip_smoke_reshard_") if r == 0 else None)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def progress(what: str) -> None:
+        print(f"RESHARD_PROGRESS {what} at "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    rng = np.random.RandomState(r)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (1, seq_len + 1))).to(dev)
+        for _ in range(RESHARD_STEPS + 1)]
+
+    def stage3():
+        model = Transformer(cfg, seed=0).to(dev)
+        inner = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+        opt = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(), zero_stage=3)
+        params = list(model.parameters())
+        placement = hvd.zero3_placement(params)
+        rows = placement.shard(params)
+        placement.bind(params)
+        return model, opt, placement, rows
+
+    def step(model, opt, placement, rows, tokens):
+        with torch.no_grad():
+            placement.gather(rows)
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+        updates = opt.step()
+        rows = placement.apply_updates(rows, updates)
+        placement.release()
+        del updates
+        return loss.detach(), rows
+
+    def digest(model, placement, rows) -> str:
+        with torch.no_grad():
+            placement.gather(rows)
+        d = param_digest(model)
+        placement.release()
+        return d
+
+    def host(streams):
+        return {k: np.asarray(v).copy() for k, v in streams.items()}
+
+    shrunk = {}  # rank 0: the shrink's world-1 streams, for (f)
+
+    def run_stage3():
+        model, opt, placement, rows = stage3()
+        reset_launch_counts()
+        losses = []
+        for t in range(RESHARD_STEPS):
+            loss, rows = step(model, opt, placement, rows, batches[t])
+            losses.append(float(loss))
+        res["losses"] = losses
+        progress("steps")
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        state = hvd.elastic.ShardedTorchState(
+            model, opt, placement=placement, rows=rows,
+            checkpoint_manager=mgr,
+            transport=rs.KVTransport.from_env("phase25"), chunk_bytes=chunk,
+            peak_bytes=peak, reshard_timeout=60, step=RESHARD_STEPS)
+        z = state._saved["__zero__"]
+        specs, data = z["specs"], z["data"]
+        res["streams"] = len(specs)
+        if keep_streams:
+            res["specs"], res["data"] = [tuple(x) for x in specs], data
+        res["state_bytes"] = int(sum(v.nbytes for v in data.values()))
+        sync()
+        t0 = time.perf_counter()
+        state.checkpoint(RESHARD_STEPS)
+        times["checkpoint_s"] = time.perf_counter() - t0
+        progress("checkpoint")
+        t = rs.KVTransport.from_env("phase25raw")
+
+        # (a) shrink 2 -> 1: rank 0 fetches.
+        t0 = time.perf_counter()
+        got, rep = rs.reshard_streams(
+            specs, data, 2, 1, r, 0 if r == 0 else None, t, tag="shrink",
+            chunk_bytes=chunk, peak_bytes=peak)
+        times["shrink_s"] = time.perf_counter() - t0
+        res["shrink"] = {"bytes": rep.bytes_moved, "chunks": rep.chunks,
+                         "peak": rep.peak_bytes, "ms": rep.wall_ms}
+        t0 = time.perf_counter()
+        per_old = hvd.allgather_object(data)
+        local = rs.reshard_rank_streams(specs, per_old, 1)[0]
+        times["local_restack_s"] = time.perf_counter() - t0
+        del per_old
+        if r == 0:
+            # (f) holds the restore path's world-1 state to these.
+            res["shrink_live_eq_local"] = _streams_equal(got, local)
+            shrunk.update(got)
+            if keep_streams:
+                res["shrunk"] = got
+        del local
+        hvd.barrier()
+        if r == 0:
+            rs.cleanup(t, "shrink")
+        progress("shrink")
+
+        # (b) grow 1 -> 2 from rank 0's world-1 streams, then one step.
+        t0 = time.perf_counter()
+        grown, rep = rs.reshard_streams(
+            specs, got if r == 0 else None, 1, 2, 0 if r == 0 else None, r,
+            t, tag="grow", chunk_bytes=chunk, peak_bytes=peak)
+        times["grow_s"] = time.perf_counter() - t0
+        res["grow"] = {"bytes": rep.bytes_moved, "chunks": rep.chunks,
+                       "peak": rep.peak_bytes, "ms": rep.wall_ms}
+        del got
+        res["grow_roundtrip"] = _streams_equal(grown, data)
+        opt_rt = opt.rebuilt()
+        rows_rt = rs.streams_to_opt_state(opt_rt, specs, grown)
+        res["rebuilt_roundtrip"] = _streams_equal(
+            host(rs.opt_state_streams(opt_rt, rows_rt)[1]), data)
+        del grown
+        loss_rt, rows_rt = step(model, opt_rt, placement, rows_rt,
+                                batches[-1])
+        res["step_rt"] = {"loss": float(loss_rt),
+                          "digest": digest(model, placement, rows_rt)}
+        del opt_rt, rows_rt
+        loss_0, rows_0 = step(model, opt, placement, rows, batches[-1])
+        res["step_orig"] = {"loss": float(loss_0),
+                            "digest": digest(model, placement, rows_0)}
+        del rows_0
+        res["launches"] = launch_counts()
+        hvd.barrier()
+        if r == 0:
+            rs.cleanup(t, "grow")
+        progress("grow")
+
+        # (d) a dead peer at the publish, then a corrupt chunk.  The
+        # restore path here is the one without a checkpoint (every rank's
+        # committed shards); (f) takes the checkpoint's.
+        if r == 1:
+            faults.install("reshard.peer_die:err")
+        state._reshard_timeout = RESHARD_DIE_TIMEOUT
+        state.on_hosts_updated()
+        res["die_points_hit"] = faults.points_hit("reshard.peer_die")
+        faults.clear()
+        state.checkpoint_manager = None
+        t0 = time.perf_counter()
+        state.sync()
+        times["die_sync_s"] = time.perf_counter() - t0
+        state.checkpoint_manager = mgr
+        res["die_path"] = state.last_sync_path
+        res["die_state_bitwise"] = _streams_equal(
+            host(rs.opt_state_streams(state.optimizer, state.rows)[1]), data)
+        small = specs[:2]
+        if r == 1:
+            faults.install("reshard.chunk_corrupt:err")
+        try:
+            out, _ = rs.reshard_streams(
+                small, data, 2, 1, r, 0 if r == 0 else None, t,
+                tag="corrupt", chunk_bytes=chunk, peak_bytes=peak,
+                timeout=RESHARD_DIE_TIMEOUT)
+            res["corrupt_assembled"] = out is not None
+        except rs.ReshardError as e:
+            res["corrupt_error"] = str(e)[:120]
+            res["corrupt_assembled"] = False
+        res["corrupt_points_hit"] = faults.points_hit("reshard.chunk_corrupt")
+        faults.clear()
+        hvd.barrier()
+        if r == 0:
+            for tag in ("corrupt", "die"):
+                rs.cleanup(t, tag)
+        return model, state, specs, data
+
+    model, state, specs, data = _with_env(dict(zero3_env or ZERO3_ENV,
+                                               **RESHARD_ENV), run_stage3)
+    progress("peer_die and corrupt")
+    sync()
+    times["stage3_s"] = time.perf_counter() - t_phase
+
+    # (e) the soak in a process group of its own, with its environment.
+    t0 = time.perf_counter()
+    hvd.shutdown()
+    soak_env = dict(SOAK_ENV, HOROVOD_TIMELINE=os.path.join(
+        out_dir, "reshard_soak_tl.json"))
+
+    def soak():
+        hvd.init(**init_args)
+        out = ChaosSoak(seed=SOAK_SEED).run()
+        hvd.shutdown()
+        # The soak's rebalance caps the bucket partition for the process
+        # (`set_reaction_rebalance`); (f) rebuilds the stage-3 partition.
+        data_parallel.clear_reaction_rebalance()
+        return out
+
+    res["soak"] = _with_env(soak_env, soak)
+    res["soak_rebalance"] = _with_env(dict(
+        soak_env, **SOAK_DEGRADE_OFF, HOROVOD_TIMELINE=os.path.join(
+            out_dir, "reshard_soak_rebalance_tl.json")), soak)
+    times["soak_s"] = time.perf_counter() - t0
+    progress("soak")
+
+    # (f) rank 0 alone: a crash shrink (no publish) to a world of one.
+    if r == 0:
+        t0 = time.perf_counter()
+
+        def crash():
+            hvd.init(coordinator_address=f"file://{tmp}/solo",
+                     num_processes=1, process_id=0, device=dev)
+            state.sync()
+            return state.last_sync_path
+
+        res["crash_path"] = _with_env(dict(zero3_env or ZERO3_ENV,
+                                           **RESHARD_ENV), crash)
+        times["crash_sync_s"] = time.perf_counter() - t0
+        res["crash_state_bitwise"] = _streams_equal(
+            host(rs.opt_state_streams(state.optimizer, state.rows)[1]),
+            shrunk)
+        res["crash_n"] = state.optimizer.n
+        loss, _ = _with_env(dict(zero3_env or ZERO3_ENV), lambda: step(
+            model, state.optimizer, state.placement, state.rows,
+            batches[-1]))
+        res["crash_step_loss"] = float(loss)
+        # (c) begins: the world of one publishes before its teardown.
+        sync()
+        t0 = time.perf_counter()
+        state.on_hosts_updated()
+        times["publish_s"] = time.perf_counter() - t0
+        hvd.shutdown()
+        progress("crash shrink")
+
+    # (c) a world of two again; the state syncs 1->2 on the live path.
+    def grow():
+        hvd.init(**init_args)
+        t0 = time.perf_counter()
+        state.sync()
+        times["sync_s"] = time.perf_counter() - t0
+        rep = state.last_reshard
+        res["class_path"] = state.last_sync_path
+        res["class_n"] = state.optimizer.n
+        res["class_sync"] = (None if rep is None else {
+            "bytes": rep.bytes_moved, "chunks": rep.chunks,
+            "peak": rep.peak_bytes, "ms": rep.wall_ms})
+        res["class_state_bitwise"] = _streams_equal(
+            host(rs.opt_state_streams(state.optimizer, state.rows)[1]), data)
+        res["class_step"] = state.step
+        hvd.barrier()
+        hvd.shutdown()
+
+    _with_env(dict(zero3_env or ZERO3_ENV, **RESHARD_ENV), grow)
+    progress("class")
+    if r == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+    times["rank_s"] = time.perf_counter() - t_phase
+    res["times"] = times
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(res, os.path.join(out_dir, f"reshard_rank{r}.pt"))
+    print("RESHARD " + json.dumps(
+        {k: v for k, v in res.items()
+         if k not in ("soak", "soak_rebalance", "specs", "data", "shrunk")}),
+        flush=True)
+    return 0
+
+
+def policy_reactions(windows, degrade: bool = True) -> list:
+    """(gen, action, rank) of each reaction the port's straggler policy
+    fires on a soak's windows (SOAK_ENV's patience and cooldown; the
+    default threshold, or none with `degrade` off)."""
+    import types
+
+    from horovod_tpu_torch.trace.reaction import StragglerReactionPolicy
+
+    policy = StragglerReactionPolicy(
+        patience=int(SOAK_ENV["HOROVOD_STRAGGLER_PATIENCE"]),
+        cooldown=int(SOAK_ENV["HOROVOD_STRAGGLER_COOLDOWN"]),
+        skew_threshold=None if degrade else math.inf,
+        on_rebalance=lambda rank: None, on_degrade=lambda rank: None)
+    out = []
+    for w in windows:
+        if w["skew_share"] is None:
+            continue
+        d = policy.observe(types.SimpleNamespace(
+            straggler_rank=w["straggler_rank"], skew_share=w["skew_share"]))
+        if d.fired:
+            out.append((w["gen"], d.action, d.rank))
+    return out
+
+
+def check_soak(res, name: str, rebalance: bool = False) -> dict:
+    """The chaos soak's checks on both ranks' results (JAX's
+    `_assert_soak_invariants` and `test_two_process_soak`): the fleet
+    agrees, every event recovered or degraded, the tuner sampled, the
+    stall and the NaN recovered, a reaction against the straggler that
+    is the policy's on the windows' skew shares (shares of the critical
+    path), loud re-inits, no false anomaly.  At JAX's settings the port
+    degrades its straggler (its step is short, so the straggler takes
+    most of it); `rebalance` (the degrade branch off) also asks for
+    JAX's rebalance and a detected anomaly.  Returns rank 0's."""
+    s0, s1 = res
+    for s in res:
+        require(not s["split_brain"] and s["final_digest_mismatch"] is None
+                and all(e["outcome"] in ("recovered", "degraded")
+                        and e["mttr_ms"] >= 0 for e in s["events"]),
+                f"rank {s['rank']}: {name} {s['events']}")
+    require(s0["final_w"] == s1["final_w"] and
+            [(e["kind"], e["gen"], e["step"]) for e in s0["events"]] ==
+            [(e["kind"], e["gen"], e["step"]) for e in s1["events"]]
+            and s0["reactions"] == s1["reactions"],
+            f"{name}: the ranks' parameters, events or reactions differ")
+    require(s0["autotune_enabled"], f"{name}: the tuner is off")
+    bests = [w["autotune_best"] for w in s0["windows"]
+             if w["autotune_best"] is not None]
+    samples = [w["autotune_samples"] for w in s0["windows"]]
+    require(bests and all(b2 >= b1 for b1, b2 in zip(bests, bests[1:]))
+            and samples[-1] >= 1 and samples == sorted(samples),
+            f"{name}: tuner bests {bests}, samples {samples}")
+    kinds = {e["kind"]: e for e in s0["events"]}
+    shares = [w["skew_share"] for w in s0["windows"]
+              if w["skew_share"] is not None]
+    actions = [x["action"] for x in s0["reactions"]]
+    require(s0["straggler_target"] >= 0
+            and any(x["rank"] == s0["straggler_target"]
+                    for x in s0["reactions"])
+            and [(x["gen"], x["action"], x["rank"]) for x in s0["reactions"]]
+            == policy_reactions(s0["windows"],
+                                degrade=not rebalance)
+            and all(0.0 <= v <= 1.0 for v in shares)
+            and (not rebalance or actions[:1] == ["rebalance"])
+            and s0["straggler_target"] in [
+                w["straggler_rank"] for w in s0["windows"]
+                if w["straggler_armed"]] and s0["loud_reinits"] >= 1,
+            f"{name}: straggler {s0['straggler_target']}, reactions "
+            f"{s0['reactions']}, skew shares {shares}, loud re-inits "
+            f"{s0['loud_reinits']}")
+    require("worker_stall" in kinds and kinds.get("nan_grad", {}).get(
+        "outcome") == "recovered" and kinds["nan_grad"]["steps_lost"] >= 1,
+            f"{name}: events {s0['events']}")
+    anom = s0["anomaly"]
+    require(anom["false_positives"] == 0
+            and set(anom["detected_kinds"]) <= set(anom["injected_kinds"])
+            and (not rebalance or anom["detected_kinds"]),
+            f"{name}: anomaly monitor {anom}")
+    return s0
+
+
+def check_reshard(res, on_card: bool = True) -> dict:
+    """Phase 25's checks on both ranks' saved results (`reshard_rank`);
+    every failure raises.  Returns what the phase prints."""
+    r0, r1 = res
+    for s in res:
+        r = s["rank"]
+        require(all(math.isfinite(v) for v in s["losses"]),
+                f"rank {r}: losses {s['losses']}")
+        require(s["shrink"]["peak"] <= s["peak_ceiling"]
+                and s["grow"]["peak"] <= s["peak_ceiling"],
+                f"rank {r}: staging peak {s['shrink']['peak']} / "
+                f"{s['grow']['peak']} over {s['peak_ceiling']}")
+        require(s["shrink"]["chunks"] > 1,
+                f"rank {r}: the shrink moved {s['shrink']['chunks']} chunk")
+        require(s["grow_roundtrip"] and s["rebuilt_roundtrip"],
+                f"rank {r}: the grow 1->2 did not give back the 2-rank "
+                "streams bitwise (or a rebuilt optimizer did not hold them)")
+        require(s["step_rt"] == s["step_orig"],
+                f"rank {r}: the step after the round trip {s['step_rt']} is "
+                f"not bitwise the step without it {s['step_orig']}")
+        require(s["class_path"] == "reshard" and s["class_state_bitwise"]
+                and s["class_n"] == 2 and (s["class_sync"] or {}).get("bytes", 0) > 0
+                and s["class_step"] == RESHARD_STEPS,
+                f"rank {r}: ShardedTorchState's sync 1->2 took "
+                f"{s['class_path']} at n {s['class_n']}, moved "
+                f"{s['class_sync']}, bitwise {s['class_state_bitwise']}, "
+                f"step {s['class_step']}")
+        require(s["die_path"] == "restore" and s["die_state_bitwise"],
+                f"rank {r}: with rank 1 dead at the publish the sync took "
+                f"{s['die_path']}, bitwise {s['die_state_bitwise']}")
+        require(s["die_points_hit"] == (1 if r == 1 else 0),
+                f"rank {r}: reshard.peer_die hit {s['die_points_hit']}")
+        if on_card:
+            l = s["launches"]
+            require(all(l[k] > 0 and l[k + "_sm90"] == l[k]
+                        for k in FLASH_NAMES),
+                    f"rank {r}: K4-K6 {l} off the tensor cores or not "
+                    "launched")
+    require(r0["shrink_live_eq_local"],
+            "shrink 2->1: the live streams are not bitwise the local "
+            "restack's")
+    require(not r0["corrupt_assembled"] and "sha256" in r0.get(
+        "corrupt_error", "") and r1["corrupt_points_hit"] >= 1,
+            f"corrupt chunk: assembled {r0['corrupt_assembled']}, "
+            f"{r0.get('corrupt_error')}, hits {r1['corrupt_points_hit']}")
+    require(r0["crash_path"] == "restore" and r0["crash_state_bitwise"]
+            and r0["crash_n"] == 1 and math.isfinite(r0["crash_step_loss"]),
+            f"crash shrink (the restore path at one rank, held to the live "
+            f"shrink's streams): path {r0['crash_path']}, bitwise "
+            f"{r0['crash_state_bitwise']}, n {r0['crash_n']}, loss "
+            f"{r0['crash_step_loss']}")
+    soak = check_soak([r0["soak"], r1["soak"]], "soak")
+    check_soak([r0["soak_rebalance"], r1["soak_rebalance"]],
+               "soak (degrade off)", rebalance=True)
+    return {"launches": [s["launches"] for s in res],
+            "times": [s["times"] for s in res],
+            "shrink": [s["shrink"] for s in res],
+            "grow": [s["grow"] for s in res],
+            "class_sync": [s["class_sync"] for s in res],
+            "state_bytes": [s["state_bytes"] for s in res],
+            "streams": r0["streams"], "peak_ceiling": r0["peak_ceiling"],
+            "chunk_bytes": r0["chunk_bytes"], "step": r0["step_rt"],
+            "soak_events": [(e["kind"], e["outcome"], e["mttr_ms"])
+                            for e in r0["soak"]["events"]],
+            "soak_reactions": r0["soak"]["reactions"],
+            "soak_shares": [w["skew_share"] for w in r0["soak"]["windows"]],
+            "soak_anomaly": soak["anomaly"],
+            "rebalance_reactions": r0["soak_rebalance"]["reactions"],
+            "rebalance_anomaly": r0["soak_rebalance"]["anomaly"]}
+
+
+def reshard_phase() -> dict:
+    """Phase 25 (main path 15): the ranks of `reshard_rank`, two on the
+    card over gloo under the port's launcher; see the module docstring."""
+    import torch
+
+    t_start = time.perf_counter()
+    phase = "reshard_chaos"
+    for f in ("reshard_soak_tl.json", "reshard_soak_tl.rank1.json",
+              "reshard_soak_rebalance_tl.json",
+              "reshard_soak_rebalance_tl.rank1.json"):
+        if os.path.exists(os.path.join(LOG_DIR, f)):
+            os.remove(os.path.join(LOG_DIR, f))
+    run_ranks(phase, 2, "chip_smoke", ["--reshard-rank"], RESHARD_BUDGET_S,
+              env=ZERO3_ENV, launcher=True)
+    res = [torch.load(os.path.join(LOG_DIR, f"reshard_rank{r}.pt"),
+                      weights_only=False) for r in range(2)]
+    out = check_reshard(res, on_card=True)
+    mib = 1 << 20
+    for r, (sh, gr, cs, tm) in enumerate(zip(
+            out["shrink"], out["grow"], out["class_sync"], out["times"])):
+        log(phase, f"rank {r}: state {out['state_bytes'][r] / mib:.1f} MiB "
+            f"in {out['streams']} streams; shrink 2->1 {tm['shrink_s']:.3f} "
+            f"s ({sh['bytes'] / mib:.1f} MiB, {sh['chunks']} chunks, peak "
+            f"{sh['peak'] / mib:.2f} of {out['peak_ceiling'] / mib:.0f} "
+            f"MiB); grow 1->2 {tm['grow_s']:.3f} s ({gr['bytes'] / mib:.1f} "
+            f"MiB, {gr['chunks']} chunks, peak {gr['peak'] / mib:.2f} MiB); "
+            f"checkpoint {tm['checkpoint_s']:.3f} s, local restack "
+            f"{tm['local_restack_s']:.3f} s; ShardedTorchState sync 1->2 "
+            f"{tm['sync_s']:.3f} s ({cs['bytes'] / mib:.1f} MiB, peak "
+            f"{cs['peak'] / mib:.2f} MiB); peer_die sync "
+            f"{tm['die_sync_s']:.3f} s (restore path); "
+            f"soak {tm['soak_s']:.1f} s; rank {tm['rank_s']:.1f} s")
+    log(phase, f"crash shrink to one rank: restore path (checkpoint "
+        f"restored and cut, bitwise the live shrink) in "
+        f"{out['times'][0]['crash_sync_s']:.3f} s; its ShardedTorchState "
+        f"publish at world 1 {out['times'][0]['publish_s']:.3f} s; step "
+        f"after the round "
+        f"trip bitwise: loss {out['step']['loss']:.6f}, SHA-256 "
+        f"{out['step']['digest'][:16]}")
+    for kind, outcome, mttr in out["soak_events"]:
+        log(phase, f"soak event {kind}: {outcome}, MTTR {mttr} ms")
+    log(phase, f"soak reactions {out['soak_reactions']} on skew shares "
+        f"{out['soak_shares']}; anomaly detected "
+        f"{out['soak_anomaly']['detected_kinds']} of "
+        f"{out['soak_anomaly']['injected_kinds']}")
+    log(phase, f"soak with the degrade branch off: reactions "
+        f"{out['rebalance_reactions']}; anomaly detected "
+        f"{out['rebalance_anomaly']['detected_kinds']}")
+    log(phase, "K4-K6 launches per rank (reshard_launches): " + ", ".join(
+        f"{n} {[l[n] for l in out['launches']]}" for n in FLASH_NAMES))
+    out["phase_s"] = time.perf_counter() - t_start
+    log(phase, f"{out['phase_s']:.1f} s (budget {RESHARD_BUDGET_S} s)")
+    require(out["phase_s"] <= RESHARD_BUDGET_S,
+            f"{phase}: over its budget of {RESHARD_BUDGET_S} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The whole run's phases, in groups
+# ---------------------------------------------------------------------------
+
+def _group_adasum(ctx) -> None:
+    """Phases 4 and 12 (one pair of processes, `launch_folded`)."""
+    ctx["adasum"], autotune_run = adasum_and_autotune()
+    train_adasum(ctx["adasum"])
+    autotune_np2(autotune_run)
+
+
+def _group_singles(ctx) -> None:
+    """The one-rank runs of phases 5, 7, 9, 19 (a) and bench_np1 (one
+    process); phases 5, 7 and 9 checked."""
+    singles = ctx["singles"] = single_rank_runs()
+    train_average(singles["train_average"][0][0])
+    nccl_summary = transformer_nccl(singles["transformer_nccl"][0][0])
+    zero3_nccl(singles["zero3_nccl"][0][0], nccl_summary)
+
+
+def _group_transformer(ctx) -> None:
+    """Phases 6 and 8 (one pair of processes under the launcher)."""
+    stage0, zero3_run = transformer_and_zero3()
+    ctx["transformer"] = train_transformer(stage0)
+    ctx["zero3"] = train_zero3(zero3_run, stage0)
+
+
+def _group_surface_mnist(ctx) -> None:
+    """Phases 10 and 14 side by side on the card: both check results and
+    print no rate."""
+    concurrently([surface_np2, mnist_np2])
+
+
+def _group_wire(ctx) -> None:
+    """bench_np2 and phase 16's int8 run (one pair), phase 15's rows and
+    phase 16."""
+    bench_np2, int8 = bench_and_int8()
+    bench = bench_rows(ctx["singles"]["bench_np1"][1], bench_np2)
+    ctx["codecs"] = check_codecs()
+    wire = ctx["wire"] = train_wire(ctx["zero3"], int8)
+    log("train_wire", f"int8 ring {wire['int8']['img_sec']} img/sec per "
+        f"rank beside this call's exact gloo bench_np2 hvd row "
+        f"{bench['bench_np2']['value']:.2f}")
+
+
+def _group_serve(ctx) -> None:
+    """Phase 18, within its budget."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    t0 = time.perf_counter()
+    ctx["serve"] = serve_phase(FA, ctx["smi"])
+    log("serve", f"{time.perf_counter() - t0:.1f} s (budget {SERVE_BUDGET_S}"
+        " s)")
+    require(time.perf_counter() - t0 <= SERVE_BUDGET_S,
+            f"serve: over its budget of {SERVE_BUDGET_S} s")
+
+
+def _group(key: str, fn, *args):
+    def run(ctx) -> None:
+        ctx[key] = fn(*(ctx[a] for a in args))
+    run.__doc__ = fn.__doc__
+    return run
+
+
+# name -> fn(ctx), in the whole run's order (`ctx` carries results from a
+# group to the ones after it); `--phases NAME...` runs some of them.
+PHASE_GROUPS = {
+    "adasum": _group_adasum,
+    "singles": _group_singles,
+    "transformer": _group_transformer,
+    "surface_mnist": _group_surface_mnist,
+    "elastic": _group("elastic", train_elastic),
+    "zoo": _group("zoo", lambda: train_zoo()[0]),
+    "wire": _group_wire,
+    "mesh": _group("mesh", train_mesh),
+    "serve": _group_serve,
+    "guard": _group("guard", train_guard, "singles"),
+    "hier": _group("hier", train_hier),
+    "runtime": _group("runtime", train_runtime),
+    "trace": _group("trace", train_trace),
+    "launcher": _group("launcher", launcher_phase),
+    "elastic_driver": _group("elastic_driver", elastic_driver_phase, "smi"),
+    "reshard": _group("reshard", reshard_phase),
+}
+# The groups whose results a group reads.
+PHASE_NEEDS = {"wire": ("singles", "transformer"), "guard": ("singles",)}
+
+
+def run_phase_groups(names, ctx: dict) -> None:
+    """Run the named groups of PHASE_GROUPS in turn, each after the
+    groups it reads (PHASE_NEEDS), printing `PHASE_TIME <name> <seconds>`
+    after each."""
+    for name in names:
+        if name not in PHASE_GROUPS:
+            raise SystemExit(f"unknown phase group {name!r}: "
+                             f"{list(PHASE_GROUPS)}")
+        missing = [n for n in PHASE_NEEDS.get(name, ()) if n not in ctx]
+        if missing:
+            raise SystemExit(f"phase group {name} reads {missing}: name "
+                             "them before it")
+        t0 = time.perf_counter()
+        PHASE_GROUPS[name](ctx)
+        ctx[name] = ctx.get(name)
+        print(f"PHASE_TIME {name} {time.perf_counter() - t0:.1f}",
+              flush=True)
+
+
+def build_all() -> None:
+    """Every kernel source (nvcc, in parallel) and, beside them, the
+    native control plane (g++)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch import _build, _native
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_native.load)
+        _build.build(_build.sources())
+        require(native.result() is not None,
+                "the native control plane did not build with g++")
+    log("build", f"native control plane {_native.library_path()} (g++); "
+        f"{time.perf_counter() - t0:.2f} s for "
+        f"{_build.sources()} (nvcc -gencode arch=compute_90a,code=sm_90a)")
+    for name in _build.sources():
+        with open(_build._library_path(name) + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("build", line.strip())
+
+
 def main() -> int:
     import torch
 
@@ -4986,6 +5936,10 @@ def main() -> int:
         return stall_rank()
     if sys.argv[1:2] == ["--trace-rank"]:
         return trace_rank()
+    if sys.argv[1:2] == ["--reshard-rank"]:
+        return reshard_rank()
+    if sys.argv[1:2] == ["--fold-rank"]:
+        return fold_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -5004,11 +5958,22 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if sys.argv[1:2] == ["--phases"]:
+        # Some groups of the whole run (PHASE_GROUPS), with every build.
+        build_all()
+        run_phase_groups(sys.argv[2:], {"smi": smi})
+        log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if sys.argv[1:2] == ["--guard"]:
         # Phase 19 alone (with the builds of the sources it runs).
         _build.build(["flash_attention_sm90", "flash_attention",
                       "tiled_matmul"])
-        guard = train_guard()
+        runs = [dict(phase="guard_resnet_off", args=GUARD_RESNET_ARGS),
+                dict(phase="guard_resnet_on", args=GUARD_RESNET_ARGS,
+                     env={"HOROVOD_GUARD": "1"})]
+        guard = train_guard(dict(zip(
+            [r["phase"] for r in runs],
+            launch_folded("guard_resnet", 1, runs, timeout=600))))
         print(json.dumps({"guard": guard}), flush=True)
         return 0
     if sys.argv[1:2] == ["--hier"]:
@@ -5055,25 +6020,7 @@ def main() -> int:
         f"python {sys.version.split()[0]} devices "
         f"{torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
-    # The native control plane (g++) builds beside the nvcc builds.
-    from concurrent.futures import ThreadPoolExecutor
-
-    from horovod_tpu_torch import _native
-
-    with ThreadPoolExecutor(1) as pool:
-        native = pool.submit(_native.load)
-        _build.build(_build.sources())
-        require(native.result() is not None,
-                "the native control plane did not build with g++")
-    log("build", f"native control plane {_native.library_path()} (g++); "
-        f"{time.perf_counter() - t0:.2f} s for "
-        f"{_build.sources()} (nvcc -gencode arch=compute_90a,code=sm_90a)")
-    for name in _build.sources():
-        with open(_build._library_path(name) + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("build", line.strip())
+    build_all()
 
     t0 = time.perf_counter()
     measured = check_kernels(K)
@@ -5092,65 +6039,17 @@ def main() -> int:
     K.reset_launch_counts()
     FA.reset_launch_counts()
     MK.reset_launch_counts()
-    t0 = time.perf_counter()
-    adasum_summaries = train_adasum()
-    log("train_adasum", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_average()
-    log("train_average", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    transformer_summaries = train_transformer()
-    log("train_transformer", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    nccl_summary = transformer_nccl()
-    log("transformer_nccl", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    zero3_summaries = train_zero3(transformer_summaries)
-    log("train_zero3", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    zero3_nccl(nccl_summary)
-    log("zero3_nccl", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    # Phases 10 and 14 side by side on the card: both check results and
-    # print no rate.
-    concurrently([surface_np2, mnist_np2])
-    log("surface_np2", f"and mnist beside it: {time.perf_counter() - t0:.1f}"
-        " s")
-    t0 = time.perf_counter()
-    train_elastic()
-    log("train_elastic", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    autotune_np2()
-    log("autotune_np2", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    zoo_summaries, _ = train_zoo()
-    log("train_zoo", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    bench = bench_rows()
-    log("bench", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    codecs = check_codecs()
-    wire = train_wire(zero3_summaries)
-    log("train_wire", f"int8 ring {wire['int8']['img_sec']} img/sec per "
-        f"rank beside this call's exact gloo bench_np2 hvd row "
-        f"{bench['bench_np2']['value']:.2f}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mesh = train_mesh()
-    log("train_mesh", f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serve = serve_phase(FA, smi)
-    log("serve", f"{time.perf_counter() - t0:.1f} s (budget {SERVE_BUDGET_S}"
-        " s)")
-    require(time.perf_counter() - t0 <= SERVE_BUDGET_S,
-            f"serve: over its budget of {SERVE_BUDGET_S} s")
-    guard = train_guard()
-    hier = train_hier()
-    runtime = train_runtime()
-    trace = train_trace()
-    # Phases 23 and 24 in turn: both print times.
-    launcher_phase()
-    elastic_driver_phase(smi)
+    ctx = {"smi": smi}
+    run_phase_groups(list(PHASE_GROUPS), ctx)
+    adasum_summaries = ctx["adasum"]
+    transformer_summaries = ctx["transformer"]
+    zero3_summaries = ctx["zero3"]
+    zoo_summaries, wire, mesh, serve = (ctx["zoo"], ctx["wire"], ctx["mesh"],
+                                        ctx["serve"])
+    guard, hier, runtime, trace, reshard = (
+        ctx["guard"], ctx["hier"], ctx["runtime"], ctx["trace"],
+        ctx["reshard"])
+    codecs = ctx["codecs"]
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
     ladder = {n: c - adasum_summaries[0]["check_launches"].get(n, 0)
@@ -5241,6 +6140,10 @@ def main() -> int:
             # Main path 13: the traced, straggling, rebalanced run's
             # launches per rank (all on the tensor cores: check_trace).
             row.update(trace_launches=[t[name] for t in trace["launches"]])
+            # Main path 15: stage 3 around the reshards, per rank (all on
+            # the tensor cores: check_reshard).
+            row.update(reshard_launches=[
+                x[name] for x in reshard["launches"]])
         if name == "tiled_matmul":
             # The launches of the main path's eval forward that took the
             # strided load path (train_zero3 and zero3_nccl require 0),

@@ -25,6 +25,7 @@
 #include <sys/socket.h>
 #include <unistd.h>
 
+#include <array>
 #include <atomic>
 #include <chrono>
 #include <condition_variable>
@@ -210,20 +211,37 @@ int b64val(char c) {
 }
 
 bool b64decode(const std::string& in, std::string* out) {
+  // -1: not base64; -2: skipped ('=' and line breaks).
+  static const auto table = [] {
+    std::array<int8_t, 256> t;
+    t.fill(-1);
+    for (int c = 0; c < 256; c++) {
+      int v = b64val(char(c));
+      if (v >= 0) t[c] = int8_t(v);
+    }
+    t['='] = t['\n'] = t['\r'] = -2;
+    return t;
+  }();
   out->clear();
+  out->resize(in.size() / 4 * 3 + 3);
+  char* o = &(*out)[0];
+  size_t n = 0;
   uint32_t acc = 0;
   int bits = 0;
-  for (char c : in) {
-    if (c == '=' || c == '\n' || c == '\r') continue;
-    int v = b64val(c);
-    if (v < 0) return false;
-    acc = (acc << 6) | v;
+  for (unsigned char c : in) {
+    int v = table[c];
+    if (v < 0) {
+      if (v == -2) continue;
+      return false;
+    }
+    acc = (acc << 6) | uint32_t(v);
     bits += 6;
     if (bits >= 8) {
       bits -= 8;
-      out->push_back(char((acc >> bits) & 0xff));
+      o[n++] = char((acc >> bits) & 0xff);
     }
   }
+  out->resize(n);
   return true;
 }
 
@@ -286,8 +304,12 @@ bool json_parse_string(const std::string& s, size_t* i, std::string* out) {
         default: return false;
       }
     } else {
-      out->push_back(c);
-      (*i)++;
+      // A run of plain characters in one append (a reshard chunk's
+      // base64 text is megabytes of them).
+      size_t j = *i;
+      while (j < s.size() && s[j] != '"' && s[j] != '\\') j++;
+      out->append(s, *i, j - *i);
+      *i = j;
     }
   }
   return false;
@@ -346,9 +368,15 @@ bool json_parse_flat(const std::string& s,
 }
 
 std::string json_escape(const std::string& s) {
+  size_t plain = 0;
+  while (plain < s.size() && (unsigned char)s[plain] >= 0x20 &&
+         s[plain] != '"' && s[plain] != '\\')
+    plain++;
+  if (plain == s.size()) return s;  // nothing to escape: one copy
   std::string out;
   out.reserve(s.size() + 8);
-  for (unsigned char c : s) {
+  out.append(s, 0, plain);
+  for (unsigned char c : s.substr(plain)) {
     switch (c) {
       case '"': out += "\\\""; break;
       case '\\': out += "\\\\"; break;
@@ -563,15 +591,29 @@ class ControlPlaneServer {
     close(listen_fd_);
   }
 
-  bool read_line(int fd, std::string* line) {
-    line->clear();
-    char c;
+  // One line from fd, read in blocks into the connection's buffer `buf`
+  // (what follows the line stays there for the next call): a reshard
+  // chunk's request is megabytes, which one recv a byte would take
+  // seconds to read.
+  bool read_line(int fd, std::string* buf, std::string* line) {
+    size_t scanned = 0;
+    char block[1 << 16];
     while (true) {
-      ssize_t n = recv(fd, &c, 1, 0);
-      if (n <= 0) return !line->empty();
-      if (c == '\n') return true;
-      line->push_back(c);
-      if (line->size() > (1 << 24)) return false;  // 16 MB guard
+      size_t nl = buf->find('\n', scanned);
+      if (nl != std::string::npos) {
+        line->assign(*buf, 0, nl);
+        buf->erase(0, nl + 1);
+        return true;
+      }
+      if (buf->size() > (1 << 24)) return false;  // 16 MB guard
+      scanned = buf->size();
+      ssize_t n = recv(fd, block, sizeof block, 0);
+      if (n <= 0) {
+        line->swap(*buf);
+        buf->clear();
+        return !line->empty();
+      }
+      buf->append(block, size_t(n));
     }
   }
 
@@ -588,8 +630,8 @@ class ControlPlaneServer {
   }
 
   void handle_conn(int fd) {
-    std::string line;
-    while (running_ && read_line(fd, &line)) {
+    std::string buf, line;
+    while (running_ && read_line(fd, &buf, &line)) {
       if (line.empty() || line == "\r") continue;
       size_t sp = line.find(' ');
       std::string payload;

@@ -35,6 +35,21 @@ Run:  python -m horovod_tpu_torch.bench
 Multi-process: HOROVOD_COORDINATOR_ADDR, HOROVOD_NUM_PROCESSES and
 HOROVOD_PROCESS_ID per rank, as for the synthetic benchmark; rank 0
 prints the line.
+
+Two extras (the JAX bench's, :440-601), each in child processes of its
+own, print one JSON line each and write no file:
+
+- `--reshard`: a live reshard 2->1 of two old ranks' ZeRO-3 rows (two
+  groups of 2^19 f32, 4 MB in all, made on the card from a seed) through
+  the in-memory transport under the default peak, against a checkpoint
+  save, restore and local restack of the same rows: both wall times, the
+  measured staging peak, the chunks, and whether the two agree bitwise.
+- `--chaos`: one fault-loaded `ChaosSoak` (faults/chaos.py) at np =
+  HOROVOD_BENCH_CHAOS_NP (2) under the port's launcher: MTTR p50 / p99
+  of the recovered events, steps lost per injection, the reactions, the
+  tuner's final best and the invariants' flags.
+
+Their times come from the card (`--device cpu` runs them on the host).
 """
 
 from __future__ import annotations
@@ -167,7 +182,183 @@ def run(args) -> dict:
     }
 
 
+def _log(msg: str) -> None:
+    print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+
+def run_reshard_child(device=None) -> dict:
+    """The reshard extra's child: two old ranks' ZeRO-3 rows (two groups
+    of 2^19 f32) on the rank's device, moved 2->1 through the in-memory
+    transport under the default peak, then saved, restored and
+    restacked through a checkpoint.  One JSON line."""
+    from horovod_tpu_torch.parallel import reshard as rs
+    from horovod_tpu_torch.utils.checkpoint import CheckpointManager
+
+    hvd.init(device=device)
+    dev = hvd.device()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    ge = (1 << 19, 1 << 19)
+    n_old = 2
+    rows = tuple(torch.randn(n_old, -(-e // n_old), generator=gen).to(dev)
+                 for e in ge)
+    peak = rs.default_peak_bytes()
+    t = rs.LocalTransport()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for r in range(n_old):
+        specs, data = rs.param_streams(rows, ge, n_old, r)
+        rs.reshard_streams(specs, data, n_old, 1, r, None, t, tag="bench",
+                           peak_bytes=peak)
+    specs, _ = rs.param_streams(rows, ge, n_old, 0)
+    streams, rep = rs.reshard_streams(specs, None, n_old, 1, None, 0, t,
+                                      tag="bench", peak_bytes=peak)
+    live = rs.streams_to_param_rows(streams, ge,
+                                    tuple(np.float32 for _ in ge), 1, 0,
+                                    device=dev)
+    _sync(dev)
+    live_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(0, {"rows": list(rows)})
+        restored = mgr.restore(0)
+        ck = tuple(torch.from_numpy(rs.reshard_shard_rows(
+            r_.numpy(), e, 1)).to(dev)
+            for r_, e in zip(restored["rows"], ge))
+        _sync(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    bitwise = all(torch.equal(a, b) for a, b in zip(live, ck))
+    rec = {"n_old": n_old, "n_new": 1,
+           "state_bytes": int(sum(r_.numel() * 4 for r_ in rows)),
+           "live_ms": round(live_ms, 2), "restore_ms": round(restore_ms, 2),
+           "speedup": round(restore_ms / max(live_ms, 1e-6), 2),
+           "peak_bytes": rep.peak_bytes, "peak_ceiling": peak,
+           "chunks": rep.chunks, "bitwise_vs_restore": bitwise,
+           "device": (torch.cuda.get_device_name(dev)
+                      if dev.type == "cuda" else "cpu")}
+    hvd.shutdown()
+    return rec
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reshard_report(device=None, timeout: float = 600.0) -> dict:
+    """The reshard extra, in a child process: live reshard against
+    checkpoint restore at n=2 -> 1."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--reshard-child"]
+    if device:
+        cmd += ["--device", device]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_COORDINATOR")}
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                       env=env)
+    if r.returncode != 0:
+        _log(f"reshard child rc={r.returncode} stderr tail: "
+             f"{r.stderr[-1000:]}")
+        return {}
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    _log(f"reshard n=2->1: live {rec['live_ms']} ms vs save+restore+restack "
+         f"{rec['restore_ms']} ms ({rec['speedup']}x), peak "
+         f"{rec['peak_bytes']} / {rec['peak_ceiling']} bytes, bitwise="
+         f"{rec['bitwise_vs_restore']}")
+    return rec
+
+
+def run_chaos_child(device=None) -> None:
+    """A launched rank of the chaos extra: one `ChaosSoak` per rank, its
+    result written to $HVD_CHAOS_OUT/rank{r}.json."""
+    from horovod_tpu_torch.faults.chaos import ChaosSoak
+
+    hvd.init(device=device)
+    res = ChaosSoak(seed=int(os.environ.get("HVD_CHAOS_SEED", "7"))).run()
+    with open(os.path.join(os.environ["HVD_CHAOS_OUT"],
+                           f"rank{hvd.rank()}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+
+
+def _pctl(xs, q):
+    """Nearest-rank percentile of a sorted list."""
+    if not xs:
+        return None
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def chaos_report(device=None, timeout: float = 600.0) -> dict:
+    """The chaos extra: MTTR percentiles and steps lost per injection from
+    an np >= 2 soak (HOROVOD_BENCH_CHAOS_NP, default 2)."""
+    import subprocess
+
+    np_ = int(os.environ.get("HOROVOD_BENCH_CHAOS_NP", "2"))
+    out = tempfile.mkdtemp(prefix="bench_chaos_")
+    env = dict(os.environ, HVD_CHAOS_OUT=out)
+    env.setdefault("HOROVOD_CHAOS_GENERATIONS", "6")
+    env.setdefault("HOROVOD_CHAOS_STEPS_PER_GEN", "5")
+    env.setdefault("HOROVOD_AUTOTUNE", "1")
+    env.setdefault("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "1")
+    env.setdefault("HOROVOD_TIMELINE", os.path.join(out, "tl.json"))
+    env.setdefault("HOROVOD_TIMELINE_ALL_RANKS", "1")
+    env.setdefault("HOROVOD_TIMELINE_MARK_CYCLES", "1")
+    env.setdefault("HOROVOD_TIMELINE_DISABLE_NATIVE", "1")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+           str(np_), sys.executable, "-m", "horovod_tpu_torch.bench",
+           "--chaos-child"] + (["--device", device] if device else [])
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                       env=env)
+    if r.returncode != 0:
+        _log(f"chaos fleet rc={r.returncode} stderr tail: "
+             f"{(r.stdout + r.stderr)[-1500:]}")
+        return {}
+    with open(os.path.join(out, "rank0.json")) as f:
+        res = json.load(f)
+    events = res["events"]
+    mttr = sorted(float(e["mttr_ms"]) for e in events
+                  if e["outcome"] == "recovered")
+    lost = [int(e["steps_lost"]) for e in events]
+    bests = [w["autotune_best"] for w in res["windows"]
+             if w.get("autotune_best") is not None]
+    return {
+        "bench": "chaos", "np": np_,
+        "generations": len(res["windows"]),
+        "events": len(events),
+        "kinds": sorted(res["kinds_injected"]),
+        "recovered": sum(1 for e in events if e["outcome"] == "recovered"),
+        "degraded": sum(1 for e in events if e["outcome"] == "degraded"),
+        "mttr_p50_ms": round(_pctl(mttr, 0.50), 2) if mttr else None,
+        "mttr_p99_ms": round(_pctl(mttr, 0.99), 2) if mttr else None,
+        "steps_lost_total": sum(lost),
+        "steps_lost_per_injection": (round(sum(lost) / len(lost), 3)
+                                     if lost else 0.0),
+        "loud_reinits": res["loud_reinits"],
+        "reactions": res["reactions"],
+        "autotune_best_final": bests[-1] if bests else None,
+        "split_brain": res["split_brain"],
+        "final_digest_mismatch": res["final_digest_mismatch"],
+    }
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    extra = next((a for a in argv if a in (
+        "--reshard", "--reshard-child", "--chaos", "--chaos-child")), None)
+    if extra is not None:
+        q = argparse.ArgumentParser()
+        q.add_argument(extra, action="store_true")
+        q.add_argument("--device", default=None)
+        device = q.parse_args(argv).device
+        if extra == "--chaos-child":
+            run_chaos_child(device)
+            return 0
+        rec = (run_reshard_child(device) if extra == "--reshard-child"
+               else reshard_report(device) if extra == "--reshard"
+               else chaos_report(device))
+        print(json.dumps(rec), flush=True)
+        return 0 if rec else 1
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="resnet50", choices=zoo_models())
     p.add_argument("--num-classes", type=int, default=1000)

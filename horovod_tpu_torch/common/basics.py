@@ -113,6 +113,10 @@ _init_lock = threading.Lock()
 _store_key: Optional[Tuple[str, int]] = None
 _store: Optional[object] = None
 _generation = 0
+# The stores of the coordinators this process left for another, kept for
+# its return (a world of one between two of the job's): (url, size) ->
+# (store, generation).
+_parked: Dict[Tuple[str, int], Tuple[object, int]] = {}
 # The arguments of the last init(), resolved (see init_arguments).
 _init_args: Optional[dict] = None
 
@@ -186,7 +190,13 @@ def _generation_store(url: str, rank: int, size: int):
     """The store of the next process group on `url`: a prefix of its own
     in the process's one store for that coordinator."""
     global _store_key, _store, _generation
-    if _store_key != (url, size):
+    key = (url, size)
+    if _store_key != key and _store_key is not None:
+        _parked[_store_key] = (_store, _generation)
+    if _store_key != key and key in _parked:
+        _store_key = key
+        _store, _generation = _parked.pop(key)
+    elif _store_key != key:
         parsed = urllib.parse.urlparse(url)
         if parsed.scheme == "file":
             store = dist.FileStore(parsed.path, size)
@@ -197,18 +207,19 @@ def _generation_store(url: str, rank: int, size: int):
             raise HorovodTpuError(
                 f"coordinator address {url!r}: want host:port, tcp:// or "
                 "file://")
-        _store_key, _store, _generation = (url, size), store, 0
+        _store_key, _store, _generation = key, store, 0
     return dist.PrefixStore(f"gen{_generation}", _store)
 
 
 def forget_store() -> None:
-    """Drop the cached coordinator store (with its server, where this
-    rank bound it): the next `init()` builds the store of the
+    """Drop the cached coordinator store and those this process left
+    (with their servers, where this rank bound them): the next `init()` builds the store of the
     coordinator it is given.  An elastic generation has a coordinator of
     its own, so the worker drops the store when it joins another
     generation (`runner/elastic_worker.refresh_from_control_plane`)."""
     global _store_key, _store, _generation
     _store_key, _store, _generation = None, None, 0
+    _parked.clear()
 
 
 def init(*, coordinator_address: Optional[str] = None,

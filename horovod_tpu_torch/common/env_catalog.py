@@ -192,8 +192,21 @@ CATALOG: Tuple[EnvVar, ...] = (
        "serve_flightrec_depth knob, host only); <= 0 turns the recorder "
        "off."),
     _v("HOROVOD_RESHARD_CHUNK_BYTES", "0 (4 MiB)", "autotune",
-       "Initial value of the tuner's reshard_chunk_bytes knob "
-       "(parallel/reshard.py is not ported yet)."),
+       "Reshard chunk-grid cell size in bytes (parallel/reshard.py); 0 "
+       "takes the tuner's reshard_chunk_bytes knob (4 MiB without it), "
+       "clamped to HOROVOD_RESHARD_PEAK_BYTES / 4."),
+    _v("HOROVOD_RESHARD_PEAK_BYTES", "67108864", "reshard",
+       "Per-host staging ceiling of a live reshard in bytes: chunks are "
+       "at most a quarter of it, and the measured peak "
+       "(hvd_reshard_peak_bytes) over it fails the reshard."),
+    _v("HOROVOD_RESHARD_TIMEOUT", "60", "reshard",
+       "Seconds a reshard fetch waits for a peer's chunk or verdict "
+       "before it declares the peer dead (ReshardError, then the "
+       "restore path)."),
+    _v("HOROVOD_RESHARD_WIRE", "none", "reshard",
+       "Wire of the chunks ShardedTorchState publishes: none (exact, "
+       "bitwise) or a cast wire (bf16, fp16); cooperative codecs are "
+       "refused."),
     _v("HOROVOD_AUTOSCALE_COOLDOWN", "32", "autotune",
        "Initial value of the tuner's autoscale_cooldown knob (serve/ is "
        "not ported yet)."),
@@ -265,6 +278,9 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_METRICS_HISTORY_DIR", "(system temp)", "metrics",
        "Directory for the history JSONL dumps written on "
        "flight-recorder triggers."),
+    _v("HOROVOD_SLO_STEP_MS", "(unset)", "metrics",
+       "Training step-time SLO in ms; set, the chaos soak keeps a "
+       "train_step error budget (metrics/budget.py)."),
     _v("HOROVOD_ANOMALY_Z", "4.0", "metrics",
        "EWMA z-score threshold of the anomaly detectors "
        "(metrics/anomaly.py); higher = fewer, louder trips."),
@@ -312,6 +328,13 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Fault schedule, point[@N]:mode[:arg] entries separated by commas "
        "(faults/spec.py); the port fires the collective.* points, "
        "chaos.straggler_delay and state.commit."),
+    _v("HOROVOD_BENCH_CHAOS_NP", "2", "faults",
+       "Ranks of `bench.py --chaos`'s soak."),
+    _v("HOROVOD_CHAOS_GENERATIONS", "8", "faults",
+       "Generations one chaos soak runs (faults/chaos.py; each ends in "
+       "an analysis window, a digest check and a commit)."),
+    _v("HOROVOD_CHAOS_STEPS_PER_GEN", "6", "faults",
+       "Training steps per chaos-soak generation (at least 2)."),
     _v("HOROVOD_FAULT_SEED", "0", "faults",
        "Seed of the schedule's per-point RNGs: the same spec and seed "
        "replay the same faults."),

@@ -45,6 +45,15 @@ class HostsUpdatedInterrupt(HorovodTpuError):
         self.skip_sync = skip_sync
 
 
+class ReshardError(HorovodTpuError):
+    """A live reshard (parallel/reshard.py) could not complete or
+    verify: a peer died mid-transfer, a chunk failed its sha256, a
+    stream's bit-pattern digest did not combine, or staging exceeded
+    the HOROVOD_RESHARD_PEAK_BYTES ceiling.  The resharded state is
+    discarded and the caller falls back to the restore path; the error
+    is never swallowed into partially resharded state."""
+
+
 class InvalidRequestError(HorovodTpuError, ValueError):
     """A caller handed the decode/serve stack an impossible request:
     non-positive batch, max_len shorter than the prompt, a prompt

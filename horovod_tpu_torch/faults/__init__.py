@@ -18,9 +18,12 @@ rendezvous client (`runner/rendezvous.py`), `worker.heartbeat` in
 `runner/elastic_worker.publish_heartbeat`, `worker.refresh` in
 `runner/elastic_worker.refresh_from_control_plane`, and
 `elastic.publish` and `elastic.spawn` in the elastic driver
-(`runner/elastic/driver.py`).  `CATALOG` is the JAX package's whole
-catalog, so a spec valid there is valid here; the points of modules not
-ported yet (serving replicas, resharding) never fire.  An ``exit`` fault runs the hooks of
+(`runner/elastic/driver.py`), `reshard.chunk_corrupt` and
+`reshard.peer_die` in the live reshard (`parallel/reshard.py`), and
+`chaos.step` in the chaos soak (`faults/chaos.py`).  `CATALOG` is the
+JAX package's whole catalog, so a spec valid there is valid here; only
+`serve.replica_die` never fires (serving replicas are not ported yet).
+An ``exit`` fault runs the hooks of
 `register_exit_hook` first (the serving flight recorder's dump).  Every
 injection is counted into `hvd_fault_injections_total{point,mode}`, as
 in the JAX package, and `injections()` returns the armed schedule's

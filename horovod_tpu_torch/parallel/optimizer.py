@@ -137,6 +137,25 @@ def grad_accum_bytes(optimizer) -> int:
                for g in opt.param_groups for p in g["params"])
 
 
+def zero_group_elems(params, compression=Compression.none,
+                     fusion_threshold_bytes: Optional[int] = None,
+                     bucket_order=None) -> tuple:
+    """Each shard group's unpadded element count over `params` (tensors,
+    a module's `parameters()` or a dict), under the `shard_group_partition`
+    the sharded optimizer and `zero3_placement` bake: the one piece of
+    partition geometry a reshard (`parallel/reshard.py`) is planned
+    against (JAX :175).  Pass the optimizer's own tunables."""
+    if hasattr(params, "values"):
+        params = params.values()
+    leaves = [p[1] if isinstance(p, tuple) else p for p in params]
+    return tuple(
+        sum(leaves[i].numel() for i in idxs)
+        for idxs in shard_group_partition(
+            leaves, compression=compression,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order))
+
+
 def _hyper(group: dict) -> dict:
     return {k: v for k, v in group.items() if k != "params"}
 
@@ -183,6 +202,15 @@ class _ShardedOptimizer:
                 "the lossy ring from biasing every step); use "
                 "Compression.fp16/bf16, or HOROVOD_WIRE_POLICY with "
                 "zero_stage >= 1")
+        # The arguments, for `rebuilt` at another world size.
+        self._ctor = dict(
+            zero_stage=zero_stage, compression=compression,
+            backward_passes_per_step=backward_passes_per_step, op=op,
+            process_set=process_set,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            bucket_order=bucket_order, allgather_wire=allgather_wire,
+            guard=guard, axis_name=axis_name,
+            early_reduction=early_reduction)
         hypers = [_hyper(g) for g in optimizer.param_groups]
         if any(h != hypers[0] for h in hypers[1:]):
             raise ValueError(
@@ -632,6 +660,36 @@ class _ShardedOptimizer:
         if _met.enabled() and not _dp.step_hooks_held():
             _met.opt_state_bytes.set(optimizer_state_bytes(self))
         return out
+
+    def rebuilt(self) -> "_ShardedOptimizer":
+        """The optimizer this one's arguments build at the current world
+        size (after an elastic reset), fresh: no state, the guard's state
+        carried over (it does not depend on the world size).  Fill it
+        with `parallel.reshard.streams_to_opt_state`."""
+        if self._mesh is not None:
+            raise ValueError(
+                "rebuilt() cannot carry a hierarchical mesh across world "
+                "sizes: build the optimizer again over a new "
+                "create_hierarchical_mesh")
+        out = _ShardedOptimizer(self._opt, **self._ctor)
+        if self.guard_state is not None:
+            out.guard_state = self.guard_state
+        return out
+
+    def reset_step_state(self) -> None:
+        """Drop the state of a step an elastic restore rolled back (the
+        counterpart of `_DistributedOptimizer.reset_step_state`): a
+        partial accumulation of `backward_passes_per_step` passes (the
+        stage-2 shard accumulator, early reduction's sums, `p.grad`) and
+        the pass count since the last sync."""
+        self._pass_count -= self._pass_count % self._bpps
+        if self._accum is not None:
+            for a in self._accum:
+                a.zero_()
+        self._er_accum = None
+        self._clock = None
+        for p in self._params:
+            p.grad = None
 
     def zero_grad(self, *a, **kw):
         if self._clock is None:

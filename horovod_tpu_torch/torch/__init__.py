@@ -18,6 +18,7 @@ namespace (`hvd.elastic.run`, `TorchState`, `ElasticSampler`).
 from __future__ import annotations
 
 import inspect
+import weakref
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -502,6 +503,10 @@ _POLICY_COMPRESSORS = {c.wire: c for c in (Compression.none, Compression.fp16,
                                            Compression.bf16)}
 
 
+def _no_hook(p: torch.Tensor) -> None:
+    """A gradient hook whose optimizer is gone."""
+
+
 class _DistributedOptimizer:
     """Wraps a torch.optim.Optimizer: gradients are allreduced before
     each step.  Post-accumulate-grad hooks enqueue each gradient as it
@@ -630,9 +635,15 @@ class _DistributedOptimizer:
             # the step's bucket count, which is known only once it runs.
             self.guard_state = guard.init(1, device=self._params[0].device)
         self.reset_step_state()
+        # The hooks hold the optimizer weakly: a strong one would tie it
+        # to its parameters through autograd's C++ side, where the
+        # garbage collector cannot see the cycle, and keep the model, its
+        # gradients and its optimizer state alive after their last use.
+        hook = weakref.WeakMethod(self._hook)
         for p in self._params:
             if p.requires_grad:
-                p.register_post_accumulate_grad_hook(self._hook)
+                p.register_post_accumulate_grad_hook(
+                    lambda t: (hook() or _no_hook)(t))
 
     def _partition(self) -> List[List[int]]:
         return [list(b) for b in gradient_bucket_partition(

@@ -26,6 +26,14 @@ Attribution semantics:
       wait_ms = max_r start - min_r start   (straggler wait)
       wire_ms = max_r end   - max_r start   (transfer after last arrival)
       blamed  = the last-arriving rank
+    except where the data plane dispatches buckets asynchronously: a
+    bucket whose first start comes before the previous bucket's last
+    start (in start order) was dispatched while the earliest rank still
+    waited for the previous one, so its start skew holds the lag the
+    previous bucket already counted, and only what it adds counts:
+      wait_ms = max(0, skew - previous bucket's skew)
+    Synchronous buckets (the JAX package's, whose `analyze` has only
+    the plain rule) never overlap so, and read the same under both.
   - compute_ms(n) = critical_path_ms(n) - wait - wire, clamped at 0.
 
 Pure stdlib ON PURPOSE: the offline CLI (`python -m
@@ -265,6 +273,18 @@ def _bucket_window(ev: dict, cycles: Dict[int, float]) -> Optional[int]:
     return None
 
 
+def _carried_skews(buckets: List[List[tuple]]) -> Dict[int, float]:
+    """For each bucket (its (rank, start, end) entries, >= 2 ranks) that
+    was dispatched before the previous one in start order had started
+    everywhere, the previous bucket's start skew (us) by `id`: the lag
+    it carries over (module docstring)."""
+    spans = sorted((min(s for _, s, _ in es), max(s for _, s, _ in es),
+                    id(es)) for es in buckets if len(es) >= 2)
+    return {key: prev_hi - prev_lo
+            for (prev_lo, prev_hi, _), (lo, _, key) in zip(spans, spans[1:])
+            if lo < prev_hi}
+
+
 def analyze(traces_or_paths: Union[Traces, Sequence[str]],
             align: Optional[str] = None) -> dict:
     """Per-step critical path + straggler attribution (see module
@@ -316,13 +336,16 @@ def analyze(traces_or_paths: Union[Traces, Sequence[str]],
                      - min(cycles[r][n - 1] for r in ranks)) / 1e3
         buckets = []
         step_wait = step_wire = 0.0
+        carried = _carried_skews([e for (bn, *_), e in coll.items()
+                                  if bn == n])
         for (bn, name, tid, _k), entries in sorted(coll.items()):
             if bn != n:
                 continue
             starts = {r: s for r, s, _ in entries}
             ends = {r: e for r, _, e in entries}
             if len(entries) >= 2:
-                wait_ms = (max(starts.values()) - min(starts.values())) / 1e3
+                wait_ms = max(0.0, max(starts.values()) - min(starts.values())
+                              - carried.get(id(entries), 0.0)) / 1e3
                 wire_ms = max(0.0, (max(ends.values())
                                     - max(starts.values())) / 1e3)
                 blamed = max(starts, key=lambda r: starts[r])

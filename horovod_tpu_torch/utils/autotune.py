@@ -657,3 +657,18 @@ def current_serve_pool_pages() -> int:
     sizes the pool to max_batch full-length sequences).  Not a tuner
     knob: the pool's size is a capacity decision."""
     return max(0, util.env_int("SERVE_POOL_PAGES", 0))
+
+
+def tuned_reshard_chunk_bytes(default: int) -> int:
+    v = _tuned("reshard_chunk_bytes")
+    return default if v is None else max(1, int(v))
+
+
+def current_reshard_chunk_bytes() -> int:
+    """The live reshard chunk-grid cell size: HOROVOD_RESHARD_CHUNK_BYTES
+    (0 = the tuner's value, 4 MiB without it), before the executor's
+    clamp to HOROVOD_RESHARD_PEAK_BYTES / 4 (`parallel/reshard.py`)."""
+    env = util.env_int("RESHARD_CHUNK_BYTES", 0)
+    if env > 0:
+        return env
+    return tuned_reshard_chunk_bytes(4 << 20)
