@@ -257,7 +257,7 @@ Phases, each printing its own lines:
                  prefill chain fed the same tokens (`teacher_forced`:
                  equal up to the first near-tie, SERVE_TIE, and within
                  SERVE_TIE of the best after it).  (b) InferenceServer at
-                 max_batch 8 over a seeded make_trace of 12 requests
+                 max_batch 8 over a seeded make_trace of 10 requests
                  (serve_benchmark's FULL_TRACE, decode_bench.py's mix)
                  plus one of T0 prompt tokens, under fifo, static and
                  speculation (a 2-layer draft, gamma from the knob):
@@ -485,11 +485,41 @@ Phases, each printing its own lines:
                  publish at that world of one and both ranks' sync in a
                  new world of two on the live path (bytes moved, the
                  optimizer and placement rebuilt at n=2, the digest
-                 gate), bitwise the original streams.  K4-K6 launched on
+                 gate), bitwise the original streams; (g) the
+                 train-to-serve handoff: both ranks publish their
+                 stage-3 parameter rows (`serve/handoff.py`), rank 0
+                 fetches the decode parameters at tp = 1 and both ranks
+                 theirs at tp = 2, every slice bitwise the gathered
+                 parameters', and rank 0's `InferenceServer` gives the
+                 same SERVE_NEW tokens from a serve_prompt_len prompt
+                 (K4 at its prefill) on the fetched parameters as on
+                 the gathered ones.  K4-K6 launched on
                  the tensor cores on every rank.  Prints the shrink, grow, sync and restore
                  times, bytes, chunks and peaks, each soak event's
                  outcome and MTTR; the phase must end within
                  RESHARD_BUDGET_S.
+26. serve_replicas  main path 16, after phase 25: elastic serving
+                 (`replicas_phase`): replicas of the full-width default
+                 TransformerConfig in bf16, one process each on the card
+                 under `serve.replica.ReplicaManager`, every prompt
+                 serve_prompt_len tokens (K4 at each prefill).  (a) Two
+                 replicas, `serve.replica_die` killing replica1's first
+                 incarnation mid-stream: all REPLICA_REQUESTS results,
+                 a respawn, the dead incarnation's flight-recorder dump,
+                 a reassigned request's lane blamed on replica 1
+                 (`trace.core.analyze_serve`), the digests agreeing.
+                 (b) On the same fleet `serve.autoscale.
+                 AutoscaleController` through `ReplicaFleetActuator`
+                 grows it 2 -> 3 under a queued burst while the joiner
+                 is killed, then shrinks it 3 -> 2 once the queue
+                 drains: each event committed at its planned size, the
+                 digests agreeing.  Every served chain held to the
+                 phase's own reference (`teacher_forced`), each replica
+                 that served with K4 launches all on the tensor cores;
+                 prints each replica's first beat, peak memory and K4
+                 launches, the KV's get latency at three replicas and
+                 the card's free memory before and after the fleet; the
+                 phase must end within REPLICA_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -506,7 +536,8 @@ prefill shape and phase 18 (with their own builds of the flash sources).
 sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
 `--trace` only phase 22; `--launcher` only phase 23; `--elastic` only
 phase 24. `python3 chip_smoke.py --phases GROUP...` runs the named groups
-of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25) after
+of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25,
+`--phases replicas` phase 26) after
 every build, and the whole run and it print `PHASE_TIME <group> <s>`
 after each group.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
@@ -550,7 +581,8 @@ main path 11 per rank as `hier_launches` and `hier_zero3_launches`, and
 on main path 12 as `runtime_launches` (the rank's eager steps, warm-ups
 and captures) and `runtime_replay_launches` (one replay's, read from its
 trace), and on main path 13 per rank as `trace_launches`, and on main
-path 15 per rank as `reshard_launches`, K3's
+path 15 per rank as `reshard_launches`, K4's on main path 16 (every
+replica's together) as `replicas_launches`, K3's
 on main path 10 as `guard_launches`, K4 with its prefill-shape
 times as `prefill` and the MIN_T table as `min_t`), and as the last
 line
@@ -3163,7 +3195,7 @@ def serve_decode(FA, D, T, launches) -> dict:
 
 def serve_server(FA, D, T, launches, smi: str) -> dict:
     """Phase 18 (b): InferenceServer at max_batch 8 over a seeded
-    make_trace of 12 requests plus one whose prompt takes K4, under fifo
+    make_trace of 10 requests plus one whose prompt takes K4, under fifo
     then static, and the speculative server (a 2-layer draft at full
     width, gamma from the knob): every request's tokens held to its own
     batch-1 greedy chain (`teacher_forced`: equal up to the first
@@ -3180,9 +3212,9 @@ def serve_server(FA, D, T, launches, smi: str) -> dict:
     params = T.tree_map(lambda a: a.to(dev), T.transformer_init(0, cfg))
     dp = D.decode_params(params, cfg)
     T0 = serve_prompt_len(FA)
-    # 12 requests (more than max_batch, so the batch still turns over):
+    # 10 requests (more than max_batch, so the batch still turns over):
     # the script's depth, which keeps it to its time target.
-    trace = make_trace(18, 12, cfg.vocab_size, **FULL_TRACE)
+    trace = make_trace(18, 10, cfg.vocab_size, **FULL_TRACE)
     long_prompt = np.random.RandomState(18).randint(
         0, cfg.vocab_size, T0).astype(np.int32)
     trace.append((4, long_prompt, SERVE_NEW))
@@ -5243,6 +5275,150 @@ def _streams_equal(a: dict, b: dict) -> bool:
         for k in a)
 
 
+def model_tree(model, leaves) -> dict:
+    """`leaves` (one tensor for each of `model`'s parameters, in their
+    order) as the JAX-layout tree `transformer_params` gives: the
+    blocks' leaves stacked over the layers."""
+    import torch
+
+    named = dict(zip([n for n, _ in model.named_parameters()], leaves))
+    stack = {k: torch.stack([named[f"blocks.{i}.{k}"]
+                             for i in range(len(model.blocks))])
+             for k in ("ln1", "ln2", "wq", "wk", "wv", "wo", "wi", "wg",
+                       "wd")}
+    return {"embed": named["embed"], "final_norm": {"scale": named[
+        "final_norm"]}, "blocks": {k: {"scale": v} if k in ("ln1", "ln2")
+                                   else v for k, v in stack.items()}}
+
+
+def param_specs(model, cfg) -> list:
+    """Each of `model`'s parameters' tp spec: `transformer_pspecs`'
+    without the stacked layer axis."""
+    from horovod_tpu_torch.models import transformer_pspecs
+
+    specs = transformer_pspecs(cfg)
+    out = []
+    for name, _ in model.named_parameters():
+        if name == "embed":
+            out.append(specs["embed"])
+        elif name == "final_norm":
+            out.append(specs["final_norm"]["scale"])
+        else:
+            leaf = name.split(".")[-1]
+            spec = specs["blocks"][leaf]
+            out.append((spec["scale"] if leaf in ("ln1", "ln2")
+                        else spec)[1:])
+    return out
+
+
+def serve_handoff(model, placement, rows, cfg, dev, seq_len: int,
+                  chunk: int, peak: int, progress=lambda what: None) -> dict:
+    """Phase 25 (g), on both ranks of the stage-3 world: each publishes
+    its placed parameter rows for serving (`serve.handoff.
+    publish_for_serve`, through the launcher's KV); rank 0 fetches the
+    decode parameters at tp = 1 and both ranks their halves at tp = 2
+    (`fetch_decode_params`), every leaf slice held bitwise to the same
+    slice of the gathered parameters; rank 0 then serves one prompt of
+    `serve_prompt_len` (at most seq_len) for SERVE_NEW tokens through
+    `InferenceServer` on the fetched parameters and on the gathered
+    ones: the same tokens.  Returns the seconds, bytes, staging peaks
+    and checks."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel import reshard as rs
+    from horovod_tpu_torch.serve import InferenceServer
+    from horovod_tpu_torch.serve import handoff as ho
+
+    r, n = hvd.rank(), hvd.size()
+    params = list(model.parameters())
+    specs = param_specs(model, cfg)
+    ge = tuple(sum(g.sizes) for g in placement.groups)
+    _, groups = ho.handoff_meta(params, specs)
+    out = {"groups_match": [list(g.idxs) for g in placement.groups]
+           == [idxs for idxs, _ in groups]}
+    t = rs.KVTransport.from_env("phase25serve")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rep = ho.publish_for_serve(rows, ge, n, r, t, chunk_bytes=chunk,
+                               peak_bytes=peak)
+    out["publish_s"] = time.perf_counter() - t0
+    out["publish_bytes"], out["publish_peak"] = rep.bytes_moved, rep.peak_bytes
+    progress("handoff publish")
+    with torch.no_grad():
+        placement.gather(rows)
+        full = [p.detach().cpu().clone() for p in params]
+    placement.release()
+
+    class Memo:
+        """Rank 0's transport: a payload its tp = 1 fetch read serves
+        its tp = 2 fetch from memory (rank 1's tp = 2 fetch reads every
+        payload over the KV)."""
+
+        def __init__(self):
+            self.seen = {}
+
+        def wait(self, key, timeout=30.0):
+            if key not in self.seen:
+                self.seen[key] = t.wait(key, timeout=timeout)
+            return self.seen[key]
+
+    memo = Memo() if r == 0 else t
+
+    def fetch(tp: int) -> list:
+        stats = {}
+        t0 = time.perf_counter()
+        got = ho.fetch_decode_params(params, specs, memo, tp=tp,
+                                     tp_rank=r % tp, chunk_bytes=chunk,
+                                     peak_bytes=peak, stats=stats)
+        out[f"fetch_tp{tp}_s"] = time.perf_counter() - t0
+        out[f"fetch_tp{tp}_bytes"] = sum(x.numel() * x.element_size()
+                                         for x in got)
+        out[f"fetch_tp{tp}_peak"] = stats["peak_bytes"]
+        bitwise = True
+        for x, f, spec in zip(got, full, specs):
+            ax = next((i for i, a in enumerate(spec) if a == "tp"), None)
+            want = f if ax is None else f.chunk(tp, dim=ax)[r % tp]
+            bitwise &= x.shape == want.shape and torch.equal(
+                x.contiguous().view(torch.uint8),
+                want.contiguous().view(torch.uint8))
+        out[f"tp{tp}_bitwise"] = bitwise
+        return got
+
+    got1 = fetch(1) if r == 0 else None
+    fetch(2)
+    del memo
+    progress("handoff fetch")
+    if r == 0:
+        T0 = min(serve_prompt_len(FA), seq_len)
+        prompt = np.random.RandomState(25).randint(0, cfg.vocab_size, T0)
+        FA.reset_launch_counts()
+
+        def tokens(leaves) -> list:
+            srv = InferenceServer(model_tree(model, leaves), cfg,
+                                  max_seq_tokens=T0 + SERVE_NEW,
+                                  max_batch=1, device=dev)
+            srv.submit(prompt, SERVE_NEW)
+            (seq,) = srv.run()
+            return list(seq.generated)
+
+        t0 = time.perf_counter()
+        out["tokens_fetched"] = tokens(got1)
+        out["tokens_gathered"] = tokens(full)
+        out["serve_s"] = time.perf_counter() - t0
+        out["serve_k4"] = FA.launch_counts()["flash_fwd"]
+        out["serve_k4_sm90"] = FA.sm90_launch_counts()["flash_fwd"]
+        out["prompt_len"] = T0
+        del got1
+    del full
+    hvd.barrier()
+    if r == 0:
+        rs.cleanup(t, "serve")
+    return out
+
+
 def reshard_rank(cfg=None, seq_len: int = 16384, device=None,
                  zero3_env=None, peak=None, chunk=None,
                  out_dir: str = LOG_DIR, keep_streams: bool = False) -> int:
@@ -5277,7 +5453,9 @@ def reshard_rank(cfg=None, seq_len: int = 16384, device=None,
         publishes its world-1 state at `on_hosts_updated`, both ranks
         join a new world of two and `sync` fetches each one's shards,
         rebuilds its optimizer and placement, gates on the digest and
-        broadcasts the scalars: bitwise the original 2-rank streams.
+        broadcasts the scalars: bitwise the original 2-rank streams;
+    (g) between (b) and (d), the train-to-serve handoff of the stage-3
+        parameter rows (`serve_handoff`).
     Saved to out_dir/reshard_rank<r>.pt."""
     import shutil
     import tempfile
@@ -5445,6 +5623,11 @@ def reshard_rank(cfg=None, seq_len: int = 16384, device=None,
         if r == 0:
             rs.cleanup(t, "grow")
         progress("grow")
+
+        # (g) the train-to-serve handoff of the stage-3 rows.
+        res["handoff"] = serve_handoff(model, placement, rows, cfg, dev,
+                                       seq_len, chunk, peak, progress)
+        progress("handoff")
 
         # (d) a dead peer at the publish, then a corrupt chunk.  The
         # restore path here is the one without a checkpoint (every rank's
@@ -5692,6 +5875,26 @@ def check_reshard(res, on_card: bool = True) -> dict:
                         for k in FLASH_NAMES),
                     f"rank {r}: K4-K6 {l} off the tensor cores or not "
                     "launched")
+    for s in res:
+        h = s["handoff"]
+        require(h["groups_match"] and h["tp2_bitwise"]
+                and h["publish_bytes"] > 0
+                and h["publish_peak"] <= s["peak_ceiling"]
+                and h["fetch_tp2_peak"] <= s["peak_ceiling"],
+                f"rank {s['rank']}: serve handoff {h}")
+    h = r0["handoff"]
+    require(h["tp1_bitwise"] and h["fetch_tp1_peak"] <= r0["peak_ceiling"],
+            f"serve handoff at tp=1: bitwise {h['tp1_bitwise']}, peak "
+            f"{h['fetch_tp1_peak']}")
+    require(h["tokens_fetched"] == h["tokens_gathered"]
+            and len(h["tokens_fetched"]) == SERVE_NEW,
+            f"serve handoff: tokens from the fetched parameters "
+            f"{h['tokens_fetched']} are not those from the gathered ones "
+            f"{h['tokens_gathered']}")
+    if on_card:
+        require(h["serve_k4"] > 0 and h["serve_k4_sm90"] == h["serve_k4"],
+                f"serve handoff: K4 {h['serve_k4']} launches "
+                f"({h['serve_k4_sm90']} on the tensor cores) at the prefill")
     require(r0["shrink_live_eq_local"],
             "shrink 2->1: the live streams are not bitwise the local "
             "restack's")
@@ -5722,7 +5925,8 @@ def check_reshard(res, on_card: bool = True) -> dict:
             "soak_shares": [w["skew_share"] for w in r0["soak"]["windows"]],
             "soak_anomaly": soak["anomaly"],
             "rebalance_reactions": r0["soak_rebalance"]["reactions"],
-            "rebalance_anomaly": r0["soak_rebalance"]["anomaly"]}
+            "rebalance_anomaly": r0["soak_rebalance"]["anomaly"],
+            "handoff": [s["handoff"] for s in res]}
 
 
 def reshard_phase() -> dict:
@@ -5773,12 +5977,284 @@ def reshard_phase() -> dict:
     log(phase, f"soak with the degrade branch off: reactions "
         f"{out['rebalance_reactions']}; anomaly detected "
         f"{out['rebalance_anomaly']['detected_kinds']}")
+    h0, h1 = out["handoff"]
+    log(phase, f"(g) serve handoff: publish {h0['publish_s']:.3f} / "
+        f"{h1['publish_s']:.3f} s ({h0['publish_bytes'] / mib:.1f} / "
+        f"{h1['publish_bytes'] / mib:.1f} MiB, peak "
+        f"{h0['publish_peak'] / mib:.2f} / {h1['publish_peak'] / mib:.2f} "
+        f"MiB); fetch at tp=1 on rank 0 {h0['fetch_tp1_s']:.3f} s "
+        f"({h0['fetch_tp1_bytes'] / mib:.1f} MiB, staging peak "
+        f"{h0['fetch_tp1_peak'] / mib:.2f} MiB); at tp=2 "
+        f"{h0['fetch_tp2_s']:.3f} / {h1['fetch_tp2_s']:.3f} s "
+        f"({h0['fetch_tp2_bytes'] / mib:.1f} MiB a rank, peak "
+        f"{h0['fetch_tp2_peak'] / mib:.2f} / {h1['fetch_tp2_peak'] / mib:.2f}"
+        f" MiB); every slice bitwise the gathered parameters'; "
+        f"{SERVE_NEW} tokens served from a {h0['prompt_len']}-token prompt "
+        f"on the fetched parameters equal those on the gathered ones "
+        f"({h0['serve_s']:.3f} s for both, K4 {h0['serve_k4']} launches, "
+        f"{h0['serve_k4_sm90']} on the tensor cores)")
     log(phase, "K4-K6 launches per rank (reshard_launches): " + ", ".join(
         f"{n} {[l[n] for l in out['launches']]}" for n in FLASH_NAMES))
     out["phase_s"] = time.perf_counter() - t_start
     log(phase, f"{out['phase_s']:.1f} s (budget {RESHARD_BUDGET_S} s)")
     require(out["phase_s"] <= RESHARD_BUDGET_S,
             f"{phase}: over its budget of {RESHARD_BUDGET_S} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: elastic serving replicas, healed and scaled
+# ---------------------------------------------------------------------------
+
+REPLICA_BUDGET_S = 90     # phase 26's share of the script's time limit
+# The lease: a replica's first beat comes after its process start (8-11
+# s on the card's host), the full-width model's init, its move to the
+# card and the digest; the start grace is two TTLs.
+REPLICA_LEASE_TTL = 30.0
+REPLICA_DIE_BEAT = 3      # the dying incarnation's last loop iteration
+REPLICA_BATCH = 2         # each replica's decode rows
+REPLICA_REQUESTS = 6      # (a)
+REPLICA_BURST = 8         # (b): queued beyond the fleet's 2 x 2 rows
+REPLICA_AROUND = (3, 2)   # (b): submitted after the grow, after the shrink
+# (b): a controller that fires within the phase: grow after two
+# observations of pressure (the burst), shrink after two of relief once
+# the reversal's cooldown (2 x 2 observations) is past.
+REPLICA_AUTOSCALE_ENV = {
+    "HOROVOD_AUTOSCALE_MIN_REPLICAS": "2",
+    "HOROVOD_AUTOSCALE_MAX_REPLICAS": "3",
+    "HOROVOD_AUTOSCALE_DWELL": "2", "HOROVOD_AUTOSCALE_COOLDOWN": "2",
+    "HOROVOD_AUTOSCALE_OCC_HIGH": "0.85", "HOROVOD_AUTOSCALE_OCC_LOW": "0.30",
+    "HOROVOD_AUTOSCALE_QUEUE_MS": "0"}
+
+
+def _die(host: str) -> dict:
+    return {"HOROVOD_FAULT_SPEC":
+            f"serve.replica_die@{REPLICA_DIE_BEAT}:exit:1",
+            "HOROVOD_FAULT_HOSTS": host}
+
+
+def _fire(ctrl, mgr, step: int, verdict: str, limit: int = 32):
+    """Observe the fleet until the controller fires; returns (the next
+    step, the decision, its event)."""
+    from horovod_tpu_torch.serve.autoscale import snapshot_from_manager
+
+    for step in range(step, step + limit):
+        mgr.poll_results()
+        d, ev = ctrl.step(snapshot_from_manager(mgr, step,
+                                                max_batch=REPLICA_BATCH))
+        if ev is not None:
+            require(d.verdict == verdict, f"serve_replicas: the controller "
+                    f"fired {d.verdict} ({d.reason}), want {verdict}")
+            return step + 1, d, ev
+    raise RuntimeError(f"serve_replicas: no {verdict} in {limit} "
+                       f"observations: {[d.reason for d in ctrl.decisions]}")
+
+
+def replicas_phase(FA, smi: str, cfg_kw=None, device=None,
+                   prompt_len=None, budget: float = REPLICA_BUDGET_S) -> dict:
+    """Phase 26 (main path 16): a fleet of the full-width default
+    TransformerConfig in bf16 (`serve/replica.py`, one process a replica
+    on the card), prompts of serve_prompt_len tokens so that every
+    prefill runs K4.
+
+    (a) The die drill: ReplicaManager(2) with `serve.replica_die` on
+        replica1's first incarnation, timelines and flight-recorder
+        dumps on; REPLICA_REQUESTS requests of SERVE_NEW tokens: every
+        result arrives, a respawn, the dead incarnation's dump
+        (`fault_exit:serve.replica_die`), a reassigned request's lane
+        blamed on replica 1 (`trace.core.analyze_serve`), the digests
+        agreeing.
+    (b) On the same fleet, `AutoscaleController` through
+        `ReplicaFleetActuator` (REPLICA_AUTOSCALE_ENV): a queued burst
+        grows it 2 -> 3 while `serve.replica_die` kills the joiner, then
+        it shrinks 3 -> 2 once the queue drains; each event committed
+        at its planned size, the digests agreeing after each.
+    Every request's tokens held to the phase's own reference chain
+    (`teacher_forced`: equal up to the first near-tie, within SERVE_TIE
+    after it); each replica that served reports K4 launches, all on the
+    tensor cores, and its peak memory; the card's free memory comes
+    back once the fleet stops.  `cfg_kw`, `device` ("cpu": the card's
+    checks off) and `prompt_len` shrink it for a rehearsal on the
+    CPU."""
+    import glob
+
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serve import flightrec
+    from horovod_tpu_torch.serve.autoscale import (
+        AutoscaleConfig, AutoscaleController, ReplicaFleetActuator)
+    from horovod_tpu_torch.serve.replica import ReplicaManager
+    from horovod_tpu_torch.trace import core as tcore
+
+    phase = "serve_replicas"
+    t_start = time.perf_counter()
+    on_card = device is None
+    dev = torch.device("cuda", 0) if on_card else torch.device(device)
+    cfg_kw = dict(cfg_kw or {}, compute_dtype="bfloat16" if on_card
+                  else "float32")
+    cfg = T.TransformerConfig(**dict(cfg_kw, compute_dtype=getattr(
+        torch, cfg_kw["compute_dtype"])))
+    T0 = prompt_len or serve_prompt_len(FA)
+    config = {"cfg": cfg_kw, "seed": 0,
+              "serve": dict({"max_seq_tokens": T0 + SERVE_NEW,
+                             "max_batch": REPLICA_BATCH},
+                            **({} if on_card else {"device": device}))}
+    out_dir = os.path.join(LOG_DIR, "serve_replicas")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    tl = os.path.join(out_dir, "tl.json")
+    rng = np.random.RandomState(26)
+    prompts = {}
+
+    def submit(mgr, n):
+        for _ in range(n):
+            p = rng.randint(0, cfg.vocab_size, T0)
+            prompts[mgr.submit(p.tolist(), SERVE_NEW)] = p
+
+    def free_gb():
+        if not on_card:
+            return 0.0
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info(dev)[0] / 1e9
+
+    free_before = free_gb()
+    out, times = {}, {}
+    with ReplicaManager(2, config, lease_ttl=REPLICA_LEASE_TTL,
+                        respawn_backoff=0.2, child_env=dict(
+                            _die("replica1"), HOROVOD_TIMELINE=tl,
+                            HOROVOD_SERVE_FLIGHTREC_DIR=out_dir)) as mgr:
+        # Only replica1's first incarnation is armed.
+        for k in _die(""):
+            mgr.child_env.pop(k)
+        # (a) the die drill.
+        t0 = time.perf_counter()
+        submit(mgr, REPLICA_REQUESTS)
+        res = mgr.wait_all(timeout=120)
+        out["a"] = {"results": len(res), "respawns": mgr._respawns,
+                    "digest_agreement": mgr.digest_agreement(timeout=60)}
+        times["a_s"] = time.perf_counter() - t0
+        require(len(res) == REPLICA_REQUESTS and out["a"]["respawns"] >= 1
+                and out["a"]["digest_agreement"],
+                f"{phase} (a): {out['a']}")
+        # (b) scale events on the same fleet.
+        t0 = time.perf_counter()
+        ctrl = _with_env(REPLICA_AUTOSCALE_ENV, lambda: AutoscaleController(
+            AutoscaleConfig(), actuator=ReplicaFleetActuator(mgr)))
+        submit(mgr, REPLICA_BURST)
+        mgr.child_env.update(_die("replica2"))     # the joiner
+        step, d, grow = _fire(ctrl, mgr, 0, "grow")
+        for k in _die(""):
+            mgr.child_env.pop(k)
+        t1 = time.perf_counter()
+        for _ in range(20):
+            mgr.kv.get("serve/stop")
+        out["kv_get_ms"] = (time.perf_counter() - t1) / 20 * 1e3
+        submit(mgr, REPLICA_AROUND[0])
+        respawns = mgr._respawns
+        mgr.wait_all(timeout=120)
+        out["grow"] = {"state": grow.state, "planned": d.to_size,
+                       "converged": grow.converged_size,
+                       "wall_ms": grow.wall_ms,
+                       "respawns": mgr._respawns - respawns,
+                       "digest_agreement": mgr.digest_agreement(timeout=60)}
+        times["grow_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, d, shrink = _fire(ctrl, mgr, step, "shrink")
+        submit(mgr, REPLICA_AROUND[1])
+        mgr.wait_all(timeout=120)
+        out["shrink"] = {"state": shrink.state, "planned": d.to_size,
+                         "converged": shrink.converged_size,
+                         "wall_ms": shrink.wall_ms,
+                         "digest_agreement": mgr.digest_agreement(timeout=60)}
+        times["shrink_s"] = time.perf_counter() - t0
+        for ev, size in (("grow", 3), ("shrink", 2)):
+            e = out[ev]
+            require(e["state"] == "committed" and e["planned"] == size
+                    == e["converged"] and e["digest_agreement"],
+                    f"{phase} (b): the {ev} event {e}")
+        require(out["grow"]["respawns"] >= 1,
+                f"{phase} (b): the joiner did not die and respawn")
+        results = dict(mgr.results)
+        out["first_beats"] = [(r, round(s, 3)) for r, s in mgr.first_beats]
+        out["fleet"] = mgr.fleet_size()
+    times["fleet_s"] = time.perf_counter() - t_start
+    out["free_gb"] = (free_before, free_gb())
+    require(out["free_gb"][1] >= free_before - 1.0,
+            f"{phase}: {free_before - out['free_gb'][1]:.2f} GB of the card "
+            "still held after the fleet stopped")
+
+    # What the replicas left: the dead incarnation's dump, the lanes.
+    dumps = [flightrec.load_dump(f) for f in sorted(glob.glob(
+        os.path.join(out_dir, "serve_flightrec.replica1.*.json")))]
+    require(any(dp["reason"] == "fault_exit:serve.replica_die"
+                for dp in dumps), f"{phase}: replica1 left no dump "
+            f"(reasons {[dp['reason'] for dp in dumps]})")
+    files = sorted(glob.glob(tl + ".rank*"))
+    report = tcore.analyze_serve(files, align="wall")
+    stitched = [row for row in report["requests"] if row["reassigned"]]
+    require(any(row["blamed_replica"] == 1 for row in stitched),
+            f"{phase}: no reassigned request blamed on replica 1: "
+            f"{stitched}")
+    stats = [dict(e["args"], file=os.path.basename(f))
+             for f in files for evs in tcore.load_rank_traces([f]).values()
+             for e in evs if e.get("name") == "replica_stats"]
+    served = [st for st in stats if st["served"]]
+    require(len(served) >= 2 and (not on_card or all(
+        st["launches"]["flash_fwd"] > 0
+        and st["sm90"]["flash_fwd"] == st["launches"]["flash_fwd"]
+        for st in served)), f"{phase}: K4 launches of the replicas {stats}")
+    out["replicas"] = [{k: st[k] for k in ("file", "served", "peak_mem_gb")}
+                       | {"k4": st["launches"]["flash_fwd"],
+                          "k4_sm90": st["sm90"]["flash_fwd"]}
+                       for st in stats]
+    out["launches"] = sum(st["launches"]["flash_fwd"] for st in stats)
+
+    # Every chain against the phase's own reference.
+    require(sorted(results) == sorted(prompts), f"{phase}: results for "
+            f"{sorted(results)} of {sorted(prompts)}")
+    t0 = time.perf_counter()
+    params = D.decode_params(T.tree_map(lambda a: a.to(dev),
+                                        T.transformer_init(0, cfg)), cfg)
+    ids = sorted(results)
+    held = ties = before = 0
+    for i in range(0, len(ids), 8):
+        chunk = ids[i:i + 8]
+        h, t, b = teacher_forced(
+            D, params, cfg,
+            torch.from_numpy(np.stack([prompts[j] for j in chunk])).to(dev),
+            [results[j] for j in chunk])
+        held, ties, before = held + h, ties + t, before + b
+    require(held == len(ids) * SERVE_NEW, f"{phase}: held {held} tokens")
+    out["tokens"] = {"held": held, "near_ties": ties,
+                     "before_first_tie": before}
+    times["reference_s"] = time.perf_counter() - t0
+    del params
+    out["times"] = times
+    log(phase, f"({smi}) (a) {REPLICA_REQUESTS} requests of {SERVE_NEW} "
+        f"tokens from {T0}-token prompts on 2 replicas, replica1 killed at "
+        f"its beat {REPLICA_DIE_BEAT}: all {out['a']['results']} results, "
+        f"{out['a']['respawns']} respawn, digests agree, its dump "
+        f"fault_exit:serve.replica_die, {len(stitched)} reassigned lanes; "
+        f"{times['a_s']:.1f} s")
+    log(phase, f"(b) grow 2->3 under a burst of {REPLICA_BURST} "
+        f"({out['grow']['wall_ms']:.0f} ms to converge, the joiner killed "
+        f"and respawned) {times['grow_s']:.1f} s, shrink 3->2 "
+        f"({out['shrink']['wall_ms']:.0f} ms) {times['shrink_s']:.1f} s; "
+        f"both committed, digests agree; KV get at 3 replicas "
+        f"{out['kv_get_ms']:.3f} ms")
+    log(phase, f"first beats (replica, s from spawn) {out['first_beats']}; "
+        f"replicas (file, served, peak GB, K4, on sm90) {out['replicas']}; "
+        f"card free {out['free_gb'][0]:.2f} GB before, "
+        f"{out['free_gb'][1]:.2f} GB after the fleet")
+    log(phase, f"{held} tokens of {len(ids)} requests held to the "
+        f"reference chains ({before} before a row's first near-tie, "
+        f"{ties} near-ties); {times['reference_s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_start
+    log(phase, f"{out['phase_s']:.1f} s (budget {budget} s)")
+    require(out["phase_s"] <= budget,
+            f"{phase}: over its budget of {budget} s")
     return out
 
 
@@ -5839,6 +6315,13 @@ def _group_serve(ctx) -> None:
             f"serve: over its budget of {SERVE_BUDGET_S} s")
 
 
+def _group_replicas(ctx) -> None:
+    """Phase 26."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    ctx["replicas"] = replicas_phase(FA, ctx["smi"])
+
+
 def _group(key: str, fn, *args):
     def run(ctx) -> None:
         ctx[key] = fn(*(ctx[a] for a in args))
@@ -5865,6 +6348,7 @@ PHASE_GROUPS = {
     "launcher": _group("launcher", launcher_phase),
     "elastic_driver": _group("elastic_driver", elastic_driver_phase, "smi"),
     "reshard": _group("reshard", reshard_phase),
+    "replicas": _group_replicas,
 }
 # The groups whose results a group reads.
 PHASE_NEEDS = {"wire": ("singles", "transformer"), "guard": ("singles",)}
@@ -6046,9 +6530,9 @@ def main() -> int:
     zero3_summaries = ctx["zero3"]
     zoo_summaries, wire, mesh, serve = (ctx["zoo"], ctx["wire"], ctx["mesh"],
                                         ctx["serve"])
-    guard, hier, runtime, trace, reshard = (
+    guard, hier, runtime, trace, reshard, replicas = (
         ctx["guard"], ctx["hier"], ctx["runtime"], ctx["trace"],
-        ctx["reshard"])
+        ctx["reshard"], ctx["replicas"])
     codecs = ctx["codecs"]
 
     # K1 and K2 on main path 1 (the ladder), net of the check's tree.
@@ -6108,7 +6592,13 @@ def main() -> int:
             if name == "flash_fwd":
                 # Main path 9: K4 at the decode prefill's shape, and the
                 # dense-against-flash table that sets MIN_T.
-                row.update(prefill=prefill, min_t=min_t)
+                # Main path 16: the replica fleet's K4 launches, all the
+                # replicas' together (each on the tensor cores:
+                # replicas_phase).
+                row.update(prefill=prefill, min_t=min_t,
+                           replicas_launches=replicas["launches"])
+                require(row["replicas_launches"] > 0,
+                        "flash_fwd: no launch on main path 16")
                 require(row["serve_launches"] > 0 and row[
                     "serve_sm90_launches"] == row["serve_launches"],
                     "flash_fwd: no launch on main path 9, or one off the "

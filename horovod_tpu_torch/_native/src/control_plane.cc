@@ -25,6 +25,11 @@
 #include <sys/socket.h>
 #include <unistd.h>
 
+#if defined(__x86_64__)
+#include <cpuid.h>
+#include <immintrin.h>
+#endif
+
 #include <array>
 #include <atomic>
 #include <chrono>
@@ -46,6 +51,77 @@ namespace {
 // SHA-256 (FIPS 180-4) — self-contained, no OpenSSL dependency.
 // ---------------------------------------------------------------------------
 
+const uint32_t SHA256_K[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
+    0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
+    0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
+    0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+    0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
+    0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+    0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+    0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
+    0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
+    0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
+    0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+#if defined(__x86_64__)
+// The x86 SHA extensions: sixteen groups of four rounds a block, the
+// message schedule four words at a time (sha256msg1 / sha256msg2).  A
+// megabytes-long reshard payload is hashed twice a round trip (the
+// request's and the response's HMAC), which the portable rounds make
+// the KV's largest cost.
+bool have_sha_ni() {
+  unsigned a, b, c, d;
+  if (!__get_cpuid(1, &a, &b, &c, &d) || !(c & bit_SSE4_1) ||
+      !(c & bit_SSSE3))
+    return false;
+  return __get_cpuid_count(7, 0, &a, &b, &c, &d) && (b & (1u << 29));
+}
+
+__attribute__((target("sha,sse4.1,ssse3")))
+void sha256_blocks_ni(uint32_t h[8], const uint8_t* p, size_t n) {
+  const __m128i mask =
+      _mm_set_epi64x(0x0c0d0e0f08090a0bULL, 0x0405060700010203ULL);
+  __m128i tmp = _mm_shuffle_epi32(_mm_loadu_si128((const __m128i*)h), 0xB1);
+  __m128i s1 = _mm_shuffle_epi32(
+      _mm_loadu_si128((const __m128i*)(h + 4)), 0x1B);
+  __m128i s0 = _mm_alignr_epi8(tmp, s1, 8);     // ABEF
+  s1 = _mm_blend_epi16(s1, tmp, 0xF0);          // CDGH
+  for (; n > 0; n--, p += 64) {
+    const __m128i abef = s0, cdgh = s1;
+    __m128i m[4];
+    for (int i = 0; i < 16; i++) {
+      if (i < 4)
+        m[i] = _mm_shuffle_epi8(
+            _mm_loadu_si128((const __m128i*)(p + 16 * i)), mask);
+      const __m128i cur = m[i & 3];
+      __m128i w = _mm_add_epi32(
+          cur, _mm_loadu_si128((const __m128i*)(SHA256_K + 4 * i)));
+      s1 = _mm_sha256rnds2_epu32(s1, s0, w);
+      if (i >= 3 && i <= 14) {
+        __m128i& next = m[(i + 1) & 3];
+        next = _mm_add_epi32(next, _mm_alignr_epi8(cur, m[(i + 3) & 3], 4));
+        next = _mm_sha256msg2_epu32(next, cur);
+      }
+      w = _mm_shuffle_epi32(w, 0x0E);
+      s0 = _mm_sha256rnds2_epu32(s0, s1, w);
+      if (i >= 1 && i <= 12)
+        m[(i + 3) & 3] = _mm_sha256msg1_epu32(m[(i + 3) & 3], cur);
+    }
+    s0 = _mm_add_epi32(s0, abef);
+    s1 = _mm_add_epi32(s1, cdgh);
+  }
+  tmp = _mm_shuffle_epi32(s0, 0x1B);            // FEBA
+  s1 = _mm_shuffle_epi32(s1, 0xB1);             // DCHG
+  _mm_storeu_si128((__m128i*)h, _mm_blend_epi16(tmp, s1, 0xF0));  // DCBA
+  _mm_storeu_si128((__m128i*)(h + 4), _mm_alignr_epi8(s1, tmp, 8));  // HGFE
+}
+
+const bool kShaNi = have_sha_ni();
+#endif
+
 struct Sha256 {
   uint32_t h[8];
   uint64_t len = 0;
@@ -62,20 +138,7 @@ struct Sha256 {
   static uint32_t rotr(uint32_t x, int n) { return (x >> n) | (x << (32 - n)); }
 
   void block(const uint8_t* p) {
-    static const uint32_t k[64] = {
-        0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
-        0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
-        0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
-        0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
-        0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
-        0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
-        0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
-        0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
-        0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
-        0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
-        0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
-        0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
-        0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+    const uint32_t* k = SHA256_K;
     uint32_t w[64];
     for (int i = 0; i < 16; i++)
       w[i] = (uint32_t(p[i * 4]) << 24) | (uint32_t(p[i * 4 + 1]) << 16) |
@@ -104,6 +167,14 @@ struct Sha256 {
   void update(const uint8_t* p, size_t n) {
     len += n;
     while (n > 0) {
+#if defined(__x86_64__)
+      if (kShaNi && buflen == 0 && n >= 64) {  // whole blocks from p
+        size_t blocks = n / 64;
+        sha256_blocks_ni(h, p, blocks);
+        p += blocks * 64; n -= blocks * 64;
+        continue;
+      }
+#endif
       size_t take = std::min(n, sizeof(buf) - buflen);
       memcpy(buf + buflen, p, take);
       buflen += take; p += take; n -= take;
@@ -179,26 +250,27 @@ bool const_time_eq(const std::string& a, const std::string& b) {
 const char B64[] =
     "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/";
 
-std::string b64encode(const std::string& in) {
-  std::string out;
-  out.reserve((in.size() + 2) / 3 * 4);
+// Appends base64(in) to *out (one resize, no intermediate copy).
+void b64encode_append(const std::string& in, std::string* out) {
+  size_t at = out->size();
+  out->resize(at + (in.size() + 2) / 3 * 4, '=');
+  char* o = &(*out)[at];
+  const uint8_t* p = (const uint8_t*)in.data();
   size_t i = 0;
-  while (i + 2 < in.size()) {
-    uint32_t v = (uint8_t(in[i]) << 16) | (uint8_t(in[i + 1]) << 8) |
-                 uint8_t(in[i + 2]);
-    out += B64[v >> 18]; out += B64[(v >> 12) & 63];
-    out += B64[(v >> 6) & 63]; out += B64[v & 63];
-    i += 3;
+  for (; i + 2 < in.size(); i += 3, o += 4) {
+    uint32_t v = (uint32_t(p[i]) << 16) | (uint32_t(p[i + 1]) << 8) |
+                 p[i + 2];
+    o[0] = B64[v >> 18]; o[1] = B64[(v >> 12) & 63];
+    o[2] = B64[(v >> 6) & 63]; o[3] = B64[v & 63];
   }
   if (i + 1 == in.size()) {
-    uint32_t v = uint8_t(in[i]) << 16;
-    out += B64[v >> 18]; out += B64[(v >> 12) & 63]; out += "==";
+    uint32_t v = uint32_t(p[i]) << 16;
+    o[0] = B64[v >> 18]; o[1] = B64[(v >> 12) & 63];
   } else if (i + 2 == in.size()) {
-    uint32_t v = (uint8_t(in[i]) << 16) | (uint8_t(in[i + 1]) << 8);
-    out += B64[v >> 18]; out += B64[(v >> 12) & 63];
-    out += B64[(v >> 6) & 63]; out += '=';
+    uint32_t v = (uint32_t(p[i]) << 16) | (uint32_t(p[i + 1]) << 8);
+    o[0] = B64[v >> 18]; o[1] = B64[(v >> 12) & 63];
+    o[2] = B64[(v >> 6) & 63];
   }
-  return out;
 }
 
 int b64val(char c) {
@@ -210,7 +282,7 @@ int b64val(char c) {
   return -1;
 }
 
-bool b64decode(const std::string& in, std::string* out) {
+bool b64decode(const char* in, size_t len, std::string* out) {
   // -1: not base64; -2: skipped ('=' and line breaks).
   static const auto table = [] {
     std::array<int8_t, 256> t;
@@ -223,13 +295,13 @@ bool b64decode(const std::string& in, std::string* out) {
     return t;
   }();
   out->clear();
-  out->resize(in.size() / 4 * 3 + 3);
+  out->resize(len / 4 * 3 + 3);
   char* o = &(*out)[0];
   size_t n = 0;
   uint32_t acc = 0;
   int bits = 0;
-  for (unsigned char c : in) {
-    int v = table[c];
+  for (size_t i = 0; i < len; i++) {
+    int v = table[(unsigned char)in[i]];
     if (v < 0) {
       if (v == -2) continue;
       return false;
@@ -367,34 +439,50 @@ bool json_parse_flat(const std::string& s,
   return false;
 }
 
-std::string json_escape(const std::string& s) {
+// Appends the JSON string body of s to *out: its plain prefix (all of a
+// base64 value) in one copy.
+void json_escape_append(const std::string& s, std::string* out) {
   size_t plain = 0;
   while (plain < s.size() && (unsigned char)s[plain] >= 0x20 &&
          s[plain] != '"' && s[plain] != '\\')
     plain++;
-  if (plain == s.size()) return s;  // nothing to escape: one copy
-  std::string out;
-  out.reserve(s.size() + 8);
-  out.append(s, 0, plain);
-  for (unsigned char c : s.substr(plain)) {
+  out->append(s, 0, plain);
+  for (size_t i = plain; i < s.size(); i++) {
+    unsigned char c = (unsigned char)s[i];
     switch (c) {
-      case '"': out += "\\\""; break;
-      case '\\': out += "\\\\"; break;
-      case '\n': out += "\\n"; break;
-      case '\r': out += "\\r"; break;
-      case '\t': out += "\\t"; break;
-      case '\b': out += "\\b"; break;
-      case '\f': out += "\\f"; break;
+      case '"': *out += "\\\""; break;
+      case '\\': *out += "\\\\"; break;
+      case '\n': *out += "\\n"; break;
+      case '\r': *out += "\\r"; break;
+      case '\t': *out += "\\t"; break;
+      case '\b': *out += "\\b"; break;
+      case '\f': *out += "\\f"; break;
       default:
         if (c < 0x20) {
           char buf[8];
           snprintf(buf, sizeof(buf), "\\u%04x", c);
-          out += buf;
+          *out += buf;
         } else {
-          out.push_back(char(c));
+          out->push_back(char(c));
         }
     }
   }
+}
+
+std::string json_escape(const std::string& s) {
+  std::string out;
+  out.reserve(s.size() + 8);
+  json_escape_append(s, &out);
+  return out;
+}
+
+// {"ok":true,"value":"<v>"} in one buffer.
+std::string value_reply(const std::string& v) {
+  std::string out;
+  out.reserve(v.size() + 24);
+  out += "{\"ok\":true,\"value\":\"";
+  json_escape_append(v, &out);
+  out += "\"}";
   return out;
 }
 
@@ -620,7 +708,12 @@ class ControlPlaneServer {
   void send_obj(int fd, const std::string& json) {
     uint8_t mac[32];
     hmac_sha256(secret_, json, mac);
-    std::string msg = hex(mac, 32) + " " + b64encode(json) + "\n";
+    std::string msg;
+    msg.reserve(66 + (json.size() + 2) / 3 * 4);
+    msg += hex(mac, 32);
+    msg += ' ';
+    b64encode_append(json, &msg);
+    msg += '\n';
     size_t off = 0;
     while (off < msg.size()) {
       ssize_t n = send(fd, msg.data() + off, msg.size() - off, MSG_NOSIGNAL);
@@ -636,7 +729,8 @@ class ControlPlaneServer {
       size_t sp = line.find(' ');
       std::string payload;
       if (sp == std::string::npos ||
-          !b64decode(line.substr(sp + 1), &payload)) {
+          !b64decode(line.data() + sp + 1, line.size() - sp - 1,
+                     &payload)) {
         send_obj(fd, "{\"ok\":false,\"error\":\"malformed message\"}");
         break;
       }
@@ -660,14 +754,14 @@ class ControlPlaneServer {
       } else if (op == "GET") {
         std::string v;
         if (store_.get(req["key"].str, &v))
-          send_obj(fd, "{\"ok\":true,\"value\":\"" + json_escape(v) + "\"}");
+          send_obj(fd, value_reply(v));
         else
           send_obj(fd, "{\"ok\":true,\"value\":null}");
       } else if (op == "WAIT") {
         double timeout = req.count("timeout") ? req["timeout"].num : 30.0;
         std::string v;
         if (store_.wait(req["key"].str, timeout, &v))
-          send_obj(fd, "{\"ok\":true,\"value\":\"" + json_escape(v) + "\"}");
+          send_obj(fd, value_reply(v));
         else
           send_obj(fd, "{\"ok\":false,\"error\":\"timeout waiting " +
                            json_escape(req["key"].str) + "\"}");

@@ -49,6 +49,12 @@ own, print one JSON line each and write no file:
   of the recovered events, steps lost per injection, the reactions, the
   tuner's final best and the invariants' flags.
 
+- `--autoscale`: the serving autoscaler's A/B, `simulate_autoscale`
+  (serve/autoscale.py) autoscaled against a static fleet at its mean
+  size on three shaped traces, SLO-violation-minutes and chip-hours;
+  then `run_scale_chaos` (HVD_AUTOSCALE_EVENTS events, 2) on a real
+  replica fleet, the joiner of each grow killed by `serve.replica_die`.
+
 Their times come from the card (`--device cpu` runs them on the host).
 """
 
@@ -342,10 +348,82 @@ def chaos_report(device=None, timeout: float = 600.0) -> dict:
     }
 
 
+def run_autoscale_child(device=None) -> dict:
+    """The autoscale extra's child: for each traffic shape the same
+    seeded trace drives the real decision core twice, autoscaled and
+    pinned at the autoscaled run's mean size (the same chips, only the
+    control loop differs); then `run_scale_chaos` on a real fleet."""
+    from horovod_tpu_torch.serve.autoscale import (
+        AutoscaleConfig, run_scale_chaos, simulate_autoscale)
+    from horovod_tpu_torch.serve.loadgen import make_shaped_trace
+
+    cfg = AutoscaleConfig(min_replicas=1, max_replicas=8,
+                          cooldown_steps=4, dwell_steps=2, grow_step=2)
+    shapes = {
+        "burst": dict(base_every=4.0, burst_every=128, burst_size=80),
+        "diurnal": dict(base_every=4.0, period=256, amplitude=0.9),
+        "multi_tenant": dict(base_every=4.0),
+    }
+    ab = {}
+    for shape, kw in shapes.items():
+        trace = make_shaped_trace(shape, 7, 500, 64, **kw)
+        auto = simulate_autoscale(trace, cfg)
+        static = simulate_autoscale(
+            trace, cfg, static_size=max(1, round(auto["fleet_mean"])))
+        ab[shape] = {"autoscaled": auto, "static": static,
+                     "violation_minutes_saved": round(
+                         static["slo_violation_minutes"]
+                         - auto["slo_violation_minutes"], 4)}
+    chaos = run_scale_chaos(
+        n_events=int(os.environ.get("HVD_AUTOSCALE_EVENTS", "2")), seed=0,
+        device=device)
+    return {"ab": ab, "scale_chaos": chaos}
+
+
+def autoscale_report(device=None, timeout: float = 900.0) -> dict:
+    """The autoscale extra, in a child process, flattened."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench",
+           "--autoscale-child"] + (["--device", device] if device else [])
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        _log(f"autoscale child rc={r.returncode} stderr tail: "
+             f"{r.stderr[-1500:]}")
+        return {}
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    burst, chaos = res["ab"]["burst"], res["scale_chaos"]
+    events = chaos.get("events", [])
+    rec = {
+        "bench": "autoscale", "ab": res["ab"],
+        "burst_auto_violation_minutes":
+            burst["autoscaled"]["slo_violation_minutes"],
+        "burst_static_violation_minutes":
+            burst["static"]["slo_violation_minutes"],
+        "burst_fleet_mean": burst["autoscaled"]["fleet_mean"],
+        "burst_chip_hours": burst["autoscaled"]["chip_hours"],
+        "autoscaled_wins_burst":
+            burst["autoscaled"]["slo_violation_minutes"]
+            < burst["static"]["slo_violation_minutes"],
+        "scale_chaos": chaos,
+        "scale_events": len(events),
+        "scale_events_faulted": sum(1 for e in events if e["faulted"]),
+        "all_recovered": chaos.get("all_recovered", False),
+    }
+    _log(f"autoscale burst: auto {rec['burst_auto_violation_minutes']} vs "
+         f"static {rec['burst_static_violation_minutes']} "
+         f"violation-minutes at mean fleet {rec['burst_fleet_mean']}; scale "
+         f"chaos {rec['scale_events']} events "
+         f"({rec['scale_events_faulted']} faulted), all_recovered="
+         f"{rec['all_recovered']}")
+    return rec
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     extra = next((a for a in argv if a in (
-        "--reshard", "--reshard-child", "--chaos", "--chaos-child")), None)
+        "--reshard", "--reshard-child", "--chaos", "--chaos-child",
+        "--autoscale", "--autoscale-child")), None)
     if extra is not None:
         q = argparse.ArgumentParser()
         q.add_argument(extra, action="store_true")
@@ -356,6 +434,9 @@ def main(argv=None) -> int:
             return 0
         rec = (run_reshard_child(device) if extra == "--reshard-child"
                else reshard_report(device) if extra == "--reshard"
+               else run_autoscale_child(device)
+               if extra == "--autoscale-child"
+               else autoscale_report(device) if extra == "--autoscale"
                else chaos_report(device))
         print(json.dumps(rec), flush=True)
         return 0 if rec else 1

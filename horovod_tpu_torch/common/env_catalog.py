@@ -207,12 +207,6 @@ CATALOG: Tuple[EnvVar, ...] = (
        "Wire of the chunks ShardedTorchState publishes: none (exact, "
        "bitwise) or a cast wire (bf16, fp16); cooperative codecs are "
        "refused."),
-    _v("HOROVOD_AUTOSCALE_COOLDOWN", "32", "autotune",
-       "Initial value of the tuner's autoscale_cooldown knob (serve/ is "
-       "not ported yet)."),
-    _v("HOROVOD_AUTOSCALE_DWELL", "8", "autotune",
-       "Initial value of the tuner's autoscale_dwell knob (serve/ is not "
-       "ported yet)."),
     # -- serving (serve/) -----------------------------------------------------
     # -- training-health guard (guard/, utils/checkpoint.py) -----------
     _v("HOROVOD_GUARD", "0", "guard",
@@ -246,9 +240,42 @@ CATALOG: Tuple[EnvVar, ...] = (
     _v("HOROVOD_SERVE_FLIGHTREC_DIR", "$TMPDIR/horovod_flightrec", "serve",
        "Directory of the flight recorder's dumps (crash, pool "
        "exhaustion, SLO breach, an injected exit)."),
-    _v("HOROVOD_SERVE_REPLICA_ID", "(unset)", "serve",
-       "Replica index a flight-recorder dump records (set by the JAX "
-       "package's replica manager; the port's is not ported yet)."),
+    _v("HOROVOD_SERVE_REPLICA_ID", "(set by ReplicaManager)", "serve",
+       "Replica index handed to each `python -m "
+       "horovod_tpu_torch.serve.replica` worker by its manager (the spawn "
+       "handshake, like the rendezvous address and port); a "
+       "flight-recorder dump records it."),
+    _v("HOROVOD_AUTOSCALE_MIN_REPLICAS", "1", "serve",
+       "Floor of the autoscaled decode fleet; a shrink never retires "
+       "below it (the budget latch also forbids any shrink while the SLO "
+       "budget is breaching)."),
+    _v("HOROVOD_AUTOSCALE_MAX_REPLICAS", "8", "serve",
+       "Ceiling of the autoscaled decode fleet; pressure beyond it walks "
+       "the degrade ladder instead (borrow training chips, then priority "
+       "shed)."),
+    _v("HOROVOD_AUTOSCALE_COOLDOWN", "32", "serve",
+       "Observations after a scale event during which no further event "
+       "fires; reversals wait twice as long (anti-flap).  The tuner's "
+       "autoscale_cooldown knob, host only."),
+    _v("HOROVOD_AUTOSCALE_DWELL", "8", "serve",
+       "Consecutive observations a pressure or relief condition must "
+       "persist before a scale event fires (the hysteresis dwell).  The "
+       "tuner's autoscale_dwell knob, host only."),
+    _v("HOROVOD_AUTOSCALE_OCC_HIGH", "0.85", "serve",
+       "Occupancy high watermark: sustained occupancy at or above it with "
+       "a backlog is scale-up pressure."),
+    _v("HOROVOD_AUTOSCALE_OCC_LOW", "0.30", "serve",
+       "Occupancy low watermark: sustained occupancy at or below it with "
+       "an empty queue and a healthy error budget is scale-down relief."),
+    _v("HOROVOD_AUTOSCALE_QUEUE_MS", "1000", "serve",
+       "Head-of-line queue-wait threshold in ms: the oldest queued "
+       "request waiting past it is scale-up pressure whatever the "
+       "occupancy (0 turns the signal off)."),
+    _v("HOROVOD_AUTOSCALE_TENANT_CLASSES", "premium:0,standard:1,batch:2",
+       "serve",
+       "Tenant SLO classes as name:priority pairs (lower = more "
+       "important); the priority shed drops the highest-number class "
+       "first, newest requests first."),
     # -- metrics and the timeline (metrics/, utils/timeline.py) ---------------
     _v("HOROVOD_METRICS_DISABLE", "0", "metrics",
        "1 disables all metric recording."),

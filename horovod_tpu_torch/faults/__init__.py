@@ -20,9 +20,10 @@ rendezvous client (`runner/rendezvous.py`), `worker.heartbeat` in
 `elastic.publish` and `elastic.spawn` in the elastic driver
 (`runner/elastic/driver.py`), `reshard.chunk_corrupt` and
 `reshard.peer_die` in the live reshard (`parallel/reshard.py`), and
-`chaos.step` in the chaos soak (`faults/chaos.py`).  `CATALOG` is the
-JAX package's whole catalog, so a spec valid there is valid here; only
-`serve.replica_die` never fires (serving replicas are not ported yet).
+`chaos.step` in the chaos soak (`faults/chaos.py`), and
+`serve.replica_die` in each serving replica's work loop
+(`serve/replica.py`).  `CATALOG` is the JAX package's whole catalog, so
+a spec valid there is valid here, and every point of it fires.
 An ``exit`` fault runs the hooks of
 `register_exit_hook` first (the serving flight recorder's dump).  Every
 injection is counted into `hvd_fault_injections_total{point,mode}`, as

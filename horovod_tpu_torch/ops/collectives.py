@@ -193,13 +193,13 @@ class _traced:
     no inspector, timeline or metrics: a few attribute loads."""
 
     __slots__ = ("_desc", "_kind", "_si", "_key", "_tl", "_token",
-                 "_tracked", "_t0", "_nbytes", "_dtype", "_ps")
+                 "_tracked", "_async", "_t0", "_nbytes", "_dtype", "_ps")
 
     def __init__(self, kind: str, name: Optional[str] = None):
         self._desc = f"{kind}:{name}" if name else kind
         self._kind = kind
         self._si = self._tl = self._key = self._token = None
-        self._tracked = False
+        self._tracked = self._async = False
         self._t0 = 0.0
         self._nbytes = 0
         self._dtype = "none"
@@ -233,7 +233,10 @@ class _traced:
         self._ps = ps.process_set_id
 
     def track(self, pending: _Pending) -> _Pending:
-        """Keep the stall entry open until `pending` completes."""
+        """Keep the stall entry open until `pending` completes.  The
+        span then ends at dispatch, and says so (`dispatch: async`):
+        `trace.core.analyze` nets a lag such a bucket carries over."""
+        self._async = True
         if self._key is not None:
             self._si.record_result(self._key, pending)
             pending.stall = (self._si, self._key)
@@ -248,7 +251,8 @@ class _traced:
 
     def __exit__(self, exc_type, *exc):
         if self._token is not None:
-            self._tl.activity_end(self._token)
+            self._tl.activity_end(self._token,
+                                  dispatch="async" if self._async else None)
         if self._key is not None and (exc_type is not None
                                       or not self._tracked):
             self._si.record_end(self._key)

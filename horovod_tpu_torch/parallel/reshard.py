@@ -1039,6 +1039,22 @@ def _leaf_flat_intervals(shape: Tuple[int, ...], axis, tp: int,
     return out
 
 
+def leaf_runs(leaf_meta, groups, tp: int, tp_rank: int):
+    """(leaf, group, group-logical start, stop, destination offset) of
+    every run `decode_leaf_slices` reads, in its order."""
+    offsets = {}
+    for gi, (idxs, sizes) in enumerate(groups):
+        off = 0
+        for i, sz in zip(idxs, sizes):
+            offsets[i] = (gi, off)
+            off += sz
+    for li, (shape, _, axis) in enumerate(leaf_meta):
+        gi, base = offsets[li]
+        for start, stop, dest in _leaf_flat_intervals(tuple(shape), axis,
+                                                      tp, tp_rank):
+            yield li, gi, base + start, base + stop, dest
+
+
 def decode_leaf_slices(leaf_meta, groups, streams_fetch: Callable,
                        tp: int, tp_rank: int):
     """Each decode leaf's tp slice, assembled from group-logical
@@ -1048,37 +1064,23 @@ def decode_leaf_slices(leaf_meta, groups, streams_fetch: Callable,
     of group g's logical parameter buffer.  No host builds a whole leaf
     it needs 1/tp of."""
     leaves = []
-    offsets = {}
-    for gi, (idxs, sizes) in enumerate(groups):
-        off = 0
-        for i, sz in zip(idxs, sizes):
-            offsets[i] = (gi, off)
-            off += sz
-    for li, (shape, dt, axis) in enumerate(leaf_meta):
-        gi, base = offsets[li]
-        ivs = _leaf_flat_intervals(tuple(shape), axis, tp, tp_rank)
+    for shape, dt, axis in leaf_meta:
         out_shape = list(shape)
         if axis is not None:
             out_shape[axis] = shape[axis] // tp
-        buf = np.zeros((int(np.prod(out_shape, dtype=int)),), np.dtype(dt))
-        for start, stop, dest in ivs:
-            buf[dest:dest + (stop - start)] = streams_fetch(
-                gi, base + start, base + stop).astype(np.dtype(dt))
-        leaves.append(buf.reshape(out_shape))
+        leaves.append(np.zeros(out_shape, np.dtype(dt)))
+    for li, gi, start, stop, dest in leaf_runs(leaf_meta, groups, tp,
+                                               tp_rank):
+        flat = leaves[li].reshape(-1)
+        flat[dest:dest + (stop - start)] = streams_fetch(
+            gi, start, stop).astype(flat.dtype)
     return leaves
 
 
-def fetch_group_slice(plan: ReshardPlan, spec: StreamSpec, transport,
-                      tag: str, start: int, stop: int,
-                      timeout: Optional[float] = None,
-                      tracker: Optional[_PeakTracker] = None) -> np.ndarray:
-    """Any logical `[start, stop)` of one "shard" stream, from the old
-    owners that published it, one payload staged at a time: the fetch
-    behind `decode_leaf_slices`."""
-    timeout = default_timeout() if timeout is None else timeout
-    tracker = tracker or _PeakTracker()
-    dt = np.dtype(spec.dtype)
-    out = np.zeros((stop - start,), dt)
+def _slice_payloads(plan: ReshardPlan, spec: StreamSpec, tag: str,
+                    start: int, stop: int):
+    """(c, d, published interval, its key) of each payload piece that
+    covers `[start, stop)` of one "shard" stream, in order."""
     for r in range(plan.n_old):
         olo, ohi = _owned_range(spec.elems, plan.n_old, r)
         a, b = max(start, olo), min(stop, ohi)
@@ -1086,11 +1088,72 @@ def fetch_group_slice(plan: ReshardPlan, spec: StreamSpec, transport,
             continue
         for c, d in plan._grid_cut(spec, a, b):
             pub = _fix_grid_cut_overlap(plan, spec, Interval(r, c, d))
-            v = transport.wait(f"{tag}/{_iv_key(spec.name, pub)}",
-                               timeout=timeout)
-            chunk = _decode_payload(v, dt, tracker)
-            out[c - start:d - start] = chunk[c - pub.start:d - pub.start]
+            yield c, d, pub, f"{tag}/{_iv_key(spec.name, pub)}"
+
+
+def fetch_group_slice(plan: ReshardPlan, spec: StreamSpec, transport,
+                      tag: str, start: int, stop: int,
+                      timeout: Optional[float] = None,
+                      tracker: Optional[_PeakTracker] = None,
+                      payloads: Optional["PayloadReader"] = None
+                      ) -> np.ndarray:
+    """Any logical `[start, stop)` of one "shard" stream, from the old
+    owners that published it, one payload staged at a time: the fetch
+    behind `decode_leaf_slices`.  `payloads` reads them instead (ahead,
+    in the order of a known sequence of slices)."""
+    timeout = default_timeout() if timeout is None else timeout
+    tracker = tracker or _PeakTracker()
+    dt = np.dtype(spec.dtype)
+    out = np.zeros((stop - start,), dt)
+    for c, d, pub, key in _slice_payloads(plan, spec, tag, start, stop):
+        chunk = (payloads(key) if payloads is not None else
+                 _decode_payload(transport.wait(key, timeout=timeout), dt,
+                                 tracker))
+        out[c - start:d - start] = chunk[c - pub.start:d - pub.start]
     return out
+
+
+class PayloadReader:
+    """The payloads a known sequence of slice fetches (`(spec, start,
+    stop)`, in order) reads, fetched and decoded ahead by the plan's
+    `parallel_workers` threads (`_windowed`): each payload is read
+    once for each run of consecutive slices that need it, the staged
+    ones counted in the tracker's peak.  Call with the key of the
+    payload a slice needs next; `close()` when done."""
+
+    def __init__(self, plan: ReshardPlan, transport, tag: str, slices,
+                 timeout: float, tracker: _PeakTracker):
+        order = []
+        for spec, start, stop in slices:
+            for _, _, _, key in _slice_payloads(plan, spec, tag, start,
+                                                 stop):
+                if not order or order[-1][0] != key:
+                    order.append((key, np.dtype(spec.dtype)))
+        self._tracker = tracker
+
+        def load(item):
+            key, dt = item
+            chunk = _decode_payload(transport.wait(key, timeout=timeout),
+                                    dt, tracker)
+            tracker.add(chunk.nbytes)
+            return key, chunk
+
+        self._ahead = _windowed(load, order, plan)
+        self._key, self._chunk = None, None
+
+    def __call__(self, key: str) -> np.ndarray:
+        if key != self._key:
+            if self._chunk is not None:
+                self._tracker.sub(self._chunk.nbytes)
+            self._key, self._chunk = next(self._ahead)
+            if self._key != key:
+                raise HorovodTpuError(
+                    f"reshard read {self._key!r} where a slice needs "
+                    f"{key!r}: the slices differ from those announced")
+        return self._chunk
+
+    def close(self) -> None:
+        self._ahead.close()
 
 
 def plan_meta_json(specs: List[StreamSpec], n_old: int) -> str:

@@ -6,14 +6,30 @@
   - slo.py       SLO-aware speculative-decode toggling (SloController)
   - server.py    the decode loop tying them together (InferenceServer)
   - loadgen.py   seeded load generator and run stats (make_trace, ...)
+  - replica.py   elastic multi-replica serving (ReplicaManager)
   - flightrec.py always-on flight recorder (FlightRecorder)
-
-The JAX package's replica.py (elastic multi-replica serving),
-handoff.py (train-to-serve reshard) and autoscale.py wait for the port
-of the runner, the elastic registration and parallel/reshard.py.
+  - handoff.py   train-to-serve reshard without a full gather
+  - autoscale.py traffic-driven fleet autoscaling (AutoscaleController)
 """
 
+from .autoscale import (
+    AutoscaleConfig,
+    AutoscaleController,
+    BorrowLedger,
+    ReplicaFleetActuator,
+    SignalSnapshot,
+    simulate_autoscale,
+    snapshot_from_manager,
+    snapshot_from_server,
+)
 from .flightrec import FlightRecorder, dump_all, load_dump
+from .handoff import (
+    fetch_decode_params,
+    handoff_meta,
+    publish_for_serve,
+    restore_train_state,
+    stash_train_state,
+)
 from .pool import PagedKVPool, PoolExhaustedError
 from .scheduler import (
     ActiveSeq,
@@ -27,14 +43,27 @@ from .slo import SloController
 
 __all__ = [
     "ActiveSeq",
+    "AutoscaleConfig",
+    "AutoscaleController",
+    "BorrowLedger",
     "ContinuousScheduler",
     "DEFAULT_TENANT_PRIORITY",
     "FlightRecorder",
     "InferenceServer",
+    "fetch_decode_params",
+    "handoff_meta",
+    "publish_for_serve",
+    "restore_train_state",
+    "stash_train_state",
+    "simulate_autoscale",
+    "snapshot_from_manager",
+    "snapshot_from_server",
     "POLICIES",
     "PagedKVPool",
     "PoolExhaustedError",
+    "ReplicaFleetActuator",
     "Request",
+    "SignalSnapshot",
     "SloController",
     "dump_all",
     "load_dump",

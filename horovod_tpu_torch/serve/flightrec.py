@@ -214,6 +214,9 @@ class FlightRecorder:
         }
         final = self._path()
         tmp = final + ".tmp"
+        # The default directory need not exist yet (a fault exit's dump
+        # is the post-mortem: it must not fail on that).
+        os.makedirs(self.out_dir, exist_ok=True)
         with open(tmp, "w") as f:
             json.dump(payload, f, default=str)
             f.flush()

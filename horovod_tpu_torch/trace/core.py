@@ -26,14 +26,17 @@ Attribution semantics:
       wait_ms = max_r start - min_r start   (straggler wait)
       wire_ms = max_r end   - max_r start   (transfer after last arrival)
       blamed  = the last-arriving rank
-    except where the data plane dispatches buckets asynchronously: a
-    bucket whose first start comes before the previous bucket's last
-    start (in start order) was dispatched while the earliest rank still
-    waited for the previous one, so its start skew holds the lag the
-    previous bucket already counted, and only what it adds counts:
+    except where the data plane dispatched the previous bucket (in
+    start order) asynchronously, as its spans say (`"dispatch":
+    "async"`, written by the port's traced bracket when a span ends at
+    dispatch): a bucket whose first start comes before that bucket's
+    last start was dispatched while the earliest rank still waited for
+    it, so its start skew holds the lag the previous bucket already
+    counted, and only what it adds counts:
       wait_ms = max(0, skew - previous bucket's skew)
-    Synchronous buckets (the JAX package's, whose `analyze` has only
-    the plain rule) never overlap so, and read the same under both.
+    Spans without the mark (synchronous buckets, and every span of the
+    JAX package, whose `analyze` has only the plain rule) read the
+    same under both, even where clock alignment makes them overlap.
   - compute_ms(n) = critical_path_ms(n) - wait - wire, clamped at 0.
 
 Pure stdlib ON PURPOSE: the offline CLI (`python -m
@@ -274,15 +277,17 @@ def _bucket_window(ev: dict, cycles: Dict[int, float]) -> Optional[int]:
 
 
 def _carried_skews(buckets: List[List[tuple]]) -> Dict[int, float]:
-    """For each bucket (its (rank, start, end) entries, >= 2 ranks) that
-    was dispatched before the previous one in start order had started
-    everywhere, the previous bucket's start skew (us) by `id`: the lag
-    it carries over (module docstring)."""
-    spans = sorted((min(s for _, s, _ in es), max(s for _, s, _ in es),
-                    id(es)) for es in buckets if len(es) >= 2)
+    """For each bucket (its (rank, start, end, async) entries, >= 2
+    ranks) that was dispatched before the previous one in start order
+    had started everywhere, where that one's spans carry the async
+    mark, the previous bucket's start skew (us) by `id`: the lag it
+    carries over (module docstring)."""
+    spans = sorted((min(e[1] for e in es), max(e[1] for e in es),
+                    any(e[3] for e in es), id(es))
+                   for es in buckets if len(es) >= 2)
     return {key: prev_hi - prev_lo
-            for (prev_lo, prev_hi, _), (lo, _, key) in zip(spans, spans[1:])
-            if lo < prev_hi}
+            for (prev_lo, prev_hi, prev_async, _), (lo, _, _, key)
+            in zip(spans, spans[1:]) if prev_async and lo < prev_hi}
 
 
 def analyze(traces_or_paths: Union[Traces, Sequence[str]],
@@ -321,7 +326,8 @@ def analyze(traces_or_paths: Union[Traces, Sequence[str]],
             occ[(r,) + base] = k + 1
             start = float(ev.get("ts", 0.0))
             coll.setdefault(base + (k,), []).append(
-                (r, start, start + float(ev.get("dur", 0.0))))
+                (r, start, start + float(ev.get("dur", 0.0)),
+                 ev.get("dispatch") == "async"))
 
     steps: List[dict] = []
     straggler_votes: Dict[int, int] = {}
@@ -341,8 +347,8 @@ def analyze(traces_or_paths: Union[Traces, Sequence[str]],
         for (bn, name, tid, _k), entries in sorted(coll.items()):
             if bn != n:
                 continue
-            starts = {r: s for r, s, _ in entries}
-            ends = {r: e for r, _, e in entries}
+            starts = {r: s for r, s, _, _ in entries}
+            ends = {r: e for r, _, e, _ in entries}
             if len(entries) >= 2:
                 wait_ms = max(0.0, max(starts.values()) - min(starts.values())
                               - carried.get(id(entries), 0.0)) / 1e3
@@ -350,7 +356,7 @@ def analyze(traces_or_paths: Union[Traces, Sequence[str]],
                                     - max(starts.values())) / 1e3)
                 blamed = max(starts, key=lambda r: starts[r])
             else:
-                only_r, s, e = entries[0]
+                only_r, s, e, _ = entries[0]
                 wait_ms, wire_ms, blamed = 0.0, (e - s) / 1e3, None
             step_wait += wait_ms
             step_wire += wire_ms

@@ -659,6 +659,30 @@ def current_serve_pool_pages() -> int:
     return max(0, util.env_int("SERVE_POOL_PAGES", 0))
 
 
+def tuned_autoscale_cooldown(default: int) -> int:
+    v = _tuned("autoscale_cooldown")
+    return default if v is None else max(0, int(v))
+
+
+def current_autoscale_cooldown() -> int:
+    """The live autoscale cooldown in observations:
+    HOROVOD_AUTOSCALE_COOLDOWN (32), or the tuner's (host-side control
+    flow only: `serve/autoscale.py AutoscaleConfig`)."""
+    return tuned_autoscale_cooldown(
+        max(0, util.env_int("AUTOSCALE_COOLDOWN", 32)))
+
+
+def tuned_autoscale_dwell(default: int) -> int:
+    v = _tuned("autoscale_dwell")
+    return default if v is None else max(1, int(v))
+
+
+def current_autoscale_dwell() -> int:
+    """The live autoscale hysteresis dwell in observations:
+    HOROVOD_AUTOSCALE_DWELL (8), or the tuner's."""
+    return tuned_autoscale_dwell(max(1, util.env_int("AUTOSCALE_DWELL", 8)))
+
+
 def tuned_reshard_chunk_bytes(default: int) -> int:
     v = _tuned("reshard_chunk_bytes")
     return default if v is None else max(1, int(v))

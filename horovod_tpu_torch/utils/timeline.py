@@ -200,7 +200,10 @@ class Timeline:
                                    self._cycle)
         return token
 
-    def activity_end(self, token: int) -> None:
+    def activity_end(self, token: int,
+                     dispatch: Optional[str] = None) -> None:
+        """End the span `token` opened; `dispatch="async"` marks a span
+        that ends when its collective is dispatched, not completed."""
         now = self._now_us()
         with self._lock:
             entry = self._starts.pop(token, None)
@@ -218,6 +221,7 @@ class Timeline:
             # Stamp the step the collective STARTED in, so a bracket that
             # straddles a cycle mark stays attributed to its issue step.
             **({"step": cycle} if self._mark_cycles else {}),
+            **({"dispatch": dispatch} if dispatch else {}),
         })
 
     # -- instant events ---------------------------------------------------

@@ -74,3 +74,28 @@ def test_without_a_card_it_raises_and_prints_no_number():
     assert r.returncode != 0
     assert r.stdout.strip() == ""
     assert "device='cpu'" in r.stderr
+
+
+def test_autoscale_extra_prints_one_record():
+    """`--autoscale` on the CPU: one JSON line, the A/B's records equal
+    `simulate_autoscale`'s in this process, the autoscaled fleet ahead
+    on the burst at the same mean size, and two scale events (the grow
+    faulted) all recovered."""
+    from horovod_tpu_torch.serve.autoscale import (
+        AutoscaleConfig, simulate_autoscale)
+    from horovod_tpu_torch.serve.loadgen import make_shaped_trace
+
+    r = _run(["--autoscale", "--device", "cpu"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = [l for l in r.stdout.splitlines() if l.strip()]
+    assert len(lines) == 1, r.stdout
+    rec = json.loads(lines[0])
+    assert rec["bench"] == "autoscale"
+    assert rec["autoscaled_wins_burst"] and rec["all_recovered"]
+    assert (rec["scale_events"], rec["scale_events_faulted"]) == (2, 1)
+    cfg = AutoscaleConfig(min_replicas=1, max_replicas=8, cooldown_steps=4,
+                          dwell_steps=2, grow_step=2)
+    trace = make_shaped_trace("burst", 7, 500, 64, base_every=4.0,
+                              burst_every=128, burst_size=80)
+    assert rec["ab"]["burst"]["autoscaled"] == simulate_autoscale(trace, cfg)
+    assert set(rec["ab"]) == {"burst", "diurnal", "multi_tenant"}

@@ -699,6 +699,38 @@ def test_native_kv_answers_byte_for_byte_as_the_python_engine(native_lib):
             s.stop()
 
 
+@pytest.mark.parametrize("lengths", [range(0, 200), (255, 256, 257, 1000),
+                                     (4103, (1 << 20) + 13, 4 << 20)])
+def test_native_kv_answers_values_of_every_length_byte_for_byte(
+        native_lib, lengths):
+    """Values across the hash's 64-byte blocks and the envelope's base64
+    groups, megabytes long as a reshard payload is (the engine hashes a
+    run of whole blocks at once, with the x86 SHA extensions where the
+    CPU has them): every PUT and GET answer byte for byte the Python
+    engine's."""
+    import random
+
+    rng = random.Random(len(lengths))
+    secret = PR.new_secret()
+    servers = {"python": PR.RendezvousServer(secret, prefer_native=False),
+               "native": PR.RendezvousServer(secret)}
+    ports = {k: s.start() for k, s in servers.items()}
+    try:
+        for n in lengths:
+            value = "".join(rng.choice('ab+/=9"\\\n\x01')
+                            for _ in range(min(n, 512)))
+            value = (value * (n // max(1, len(value)) + 1))[:n]
+            for req in ({"op": "PUT", "key": f"v/{n}", "value": value},
+                        {"op": "GET", "key": f"v/{n}"}):
+                line = PR._encode(secret, req)
+                got = {k: _raw(p, line) for k, p in ports.items()}
+                assert got["native"] == got["python"], (n, req["op"])
+            assert PR._decode(secret, got["native"])["value"] == value
+    finally:
+        for s in servers.values():
+            s.stop()
+
+
 def test_native_kv_serves_both_packages_clients(native_lib):
     server = PR.RendezvousServer()
     port = server.start()

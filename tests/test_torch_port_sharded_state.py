@@ -13,7 +13,9 @@ refused; (e) the chaos soak at np=2, at JAX's settings and with the
 degrade branch off; (f) a crash shrink with no publish to a world of
 one, which must take the restore path, bitwise (a)'s streams; (c) that
 world of one publishing at `on_hosts_updated` and both ranks' `sync` in
-a new world of two on the live path, bitwise the original streams.
+a new world of two on the live path, bitwise the original streams; (g)
+the train-to-serve handoff of the stage-3 rows at tp 1 and 2, bitwise
+the gathered parameters, and the same tokens served from both.
 `chip_smoke.check_reshard` holds the
 results; the test then holds every shard stream of the shrink to JAX's
 `reshard_shard_rows` and the optimizer's streams to JAX's
@@ -177,3 +179,17 @@ def test_an_optimizer_frees_its_model_after_its_last_use(fused_apply):
         assert all(r() is None for r in refs)
     finally:
         hvd.shutdown()
+
+
+def test_serve_handoff_holds(results):
+    """(g): both ranks published their rows; rank 0's tp=1 fetch and both
+    ranks' tp=2 halves are bitwise the gathered parameters' slices, and
+    the server gives the same tokens on the fetched parameters."""
+    h0, h1 = results[0]["handoff"], results[1]["handoff"]
+    assert h0["groups_match"] and h1["groups_match"]
+    assert h0["tp1_bitwise"] and h0["tp2_bitwise"] and h1["tp2_bitwise"]
+    assert "tp1_bitwise" not in h1
+    assert h0["fetch_tp2_bytes"] == h1["fetch_tp2_bytes"] < \
+        h0["fetch_tp1_bytes"]
+    assert h0["tokens_fetched"] == h0["tokens_gathered"]
+    assert len(h0["tokens_fetched"]) == 32 and h0["prompt_len"] == 64

@@ -172,18 +172,27 @@ def _without_waits(report):
     return report
 
 
+def _marked_async(traces):
+    """`traces` with every collective span marked as the port's traced
+    bracket marks a span that ends at dispatch."""
+    return {r: [dict(e, dispatch="async") if e.get("cat") == "collective"
+                else e for e in evs] for r, evs in traces.items()}
+
+
 @pytest.mark.parametrize("align", ["cycle", "wall"])
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_analyze_and_offsets_are_jax(fixture, align):
-    """JAX's report where no bucket was dispatched before the previous
-    one had started everywhere; where one was (the seeded fixtures), the
-    same report but for the straggler wait, which the port counts once
-    per lag (never more than JAX does)."""
+    """JAX's report on every fixture as it is: no span carries the
+    async dispatch mark, so aligned starts that overlap (the seeded
+    fixtures') read under the plain rule.  With every span marked, the
+    overlapping ones give the same report but for the straggler wait,
+    which the port counts once per lag (never more than JAX does)."""
     traces = FIXTURES[fixture]()
     assert PCORE.clock_offsets(traces, align=align) == \
         JCORE.clock_offsets(traces, align=align)
-    got = PCORE.analyze(traces, align=align)
     want = JCORE.analyze(traces, align=align)
+    assert PCORE.analyze(traces, align=align) == want
+    got = PCORE.analyze(_marked_async(traces), align=align)
     if not _overlapping(traces, align):
         assert got == want
     else:
@@ -202,15 +211,15 @@ def test_analyze_and_offsets_are_jax(fixture, align):
 
 def _lagged_step(sync):
     """Two ranks, one 200 ms step, three buckets; rank 1 is 20 ms later
-    to each than the last.  Async (the port's hooks): rank 0 dispatches
-    its buckets 1 ms apart without waiting, so rank 1's lag grows to 20,
-    40, 60 ms.  Sync (JAX's eager buckets): rank 0 starts a bucket once
+    to each than the last.  Async (the port's hooks, spans marked
+    `dispatch: async`): rank 0 dispatches its buckets 1 ms apart without
+    waiting, so rank 1's lag grows to 20, 40, 60 ms.  Sync (JAX's eager buckets): rank 0 starts a bucket once
     the last one is done, 1 ms after rank 1 joined it, so each lag is
     20 ms."""
     def ev(r, k, ts):
         return {"name": "ALLREDUCE", "cat": "collective", "ph": "X",
                 "ts": ts, "dur": 500.0, "pid": r, "tid": "ALLREDUCE",
-                "step": 1}
+                "step": 1, **({} if sync else {"dispatch": "async"})}
 
     def cyc(r, n, ts):
         return {"name": f"CYCLE_{n}", "cat": "cycle", "ph": "i", "s": "p",
