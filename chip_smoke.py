@@ -520,6 +520,30 @@ Phases, each printing its own lines:
                  launches, the KV's get latency at three replicas and
                  the card's free memory before and after the fleet; the
                  phase must end within REPLICA_BUDGET_S.
+27. frontends    main path 17: the other frontends (`frontends_rank`,
+                 its two ranks folded into phase 4's pair, sharing the
+                 card over gloo). (a) Full-width ResNet-50 (25,557,032
+                 params, 224x224, batch 32 a rank, bf16 compute) from a
+                 seed a rank: `callbacks.BroadcastGlobalVariablesCallback
+                 (0).on_train_begin` gives every rank rank 0's initial
+                 tree (one SHA-256), and a second call changes nothing;
+                 then FRONTENDS_STEPS steps of `DistributedGradientTape(
+                 op=Adasum).gradient` with SGD at `LearningRateWarmup
+                 Callback.lr`: every loss finite, one SHA-256 across the
+                 ranks after each step, K1 and K2 launched on both ranks,
+                 `MetricAverageCallback`'s loss bitwise the mean of the
+                 allgathered losses (two f32 values).  (b) The MXNet
+                 frontend over host numpy arrays of ResNet-50's parameter
+                 shapes, drawn per rank: `broadcast_parameters` makes
+                 every rank's arrays rank 0's bitwise, and
+                 `DistributedOptimizer` around an engine-level SGD
+                 (`update(index, weight, grad, state)`, the grouped and
+                 the single-index form) gives gradients bitwise the port's
+                 `grouped_allreduce(op=Average)` of the same tensors on
+                 the card.  It runs on the card (hvd.device() cuda), imports
+                 no tensorflow, keras or mxnet, prints its times beside
+                 the card's name and power limit and must end within
+                 FRONTENDS_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -537,7 +561,8 @@ sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
 `--trace` only phase 22; `--launcher` only phase 23; `--elastic` only
 phase 24. `python3 chip_smoke.py --phases GROUP...` runs the named groups
 of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25,
-`--phases replicas` phase 26) after
+`--phases replicas` phase 26, `--phases frontends` phase 27 in a pair of
+processes of its own) after
 every build, and the whole run and it print `PHASE_TIME <group> <s>`
 after each group.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
@@ -557,7 +582,7 @@ the host with another.
 Process starts, not steps, take most of a short run's time, so runs of
 the same rank count share their processes (`launch_folded`: each run in
 turn, `module.main(args)` with its own environment and its own process
-group): phases 4 and 12 in one pair; the one-rank runs of phases 5, 7,
+group): phases 4, 12 and 27 in one pair; the one-rank runs of phases 5, 7,
 9, 19 (a) and bench_np1 in one process; phases 6 and 8 in one pair under
 the launcher; phase 11's two runs in one pair; phase 13's one-rank runs
 in one process; bench_np2 and phase 16's int8 run in one pair; phase
@@ -570,7 +595,8 @@ log says how much).
 
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
 zoo deltas, with their launches on main path 5, and their launches on
-main path 1 net of the ladder check's tree; K3 with its launches on
+main path 1 net of the ladder check's tree, and on main path 17 per
+rank as `frontends_launches`; K3 with its launches on
 main path 7 as `wire_launches`; K4-K6 with their times at the ring's
 pair shape as `ring_pair`, their errors at the ring's causal diagonal
 pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
@@ -1737,15 +1763,15 @@ AUTOTUNE_ARGS = ["--model", "resnet50", "--num-classes", "1000",
 
 
 def adasum_and_autotune():
-    """Phase 4's ranks then phase 12's, in turn in one pair of processes
-    (`launch_folded`); returns (phase 4's summaries, phase 12's summaries
-    and lines)."""
+    """Phase 4's ranks, then phase 12's and phase 27's, in turn in one
+    pair of processes (`launch_folded`); returns (phase 4's summaries,
+    phase 12's summaries and lines, phase 27's lines)."""
     for r in (0, 1):
         path = os.path.join(LOG_DIR, f"autotune_rank{r}.csv")
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    (adasum, _), autotune = launch_folded("adasum_autotune", 2, [
+    (adasum, _), autotune, frontends = launch_folded("adasum_autotune", 2, [
         dict(phase="train_adasum", args=[
             "--use-adasum", "--model", "resnet50", "--num-classes", "1000",
             "--image-size", "224", "--batch-size", "32",
@@ -1754,10 +1780,11 @@ def adasum_and_autotune():
             grow=ADASUM_GROW),
         dict(phase="autotune_np2", args=AUTOTUNE_ARGS, env=dict(
             AUTOTUNE_ENV, HOROVOD_AUTOTUNE_LOG=os.path.join(
-                LOG_DIR, "autotune_rank{rank}.csv")))], timeout=900)
-    log("adasum_autotune", f"{time.perf_counter() - t0:.1f} s for phases 4 "
-        "and 12 in one pair of processes")
-    return adasum, autotune
+                LOG_DIR, "autotune_rank{rank}.csv"))),
+        FRONTENDS_RUN], timeout=900)
+    log("adasum_autotune", f"{time.perf_counter() - t0:.1f} s for phases 4, "
+        "12 and 27 in one pair of processes")
+    return adasum, autotune, frontends[1]
 
 
 def train_adasum(summaries):
@@ -6259,12 +6286,236 @@ def replicas_phase(FA, smi: str, cfg_kw=None, device=None,
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: the framework-neutral frontend and the MXNet frontend
+# ---------------------------------------------------------------------------
+
+FRONTENDS_BUDGET_S = 60  # phase 27's share of the script's time limit
+FRONTENDS_STEPS = 3
+FRONTENDS_LR = 0.0125    # the benchmark's SGD rate (LearningRateWarmupCallback's target)
+FRONTENDS_RUN = dict(phase="frontends", module="chip_smoke",
+                     args=["--frontends-rank"], raw=True)
+
+
+def _tree_sha(tree) -> str:
+    """`_sha` of a dict of tensors or numpy arrays, in sorted name
+    order."""
+    import torch
+
+    return _sha(torch.as_tensor(tree[k]) for k in sorted(tree))
+
+
+def frontends_rank(model_name: str = "resnet50", image_size: int = 224,
+                   batch: int = 32, device=None) -> int:
+    """One rank of phase 27 (a folded run of the adasum pair, or of a pair
+    of its own): (a) the callbacks and the tape on the zoo model at full
+    width from a seed a rank, (b) the MXNet frontend over host numpy
+    arrays of the model's parameter shapes.  Prints one `FRONTENDS` line
+    of results for `check_frontends`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.mxnet as hmx
+    from horovod_tpu_torch.models import zoo_build
+    from horovod_tpu_torch.ops import adasum_kernels
+
+    t_start = time.perf_counter()
+    hvd.init(device=device)
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    out = {"rank": r, "size": n, "device": str(dev),
+           "backend": hvd.backend()}
+    # (a) The callbacks and the tape.
+    model = zoo_build(model_name, 1000, compute_dtype=torch.bfloat16,
+                      seed=r, image_size=image_size).to(dev)
+    model.train()
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    out["params"] = sum(v.numel() for v in params.values())
+    out["initial_sha"] = _tree_sha(params)
+    bcast = hvd.callbacks.BroadcastGlobalVariablesCallback(0)
+    sync()
+    t0 = time.perf_counter()
+    synced = bcast.on_train_begin(params)
+    sync()
+    out["broadcast_ms"] = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        for k, v in synced.items():
+            model.get_parameter(k).copy_(v)
+    out["broadcast_sha"] = _tree_sha(synced)
+    again = {k: v.detach() for k, v in model.named_parameters()}
+    out["second_call_same"] = (bcast.on_train_begin(again) is again
+                               and _tree_sha(again) == out["broadcast_sha"])
+    g = torch.Generator().manual_seed(r)
+    x = torch.rand((batch, 3, image_size, image_size), generator=g).to(dev)
+    y = torch.randint(0, 1000, (batch,), generator=g).to(dev)
+    tape = hvd.DistributedGradientTape(op=hvd.Adasum)
+    warmup = hvd.callbacks.LearningRateWarmupCallback(
+        warmup_epochs=1, initial_lr=FRONTENDS_LR)
+
+    def loss_fn(p, x, y):
+        return F.cross_entropy(functional_call(model, p, (x,)), y)
+
+    adasum_kernels.reset_launch_counts()
+    steps = []
+    for b in range(FRONTENDS_STEPS):
+        lr = warmup.lr(0, FRONTENDS_STEPS, b)
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = tape.gradient(loss_fn, dict(model.named_parameters()),
+                                    x, y)
+        with torch.no_grad():
+            for k, grad in grads.items():
+                model.get_parameter(k).sub_(grad, alpha=lr)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"loss": float(loss), "lr": lr, "ms": ms,
+                      "sha": _tree_sha(dict(model.named_parameters()))})
+    out["steps"] = steps
+    out["launches"] = adasum_kernels.launch_counts()
+    last = loss.float()
+    out["metric_avg"] = float(hvd.callbacks.MetricAverageCallback()
+                              .on_epoch_end({"loss": last})["loss"])
+    gathered = hvd.allgather(last.reshape(1))
+    out["allgather_mean"] = float((gathered[0] + gathered[1]) / 2)
+    out["a_s"] = time.perf_counter() - t_start
+    del model, params, synced, again, grads, x, y
+    # (b) The MXNet frontend over host arrays of the model's shapes.
+    t0 = time.perf_counter()
+    shapes = {k: tuple(v.shape) for k, v in zoo_build(
+        model_name, 1000, compute_dtype=None, seed=0,
+        image_size=image_size).named_parameters()}
+    rng = np.random.RandomState(100 + r)
+    arrays = {k: rng.standard_normal(sh).astype(np.float32)
+              for k, sh in shapes.items()}
+    out["mx_initial_sha"] = _tree_sha(arrays)
+    out["mx_on_card"] = hmx._to_torch(arrays[next(iter(arrays))]).device.type
+    hmx.broadcast_parameters(arrays, root_rank=0)
+    out["mx_broadcast_sha"] = _tree_sha(arrays)
+    names = sorted(arrays)
+    grads = [rng.standard_normal(shapes[k]).astype(np.float32)
+             for k in names]
+    want = hvd.grouped_allreduce([torch.from_numpy(g_).to(dev)
+                                  for g_ in grads], op=hvd.Average)
+
+    class EngineSGD:
+        """The engine-level optimizer surface (`update(index, weight,
+        grad, state)`) of mx.optimizer.SGD, on numpy arrays."""
+
+        learning_rate = 0.1
+
+        def update(self, index, weight, grad, state):
+            if isinstance(index, (list, tuple)):
+                for w, g_ in zip(weight, grad):
+                    w[:] = w - self.learning_rate * g_
+            else:
+                weight[:] = weight - self.learning_rate * grad
+
+    opt = hmx.DistributedOptimizer(EngineSGD())
+    weights = [arrays[k] for k in names]
+    before = [w.copy() for w in weights]
+    opt.update(list(range(1, len(names))), weights[1:], grads[1:],
+               [None] * (len(names) - 1))
+    opt.update(0, weights[0], grads[0], None)
+    out["mx_grads_bitwise"] = all(
+        np.array_equal(g_, w_.cpu().numpy()) for g_, w_ in zip(grads, want))
+    out["mx_applied"] = all(
+        np.array_equal(w, b_ - np.float32(0.1) * g_)
+        for w, b_, g_ in zip(weights, before, grads))
+    out["mx_arrays"] = len(names)
+    out["b_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_start
+    print("FRONTENDS " + json.dumps(out), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def check_frontends(lines, smi: str, on_card: bool = True) -> dict:
+    """Phase 27's checks on each rank's lines (`frontends_rank`)."""
+    phase = "frontends"
+    recs = [_records(ls, "FRONTENDS")[-1] for ls in lines]
+    r0 = recs[0]
+    for rec in recs:
+        r = rec["rank"]
+        require(rec["size"] == 2 and rec["backend"] == "gloo",
+                f"rank {r}: size {rec['size']}, backend {rec['backend']}")
+        require(not on_card or rec["device"].startswith("cuda"),
+                f"rank {r} ran on {rec['device']}")
+        require(rec["params"] == MAIN_N or not on_card,
+                f"rank {r}: {rec['params']} parameters, not {MAIN_N}")
+        require(rec["broadcast_sha"] == r0["initial_sha"],
+                f"rank {r}: the broadcast tree is not rank 0's initial one")
+        require(rec["second_call_same"], f"rank {r}: the second "
+                "on_train_begin changed the parameters")
+        require(len(rec["steps"]) == FRONTENDS_STEPS and all(
+            math.isfinite(s["loss"]) for s in rec["steps"]),
+            f"rank {r}: steps {rec['steps']}")
+        require(not on_card or all(c > 0 for c in rec["launches"].values()),
+                f"rank {r}: K1/K2 launches {rec['launches']}")
+        require(rec["metric_avg"] == rec["allgather_mean"],
+                f"rank {r}: MetricAverageCallback {rec['metric_avg']} is not "
+                f"the allgathered mean {rec['allgather_mean']}")
+        require(rec["mx_broadcast_sha"] == r0["mx_initial_sha"],
+                f"rank {r}: the MXNet arrays are not rank 0's")
+        require(rec["mx_grads_bitwise"] and rec["mx_applied"],
+                f"rank {r}: MXNet DistributedOptimizer's gradients are not "
+                "the grouped Average's bitwise, or its update did not apply")
+        require(not on_card or rec["mx_on_card"] == "cuda",
+                f"rank {r}: the MXNet frontend's tensors on "
+                f"{rec['mx_on_card']}")
+    for i in range(FRONTENDS_STEPS):
+        shas = {rec["steps"][i]["sha"] for rec in recs}
+        require(len(shas) == 1, f"step {i}: parameters differ {shas}")
+    require(r0["initial_sha"] != recs[1]["initial_sha"],
+            "the ranks started from the same parameters")
+    for rec in recs:
+        log(phase, f"rank {rec['rank']}: ({smi}) callbacks broadcast "
+            f"{rec['broadcast_ms']:.1f} ms, one SHA-256 {rec['broadcast_sha'][:16]}"
+            " = rank 0's initial tree; tape(Adasum) steps "
+            + ", ".join(f"loss {s['loss']:.4f} lr {s['lr']:.6f} "
+                        f"{s['ms']:.1f} ms" for s in rec["steps"])
+            + f"; K1/K2 launches {rec['launches']}; metric average "
+            f"{rec['metric_avg']!r} = allgathered mean; (a) {rec['a_s']:.1f} s"
+            f"; MXNet: {rec['mx_arrays']} arrays broadcast bitwise, "
+            f"DistributedOptimizer's gradients bitwise the grouped Average; "
+            f"(b) {rec['b_s']:.1f} s; {rec['phase_s']:.1f} s in all")
+    phase_s = max(rec["phase_s"] for rec in recs)
+    log(phase, f"{phase_s:.1f} s (budget {FRONTENDS_BUDGET_S} s), {smi}")
+    require(phase_s <= FRONTENDS_BUDGET_S,
+            f"{phase}: over its budget of {FRONTENDS_BUDGET_S} s")
+    return {"launches": [rec["launches"] for rec in recs],
+            "phase_s": phase_s,
+            "step_ms": [[s["ms"] for s in rec["steps"]] for rec in recs]}
+
+
+def frontends_phase(ctx) -> dict:
+    """Phase 27: checks the folded run of the adasum pair, or runs it in
+    a pair of its own (`--phases frontends`)."""
+    lines = ctx.get("frontends_lines")
+    if lines is None:
+        lines = launch_folded("frontends", 2, [FRONTENDS_RUN],
+                              timeout=300)[0][1]
+    return check_frontends(lines, ctx["smi"])
+
+
+# ---------------------------------------------------------------------------
 # The whole run's phases, in groups
 # ---------------------------------------------------------------------------
 
 def _group_adasum(ctx) -> None:
-    """Phases 4 and 12 (one pair of processes, `launch_folded`)."""
-    ctx["adasum"], autotune_run = adasum_and_autotune()
+    """Phases 4 and 12 (one pair of processes, `launch_folded`, which
+    runs phase 27's ranks too; the `frontends` group checks them)."""
+    ctx["adasum"], autotune_run, ctx["frontends_lines"] = (
+        adasum_and_autotune())
     train_adasum(ctx["adasum"])
     autotune_np2(autotune_run)
 
@@ -6322,6 +6573,12 @@ def _group_replicas(ctx) -> None:
     ctx["replicas"] = replicas_phase(FA, ctx["smi"])
 
 
+def _group_frontends(ctx) -> None:
+    """Phase 27 (its ranks folded into the adasum pair in the whole
+    run)."""
+    ctx["frontends"] = frontends_phase(ctx)
+
+
 def _group(key: str, fn, *args):
     def run(ctx) -> None:
         ctx[key] = fn(*(ctx[a] for a in args))
@@ -6349,6 +6606,7 @@ PHASE_GROUPS = {
     "elastic_driver": _group("elastic_driver", elastic_driver_phase, "smi"),
     "reshard": _group("reshard", reshard_phase),
     "replicas": _group_replicas,
+    "frontends": _group_frontends,
 }
 # The groups whose results a group reads.
 PHASE_NEEDS = {"wire": ("singles", "transformer"), "guard": ("singles",)}
@@ -6424,6 +6682,8 @@ def main() -> int:
         return reshard_rank()
     if sys.argv[1:2] == ["--fold-rank"]:
         return fold_rank()
+    if sys.argv[1:2] == ["--frontends-rank"]:
+        return frontends_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -6564,11 +6824,16 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
         if src == "adasum_kernels.cu":
             # K1 and K2 at the other zoo models' fused deltas (f32), and
-            # their launches on main path 5 (VGG-16 Adasum at np=2).
+            # their launches on main path 5 (VGG-16 Adasum at np=2) and
+            # on main path 17 per rank (the tape under Adasum).
             row.update(zoo={m: measured[m][name] for m in ZOO_N},
-                       zoo_launches=zoo_summaries[0]["launches"][name])
+                       zoo_launches=zoo_summaries[0]["launches"][name],
+                       frontends_launches=[
+                           f[name] for f in ctx["frontends"]["launches"]])
             require(row["zoo_launches"] > 0, f"{name}: no launch on "
                     "train_zoo")
+            require(all(c > 0 for c in row["frontends_launches"]),
+                    f"{name}: no launch on main path 17")
         if "cuda_core_ms" in m:
             # K4-K6: the tensor-core kernel's launches on the main path
             # (all of them), the CUDA-core kernel's time at this shape,

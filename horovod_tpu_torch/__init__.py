@@ -34,3 +34,39 @@ from .parallel.hierarchical import (  # noqa: F401,E402
 # The runtime utilities (horovod_tpu/__init__.py:161-169).
 from .utils.prefetch import BackgroundPrefetcher, prefetch_to_device  # noqa: F401,E402
 from .utils.timeline import start_timeline, stop_timeline  # noqa: F401,E402
+
+# The rest of the JAX package's top level (horovod_tpu/__init__.py:44-194):
+# the process queries of a one-rank-a-process port, the errors, the
+# wire codecs, the gradient reduction and its plans, the tuner, and the
+# framework-neutral frontend (the tape and the callbacks).  The
+# torch-level `broadcast_parameters` / `broadcast_optimizer_state` above
+# stay the in-place horovod.torch forms; the tree forms are
+# `ops.functions`'.
+from .common.basics import (  # noqa: F401,E402
+    local_device_ranks,
+    num_processes,
+    process_index,
+)
+from .common.exceptions import HorovodTpuError, HostsUpdatedInterrupt  # noqa: F401,E402
+from .ops.join import joined_ranks  # noqa: F401,E402
+from .ops.wire import (  # noqa: F401,E402
+    WireCodec,
+    WirePolicy,
+    get_codec,
+    parse_wire_policy,
+    wire_names,
+)
+from .parallel.data_parallel import (  # noqa: F401,E402
+    DistributedGradientTape,
+    allreduce_gradients,
+    data_parallel,
+    distributed_grad,
+    error_feedback_init,
+    fused_pipeline_plan,
+    gradient_bucket_partition,
+    shard_batch,
+    wire_policy_plan,
+)
+from .utils.autotune import ParameterManager  # noqa: F401,E402
+from .utils.autotune import get_manager as autotune_manager  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402

@@ -392,6 +392,23 @@ def cross_rank() -> int:
     return _state().cross_rank
 
 
+def process_index() -> int:
+    """This process's index among the job's processes: its rank (one
+    rank a process; JAX basics.process_index counts hosts' processes,
+    each driving several chips)."""
+    return _state().rank
+
+
+def num_processes() -> int:
+    """The job's process count: its size (one rank a process)."""
+    return _state().size
+
+
+def local_device_ranks() -> List[int]:
+    """The global ranks of the devices this process drives: its own."""
+    return [_state().rank]
+
+
 def is_homogeneous() -> bool:
     """True when every host runs the same number of ranks."""
     st = _state()

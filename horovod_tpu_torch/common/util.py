@@ -110,3 +110,35 @@ def bucket_order() -> str:
 def min_buckets() -> int:
     """HOROVOD_MIN_BUCKETS (1: no floor)."""
     return max(1, env_int("MIN_BUCKETS", 1))
+
+
+def flatten_tree(tree):
+    """The leaves of a tree of dicts, lists and tuples (insertion order;
+    anything else is a leaf), and a function that rebuilds the tree from
+    new leaves in that order."""
+    if isinstance(tree, dict):
+        keys = list(tree)
+        parts = [flatten_tree(tree[k]) for k in keys]
+        kind = type(tree)
+
+        def rebuild(vals):
+            return kind(zip(keys, _rebuild_parts(parts, vals)))
+    elif isinstance(tree, (list, tuple)):
+        parts = [flatten_tree(v) for v in tree]
+        kind = type(tree)
+        named = hasattr(tree, "_fields")
+
+        def rebuild(vals):
+            items = _rebuild_parts(parts, vals)
+            return kind(*items) if named else kind(items)
+    else:
+        return [tree], lambda vals: vals[0]
+    return [leaf for leaves, _ in parts for leaf in leaves], rebuild
+
+
+def _rebuild_parts(parts, vals) -> list:
+    out, i = [], 0
+    for leaves, rebuild in parts:
+        out.append(rebuild(vals[i:i + len(leaves)]))
+        i += len(leaves)
+    return out

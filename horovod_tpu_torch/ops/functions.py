@@ -12,7 +12,28 @@ import torch
 
 from ..common import basics
 from ..common.basics import ProcessSet
+from ..common.util import flatten_tree
 from . import collectives as C
+
+
+def broadcast_parameters(params: Any, root_rank: int = 0,
+                         process_set: Optional[ProcessSet] = None) -> Any:
+    """Broadcast a tree of tensors (dicts, lists, tuples) from
+    `root_rank`; returns a tree of the same structure with every leaf
+    root's, on the rank's device (JAX `ops/functions.py
+    broadcast_parameters`).  The inputs are left as they were: the
+    in-place form for a model is `horovod_tpu_torch.torch.
+    broadcast_parameters`."""
+    leaves, rebuild = flatten_tree(params)
+    dev = basics.device()
+    return rebuild([C.broadcast(torch.as_tensor(t).to(dev),
+                                root_rank=root_rank, process_set=process_set)
+                    for t in leaves])
+
+
+# An optimizer state given as a tree is broadcast the same way (JAX's
+# optax states are trees too).
+broadcast_optimizer_state = broadcast_parameters
 
 
 def _to_bytes(obj: Any) -> torch.Tensor:

@@ -35,7 +35,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -84,6 +84,13 @@ def armed() -> bool:
 def is_joined() -> bool:
     """Whether this rank has joined in the current round."""
     return _state.joined
+
+
+def joined_ranks() -> List[int]:
+    """The ranks of this process that have joined in the current round
+    (JAX `joined_ranks`, whose process drives several simulated ranks):
+    this rank while it serves its `join()`, else none."""
+    return [basics.rank()] if _state.joined else []
 
 
 def _store():

@@ -47,6 +47,12 @@ dispatch, so its step boundary is the optimizer's `step()`
 `critical_path_ms`, in JAX's order; `utils/megastep.py` holds these
 hooks off (`hold_step_hooks`) and records one per call instead.
 
+The tape frontend (JAX :39, :770-865): `distributed_grad` and
+`DistributedGradientTape` take the gradients with `torch.autograd.grad`
+and reduce them with `allreduce_gradients`; `shard_batch` and
+`data_parallel` place and step each rank's own batch (one port process
+is one rank), eagerly.
+
 The straggler reaction (JAX :96-137, :172-186): `set_reaction_rebalance`
 caps the bucket COUNT of every partition (`trace/reaction.py` arms it
 with 1 against a blamed rank), and `reaction_generation` counts the
@@ -61,13 +67,15 @@ torch shim does not.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
-from typing import Any, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..common import basics, util
+from ..common.util import flatten_tree as _flatten
 from ..common.basics import ProcessSet
 from ..common.exceptions import HorovodTpuError
 from ..ops import collectives as C
@@ -666,16 +674,6 @@ def reduce_gradient_buckets(leaves: Sequence[torch.Tensor],
     return results, new_ef
 
 
-def _flatten(tree):
-    if isinstance(tree, dict):
-        keys = list(tree)
-        return [tree[k] for k in keys], lambda vals: dict(zip(keys, vals))
-    if isinstance(tree, (list, tuple)):
-        kind = type(tree)
-        return list(tree), lambda vals: kind(vals)
-    return [tree], lambda vals: vals[0]
-
-
 def allreduce_gradients(grads: Any, op=C.Average,
                         compression=Compression.none,
                         process_set: Optional[ProcessSet] = None,
@@ -721,3 +719,141 @@ def error_feedback_init(grads: Any) -> List[torch.Tensor]:
     leaves, _ = _flatten(grads)
     return [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
             for t in leaves if t.dtype.is_floating_point]
+
+
+# -- the tape frontend (JAX :39, :770-865) -----------------------------------
+
+def shard_batch(batch: Any, mesh=None) -> Any:
+    """This rank's batch, a tree of tensors or numpy arrays, on the rank's
+    device.  JAX's `shard_batch` splits one host's global batch over
+    the mesh's devices; a port process is one rank and feeds its own
+    batch, as the port's `prefetch_to_device` does.  `mesh` is taken
+    for parity and unused."""
+    del mesh
+    leaves, rebuild = _flatten(batch)
+    dev = basics.device()
+    return rebuild([torch.as_tensor(x).to(dev) for x in leaves])
+
+
+def _detach_tree(tree: Any) -> Any:
+    leaves, rebuild = _flatten(tree)
+    return rebuild([x.detach() if isinstance(x, torch.Tensor) else x
+                    for x in leaves])
+
+
+def _grad_leaf(x) -> torch.Tensor:
+    t = torch.as_tensor(x)
+    if not t.dtype.is_floating_point:
+        raise TypeError(f"grad requires floating-point inputs, got {t.dtype}"
+                        " (JAX: real- or complex-valued inputs)")
+    return t.detach().requires_grad_(True)
+
+
+def distributed_grad(loss_fn: Callable, argnums=0, has_aux: bool = False,
+                     op=C.Average, compression=Compression.none,
+                     axis_name=None,
+                     process_set: Optional[ProcessSet] = None) -> Callable:
+    """`jax.value_and_grad` plus the cross-rank gradient reduction: the
+    functional form of `DistributedGradientTape`.  The wrapped function
+    returns `(value, grads)` (`((value, aux), grads)` with `has_aux`),
+    `grads` a tree like the argument `argnums` names (a tuple of trees
+    for a tuple of argnums), reduced by `allreduce_gradients`.
+
+    Each floating leaf of the differentiated arguments enters `loss_fn`
+    detached, as a new leaf that requires grad, and `torch.autograd.grad`
+    takes the gradients (a leaf the loss does not reach gets zeros, as
+    in JAX); the module state `loss_fn` updates in place (BatchNorm's
+    running statistics) is updated as in a plain forward."""
+    many = isinstance(argnums, (tuple, list))
+    nums = tuple(argnums) if many else (argnums,)
+
+    @functools.wraps(loss_fn)
+    def wrapped(*args, **kwargs):
+        args = list(args)
+        trees = []
+        for n in nums:
+            leaves, rebuild = _flatten(args[n])
+            leaves = [_grad_leaf(x) for x in leaves]
+            args[n] = rebuild(leaves)
+            trees.append((leaves, rebuild))
+        with torch.enable_grad():
+            out = loss_fn(*args, **kwargs)
+            value = out[0] if has_aux else out
+            wrt = [x for leaves, _ in trees for x in leaves]
+            got = iter(torch.autograd.grad(value, wrt, allow_unused=True))
+        grads = []
+        for leaves, rebuild in trees:
+            gl = [next(got) for _ in leaves]
+            grads.append(rebuild([torch.zeros_like(x) if g is None else g
+                                  for x, g in zip(leaves, gl)]))
+        grads = tuple(grads) if many else grads[0]
+        grads = allreduce_gradients(grads, op=op, compression=compression,
+                                    axis_name=axis_name,
+                                    process_set=process_set)
+        val = ((value.detach(), _detach_tree(out[1])) if has_aux
+               else value.detach())
+        return val, grads
+
+    return wrapped
+
+
+class DistributedGradientTape:
+    """The imperative facade of `distributed_grad` (JAX
+    `DistributedGradientTape`; reference: horovod/tensorflow
+    DistributedGradientTape):
+
+        tape = hvd.DistributedGradientTape()
+        loss, grads = tape.gradient(loss_fn, params, batch)
+    """
+
+    def __init__(self, op=C.Average, compression=Compression.none,
+                 axis_name=None, process_set: Optional[ProcessSet] = None):
+        self._op = op
+        self._compression = compression
+        self._axis_name = axis_name
+        self._process_set = process_set
+
+    def gradient(self, loss_fn: Callable, params, *args, **kwargs):
+        g = distributed_grad(
+            loss_fn, op=self._op, compression=self._compression,
+            axis_name=self._axis_name, process_set=self._process_set)
+        return g(params, *args, **kwargs)
+
+
+def data_parallel(step_fn: Callable, mesh=None, axis_name: str = "hvd",
+                  batch_args: Sequence[int] = (2,),
+                  donate_args: Sequence[int] = (0, 1),
+                  static_args: Sequence[int] = (), arg_specs=None,
+                  out_specs=None) -> Callable:
+    """Run a per-rank `step_fn(params, opt_state, batch, ...)` as one
+    data-parallel step: the arguments in `batch_args` go to the rank's
+    device (`shard_batch`: each rank feeds its own batch), the step runs
+    eagerly, and the step boundary's instruments follow it (the tuner's
+    sample of the batch's rows, `record_step`), as after JAX's compiled
+    dispatch.  The reduction inside `step_fn` is explicit (the tape,
+    `allreduce_gradients`), as in JAX.  `mesh`, `axis_name`,
+    `donate_args`, `static_args`, `arg_specs` and `out_specs` shape
+    JAX's shard_map and jit; they are taken for parity and unused."""
+    del mesh, axis_name, donate_args, static_args, arg_specs, out_specs
+
+    @functools.wraps(step_fn)
+    def call(*args):
+        from ..utils import autotune as _at
+
+        clock = step_clock()
+        args = tuple(shard_batch(a) if i in batch_args else a
+                     for i, a in enumerate(args))
+        out = step_fn(*args)
+        pm = _at.get_manager()
+        if pm is not None:
+            items = 1
+            if batch_args and batch_args[0] < len(args):
+                leaves, _ = _flatten(args[batch_args[0]])
+                if leaves and getattr(leaves[0], "shape", None):
+                    items = int(leaves[0].shape[0])
+            pm.record_step(items)
+        if not step_hooks_held():
+            record_step(clock)
+        return out
+
+    return call

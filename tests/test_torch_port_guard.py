@@ -204,3 +204,42 @@ def test_distributed_optimizer_routing():
         hvd.DistributedOptimizer(
             torch.optim.SGD(lin.parameters(), lr=1.0),
             named_parameters=[("w", lin.weight), ("w", lin.bias)])
+
+
+# A finder that refuses the JAX package and jax itself: TensorFlow and
+# Keras load jax when it is installed, so the sys.modules check above
+# cannot hold the frontends; refusing the imports shows that they run
+# without them.
+REFUSE = r'''
+import sys
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "horovod_tpu"):
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+'''
+
+
+def test_the_frontends_run_with_jax_and_the_reference_refused():
+    code = REFUSE + (
+        "import numpy as np, torch, tensorflow as tf\n"
+        "import horovod_tpu_torch.tensorflow as htf\n"
+        "import horovod_tpu_torch.tensorflow.keras as hk\n"
+        "import horovod_tpu_torch.keras, horovod_tpu_torch.mxnet as hmx\n"
+        "import horovod_tpu_torch.callbacks as cb\n"
+        "htf.init(device='cpu')\n"
+        "out = htf.allreduce(tf.constant([1.5, -2.0]), op=htf.Sum)\n"
+        "assert out.numpy().tolist() == [1.5, -2.0], out\n"
+        "assert hmx.allreduce(np.ones(2, np.float32)).tolist() == [1, 1]\n"
+        "assert cb.MetricAverageCallback().on_epoch_end({'l': 2.0})['l'] == 2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'horovod_tpu')]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
