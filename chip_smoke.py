@@ -544,6 +544,40 @@ Phases, each printing its own lines:
                  no tensorflow, keras or mxnet, prints its times beside
                  the card's name and power limit and must end within
                  FRONTENDS_BUDGET_S.
+28. cluster      main path 18: the spark integration (`spark/`: the
+                 barrier mapper, the store, `prepare_data`, the shard
+                 loader and the torch estimator's worker loop), its two
+                 ranks folded into phase 4's pair after phase 27's,
+                 sharing the card over gloo.  This process is the
+                 driver (`cluster_prepare`, in a thread beside the
+                 pair's earlier runs; the ranks wait for its payload):
+                 the shards of seeded numpy
+                 rows (2 x CLUSTER_STEPS x CLUSTER_BATCH training rows
+                 of 3 x 224 x 224 floats, integer labels in [0, 1000),
+                 CLUSTER_VAL_ROWS validation rows marked by a column) go
+                 into a store through `prepare_data` on a DataFrame
+                 where pandas imports, else through the store's numpy
+                 shard writer (it prints which); the spec of
+                 `TorchEstimator`'s remote trainer serializes
+                 `Sequential(Unflatten(1, (3, 224, 224)), ResNet(50))`
+                 (25,557,032 params, seeded, bf16 compute, f32
+                 parameters), SGD and `F.cross_entropy`.  Each rank
+                 (`cluster_rank`) runs `make_barrier_mapper` on that
+                 payload under a fake BarrierTaskContext whose barrier
+                 is a rendezvous KV's; the mapper's env bootstraps
+                 `hvd.init()` on the card and `_torch_remote_trainer`
+                 trains one epoch, batch 32 a rank, CLUSTER_STEPS
+                 steps, validation on rank 0.  Required: finite epoch and
+                 validation losses, one parameter SHA-256 across the
+                 ranks after the broadcast and after every step (global
+                 optimizer hooks), no kernel launched, rank 1 shipping
+                 nothing, and rank 0's returned module and the store's
+                 checkpoint loading in its own process with CPU tensors
+                 and the last step's parameters (the model never crosses
+                 the KV).  Prints its times beside the card's name and
+                 power limit; must end within CLUSTER_BUDGET_S.  Ray
+                 (`ray/`) has no card check: Ray is not installed there,
+                 and its elastic workers run phase 24's driver.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -561,8 +595,9 @@ sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
 `--trace` only phase 22; `--launcher` only phase 23; `--elastic` only
 phase 24. `python3 chip_smoke.py --phases GROUP...` runs the named groups
 of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25,
-`--phases replicas` phase 26, `--phases frontends` phase 27 in a pair of
-processes of its own) after
+`--phases replicas` phase 26, `--phases frontends` phase 27 and
+`--phases cluster` phase 28, each in a pair of processes of its own)
+after
 every build, and the whole run and it print `PHASE_TIME <group> <s>`
 after each group.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
@@ -582,7 +617,7 @@ the host with another.
 Process starts, not steps, take most of a short run's time, so runs of
 the same rank count share their processes (`launch_folded`: each run in
 turn, `module.main(args)` with its own environment and its own process
-group): phases 4, 12 and 27 in one pair; the one-rank runs of phases 5, 7,
+group): phases 4, 12, 27 and 28 in one pair; the one-rank runs of phases 5, 7,
 9, 19 (a) and bench_np1 in one process; phases 6 and 8 in one pair under
 the launcher; phase 11's two runs in one pair; phase 13's one-rank runs
 in one process; bench_np2 and phase 16's int8 run in one pair; phase
@@ -596,7 +631,8 @@ log says how much).
 Then one JSON line with every kernel's numbers (K1 and K2 also at the
 zoo deltas, with their launches on main path 5, and their launches on
 main path 1 net of the ladder check's tree, and on main path 17 per
-rank as `frontends_launches`; K3 with its launches on
+rank as `frontends_launches`; every kernel with its launches on main
+path 18 per rank, none, as `cluster_launches`; K3 with its launches on
 main path 7 as `wire_launches`; K4-K6 with their times at the ring's
 pair shape as `ring_pair`, their errors at the ring's causal diagonal
 pair and at the 4 heads a rank of Ulysses and tp=2, and their launches
@@ -1762,16 +1798,18 @@ AUTOTUNE_ARGS = ["--model", "resnet50", "--num-classes", "1000",
                  "--num-iters", "3", "--log-steps"]
 
 
-def adasum_and_autotune():
-    """Phase 4's ranks, then phase 12's and phase 27's, in turn in one
-    pair of processes (`launch_folded`); returns (phase 4's summaries,
-    phase 12's summaries and lines, phase 27's lines)."""
+def adasum_and_autotune(cluster: dict):
+    """Phase 4's ranks, then phase 12's, phase 27's and phase 28's (its
+    driver side `cluster` prepared), in turn in one pair of processes
+    (`launch_folded`); returns (phase 4's summaries, phase 12's
+    summaries and lines, phase 27's lines, phase 28's lines)."""
     for r in (0, 1):
         path = os.path.join(LOG_DIR, f"autotune_rank{r}.csv")
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    (adasum, _), autotune, frontends = launch_folded("adasum_autotune", 2, [
+    (adasum, _), autotune, frontends, cluster = launch_folded(
+        "adasum_autotune", 2, [
         dict(phase="train_adasum", args=[
             "--use-adasum", "--model", "resnet50", "--num-classes", "1000",
             "--image-size", "224", "--batch-size", "32",
@@ -1781,10 +1819,10 @@ def adasum_and_autotune():
         dict(phase="autotune_np2", args=AUTOTUNE_ARGS, env=dict(
             AUTOTUNE_ENV, HOROVOD_AUTOTUNE_LOG=os.path.join(
                 LOG_DIR, "autotune_rank{rank}.csv"))),
-        FRONTENDS_RUN], timeout=900)
+        FRONTENDS_RUN, dict(CLUSTER_RUN, env=cluster["env"])], timeout=900)
     log("adasum_autotune", f"{time.perf_counter() - t0:.1f} s for phases 4, "
-        "12 and 27 in one pair of processes")
-    return adasum, autotune, frontends[1]
+        "12, 27 and 28 in one pair of processes")
+    return adasum, autotune, frontends[1], cluster[1]
 
 
 def train_adasum(summaries):
@@ -6508,14 +6546,386 @@ def frontends_phase(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 28: the cluster integrations (spark: the barrier mapper and the
+# torch estimator's worker loop)
+# ---------------------------------------------------------------------------
+
+CLUSTER_BUDGET_S = 60  # phase 28's share of the script's time limit
+CLUSTER_BATCH = 32     # rows a rank a step
+CLUSTER_STEPS = 3      # steps a rank in its one epoch
+CLUSTER_VAL_ROWS = 32  # the validation split, evaluated on rank 0
+CLUSTER_LR = 0.0125    # SGD, the benchmark's rate
+CLUSTER_PAYLOAD_WAIT_S = 180  # a rank's wait for the driver's payload
+
+
+class _BarrierCtx:
+    """The BarrierTaskContext surface a barrier task's mapper reads
+    (`partitionId`, `getTaskInfos`, `barrier`), its barrier on the
+    rendezvous KV, as tests/data/spark_task_main.py's."""
+
+    class _Info:
+        address = "127.0.0.1:0"
+
+    def __init__(self, rank: int, size: int, client):
+        self._rank, self._size, self._client = rank, size, client
+
+    def partitionId(self):  # noqa: N802 — pyspark's name
+        return self._rank
+
+    def getTaskInfos(self):  # noqa: N802
+        return [self._Info() for _ in range(self._size)]
+
+    def barrier(self):
+        self._client.barrier("cluster_stage", self._size, timeout=120)
+
+
+def cluster_setup() -> dict:
+    """Phase 28's store and the rendezvous server whose KV is the barrier
+    tasks' barrier, and the env of their run (`cluster_rank` reads it):
+    what a run needs before `cluster_prepare` has written its payload
+    (the whole run starts the ranks' pair meanwhile)."""
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    from horovod_tpu_torch.spark.common.store import Store
+
+    store = Store.create(None)
+    server = RendezvousServer()
+    port = server.start()
+    run_id = "cluster"
+    return {"env": {"CLUSTER_PAYLOAD": os.path.join(store.prefix_path,
+                                                    "payload.b64"),
+                    "CLUSTER_RDV_PORT": str(port),
+                    "CLUSTER_RDV_SECRET": server.secret,
+                    "CLUSTER_COORD_PORT": str(_free_port()),
+                    "CLUSTER_CKPT": store.get_checkpoint_path(run_id)},
+            "server": server, "store": store, "run_id": run_id}
+
+
+def cluster_prepare(setup: dict, depth: int = 50, image_size: int = 224,
+                    batch: int = CLUSTER_BATCH, device=None) -> dict:
+    """Phase 28's driver side, as `TorchEstimator.fit` does it before its
+    backend runs: the shards in `setup`'s store (`prepare_data` on a
+    frame of seeded numpy rows where pandas imports, else the store's
+    own numpy shard writer), the spec of the estimator's remote trainer
+    (the seeded model `Sequential(Unflatten, ResNet(depth))` serialized,
+    SGD, `F.cross_entropy`), and its payload for `make_barrier_mapper`,
+    written whole at CLUSTER_PAYLOAD (or, where this fails, the error at
+    CLUSTER_PAYLOAD.failed, which the ranks raise).  Returns `setup`
+    with what it did."""
+    import traceback
+
+    try:
+        return _cluster_prepare(setup, depth, image_size, batch, device)
+    except BaseException:
+        with open(setup["env"]["CLUSTER_PAYLOAD"] + ".failed", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _cluster_prepare(setup, depth, image_size, batch, device) -> dict:
+    import base64
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.resnet import ResNet
+    from horovod_tpu_torch.spark.common import util
+    from horovod_tpu_torch.spark.common.store import part_name
+    from horovod_tpu_torch.spark.torch import (TorchEstimator,
+                                               _torch_remote_trainer)
+
+    t0 = mark = time.perf_counter()
+    spans = {}
+
+    def span(name):
+        nonlocal mark
+        now = time.perf_counter()
+        spans[name] = now - mark
+        mark = now
+
+    try:
+        import pandas as pd
+    except ImportError:
+        pd = None
+    branch = "numpy" if pd is None else "pandas"
+    span("probe")
+    n_train = 2 * batch * CLUSTER_STEPS
+    rows = n_train + CLUSTER_VAL_ROWS
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((rows, 3 * image_size * image_size),
+                            dtype=np.float32)
+    y = rng.integers(0, 1000, size=rows)
+    is_val = np.zeros(rows, bool)
+    is_val[rng.permutation(rows)[:CLUSTER_VAL_ROWS]] = True
+    store, run_id = setup["store"], setup["run_id"]
+    span("rows")
+    if pd is not None:
+        meta = util.prepare_data(
+            pd.DataFrame({"features": list(x), "label": y,
+                          "is_val": is_val}),
+            store, run_id, 2, ["features"], ["label"], validation="is_val",
+            seed=0)
+    else:
+        train_dir = store.get_train_data_path(run_id)
+        val_dir = store.get_val_data_path(run_id)
+        store.mkdirs(train_dir)
+        store.mkdirs(val_dir)
+        tr = np.flatnonzero(~is_val)
+        per_rank = batch * CLUSTER_STEPS
+        for r in range(2):
+            shard = tr[r * per_rank:(r + 1) * per_rank]
+            util._write_shard(store, os.path.join(train_dir, part_name(r)),
+                              x[shard], y[shard, None])
+        util._write_shard(store, os.path.join(val_dir, util.VAL_BASE),
+                          x[is_val], y[is_val, None])
+        meta = {"train_rows": n_train, "val_rows": CLUSTER_VAL_ROWS,
+                "features_dim": x.shape[1], "labels_dim": 1}
+    span("shards")
+    model = torch.nn.Sequential(
+        torch.nn.Unflatten(1, (3, image_size, image_size)),
+        ResNet(depth, 1000, seed=0))
+    span("model")
+    est = TorchEstimator(
+        model=model, optimizer=torch.optim.SGD(model.parameters(),
+                                               lr=CLUSTER_LR),
+        loss=F.cross_entropy, feature_cols=["features"],
+        label_cols=["label"], validation="is_val", batch_size=batch,
+        epochs=1, random_seed=0, store=store, run_id=run_id, device=device)
+    est._validate_params()
+    spec = est._build_spec(store, run_id, meta)
+    span("spec")
+    payload = setup["env"]["CLUSTER_PAYLOAD"]
+    with open(payload + ".tmp", "w") as f:
+        f.write(base64.b64encode(pickle.dumps(
+            (_torch_remote_trainer, (spec,), {}))).decode())
+    os.replace(payload + ".tmp", payload)
+    span("payload")
+    setup.update(branch=branch, meta=meta, spans=spans,
+                 model_mb=len(spec["model_bytes"]) / 1e6,
+                 prep_s=time.perf_counter() - t0)
+    how = ("prepare_data on a DataFrame" if branch == "pandas"
+           else "the store's numpy writer")
+    log("cluster", f"driver: the shards from the {branch} branch ({how}), "
+        f"{meta}; the spec's model {setup['model_mb']:.1f} MB; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in spans.items())
+        + f"; {setup['prep_s']:.1f} s in all")
+    return setup
+
+
+def cluster_finish(setup: dict) -> None:
+    setup["server"].stop()
+    setup["store"].cleanup()
+
+
+def cluster_rank() -> int:
+    """One barrier task of phase 28 (a folded run of the adasum pair, or of
+    a pair of its own): the port's `make_barrier_mapper` under a fake
+    `BarrierTaskContext` runs the payload `cluster_prepare` wrote (the
+    torch estimator's remote trainer); the mapper's env bootstraps the
+    trainer's `hvd.init()`.  Global optimizer hooks record the
+    parameters' SHA-256 before the first step (after the broadcast) and
+    after each step; rank 0 loads the module it returns and the
+    checkpoint, in its own process.  Prints one `CLUSTER` line."""
+    import base64
+    import io
+    import pickle
+
+    import torch
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.spark as hs
+    from horovod_tpu_torch.ops import adasum_kernels, flash_attention
+    from horovod_tpu_torch.ops import matmul_kernels
+    from horovod_tpu_torch.runner.rendezvous import RendezvousClient
+
+    t_start = time.perf_counter()
+    env = os.environ
+    rank, size = int(env["HOROVOD_PROCESS_ID"]), int(env["HOROVOD_NUM_PROCESSES"])
+    port, secret = int(env["CLUSTER_RDV_PORT"]), env["CLUSTER_RDV_SECRET"]
+    path = env["CLUSTER_PAYLOAD"]
+    deadline = time.monotonic() + CLUSTER_PAYLOAD_WAIT_S
+    while not os.path.exists(path):  # `cluster_prepare` still writing
+        if os.path.exists(path + ".failed"):
+            with open(path + ".failed") as f:
+                raise RuntimeError("the driver's side failed:\n" + f.read())
+        require(time.monotonic() < deadline, f"no payload at {path} within "
+                f"{CLUSTER_PAYLOAD_WAIT_S} s")
+        time.sleep(0.05)
+    wait_s = time.perf_counter() - t_start
+    with open(path) as f:
+        payload = f.read()
+    hs.COORDINATOR_PORT = int(env["CLUSTER_COORD_PORT"])
+    mapper = hs.make_barrier_mapper(payload, "127.0.0.1", port, secret)
+    ctx = _BarrierCtx(rank, size, RendezvousClient("127.0.0.1", port, secret))
+    digests, marks = [], []
+
+    def params(opt):
+        return [p for g in opt.param_groups for p in g["params"]]
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def pre(opt, args, kwargs):
+        if not digests:  # the first step's: what the broadcast left
+            digests.append(_sha(params(opt)))
+
+    def post(opt, args, kwargs):
+        sync()
+        t = time.perf_counter()
+        digests.append(_sha(params(opt)))
+        marks.append((t, time.perf_counter()))
+
+    for k in (adasum_kernels, flash_attention, matmul_kernels):
+        k.reset_launch_counts()
+    saved = dict(os.environ)
+    hooks = [register_optimizer_step_pre_hook(pre),
+             register_optimizer_step_post_hook(post)]
+    t0 = time.perf_counter()
+    try:
+        (out_rank, data), = list(mapper(rank, iter([]), ctx=ctx))
+    finally:
+        for h in hooks:
+            h.remove()
+        os.environ.clear()
+        os.environ.update(saved)
+    mapper_s = time.perf_counter() - t0
+    launches = {**adasum_kernels.launch_counts(),
+                **flash_attention.launch_counts(),
+                **matmul_kernels.launch_counts()}
+    out = {"rank": out_rank, "size": hvd.size(), "backend": hvd.backend(),
+           "device": str(hvd.device()), "digests": digests,
+           "first_step_end_s": marks[0][0] - t0 if marks else None,
+           "step_ms": [(b[0] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])],
+           "launches": launches, "mapper_s": mapper_s, "wait_s": wait_s}
+    hvd.shutdown()
+    result = pickle.loads(base64.b64decode(data))
+    if out_rank == 0:
+        t1 = time.perf_counter()
+        module = torch.load(io.BytesIO(result["model"]), weights_only=False)
+        tensors = list(module.state_dict().values())
+        out.update(history=result["history"],
+                   returned_cpu=all(t.device.type == "cpu" for t in tensors),
+                   returned_params=sum(p.numel() for p in module.parameters()),
+                   returned_sha=_sha(module.parameters()),
+                   returned_mb=len(result["model"]) / 1e6)
+        with open(env["CLUSTER_CKPT"], "rb") as f:
+            state = pickle.load(f)["state_dict"]
+        module.load_state_dict(state)
+        out.update(ckpt_cpu=all(t.device.type == "cpu"
+                                for t in state.values()),
+                   ckpt_sha=_sha(module.parameters()),
+                   load_s=time.perf_counter() - t1)
+    else:
+        out["result"] = result
+    out["phase_s"] = time.perf_counter() - t_start
+    print("CLUSTER " + json.dumps(out), flush=True)
+    return 0
+
+
+CLUSTER_RUN = dict(phase="cluster", module="chip_smoke",
+                   args=["--cluster-rank"], raw=True)
+
+
+def check_cluster(lines, prep: dict, smi: str, on_card: bool = True) -> dict:
+    """Phase 28's checks on each rank's lines (`cluster_rank`)."""
+    phase = "cluster"
+    recs = [_records(ls, "CLUSTER")[-1] for ls in lines]
+    r0 = recs[0]
+    for rec in recs:
+        r = rec["rank"]
+        require(rec["size"] == 2 and rec["backend"] == "gloo",
+                f"rank {r}: size {rec['size']}, backend {rec['backend']}")
+        require(not on_card or rec["device"].startswith("cuda"),
+                f"rank {r} ran on {rec['device']}")
+        require(len(rec["digests"]) == CLUSTER_STEPS + 1,
+                f"rank {r}: {len(rec['digests'])} digests, want the "
+                f"broadcast's and {CLUSTER_STEPS} steps'")
+        require(not any(rec["launches"].values()),
+                f"rank {r}: path 18 launched a kernel {rec['launches']}")
+    for i in range(CLUSTER_STEPS + 1):
+        shas = {rec["digests"][i] for rec in recs}
+        require(len(shas) == 1, f"{'broadcast' if i == 0 else f'step {i}'}"
+                f": parameters differ {shas}")
+    require(recs[1]["result"] is None, "rank 1 shipped a result")
+    hist = r0["history"]
+    require(len(hist["loss"]) == len(hist["val_loss"]) == 1 and all(
+        math.isfinite(v) for v in hist["loss"] + hist["val_loss"]),
+        f"history {hist}")
+    require(r0["returned_cpu"] and r0["ckpt_cpu"],
+            "the returned module or the checkpoint holds non-CPU tensors")
+    require(r0["returned_params"] == MAIN_N or not on_card,
+            f"{r0['returned_params']} parameters returned, not {MAIN_N}")
+    require(r0["returned_sha"] == r0["ckpt_sha"] == r0["digests"][-1],
+            "the returned module or the checkpoint is not the last step's "
+            "parameters")
+    for rec in recs:
+        log(phase, f"rank {rec['rank']}: ({smi}) {rec['backend']} on "
+            f"{rec['device']}, one SHA-256 after the broadcast "
+            f"{rec['digests'][0][:16]} and after each of {CLUSTER_STEPS} "
+            f"steps, the last {rec['digests'][-1][:16]}; the first step "
+            f"ended {rec['first_step_end_s']:.1f} s into the mapper, then "
+            "steps " + ", ".join(f"{ms:.1f}" for ms in rec["step_ms"])
+            + f" ms (a SHA-256 of each step left out); launches "
+            f"{rec['launches']}; the mapper {rec['mapper_s']:.1f} s, "
+            f"{rec['phase_s']:.1f} s in all ({rec['wait_s']:.1f} s of it "
+            "waiting for the driver's payload)")
+    log(phase, f"rank 0: history {hist}, the module shipped back "
+        f"{r0['returned_mb']:.1f} MB with CPU tensors "
+        f"({r0['returned_params']} parameters), the store's checkpoint "
+        f"the same parameters; loaded in {r0['load_s']:.1f} s")
+    phase_s = prep["prep_s"] + max(rec["phase_s"] - rec["wait_s"]
+                                   for rec in recs)
+    log(phase, f"{phase_s:.1f} s (the driver's {prep['prep_s']:.1f} s and "
+        f"the ranks' after it; budget {CLUSTER_BUDGET_S} s), {smi}")
+    require(phase_s <= CLUSTER_BUDGET_S,
+            f"{phase}: over its budget of {CLUSTER_BUDGET_S} s")
+    return {"phase_s": phase_s, "branch": prep["branch"],
+            "step_ms": [rec["step_ms"] for rec in recs],
+            "history": hist, "launches": [rec["launches"] for rec in recs]}
+
+
+def cluster_phase(ctx) -> dict:
+    """Phase 28: checks the folded run of the adasum pair, or prepares and
+    runs it in a pair of its own (`--phases cluster`)."""
+    if ctx.get("cluster_lines") is None:
+        prep = cluster_setup()
+        try:
+            cluster_prepare(prep)
+            lines = launch_folded("cluster", 2, [dict(
+                CLUSTER_RUN, env=prep["env"])], timeout=300)[0][1]
+        finally:
+            cluster_finish(prep)
+        return check_cluster(lines, prep, ctx["smi"])
+    return check_cluster(ctx["cluster_lines"], ctx["cluster_prep"],
+                         ctx["smi"])
+
+
+# ---------------------------------------------------------------------------
 # The whole run's phases, in groups
 # ---------------------------------------------------------------------------
 
 def _group_adasum(ctx) -> None:
     """Phases 4 and 12 (one pair of processes, `launch_folded`, which
-    runs phase 27's ranks too; the `frontends` group checks them)."""
-    ctx["adasum"], autotune_run, ctx["frontends_lines"] = (
-        adasum_and_autotune())
+    runs phase 27's and phase 28's ranks too; the `frontends` and
+    `cluster` groups check them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    prep = ctx["cluster_prep"] = cluster_setup()
+    try:
+        # Phase 28's driver side runs beside the pair's earlier runs (the
+        # ranks wait for its payload): it is host work while they keep
+        # the card busy.
+        with ThreadPoolExecutor(1) as pool:
+            prepared = pool.submit(cluster_prepare, prep)
+            (ctx["adasum"], autotune_run, ctx["frontends_lines"],
+             ctx["cluster_lines"]) = adasum_and_autotune(prep)
+            prepared.result()
+    finally:
+        cluster_finish(prep)
     train_adasum(ctx["adasum"])
     autotune_np2(autotune_run)
 
@@ -6579,6 +6989,12 @@ def _group_frontends(ctx) -> None:
     ctx["frontends"] = frontends_phase(ctx)
 
 
+def _group_cluster(ctx) -> None:
+    """Phase 28 (its ranks folded into the adasum pair in the whole run,
+    its driver side prepared there)."""
+    ctx["cluster"] = cluster_phase(ctx)
+
+
 def _group(key: str, fn, *args):
     def run(ctx) -> None:
         ctx[key] = fn(*(ctx[a] for a in args))
@@ -6607,6 +7023,7 @@ PHASE_GROUPS = {
     "reshard": _group("reshard", reshard_phase),
     "replicas": _group_replicas,
     "frontends": _group_frontends,
+    "cluster": _group_cluster,
 }
 # The groups whose results a group reads.
 PHASE_NEEDS = {"wire": ("singles", "transformer"), "guard": ("singles",)}
@@ -6684,6 +7101,8 @@ def main() -> int:
         return fold_rank()
     if sys.argv[1:2] == ["--frontends-rank"]:
         return frontends_rank()
+    if sys.argv[1:2] == ["--cluster-rank"]:
+        return cluster_rank()
     if sys.argv[1:2] == ["--ranks"]:
         t0 = time.perf_counter()
         _build.build(_build.sources())
@@ -6907,6 +7326,10 @@ def main() -> int:
                 "k3_strided_launches"], strided_ms=m["strided_ms"],
                 wire_launches=wire["zero3"][0]["evals"][0]["k3_launches"],
                 guard_launches=guard["k3_launches"])
+        # Main path 18 (the spark estimator's worker loop) reaches no
+        # kernel: its launches per rank, 0 (check_cluster requires it).
+        row["cluster_launches"] = [c.get(name, 0)
+                                   for c in ctx["cluster"]["launches"]]
         kernels.append(row)
         require(launches[name] > 0, f"{name}: no launch on its main path")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")

@@ -297,14 +297,15 @@ def run(func: Callable) -> Callable:
     (`notification_manager_init`), and a worker spawned into a running
     job syncs its state before its first step, as the ranks already
     there do in their reset; the sync's root is the lowest rank of
-    those (`_sync_root`)."""
+    those (`_sync_root`).  So does a worker whose first generation is
+    later than the one it was spawned for (`registered_late`)."""
 
     @functools.wraps(func)
     def wrapper(state: State, *args, **kwargs):
-        from ..runner.elastic_worker import is_joining_worker
+        from ..runner.elastic_worker import is_joining_worker, registered_late
 
         notification_manager_init()
-        if is_joining_worker():
+        if is_joining_worker() or registered_late():
             state.sync()
         reset_required = False
         skip_sync = False

@@ -289,6 +289,18 @@ def maybe_start_notification_client() -> None:
         _heartbeat_thread.start()
 
 
+def registered_late() -> bool:
+    """True when this worker's first generation is a later one than the
+    generation it was spawned for (HOROVOD_ELASTIC_GEN): it started
+    slower than the job changed, and never saw the change as a bump.
+    Every other member of that generation syncs on entering it (a
+    joiner at its start, a rank already there in its reset), so this
+    one must too."""
+    spawned = os.environ.get("HOROVOD_ELASTIC_GEN")
+    return (_elastic_env() and spawned is not None
+            and _known_gen > int(spawned))
+
+
 def is_joining_worker() -> bool:
     """True when this process was spawned into an already-running job and
     must sync state from rank 0 before its first step."""

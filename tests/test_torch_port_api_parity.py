@@ -4,7 +4,9 @@ elastic names of `test_elastic_surface`) resolves on the port's
 counterpart (`horovod_tpu.X` -> `horovod_tpu_torch.X`), and every public
 top-level name of `horovod_tpu` is the port's too or one of JAX_ONLY,
 each with what takes its place in the port (ROADMAP, "Reference
-behaviours")."""
+behaviours").  The cluster integrations (`ray`, `spark` and its
+estimators) have every public name of their JAX module, and import
+neither JAX nor the JAX package."""
 
 import ast
 import importlib
@@ -122,3 +124,41 @@ def test_the_tape_frontend_is_the_defining_modules(name):
 
     want = callbacks if name == "callbacks" else getattr(data_parallel, name)
     assert getattr(horovod_tpu_torch, name) is want
+
+
+# The cluster integrations: each JAX module's public names (its
+# `__all__`, else the public classes and functions it binds).
+CLUSTER = ["horovod_tpu.ray", "horovod_tpu.spark", "horovod_tpu.spark.common",
+           "horovod_tpu.spark.torch", "horovod_tpu.spark.lightning",
+           "horovod_tpu.spark.keras"]
+
+
+def _public(mod):
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n, v in vars(mod).items() if not n.startswith("_")
+                 and not inspect.ismodule(v)]
+    return sorted(names)
+
+
+@pytest.mark.parametrize("modname", CLUSTER)
+def test_port_cluster_surface_complete(modname):
+    jmod = importlib.import_module(modname)
+    mod = importlib.import_module(_port(modname))
+    want = _public(jmod)
+    assert want, modname
+    missing = [s for s in want if not hasattr(mod, s)]
+    assert not missing, f"{_port(modname)} missing: {missing}"
+    if hasattr(jmod, "__all__"):
+        assert sorted(mod.__all__) == want
+
+
+def test_the_cluster_modules_import_no_jax_and_no_reference():
+    code = ("import sys\n"
+            + "".join(f"import {_port(m)}\n" for m in CLUSTER)
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'horovod_tpu')))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.splitlines()[-1] == "[]"
