@@ -578,6 +578,51 @@ Phases, each printing its own lines:
                  power limit; must end within CLUSTER_BUDGET_S.  Ray
                  (`ray/`) has no card check: Ray is not installed there,
                  and its elastic workers run phase 24's driver.
+29. multicard    main path 19, outside the whole run (`--phases
+                 multicard`, on a host with four cards): the
+                 sharded paths over NCCL, one rank a card (`launch`
+                 gives local rank r card r, and NCCL when every rank has
+                 a card of its own).  With fewer than MULTICARD_RANKS
+                 cards it raises before any build, naming the cards it
+                 found.  (a) Full-width ResNet-50 (batch 32 a rank, 3
+                 steps) under Adasum at 3 ranks (cards 0-2) and at 4:
+                 the XOR ladder with its fold and last hop at 3; every
+                 loss finite, one SHA-256 a step, each rank's K1 and K2
+                 launches a step the ladder's combines on that rank
+                 (`adasum_levels`: [2, 1, 0] at 3, 2 each at 4), the
+                 ladder bitwise the tree on the gathered stack; then
+                 Average on the int8 ring at 4 ranks, step 1's ring
+                 bitwise its plain model.  (b) The default
+                 TransformerConfig at T = 16384, 4 of its 8 layers,
+                 through `make_train_step` as phase 17 runs it, on dp2 x
+                 sp2 ring, dp2 x sp2 Ulysses, dp2 x tp2, dp2 x ep2 MoE (8
+                 experts, moe_every 2), dp2 x pp2 (batch 2) and ep2 x sp2
+                 ring MoE: step 0 within LOSS_TOL of rank 0's
+                 `reference_loss` (under sp the MoE layers route each
+                 sequence chunk on its own), K4-K6 as `expected_flash`
+                 says on the tensor cores; each rank's host ms in the
+                 mesh's ranges.  (c) Phase 6's stage-0 run and phase 8's
+                 ZeRO-3 run (ZERO3_ENV, the fused chunked pipeline) at 4
+                 ranks, held to phase 8's checks: losses within LOSS_TOL
+                 of stage 0's, resident bytes at most a quarter plus
+                 the pads, peak memory below stage 0's, and
+                 `head_k3_launches(4)` (64) K3 launches a rank in the
+                 eval forward.  (d) ResNet-50 over
+                 `create_hierarchical_mesh(2, 2)` (`--dcn 2`, ici {0,1}
+                 {2,3}, dcn {0,2} {1,3}) under
+                 HOROVOD_HIERARCHICAL_ALLREDUCE=1: step 1's gradients
+                 within HIER_RTOL of the flat allreduce, the int8 dcn
+                 wire within its bound.  (e) `make_decode_step` over dp2
+                 x tp2 (`python -m chip_smoke --decode-mesh-rank`): a
+                 serve_prompt_len-token prefill (K4 n_layers times a
+                 rank on the tensor cores), SERVE_NEW greedy tokens from
+                 the mesh's logits, every one held to the one-rank chain
+                 (`teacher_forced`), the tp pair's tokens equal.  (a)'s
+                 4-rank runs, (b)-(e) run in turn in one set of four
+                 processes, each run under its own MULTICARD_RUN_S
+                 limit (`fold_rank`); prints one JSON line
+                 `{"multicard": ...}` and the group's seconds against
+                 MULTICARD_BUDGET_S.
 
 Phases 6 to 9 also hold the tied head (`TiedHead`: bf16 x bf16 -> f32 on
 the tensor cores) to the f32 path it replaced: in the kernels phase at
@@ -596,10 +641,10 @@ sources it runs); `--hier` only phase 20; `--runtime` only phase 21;
 phase 24. `python3 chip_smoke.py --phases GROUP...` runs the named groups
 of the whole run (PHASE_GROUPS; `--phases reshard` is phase 25,
 `--phases replicas` phase 26, `--phases frontends` phase 27 and
-`--phases cluster` phase 28, each in a pair of processes of its own)
-after
+`--phases cluster` phase 28, each in a pair of processes of its own;
+`--phases multicard` phase 29, which the whole run leaves out) after
 every build, and the whole run and it print `PHASE_TIME <group> <s>`
-after each group.
+after each group; it ends with the same last line as the whole run.
 `python3 chip_smoke.py --ranks N [--transformer] ARGS` instead runs N
 ranks of the ResNet benchmark (or, with --transformer, the transformer
 trainer) with ARGS (rank r on card r mod the card count), holds them to
@@ -1569,11 +1614,15 @@ def fold_rank() -> int:
     -m chip_smoke --fold-rank`): FOLD_ENV holds a JSON list of [module,
     args, env]; each runs as `module.main(args)` (chip_smoke's own `main`
     with `args` as its argv) with `env` added ("{rank}" in a value is this
-    rank), after a `FOLD <i>` line, the
-    card's cache emptied and its peak-memory count reset before it.  Each
+    rank) and optionally a time limit in seconds, after a `FOLD <i>`
+    line, the card's cache emptied and its peak-memory count reset
+    before it.  A run past its limit ends the process with every
+    thread's stack on stderr (`faulthandler`): a rank waiting in a
+    collective its peers never reach fails in bounded time.  Each
     `main` initializes the runtime and shuts it down, so every run gets a
     process group of its own on the same coordinator (its next
     generation), as a new process would."""
+    import faulthandler
     import importlib
 
     import torch
@@ -1583,7 +1632,8 @@ def fold_rank() -> int:
     rank = os.environ.get("HOROVOD_PROCESS_ID",
                           os.environ.get("HOROVOD_RANK", "0"))
     argv = sys.argv
-    for i, (module, args, env) in enumerate(json.loads(os.environ[FOLD_ENV])):
+    for i, (module, args, env, limit) in enumerate(
+            json.loads(os.environ[FOLD_ENV])):
         env = {k: v.replace("{rank}", rank) for k, v in env.items()}
         print(f"FOLD {i}", flush=True)
         gc.collect()  # the last run's tensors, before the cache is emptied
@@ -1601,10 +1651,13 @@ def fold_rank() -> int:
         faults._env_loaded = False
         sys.argv = [module, *args]
         main = importlib.import_module(module).main
+        if limit:
+            faulthandler.dump_traceback_later(limit, exit=True)
         try:  # chip_smoke's own main reads its mode from sys.argv
             rc = _with_env(env, lambda: main(list(args))
                            if main.__code__.co_argcount else main())
         finally:
+            faulthandler.cancel_dump_traceback_later()
             sys.argv = argv
         if rc:
             return rc
@@ -1617,16 +1670,16 @@ def launch_folded(phase: str, nranks: int, runs, timeout: float = 900,
     """Run several trainer runs in turn in the same `nranks` rank processes
     (`fold_rank`), each process started once: `runs` is a list of dicts
     with `phase`, `args` and optionally `module` (RESNET), `env`, `grow`,
-    `shared` and `raw`.  Each run's lines are held to `launch`'s checks
-    under its own phase name (a `raw` run's are not: it prints no
-    SUMMARY), its SUMMARY's memory figures (`*_mem_gb`) as the process
-    read them, with what it still held from the runs before (`fold_rank`'s
+    `shared`, `raw` and `limit` (the run's own time limit, s).  Each
+    run's lines are held to `launch`'s checks under its own phase name
+    (a `raw` run's are not: it prints no SUMMARY), its SUMMARY's memory
+    figures (`*_mem_gb`) as the process read them, with what it still held from the runs before (`fold_rank`'s
     FOLD_HELD) logged; returns (summaries or None, each rank's lines) a
     run.
     `launcher=True` starts the processes through the port's launcher
     (run_ranks)."""
-    spec = [[r.get("module", RESNET), list(r["args"]), r.get("env", {})]
-            for r in runs]
+    spec = [[r.get("module", RESNET), list(r["args"]), r.get("env", {}),
+             r.get("limit")] for r in runs]
     outs = run_ranks(phase, nranks, "chip_smoke", ["--fold-rank"], timeout,
                      env=dict(env or {}, **{FOLD_ENV: json.dumps(spec)}),
                      launcher=launcher)
@@ -1941,11 +1994,25 @@ def transformer_nccl(s):
     return s
 
 
-def train_zero3(summaries, stage0):
+def head_k3_launches(n: int, vocab: int = 32000, d_model: int = 512,
+                     chunk_bytes: int = 1 << 20) -> int:
+    """K3 launches a rank in one held-out forward at stage 3 over n
+    ranks: the tied head's (vocab / n, d_model) f32 shard gathers in row
+    chunks of chunk_bytes (HOROVOD_FUSED_CHUNK_BYTES' default;
+    `plan_chunks`), and each gathered chunk's n row bands are one K3
+    product each (`fused_allgather_matmul`): 63 at one rank, 64 at two
+    and at four."""
+    rows = chunk_bytes // (d_model * 4)
+    return n * -(-(vocab // n) // rows)
+
+
+def train_zero3(summaries, stage0, phase: str = "train_zero3"):
     """Main path 3 (see the module docstring): the checks on its
     summaries (`transformer_and_zero3`); `stage0`: phase 6's, the same
     seeds and data at stage 0."""
     tol = K3_RTOL["torch.float32"]
+    n = len(summaries)
+    k3 = head_k3_launches(n)
     for s, s0 in zip(summaries, stage0):
         r = s["rank"]
         require(s["steps"] == 3 and s["n_layers"] == 8 and
@@ -1955,7 +2022,7 @@ def train_zero3(summaries, stage0):
         require(len(diffs) == 3 and max(diffs) <= LOSS_TOL,
                 f"rank {r}: stage-3 losses {s['step_losses']} vs stage 0 "
                 f"{s0['step_losses']}")
-        cap = s["param_full_bytes"] // 2 + 4 * s["shard_groups"]
+        cap = s["param_full_bytes"] // n + 4 * s["shard_groups"]
         require(s["param_resident_bytes"] <= cap,
                 f"rank {r}: resident {s['param_resident_bytes']} > {cap}")
         require(s["param_storage_bytes"] == 0,
@@ -1965,16 +2032,16 @@ def train_zero3(summaries, stage0):
                 f"rank {r}: stage 3 peaks at {s['peak_mem_gb']:.3f} GB, "
                 f"stage 0 at {s0['peak_mem_gb']:.3f}")
         (ev,) = s["evals"]
-        require(ev["k3_launches"] == 64 and ev["k3_plain_calls"] == 0
+        require(ev["k3_launches"] == k3 and ev["k3_plain_calls"] == 0
                 and ev["k3_strided_launches"] == 0,
                 f"rank {r}: eval forward launched K3 {ev['k3_launches']} "
-                f"times (want 64), {ev['k3_strided_launches']} on the "
+                f"times (want {k3}), {ev['k3_strided_launches']} on the "
                 "strided path (want 0)")
         require(ev["eval_logits_rel"] <= tol and
                 math.isfinite(ev["eval_loss"]),
                 f"rank {r}: eval logits vs the plain head "
                 f"{ev['eval_logits_rel']} (tol {tol}), loss {ev['eval_loss']}")
-        log("train_zero3", f"rank {r}: {s['tok_sec_per_rank']:.1f} tok/sec "
+        log(phase, f"rank {r}: {s['tok_sec_per_rank']:.1f} tok/sec "
             f"(3 steps, checks included); losses vs stage 0 max diff "
             f"{max(diffs):.3g} (tol {LOSS_TOL}); params resident "
             f"{s['param_resident_bytes']} of {s['param_full_bytes']} bytes "
@@ -2003,9 +2070,10 @@ def zero3_nccl(s, stage0):
             f"steps (want 0), resident {s['param_resident_bytes']} (cap "
             f"{cap})")
     (ev,) = s["evals"]
-    require(ev["k3_launches"] == 63 and ev["k3_strided_launches"] == 0
+    k3 = head_k3_launches(1)
+    require(ev["k3_launches"] == k3 and ev["k3_strided_launches"] == 0
             and math.isfinite(ev["eval_loss"]),
-            f"eval forward launched K3 {ev['k3_launches']} times (want 63), "
+            f"eval forward launched K3 {ev['k3_launches']} times (want {k3}), "
             f"{ev['k3_strided_launches']} on the strided path (want 0)")
     log("zero3_nccl", f"{s['tok_sec_per_rank']:.1f} tok/sec "
         f"(+- {1.96 * s['tok_sec_std']:.1f}) at stage 3 against "
@@ -2930,6 +2998,10 @@ MESH_RUNS = [
 ]
 
 
+# The runs whose attention is the causal ring over sp.
+RING_RUNS = ("ring", "ep_sp")
+
+
 def expected_flash(name: str, s: dict) -> int:
     """K4 (and K5, K6) launches per step on one rank of a mesh run: a
     layer's attention once per layer; on the causal ring, rank i runs
@@ -2937,12 +3009,45 @@ def expected_flash(name: str, s: dict) -> int:
     GPipe each stage runs its layers on every tick (M + pp - 1 of them,
     M = pp microbatches), bubbles included."""
     layers = s["n_layers"]
-    if name == "ring":
+    if name in RING_RUNS:
         return layers * (s["coords"]["sp"] + 1)
     if name == "pp":
         pp = s["mesh"]["pp"]
         return layers // pp * (2 * pp - 1)
     return layers
+
+
+MESH_ARGS = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
+             "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
+             "--check-dense-step", "0", "--profile", "1"]
+
+
+def check_mesh_run(phase: str, name: str, summaries):
+    """A mesh run's launch checks on its summaries (`launch`'s done):
+    every step's K4-K6 launches on every rank as many as
+    `expected_flash` says, all on the tensor cores, the one-rank
+    reference's left out."""
+    for s in summaries:
+        want = expected_flash(name, s)
+        per_step = []
+        before = dict.fromkeys(s["launches"], 0)
+        for i, cum in enumerate(s["step_launches"]):
+            got = {k: cum[k] - before[k] for k in cum}
+            if i == 0:
+                got = {k: n - s["check_launches"].get(k, 0)
+                       for k, n in got.items()}
+            before = cum
+            per_step.append(got["flash_fwd"])
+            for n in FLASH_NAMES:
+                require(got[n] == want and got[n + "_sm90"] == want,
+                        f"{phase} rank {s['rank']} step {i}: {n} "
+                        f"{got[n]} launches, {got[n + '_sm90']} on the "
+                        f"tensor cores (want {want})")
+        log(phase, f"rank {s['rank']} {s['coords']}: {len(per_step)} "
+            f"checked steps, K4-K6 launches per step {per_step} (all "
+            f"tensor cores), peak {s['peak_mem_gb']:.2f} GB, "
+            f"{s['n_layers']} layers")
+    return summaries
 
 
 def train_mesh():
@@ -2954,46 +3059,19 @@ def train_mesh():
     rank and step as `expected_flash` says (the reference's launches
     left out), and one profiled step (the profiler's path).  Two runs
     share the card at a time, so they print no rate or time."""
-    common = ["--num-warmup-batches", "0", "--num-batches-per-iter", "1",
-              "--num-iters", str(MESH_CHECKED_STEPS), "--log-steps",
-              "--check-dense-step", "0", "--profile", "1"]
-
-    def check(name, layers, summaries):
-        for s in summaries:
-            want = expected_flash(name, s)
-            per_step = []
-            before = dict.fromkeys(s["launches"], 0)
-            for i, cum in enumerate(s["step_launches"]):
-                got = {k: cum[k] - before[k] for k in cum}
-                if i == 0:
-                    got = {k: n - s["check_launches"].get(k, 0)
-                           for k, n in got.items()}
-                before = cum
-                per_step.append(got["flash_fwd"])
-                for n in FLASH_NAMES:
-                    require(got[n] == want and got[n + "_sm90"] == want,
-                            f"mesh_{name} rank {s['rank']} step {i}: {n} "
-                            f"{got[n]} launches, {got[n + '_sm90']} on the "
-                            f"tensor cores (want {want})")
-            log(f"mesh_{name}", f"rank {s['rank']} {s['coords']}: "
-                f"{MESH_CHECKED_STEPS} checked steps, K4-K6 launches "
-                f"per step {per_step} (all tensor cores), peak "
-                f"{s['peak_mem_gb']:.2f} GB, {layers} layers")
-        return summaries
-
     def chain(k, runs):
         """`runs`, in turn in one pair of processes."""
         t0 = time.perf_counter()
         out = launch_folded(f"mesh_chain{k}", 2, [
-            dict(phase=f"mesh_{name}", args=mesh + extra + common + [
+            dict(phase=f"mesh_{name}", args=mesh + extra + MESH_ARGS + [
                 "--n-layers", str(layers)], module=TRANSFORMER,
                 grow={n: None for n in FLASH_NAMES}, shared=True)
             for name, mesh, extra, layers in runs], timeout=900,
             env=MESH_ENV)
         log(f"mesh_chain{k}", f"{[r[0] for r in runs]}: "
             f"{time.perf_counter() - t0:.1f} s")
-        return {name: check(name, layers, summaries)
-                for (name, _, _, layers), (summaries, _) in zip(runs, out)}
+        return {name: check_mesh_run(f"mesh_{name}", name, summaries)
+                for (name, _, _, _), (summaries, _) in zip(runs, out)}
 
     # Two pairs of processes share the card, each running its runs in turn
     # (ring then tp, Ulysses then ep: the parent's pairs), then pp alone.
@@ -6905,6 +6983,308 @@ def cluster_phase(ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 29: the sharded paths over NCCL, one rank a card (main path 19)
+# ---------------------------------------------------------------------------
+
+MULTICARD_RANKS = 4
+MULTICARD_BUDGET_S = 600  # the group's aim by its own count (logged)
+MULTICARD_RUN_S = 240     # each run's own time limit (`fold_rank`)
+MULTICARD_RESNET = ["--model", "resnet50", "--num-classes", "1000",
+                    "--image-size", "224", "--batch-size", "32",
+                    "--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "1", "--num-iters", "3", "--log-steps"]
+MULTICARD_ADASUM = MULTICARD_RESNET + ["--use-adasum", "--check-plain-step",
+                                       "1"]
+# name, mesh flags, other flags: dp fills the four ranks where no flag
+# names it (`--dp -1`); ep_sp is ep=2 x sp=2 with the ring, dp=1.
+MULTICARD_MESHES = [
+    ("ring", ["--sp", "2"], []),
+    ("ulysses", ["--sp", "2", "--attn", "ulysses"], []),
+    ("tp", ["--tp", "2"], []),
+    ("ep", ["--ep", "2", "--moe-every", "2", "--n-experts", "8"], []),
+    ("pp", ["--pp", "2"], ["--batch-size", "2"]),
+    ("ep_sp", ["--ep", "2", "--sp", "2", "--moe-every", "2",
+               "--n-experts", "8"], []),
+]
+MULTICARD_MESH_LAYERS = 4  # train_mesh's depth
+MULTICARD_STAGE0 = ["--num-warmup-batches", "0", "--num-batches-per-iter",
+                    "1", "--num-iters", "3", "--log-steps",
+                    "--check-plain-step", "1"]
+MULTICARD_DECODE_RUN = dict(phase="multicard_decode", module="chip_smoke",
+                            args=["--decode-mesh-rank"], raw=True)
+
+
+def multicard_cards() -> list:
+    """The visible cards' names; raises unless there are
+    MULTICARD_RANKS of them (no fallback to ranks sharing a card)."""
+    import torch
+
+    names = [torch.cuda.get_device_name(i)
+             for i in range(torch.cuda.device_count())]
+    if len(names) < MULTICARD_RANKS:
+        raise RuntimeError(
+            f"multicard: one rank a card needs {MULTICARD_RANKS} cards; "
+            f"found {len(names)}: {names}")
+    return names
+
+
+def adasum_levels(n: int, idx: int) -> int:
+    """The pair combines (one K1 and one K2 launch each) set rank idx of
+    n runs in one XOR ladder (`adasum_in_axis`): the fold on ranks below
+    n - 2^k, one a level below 2^k; a rank at or above 2^k sends its
+    vector and gets the result."""
+    k = 1 << (n.bit_length() - 1)
+    return int(idx < n - k) + (k.bit_length() - 1) * int(idx < k)
+
+
+def _own_card(phase: str, s: dict, r: int, on_card: bool = True) -> None:
+    """Rank r ran on NCCL on card r (over gloo on the CPU, rehearsing)."""
+    want = ("nccl", f"cuda:{r}") if on_card else ("gloo", "cpu")
+    require((s["backend"], s["device"]) == want,
+            f"{phase} rank {r}: {s['backend']} on {s['device']} (want "
+            f"{want})")
+
+
+def check_ladder(phase: str, summaries, lines, on_card: bool = True) -> list:
+    """Each rank's K1 and K2 launches every step: `adasum_levels` (the
+    fused delta is one ladder a step), the check's tree left out (on the
+    CPU the plain versions launch nothing); the ranks on NCCL, each on
+    its own card."""
+    n = len(summaries)
+    per_rank = []
+    for r, (s, rank_lines) in enumerate(zip(summaries, lines)):
+        _own_card(phase, s, r, on_card)
+        want = adasum_levels(n, r) if on_card else 0
+        before = dict.fromkeys(s["launches"], 0)
+        for rec in _records(rank_lines, "STEP"):
+            for name in ADASUM_GROW:
+                got = (rec["launches"][name] - before[name]
+                       - rec.get("check_launches", {}).get(name, 0))
+                require(got == want, f"{phase} rank {r} step "
+                        f"{rec['step']}: {name} launched {got} times (want "
+                        f"{want}, the ladder's combines on this rank)")
+            before = rec["launches"]
+        per_rank.append(want)
+    log(phase, f"K1 and K2 launches a step per rank {per_rank} (the "
+        f"ladder's combines at {n} ranks), every rank on NCCL on its own "
+        "card")
+    return per_rank
+
+
+def decode_mesh_rank(cfg=None, device=None, prompt_len=None) -> int:
+    """One rank of phase 29 (e) (`python -m chip_smoke
+    --decode-mesh-rank`, one a card): `make_decode_step` over dp=2 x
+    tp=2 on the default TransformerConfig in bf16, two prompts of
+    serve_prompt_len tokens (K4 at the prefill, on each rank's 4 heads),
+    SERVE_NEW greedy tokens of this rank's row from the mesh's own
+    logits; then every token held to the one-rank reference chain on the
+    full parameters (`teacher_forced`), and the tp pair's tokens equal.
+    Prints one DECODE_MESH line.  `cfg`, `device` and `prompt_len`
+    rehearse it on the CPU at a small size."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import decode as D
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+
+    hvd.init(device=device)
+    r, dev = hvd.rank(), hvd.device()
+    cfg = cfg or T.TransformerConfig()
+    full = T.transformer_init(0, cfg)
+    mesh = create_hybrid_mesh(dp=2, tp=2)
+    B, T0, new = 2, prompt_len or serve_prompt_len(FA), SERVE_NEW
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    prompt = torch.randint(0, cfg.vocab_size, (B, T0),
+                           generator=torch.Generator().manual_seed(19))
+    b = D.make_decode_step(mesh, cfg)
+    sp = D.decode_params(b.shard_params(full), cfg)
+    sc = b.shard_cache(D.init_decode_cache(cfg, B, T0 + new, device="cpu"))
+    FA.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    lg, sc = b.prefill(sp, sc, b.shard_tokens(prompt))
+    served = []
+    for i in range(new):
+        served.append(torch.argmax(lg, -1))
+        if i + 1 < new:
+            lg, sc = b.step(sp, sc, served[-1])
+    sync()
+    wall = time.perf_counter() - t0
+    launches, sm90 = FA.launch_counts(), FA.sm90_launch_counts()
+    served = torch.stack(served, 1)
+    pair = hvd.allgather(served[None], process_set=mesh.sets["tp"])
+    heads = int(sp["blocks"]["wq"].shape[2])
+    del sp, sc, lg
+    rows = B // mesh.size("dp")
+    mine = prompt[mesh.index("dp") * rows:(mesh.index("dp") + 1) * rows]
+    params = D.decode_params(T.tree_map(lambda a: a.to(dev), full), cfg)
+    held, ties, before_tie = teacher_forced(D, params, cfg, mine.to(dev),
+                                            served)
+    res = {"rank": r, "backend": hvd.backend(), "device": str(dev),
+           "prompt_len": T0,
+           "coords": {a: mesh.index(a) for a in ("dp", "tp")},
+           "heads": heads, "n_layers": cfg.n_layers,
+           "tokens": served.cpu().tolist(),
+           "tp_pair_equal": bool(torch.equal(pair[0], pair[1])),
+           "held": held, "ties": ties, "before_tie": before_tie,
+           "launches": launches, "sm90": sm90, "wall_s": wall}
+    print("DECODE_MESH " + json.dumps(res), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def check_decode_mesh(lines, on_card: bool = True) -> list:
+    """Phase 29 (e)'s checks on its ranks' DECODE_MESH lines (the
+    launches and the cards only `on_card`)."""
+    res = [_records(rank_lines, "DECODE_MESH")[-1] for rank_lines in lines]
+    for r, d in enumerate(res):
+        _own_card("multicard_decode", d, r, on_card)
+        require(d["tp_pair_equal"], f"multicard_decode rank {r}: the tp "
+                "pair generated different tokens")
+        require(d["held"] == SERVE_NEW * len(d["tokens"]),
+                f"multicard_decode rank {r}: {d['held']} tokens held")
+        require(not on_card or d["launches"]["flash_fwd"] == d["n_layers"]
+                == d["sm90"]["flash_fwd"]
+                and d["launches"]["flash_bwd_dq"] == 0,
+                f"multicard_decode rank {r}: K4 launches {d['launches']} "
+                f"(tensor cores {d['sm90']})")
+        log("multicard_decode", f"rank {r} {d['coords']}: a prefill of "
+            f"{d['prompt_len']} tokens and {SERVE_NEW} generated tokens, "
+            f"every one held to the one-rank chain ({d['ties']} at a "
+            f"near-tie, {d['before_tie']} before the row's first), the tp "
+            f"pair's equal; K4 {d['launches']['flash_fwd']} launches on "
+            f"the tensor cores; {d['wall_s']:.3f} s")
+    return res
+
+
+def multicard_phase(smi_lines, on_card: bool = True) -> dict:
+    """Phase 29 (main path 19): the sharded paths over NCCL, one rank a
+    card (`--phases multicard`, outside the whole run); see the module
+    docstring.  `on_card=False` rehearses it on the CPU (the argument
+    lists extended with the trainers' CPU flags): the same runs and
+    checks but for the launch counts, the cards and memory."""
+    cards = multicard_cards() if on_card else []
+    for line in smi_lines:
+        log("multicard", f"card: {line}")
+    t_start = time.perf_counter()
+    # (a) at three ranks: the ladder's fold and its last hop.
+    ((np3, np3_lines),) = launch_folded("multicard_np3", 3, [dict(
+        phase="multicard_adasum_np3", args=MULTICARD_ADASUM,
+        limit=MULTICARD_RUN_S)], timeout=MULTICARD_RUN_S)
+    out = {"adasum_np3": check_ladder("multicard_adasum_np3", np3,
+                                      np3_lines, on_card)}
+    meshes = [dict(phase=f"multicard_mesh_{name}",
+                   args=mesh + extra + MESH_ARGS + [
+                       "--n-layers", str(MULTICARD_MESH_LAYERS)],
+                   module=TRANSFORMER, env=MESH_ENV,
+                   grow={n: None for n in FLASH_NAMES} if on_card else {})
+              for name, mesh, extra in MULTICARD_MESHES]
+    flash = FLASH_GROW if on_card else {}
+    runs = [dict(phase="multicard_adasum_np4", args=MULTICARD_ADASUM),
+            dict(phase="multicard_int8", args=MULTICARD_RESNET + [
+                "--compression", "int8", "--check-wire-step", "1"]),
+            dict(phase="multicard_hier", args=MULTICARD_RESNET + [
+                "--dcn", "2", "--check-hier-step", "1"], env=HIER_ENV),
+            *meshes,
+            dict(phase="multicard_stage0", args=MULTICARD_STAGE0,
+                 module=TRANSFORMER, grow=flash),
+            dict(phase="multicard_zero3", args=ZERO3_ARGS,
+                 module=TRANSFORMER, env=ZERO3_ENV, grow=flash),
+            dict(MULTICARD_DECODE_RUN)]
+    for run in runs:
+        run["limit"] = MULTICARD_RUN_S
+    t0 = time.perf_counter()
+    done = dict(zip([r["phase"] for r in runs], launch_folded(
+        "multicard_np4", MULTICARD_RANKS, runs,
+        timeout=MULTICARD_RUN_S * len(runs))))
+    log("multicard", f"{time.perf_counter() - t0:.1f} s for {len(runs)} "
+        f"runs in one set of {MULTICARD_RANKS} processes")
+    for phase, (summaries, _) in done.items():
+        for r, s in enumerate(summaries or []):
+            _own_card(phase, s, r, on_card)
+    # (a) at four ranks, then Average on the int8 ring.
+    out["adasum_np4"] = check_ladder(
+        "multicard_adasum_np4", *done["multicard_adasum_np4"], on_card)
+    steps = [_records(lines, "STEP") for lines in done["multicard_int8"][1]]
+    _check_ring_steps("multicard_int8", steps)
+    (check,) = [rec["wire_check"] for rec in steps[0] if "wire_check" in rec]
+    flushed = steps[0][1]["flushes"] - steps[0][0]["flushes"]
+    require(check["bitwise"] and check["bound_ok"]
+            and check["buckets"] == flushed,
+            f"multicard_int8: ring vs its plain model {check} ({flushed} "
+            "buckets flushed)")
+    log("multicard_int8", f"step 1, rank 0: {check['buckets']} buckets on "
+        f"the int8 ring bitwise the plain ring model over the four ranks' "
+        f"inputs, within its bound of the exact mean (largest distance "
+        f"{check['exact_max_abs_diff']:.3g})")
+    out["int8"] = check
+    # (d) the hierarchical legs.
+    summ, hier_lines = done["multicard_hier"]
+    (chk,) = [rec for rec in _records(hier_lines[0], "STEP")
+              if "hier_rel" in rec]
+    require(chk["hier_rel"] <= HIER_RTOL,
+            f"multicard_hier: hierarchical vs flat allreduce "
+            f"{chk['hier_rel']} > {HIER_RTOL}")
+    require(0 < chk["int8_err"] <= chk["int8_bound"],
+            f"multicard_hier: the int8 dcn leg {chk['int8_err']} off the "
+            f"exact one (bound {chk['int8_bound']})")
+    require(all(s["dcn"] == 2 for s in summ), f"multicard_hier: {summ}")
+    log("multicard_hier", f"step 1, rank 0: ResNet-50's gradients over "
+        f"ici {{0,1}} {{2,3}} and dcn {{0,2}} {{1,3}} vs the flat allreduce "
+        f"{chk['hier_rel']:.3g} of the largest {chk['grad_top']:.3g} (tol "
+        f"{HIER_RTOL}); int8 dcn wire {chk['int8_err']:.3g} off the exact "
+        f"leg (bound {chk['int8_bound']:.3g})")
+    out["hier"] = chk
+    # (b) the meshes.
+    out["mesh_launches"] = {}
+    for name, _, _ in MULTICARD_MESHES:
+        phase = f"multicard_mesh_{name}"
+        summaries, lines = done[phase]
+        if on_card:
+            check_mesh_run(phase, name, summaries)
+        out["mesh_launches"][name] = [
+            {k: s["launches"][k] - s["check_launches"].get(k, 0)
+             for k in FLASH_NAMES} for s in summaries]
+        for s, p in zip(summaries, [_records(rank_lines, "PROFILE")[-1]
+                                    for rank_lines in lines]):
+            ranges = {k: round(v, 1)
+                      for k, v in p["ranges_ms_per_step"].items()
+                      if k.startswith(("hvd.", "bench.check"))}
+            log(phase, f"rank {s['rank']} {s['coords']}: "
+                f"{s['tok_sec_per_rank_net']:.1f} tok/sec per rank without "
+                f"the checks, profiled step {p['wall_ms_per_step']:.1f} ms, "
+                f"idle {p['device_idle_share']}, host ms {ranges}")
+    # (c) ZeRO-3 against stage 0 at four ranks.
+    stage0 = done["multicard_stage0"][0]
+    zero3 = done["multicard_zero3"][0]
+    require(all(s["steps"] == 3 for s in stage0 + zero3),
+            f"multicard: steps {[s['steps'] for s in stage0 + zero3]}")
+    if on_card:
+        train_zero3(zero3, stage0, phase="multicard_zero3")
+    out["stage0_launches"] = [s["launches"] for s in stage0]
+    out["zero3_launches"] = [s["launches"] for s in zero3]
+    out["k3_launches"] = [s["evals"][0]["k3_launches"] for s in zero3]
+    for s0, s3 in zip(stage0, zero3):
+        log("multicard_zero3", f"rank {s3['rank']}: stage 0 "
+            f"{s0['tok_sec_per_rank']:.1f}, stage 3 "
+            f"{s3['tok_sec_per_rank']:.1f} tok/sec per rank (3 steps, "
+            f"checks included), peak {s0['peak_mem_gb']} and "
+            f"{s3['peak_mem_gb']} GB, losses {s0['step_losses']} and "
+            f"{s3['step_losses']}")
+    # (e) decode over dp x tp.
+    out["decode"] = check_decode_mesh(done["multicard_decode"][1], on_card)
+    out["cards"] = cards
+    out["phase_s"] = time.perf_counter() - t_start
+    log("multicard", f"{out['phase_s']:.1f} s (aim {MULTICARD_BUDGET_S} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The whole run's phases, in groups
 # ---------------------------------------------------------------------------
 
@@ -7029,20 +7409,32 @@ PHASE_GROUPS = {
 PHASE_NEEDS = {"wire": ("singles", "transformer"), "guard": ("singles",)}
 
 
+def _group_multicard(ctx) -> None:
+    """Phase 29, with its results as one JSON line."""
+    ctx["multicard"] = multicard_phase(ctx["smi_lines"])
+    print(json.dumps({"multicard": ctx["multicard"]}), flush=True)
+
+
+# Groups that `--phases NAME...` runs and the whole run does not: phase
+# 29 needs four cards, one a rank.
+OWN_GROUPS = {"multicard": _group_multicard}
+
+
 def run_phase_groups(names, ctx: dict) -> None:
     """Run the named groups of PHASE_GROUPS in turn, each after the
     groups it reads (PHASE_NEEDS), printing `PHASE_TIME <name> <seconds>`
     after each."""
+    groups = dict(PHASE_GROUPS, **OWN_GROUPS)
     for name in names:
-        if name not in PHASE_GROUPS:
+        if name not in groups:
             raise SystemExit(f"unknown phase group {name!r}: "
-                             f"{list(PHASE_GROUPS)}")
+                             f"{list(groups)}")
         missing = [n for n in PHASE_NEEDS.get(name, ()) if n not in ctx]
         if missing:
             raise SystemExit(f"phase group {name} reads {missing}: name "
                              "them before it")
         t0 = time.perf_counter()
-        PHASE_GROUPS[name](ctx)
+        groups[name](ctx)
         ctx[name] = ctx.get(name)
         print(f"PHASE_TIME {name} {time.perf_counter() - t0:.1f}",
               flush=True)
@@ -7087,6 +7479,8 @@ def main() -> int:
         return surface_rank()
     if sys.argv[1:2] == ["--decode-rank"]:
         return decode_rank()
+    if sys.argv[1:2] == ["--decode-mesh-rank"]:
+        return decode_mesh_rank()
     if sys.argv[1:2] == ["--guard-rank"]:
         return guard_rank()
     if sys.argv[1:2] == ["--runtime-rank"]:
@@ -7116,16 +7510,23 @@ def main() -> int:
         log(f"ranks{n}", f"{time.perf_counter() - t0:.1f} s")
         return 0
     t_start = time.perf_counter()
-    smi = subprocess.run(
+    smi_lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+        check=True).stdout.strip().splitlines()
+    smi = smi_lines[0]
+    print("\n".join(smi_lines), flush=True)
     if sys.argv[1:2] == ["--phases"]:
-        # Some groups of the whole run (PHASE_GROUPS), with every build.
+        # Some groups of the whole run (PHASE_GROUPS) or of OWN_GROUPS,
+        # with every build.
+        if "multicard" in sys.argv[2:]:
+            multicard_cards()  # before the builds: four cards or no run
         build_all()
-        run_phase_groups(sys.argv[2:], {"smi": smi})
+        run_phase_groups(sys.argv[2:], {"smi": smi, "smi_lines": smi_lines})
         log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if sys.argv[1:2] == ["--guard"]:
         # Phase 19 alone (with the builds of the sources it runs).

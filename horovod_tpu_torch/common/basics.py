@@ -59,6 +59,9 @@ class ProcessSet:
     group: Optional[object] = None
     # remove_process_set or shutdown ran: collectives refuse the set
     removed: bool = False
+    # The set's first point-to-point exchange, which every rank of it
+    # takes part in, has run (`ops.collectives.sendrecv`).
+    p2p_ready: bool = dataclasses.field(default=False, compare=False)
 
     def size(self) -> int:
         return len(self.ranks)

@@ -218,21 +218,31 @@ def _mlp_block(lp, x, cfg: TransformerConfig, tp=None):
     return x + out.to(x.dtype)
 
 
-def _moe_block(mp, scale, x, cfg: TransformerConfig, ep=None, stats=None):
+def _moe_block(mp, scale, x, cfg: TransformerConfig, ep=None, stats=None,
+               chunks: int = 1):
     """The MoE layer in place of the MLP; reuses the layer's ln2 scale.
-    Appends the layer's aux dict to `stats` when given."""
+    Appends the layer's aux dict to `stats` when given.  `chunks` > 1
+    (dense only) routes each of that many sequence chunks on its own, as
+    the sp shards do: one aux dict each to `stats`, and their mean aux
+    loss."""
     h = _rmsnorm(scale, x)
     if ep is not None:
         out, aux = moe_mod.moe_apply_shard(
             mp, h, ep, capacity_factor=cfg.capacity_factor,
             compute_dtype=cfg.compute_dtype)
+        auxes = [aux]
     else:
-        out, aux = moe_mod.moe_apply_dense(
-            mp, h, capacity_factor=cfg.capacity_factor,
-            compute_dtype=cfg.compute_dtype)
+        parts = [moe_mod.moe_apply_dense(
+            mp, hc, capacity_factor=cfg.capacity_factor,
+            compute_dtype=cfg.compute_dtype) for hc in h.chunk(chunks, 1)]
+        out = (torch.cat([o for o, _ in parts], 1) if len(parts) > 1
+               else parts[0][0])
+        auxes = [a for _, a in parts]
     if stats is not None:
-        stats.append(aux)
-    return x + out.to(x.dtype), aux["aux_loss"]
+        stats.extend(auxes)
+    aux = (auxes[0]["aux_loss"] if len(auxes) == 1 else
+           torch.stack([a["aux_loss"] for a in auxes]).mean())
+    return x + out.to(x.dtype), aux
 
 
 def _index(tree, j: int):
@@ -242,11 +252,11 @@ def _index(tree, j: int):
 
 def _layer_seq(block_params, moe_params, x, positions, cfg, layer_offset: int,
                n_layers: int, tp=None, sp=None, ep=None, attn=None,
-               stats=None):
+               stats=None, moe_chunks: int = 1):
     """`n_layers` consecutive layers from global index `layer_offset`;
     the parameters carry a leading [n_layers] (and [n_moe]) axis.
     Returns (x, the layers' summed aux loss); `stats` collects the MoE
-    layers' aux dicts."""
+    layers' aux dicts; `moe_chunks`: `_moe_block`'s `chunks`."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     moe_idx = 0
     for j in range(n_layers):
@@ -254,7 +264,8 @@ def _layer_seq(block_params, moe_params, x, positions, cfg, layer_offset: int,
         x = _attention_block(lp, x, positions, cfg, tp, sp, attn)
         if _is_moe_layer(cfg, layer_offset + j):
             x, aux = _moe_block(_index(moe_params, moe_idx),
-                                lp["ln2"]["scale"], x, cfg, ep, stats)
+                                lp["ln2"]["scale"], x, cfg, ep, stats,
+                                moe_chunks)
             aux_total = aux_total + aux
             moe_idx += 1
         else:
@@ -640,19 +651,24 @@ def _loss_shard(params, tokens, targets, cfg: TransformerConfig, mesh: Mesh,
 
 def reference_loss(params: Dict, tokens: torch.Tensor,
                    targets: torch.Tensor, cfg: TransformerConfig,
-                   dp: int = 1, ep: int = 1, pp: int = 1) -> float:
+                   dp: int = 1, ep: int = 1, pp: int = 1,
+                   sp: int = 1) -> float:
     """The loss a mesh step reports, computed on one rank with the dense
     layers (no_grad): the full parameters (`transformer_init`'s layout)
     and the global batch [B, T].  The MoE layers route each of the
     dp·ep row blocks of the batch on its own, as the (dp, ep) shards do
-    (capacity from local tokens), and the aux loss is the mesh's: per
-    layer E · Σₑ of the fractions averaged over the ep shards, averaged
-    over dp, left out under pp.  MoE under sp routes by sequence chunk
-    and has no such reference here."""
+    (capacity from local tokens), and within a block each of its sp
+    sequence chunks on its own, as the sp shards do (attention still
+    sees the whole sequence); the aux loss is the mesh's: per layer
+    E · Σₑ of the fractions averaged over the ep shards, averaged over
+    dp and sp, left out under pp."""
     groups = dp * ep
     if cfg.moe_every and tokens.shape[0] % groups:
         raise ValueError(f"batch {tokens.shape[0]} does not split into "
                          f"{groups} row blocks")
+    if cfg.moe_every and tokens.shape[1] % sp:
+        raise ValueError(f"sequence {tokens.shape[1]} does not split into "
+                         f"{sp} chunks")
     dt = cfg.compute_dtype
     rows = tokens.shape[0] // groups
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -664,7 +680,8 @@ def reference_loss(params: Dict, tokens: torch.Tensor,
             st = []
             x = params["embed"][tokens[sl]].to(dt)
             x, _ = _layer_seq(params["blocks"], params.get("moe"), x,
-                              positions, cfg, 0, cfg.n_layers, stats=st)
+                              positions, cfg, 0, cfg.n_layers, stats=st,
+                              moe_chunks=sp)
             logits = TiedHead.apply(_rmsnorm(params["final_norm"]["scale"],
                                              x), params["embed"], dt)
             lse = torch.logsumexp(logits, dim=-1)
@@ -677,11 +694,13 @@ def reference_loss(params: Dict, tokens: torch.Tensor,
         aux = 0.0
         for d in range(dp):
             blocks = stats[d * ep:(d + 1) * ep]
-            for layer in range(len(blocks[0])):
-                ft = sum(b[layer]["frac_tokens"] for b in blocks) / ep
-                fp = sum(b[layer]["frac_probs"] for b in blocks) / ep
+            # One entry a (layer, sequence chunk), in the same order on
+            # every block.
+            for j in range(len(blocks[0])):
+                ft = sum(b[j]["frac_tokens"] for b in blocks) / ep
+                fp = sum(b[j]["frac_probs"] for b in blocks) / ep
                 aux += float(cfg.n_experts * torch.sum(ft * fp))
-        loss += cfg.aux_loss_weight * aux / dp
+        loss += cfg.aux_loss_weight * aux / (dp * sp)
     return loss
 
 

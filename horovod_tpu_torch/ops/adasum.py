@@ -107,21 +107,26 @@ def adasum_in_axis(x: torch.Tensor,
     v = x.detach()
     k = _pow2_floor(n)
     r = n - k
-    if r and (idx >= k or idx < r):
+    # Every rank calls every exchange (`sendrecv`'s contract); a rank
+    # outside one passes None for both sides.
+    if r:
         w = torch.empty_like(v) if idx < r else None
-        C.sendrecv(ps, v if idx >= k else None, idx - k, w, k + idx)
+        C.sendrecv(ps, v if idx >= k else None, idx - k, w,
+                   k + idx if idx < r else None)
         if idx < r:
             v = _pair_combine(v, w)
     d = 1
     while d < k:
-        if idx < k:
-            w = torch.empty_like(v)
-            C.sendrecv(ps, v, idx ^ d, w, idx ^ d)
+        inside = idx < k
+        w = torch.empty_like(v) if inside else None
+        C.sendrecv(ps, v if inside else None, idx ^ d, w, idx ^ d)
+        if inside:
             v = _pair_combine(v, w) if idx & d == 0 else _pair_combine(w, v)
         d *= 2
-    if r and (idx >= k or idx < r):
+    if r:
         w = torch.empty_like(v) if idx >= k else None
-        C.sendrecv(ps, v if idx < r else None, k + idx, w, idx - k)
+        C.sendrecv(ps, v if idx < r else None, k + idx, w,
+                   idx - k if idx >= k else None)
         if idx >= k:
             v = w
     return v

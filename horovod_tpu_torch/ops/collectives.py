@@ -167,6 +167,13 @@ def _capturing() -> bool:
             and torch.cuda.is_current_stream_capturing())
 
 
+def _stream_ordered() -> bool:
+    """Whether waiting for a collective orders the current stream rather
+    than the host: NCCL's `Work.wait()` does; gloo's returns when the
+    exchange is done."""
+    return basics.backend() == "nccl"
+
+
 class _traced:
     """The bracket of one eager collective (JAX `_traced`,
     ops/collectives.py:150-247), in its order:
@@ -185,7 +192,10 @@ class _traced:
       one rank stages (JAX's staged global (set_size, ...) array).
 
     A synchronous collective waits inside the bracket, so its span and
-    its stall entry cover the exchange.  While the stream is captured
+    its stall entry cover the exchange; over NCCL that wait orders the
+    current stream and the host goes on (`_stream_ordered`), so the
+    span ends at dispatch and says so, as a tracked one does.  While
+    the stream is captured
     into a CUDA graph the bracket fires the fault points only: a replay
     runs none of this Python, and the watchdog must not poll a captured
     event.  Hooks run on autograd's device thread: the inspector, the
@@ -246,6 +256,7 @@ class _traced:
     def complete(self, pending: _Pending, sync: bool) -> _Pending:
         """`pending` waited for inside the bracket (sync), or tracked."""
         if sync:
+            self._async = _stream_ordered()
             return _done(pending.wait())
         return self.track(pending)
 
@@ -449,7 +460,8 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
                 tr.stat(_nbytes(tensor), tensor.dtype, ps)
                 x = _scale(tensor.detach(), prescale_factor)
                 out = _adasum.adasum_allreduce(x, process_set=ps)
-                return _scale(out, postscale_factor)
+                return tr.complete(_done(_scale(out, postscale_factor)),
+                                   sync=True).wait()
         return _allreduce_traced(tensor, op, prescale_factor,
                                  postscale_factor, ps, name,
                                  sync=True).wait()
@@ -767,16 +779,48 @@ def _staged(ps: ProcessSet, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(ps.comm) == "gloo"
 
 
+def _p2p_ready(ps: ProcessSet) -> None:
+    """The set's first point-to-point exchange: every rank of it sends
+    one element to the next set rank and receives one from the one
+    before, in one `batch_isend_irecv`.  On NCCL a batch of
+    point-to-point ops builds the group's communicator the first time,
+    over every rank of the group, so every rank must post that first
+    batch (torch's `batch_isend_irecv`); an exchange between some of
+    the ranks hangs there until the others come.  After it, batches
+    between any of them run.  Gloo needs none of this and runs the same
+    exchange, so that both backends take one path."""
+    n, i = ps.size(), ps.rank()
+    dev = ("cpu" if dist.get_backend(ps.comm) == "gloo"
+           else basics.device())
+    send = torch.zeros(1, dtype=torch.int32, device=dev)
+    recv = torch.empty_like(send)
+    works = _launch(dist.batch_isend_irecv, [
+        dist.P2POp(dist.isend, send, ps.ranks[(i + 1) % n], group=ps.comm),
+        dist.P2POp(dist.irecv, recv, ps.ranks[(i - 1) % n], group=ps.comm)])
+    _Pending(works, lambda: None).wait()
+    ps.p2p_ready = True
+
+
 def sendrecv(ps: ProcessSet, send: Optional[torch.Tensor],
              dst: Optional[int], recv: Optional[torch.Tensor],
              src: Optional[int]) -> None:
     """Send `send` to set rank `dst` and receive into `recv` from set
     rank `src`, both posted together (`batch_isend_irecv`), then wait.
-    Either side may be None.  Nothing to do on a set of one rank."""
+    Either side may be None.  Nothing to do on a set of one rank.
+
+    Every rank of the set calls this at the same points of its program,
+    a rank with nothing to exchange passing None for both sides (as
+    JAX's `ppermute` is collective over its axis): the set's first call
+    runs `_p2p_ready` on every rank before its exchange.  On NCCL the
+    wait orders the current stream after the exchange; the host goes
+    on, and the buffers stay alive until the exchange is done (the
+    process group holds them)."""
     if ps.comm is None:
         if send is not None and recv is not None:
             recv.copy_(send)
         return
+    if not ps.p2p_ready:
+        _p2p_ready(ps)
     ops, host = [], None
     if send is not None and dst is not None:
         s = send.cpu() if _staged(ps, send) else send.contiguous()

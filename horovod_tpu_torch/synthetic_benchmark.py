@@ -23,7 +23,16 @@ counts, SHA-256 of the parameters, the fusion threshold in force, the
 gradient buckets flushed so far and those the ring reduced) for checks
 across ranks; `--check-wire-step K` adds to step K's line rank 0's
 comparison of its ring results with the plain ring model over every
-rank's inputs (`quantized.allreduce_model`).  Each step
+rank's inputs (`quantized.allreduce_model`).  `--dcn N` makes the
+ranks `create_hierarchical_mesh(N)` and the optimizer's axis (under
+HOROVOD_HIERARCHICAL_ALLREDUCE=1 every bucket takes the ici
+reduce-scatter, the dcn allreduce and the ici allgather);
+`--check-hier-step K` adds to step K's line rank 0's comparison of the
+reduced gradients with a flat allreduce of the same local gradients over
+the global set (`hier_rel`, relative to the largest) and with
+`hierarchical_allreduce(dcn_wire="int8")` (`int8_err`, beside
+`int8_bound`: two int8 encodes on the dcn leg), as the transformer
+trainer's.  Each step
 feeds the autotuner (`hvd.autotune_record_step`; HOROVOD_AUTOTUNE=1).
 
 Run:  python -m horovod_tpu_torch.synthetic_benchmark --num-iters 3
@@ -53,6 +62,8 @@ from horovod_tpu_torch.models import num_params, zoo_build, zoo_models
 from horovod_tpu_torch.ops import adasum, adasum_kernels
 from horovod_tpu_torch.ops import quantized
 from horovod_tpu_torch.ops.compression import is_cooperative
+from horovod_tpu_torch.parallel import hierarchical as hier
+from horovod_tpu_torch.parallel.mesh import create_hierarchical_mesh
 from horovod_tpu_torch.utils.autotune import current_fusion_threshold
 
 
@@ -220,6 +231,29 @@ def _check_ring(opt) -> dict:
     return result
 
 
+def check_hier(opt, params, hmesh) -> dict:
+    """--check-hier-step (this trainer's and the transformer trainer's):
+    after the backward of the step's last pass, the optimizer's reduced
+    gradients against a flat allreduce of the same local gradients over
+    the global set, and the int8 dcn wire against the exact leg; on rank
+    0 (the module docstring)."""
+    local = [p.grad.detach().clone() for p in params]
+    opt.synchronize()
+    with torch.no_grad(), record_function("bench.check.hier"):
+        flat = hvd.grouped_allreduce(local, op=hvd.Average)
+        int8 = hier.hierarchical_allreduce(local, hmesh, dcn_wire="int8")
+        top = max(float(f.abs().max()) for f in flat)
+        rec = {"hier_rel": max(float((p.grad - f).abs().max())
+                               for p, f in zip(params, flat)) / top,
+               "int8_err": max(float((q - p.grad).abs().max())
+                               for p, q in zip(params, int8)),
+               "int8_bound": 2 * float(hvd.allreduce(
+                   torch.stack([g.abs().max() for g in local]).max(),
+                   op=hvd.Sum)) / 254 / hvd.size(),
+               "grad_top": top}
+    return rec if hvd.rank() == 0 else {}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="resnet50", choices=zoo_models())
@@ -254,6 +288,12 @@ def main(argv=None) -> int:
     p.add_argument("--check-wire-step", type=int, default=-1,
                    help="on this step, rank 0 holds its ring results to "
                         "the plain ring model over every rank's inputs")
+    p.add_argument("--dcn", type=int, default=1,
+                   help="slices: the ranks as create_hierarchical_mesh(N), "
+                        "the optimizer's axis_name")
+    p.add_argument("--check-hier-step", type=int, default=-1,
+                   help="with --dcn: on this step hold the hierarchical "
+                        "reduction to the flat one and the int8 dcn wire")
     args = p.parse_args(argv)
     if args.image_size is None:
         args.image_size = 299 if args.model == "inception3" else 224
@@ -266,6 +306,8 @@ def main(argv=None) -> int:
         p.error("--use-adasum bypasses gradient allreduce (it reduces "
                 "deltas), so 1-byte ring compression does not apply; "
                 "pick one")
+    if args.check_hier_step >= 0 and args.dcn < 2:
+        p.error("--check-hier-step needs --dcn 2 or more")
 
     hvd.init(device=args.device)
     dev = hvd.device()
@@ -277,11 +319,12 @@ def main(argv=None) -> int:
                       compute_dtype=torch.bfloat16, seed=hvd.rank(),
                       image_size=args.image_size).to(dev)
     model.train()
+    hmesh = create_hierarchical_mesh(args.dcn) if args.dcn > 1 else None
     opt = torch.optim.SGD(model.parameters(), lr=0.0125, momentum=0.9)
     opt = hvd.DistributedOptimizer(
         opt, named_parameters=model.named_parameters(),
         compression=compression,
-        op=hvd.Adasum if args.use_adasum else hvd.Average)
+        op=hvd.Adasum if args.use_adasum else hvd.Average, axis_name=hmesh)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
 
@@ -310,10 +353,13 @@ def main(argv=None) -> int:
         with record_function("bench.forward_backward"):
             loss = F.cross_entropy(model(x), y)
             loss.backward()
+        if step_no == args.check_hier_step:
+            sync()
+            check = check_hier(opt, list(model.parameters()), hmesh)
         with record_function("bench.optimizer_step"):
             opt.step()
         hvd.autotune_record_step(args.batch_size)
-        if check is not None:
+        if check is not None and step_no != args.check_hier_step:
             opt.__dict__.pop("_reduce_deltas" if args.use_adasum
                              else "_ring")
         last_loss = loss.detach()
@@ -326,6 +372,8 @@ def main(argv=None) -> int:
                    "fusion_threshold": threshold,
                    "flushes": getattr(opt, "total_flushes", None),
                    "ring_buckets": getattr(opt, "ring_buckets", None)}
+            if step_no == args.check_hier_step:
+                rec.update(check)
             if check is not None and "bitwise" in check:
                 rec["wire_check"] = check
             if check is not None and "diff" in check:
@@ -392,6 +440,7 @@ def main(argv=None) -> int:
                "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                if dev.type == "cuda" else None),
                "device": str(dev), "backend": hvd.backend(),
+               "dcn": args.dcn,
                "digest": param_digest(model),
                "guarded": getattr(opt, "guard_state", None) is not None}
     if hvd.rank() == 0:

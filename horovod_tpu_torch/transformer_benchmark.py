@@ -129,14 +129,13 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import Transformer, TransformerConfig, \
     lm_loss, num_params
 from horovod_tpu_torch.models import transformer as T
-from horovod_tpu_torch.parallel import hierarchical as hier
 from horovod_tpu_torch.parallel.mesh import (create_hierarchical_mesh,
                                              create_hybrid_mesh)
 from horovod_tpu_torch.ops import adasum_kernels, flash_attention as fa
 from horovod_tpu_torch.ops import matmul_kernels as mk
 from horovod_tpu_torch.utils import consistency, megastep
-from horovod_tpu_torch.synthetic_benchmark import param_digest, \
-    profile_summary
+from horovod_tpu_torch.synthetic_benchmark import check_hier, \
+    param_digest, profile_summary
 
 
 def launch_counts() -> dict:
@@ -303,7 +302,7 @@ def run_mesh(args, cfg: TransformerConfig, dev) -> int:
         before = launch_counts()
         loss = T.reference_loss(full, x.to(dev), y.to(dev), cfg,
                                 dp=mesh.size("dp"), ep=mesh.size("ep"),
-                                pp=pp)
+                                pp=pp, sp=mesh.size("sp"))
         after = launch_counts()
         return {"dense_loss": loss,
                 "check_launches": {k: after[k] - before[k] for k in after}}
@@ -580,29 +579,6 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         return p_ / 1e9
 
-    def check_hier() -> dict:
-        """--check-hier-step: this pass's reduced gradients against the
-        flat allreduce and the int8 dcn wire (see the module docstring);
-        called after the backward of the step's last pass."""
-        local = [p.grad.detach().clone() for p in params]
-        opt.synchronize()
-        with torch.no_grad(), record_function("bench.check.hier"):
-            flat = hvd.grouped_allreduce(local, op=hvd.Average)
-            int8 = hier.hierarchical_allreduce(local, hmesh,
-                                               dcn_wire="int8")
-            top = max(float(f.abs().max()) for f in flat)
-            rec = {
-                "hier_rel": max(float((p.grad - f).abs().max())
-                                for p, f in zip(params, flat)) / top,
-                "int8_err": max(float((q - p.grad).abs().max())
-                                for p, q in zip(params, int8)),
-                "int8_bound": 2 * float(hvd.allreduce(
-                    torch.stack([g.abs().max() for g in local]).max(),
-                    op=hvd.Sum)) / 254 / hvd.size(),
-                "grad_top": top}
-        del local, flat, int8
-        return rec if hvd.rank() == 0 else {}
-
     def train_step(carry, tokens):
         """One plain step on tokens [B, T+1] (megastep's step_fn)."""
         model_, opt_ = carry
@@ -664,7 +640,7 @@ def main(argv=None) -> int:
             del logits
             if step_no == args.check_hier_step and k == K - 1:
                 sync()
-                check.update(check_hier())
+                check.update(check_hier(opt, params, hmesh))
             with record_function("bench.optimizer_step"):
                 updates = opt.step()
             if placement is not None and updates is not None:

@@ -29,6 +29,10 @@ Four CPU ranks over gloo:
   the dense model: capacity is counted per shard from local tokens, so
   tokens drop differently than over the whole batch (ROADMAP,
   "Reference behaviours").
+
+In one process, the one-rank `reference_loss` with ep=2 and sp=2 (each
+row block's sequence chunks routed on their own) within 1e-4 of JAX's
+ep=2 x sp=2 step loss, ring and Ulysses.
 """
 
 
@@ -42,6 +46,7 @@ from jax.sharding import Mesh as JMesh, PartitionSpec as P
 
 from horovod_tpu.models import transformer as JT
 from horovod_tpu.parallel import moe as JM
+from horovod_tpu_torch.models import transformer as TT
 from horovod_tpu_torch.parallel import moe as TM
 from test_torch_port_collectives import run_world
 from test_torch_port_mesh import (SMALL, _jcfg, _np_tree, _tcfg, _data,
@@ -229,15 +234,47 @@ def test_moe_apply_shard_matches_jax_with_gradients(world, ep):
         assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), name
 
 
+_JAX_STEPS = {}
+
+
+def _jax_ep_step(params, name):
+    """JAX's step on STEPS' mesh `name` (loss, gradients), once a module."""
+    if name not in _JAX_STEPS:
+        _, mesh_kw, extra = next(s for s in STEPS if s[0] == name)
+        tokens, targets = _data(4)
+        _JAX_STEPS[name] = jax_step(mesh_kw, params, _jcfg(**MOE, **extra),
+                                    tokens, targets)
+    return _JAX_STEPS[name]
+
+
 @pytest.mark.parametrize("name,mesh_kw,extra", STEPS,
                          ids=[s[0] for s in STEPS])
 def test_ep_train_step_matches_the_jax_ep_step(world, name, mesh_kw, extra):
     params, res = world
-    tokens, targets = _data(4)
-    want_loss, want_grads = jax_step(mesh_kw, params,
-                                     _jcfg(**MOE, **extra), tokens, targets)
+    want_loss, want_grads = _jax_ep_step(params, name)
     for d in res:
         assert abs(d[name]["loss"] - want_loss) < 1e-4, (
             d[name]["loss"], want_loss)
         assert_grads_close(d[name]["grads"], _np_tree(want_grads),
                            what=name)
+
+
+@pytest.mark.parametrize("name", ["ep2_sp2_ring", "ep2_sp2_ulysses"])
+def test_reference_loss_routes_sequence_chunks_as_the_jax_ep_sp_step(
+        world, name):
+    """`reference_loss(..., ep=2, sp=2)` in one process (dense attention
+    over the whole sequence, the MoE layers routing each row block's two
+    sequence chunks on their own, the aux loss averaged over the chunks)
+    within 1e-4 of JAX's ep=2 x sp=2 step loss on the same parameters
+    and batch (f32; the steps' own tolerance above).  Routing each row
+    block whole, the reference without sp, misses it by more."""
+    params, _ = world
+    want, _ = _jax_ep_step(params, name)
+    extra = next(s[2] for s in STEPS if s[0] == name)
+    cfg = _tcfg(**MOE, **extra)
+    full = TT.tree_map(torch.from_numpy, params)
+    tokens, targets = (torch.from_numpy(t).long() for t in _data(4))
+    got = TT.reference_loss(full, tokens, targets, cfg, ep=2, sp=2)
+    assert abs(got - want) < 1e-4, (got, want)
+    whole = TT.reference_loss(full, tokens, targets, cfg, ep=2)
+    assert abs(whole - want) > 1e-3, (whole, want)
